@@ -176,7 +176,9 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_device.require_cuda()
-    assert port_device.default_device() == torch.device("cpu")
+    # the default device is the card: without one it raises, never the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device()
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-

@@ -1,5 +1,6 @@
 """The port, ``chip_smoke.py`` and the card's tests run on a machine without
-jax, sklearn, pandas or matplotlib, and ``chip_smoke.py`` fails loudly
+jax, sklearn, pandas or matplotlib; they import nothing of the JAX package
+either (not even its jax-free modules). ``chip_smoke.py`` fails loudly
 without a card or without the repository beside it."""
 
 import os
@@ -13,7 +14,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_los_angeles_torch"
 CARD_TESTS = REPO / "tests" / "test_torch_kernels_cuda.py"
-BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib")
+BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "vae_los_angeles_tpu")
 SLICE_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -38,7 +39,7 @@ def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",
         "    sys.modules[name] = None  # any import of it raises ImportError",
-        f"for mod in {SLICE_MODULES + ['chip_smoke']!r}:",
+        f"for mod in {SLICE_MODULES + ['chip_smoke', 'chip_probes']!r}:",
         "    importlib.import_module(mod)",
         "import importlib.util  # the card's tests run there too",
         f"spec = importlib.util.spec_from_file_location('card_tests', {str(CARD_TESTS)!r})",
@@ -53,12 +54,15 @@ def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():
     assert "imported" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")))
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py", "chip_probes.py"])
 def test_no_jax_import_in_port_source(path):
     text = (REPO / path).read_text()
     for line in text.splitlines():
         stripped = line.strip()
-        assert not stripped.startswith(("import jax", "from jax")), f"{path}: {line}"
+        assert not stripped.startswith(("import jax", "from jax", "import vae_los_angeles_tpu",
+                                        "from vae_los_angeles_tpu")), f"{path}: {line}"
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -65,7 +65,7 @@ def test_compare_directional_imputation_matches_jax(workdir, monkeypatch):
         lambda self, x, site=None, seed=0, use_noise=True, eps=None: call(
             self, x, site, seed, use_noise=False),
     )
-    got = port_compare.main(cfg_for(workdir, "plots_port"), root=str(workdir))
+    got = port_compare.main(cfg_for(workdir, "plots_port"), root=str(workdir), device="cpu")
 
     want = {(r["Modality"], r["Model"]): r for r in want if r["Model"] != "k-NN Imputation"}
     assert [(r["Modality"], r["Model"]) for r in got] == list(want)
@@ -92,8 +92,9 @@ def test_compare_takes_arrays_and_serves_one_direction(workdir):
     ds = MultiModalDataset.from_pickle(str(workdir / "data" / "processed_data.pkl"))
     os.remove("latest_dna2rna_run_id.txt")
     got = port_compare.main(cfg_for(workdir, "plots_arrays"),
-                            data=(ds.tpm_data, ds.beta_data, ds.primary_site), root=".")
+                            data=(ds.tpm_data, ds.beta_data, ds.primary_site), root=".",
+                            device="cpu")
     assert [r["Model"] for r in got] == ["RNA2DNAVAE", "Mean Imputation"]
     assert all(np.isfinite(r[k]) for r in got for k in METRICS)
     os.remove("latest_rna2dna_run_id.txt")
-    assert port_compare.main(cfg_for(workdir, "plots_none"), root=".") is None
+    assert port_compare.main(cfg_for(workdir, "plots_none"), root=".", device="cpu") is None

@@ -3,21 +3,26 @@
 The JAX package stays the reference; this package mirrors its module paths
 and names so each counterpart is found at the same place:
 
-  * ``config`` re-exports the JAX package's jax-free ``Config``;
-  * ``device`` holds the one device/precision policy (fp32, TF32 off);
+  * ``config`` — the port's own copy of the JAX package's ``Config``;
+  * ``device`` holds the one device/precision policy (fp32, TF32 off, the
+    card unless the CPU is asked for);
   * ``data`` — synthetic generator, split protocol, dataset;
-  * ``ops.nn`` / ``ops.metrics`` — BN folding, imputation metrics;
-  * ``ops.kernels.fused_vae`` — the hand-written CUDA eval forwards of the
-    directional VAEs (``csrc/fused_vae.cu``) with their plain versions;
+  * ``ops.nn`` / ``ops.losses`` / ``ops.optim`` / ``ops.metrics`` — layers,
+    the RNA→DNA loss, AdamW and the scheduler state machines, metrics;
+  * ``ops.kernels`` — the hand-written CUDA kernels (``csrc/``) with their
+    plain versions: the directional VAEs' eval forwards (``fused_vae``), the
+    RNA→DNA train step and whole epoch (``fused_train``, ``fused_epoch``)
+    and the loss with its backward (``fused_loss``);
   * ``models`` — encoders, decoders and the directional VAEs as
-    ``nn.Module``s with the reference's state_dict key names;
-  * ``utils.weights`` — the JAX-pytree ↔ state_dict bridge;
-  * ``training.checkpoint`` — the ``.npz`` + run-id protocol, shared with
-    the JAX package byte for byte;
+    ``nn.Module``s with the reference's state_dict key names, and the
+    functional train-mode RNA2DNAVAE;
+  * ``utils.weights`` — the JAX-pytree ↔ state_dict and carry bridge;
+  * ``training`` — the ``.npz`` + run-id + resume protocol, shared with the
+    JAX package byte for byte; the ``rna2dna`` task, the engine and the CLI;
   * ``evaluation`` — model loading and the directional imputation
     comparison (the serving path).
 
-It imports ``torch`` and numpy, never ``jax``.
+It imports ``torch`` and numpy, never ``jax`` and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,10 @@
     decimal digits); the reference runs with
     ``jax_default_matmul_precision=highest``, and the plain versions the
     kernels are checked against must be true fp32 too.
-  * CUDA when a card is present, else the CPU; code that measures or
-    drives the card calls `require_cuda` and never falls back.
+  * The entry points run on the card. They run on the CPU only when the
+    caller asks: ``device="cpu"``, or ``Config.platform == "cpu"``
+    (``DEVICE=cpu``). Without a card and without that request they raise
+    (`require_cuda`); nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,17 +20,28 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def default_device() -> torch.device:
-    """CUDA device 0 when present, else the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-
-
 def require_cuda() -> torch.device:
     """CUDA device 0, or a RuntimeError saying why there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: torch.cuda.is_available() is False "
             f"(torch {torch.__version__}, built for CUDA {torch.version.cuda}); "
-            "this path runs only on an NVIDIA GPU"
+            "this path runs on an NVIDIA GPU unless asked for the CPU "
+            "(device='cpu' or DEVICE=cpu)"
         )
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None, cfg=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, the CPU
+    when ``cfg.platform`` is "cpu", else the card (`require_cuda`)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            require_cuda()
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        return device
+    if cfg is not None and (cfg.platform or "").lower() == "cpu":
+        return torch.device("cpu")
+    return require_cuda()

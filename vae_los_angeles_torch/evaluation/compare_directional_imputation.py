@@ -3,7 +3,8 @@
 
 Loads both directional checkpoints through the run-id files, imputes DNA
 from RNA and RNA from DNA on the shared validation split (served by the
-fused kernels on a CUDA device), scores them and the mean baseline (the
+fused kernels on the card, or their plain versions when the CPU is asked
+for), scores them and the mean baseline (the
 validation table's column means) with MAE/MSE/RMSE/R²/cosine/per-sample
 Pearson, prints the reference's table and writes ``comparison_results.json``
 and ``comparison_results.csv`` into ``plots/directional_comparison_<id>/``.
@@ -26,6 +27,7 @@ import numpy as np
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
+from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
 from vae_los_angeles_torch.training import checkpoint
@@ -64,11 +66,14 @@ def save_results(results, output_dir):
     return clean
 
 
-def main(cfg: Optional[Config] = None, data=None, root: str = "."):
+def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
     """``data`` is ``(tpm, beta, site)`` arrays; None reads
     ``cfg.data_dir/processed_data.pkl``. Run-id files are read from
-    ``root``. Returns the records, or None when no model loads."""
+    ``root``. Serves on the card unless ``device="cpu"`` or
+    ``cfg.platform == "cpu"`` asks for the CPU. Returns the records, or
+    None when no model loads."""
     cfg = cfg or Config.from_env()
+    device = resolve_device(device, cfg)
     output_dir = os.path.join(cfg.plots_dir, f"directional_comparison_{checkpoint.new_run_id()}")
     os.makedirs(output_dir, exist_ok=True)
 
@@ -80,8 +85,8 @@ def main(cfg: Optional[Config] = None, data=None, root: str = "."):
     rna_true, dna_true = dataset.tpm_data[va_idx], dataset.beta_data[va_idx]
     val_site = dataset.primary_site[va_idx]
 
-    rna2dna_model = load_rna2dna(cfg=cfg, root=root)
-    dna2rna_model = load_dna2rna(cfg=cfg, root=root)
+    rna2dna_model = load_rna2dna(cfg=cfg, root=root, device=device)
+    dna2rna_model = load_dna2rna(cfg=cfg, root=root, device=device)
     if rna2dna_model is None and dna2rna_model is None:
         print("Error: No models loaded. Please train both models first.")
         return None

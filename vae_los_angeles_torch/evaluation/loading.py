@@ -8,8 +8,10 @@ in a callable with the reference's forward signature:
     recon, mu, logvar = model(rna=x, site=s)   # numpy in, numpy out
 
 At load the checkpoint's weights are BN-folded and staged on the device
-once. On a CUDA device every call is one launch of the fused kernel
-(``ops.kernels.fused_vae``); on the CPU it is the kernel's plain version.
+once. The loaders run on the card (one launch of the fused kernel,
+``ops.kernels.fused_vae``, per call) and raise without one, unless the
+caller asks for the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the
+kernel's plain version serves.
 The tri-modal loader is not ported yet.
 """
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.config import Config
-from vae_los_angeles_torch.device import default_device
+from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops.kernels.fused_vae import FusedDNA2RNA, FusedRNA2DNA
 from vae_los_angeles_torch.training import checkpoint
 
@@ -30,9 +32,10 @@ class LoadedDirectionalVAE:
     """Callable over one directional VAE's weights: returns (recon, mu,
     logvar) as numpy arrays, like the reference's forward."""
 
-    def __init__(self, fused_cls, input_kw: str, params, state, run_id=None, device=None):
+    def __init__(self, fused_cls, input_kw: str, params, state, run_id=None, device=None,
+                 cfg: Optional[Config] = None):
         self._kw = input_kw  # "rna" or "dna"
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device, cfg)
         self._fused = fused_cls(params, state, self.device)
         self.run_id = run_id
 
@@ -62,6 +65,7 @@ class LoadedDirectionalVAE:
 
 def _load(model_name, label, fused_cls, input_kw, run_id, cfg, root, device):
     cfg = cfg or Config.from_env()
+    device = resolve_device(device, cfg)  # raises before any file is read
     if cfg.compute_dtype not in ("float32", "fp32"):
         raise ValueError(
             f"COMPUTE_DTYPE={cfg.compute_dtype}: the port serves fp32 only"
@@ -72,7 +76,7 @@ def _load(model_name, label, fused_cls, input_kw, run_id, cfg, root, device):
         print(f"Warning: {e}")
         return None
     print(f"✓ {label} model loaded successfully (run {rid})")
-    return LoadedDirectionalVAE(fused_cls, input_kw, params, state, rid, device)
+    return LoadedDirectionalVAE(fused_cls, input_kw, params, state, rid, device, cfg)
 
 
 def load_rna2dna(run_id: Optional[str] = None, cfg: Optional[Config] = None,

@@ -7,11 +7,17 @@
     returns LOGITS; the caller applies the sigmoid for β-values in [0, 1],
     as the JAX package's ``decoder_b_apply_logits`` does. The reference's
     trailing Sigmoid has no parameters, so the keys are unchanged.
+
+`decoder_b_apply_logits` is the same chain on the JAX package's parameter
+tree (``fc1``/``fc2``/``fc3``), for the trainer.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from vae_los_angeles_torch.ops.nn import linear_apply
 
 
 class DecoderA(nn.Module):
@@ -37,3 +43,10 @@ class DecoderB(nn.Module):
     def forward(self, z):
         """Logits (pre-sigmoid)."""
         return self.fc(z)
+
+
+def decoder_b_apply_logits(params, z):
+    """DecoderB on a params tree: the DNA logits."""
+    h = torch.relu(linear_apply(params["fc1"], z))
+    h = torch.relu(linear_apply(params["fc2"], h))
+    return linear_apply(params["fc3"], h)

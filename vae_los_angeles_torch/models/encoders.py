@@ -13,11 +13,18 @@ maps:
     32 → latent.
 
 Each forward returns (mu, logvar).
+
+The trainer's train-mode forward is functional, on the JAX package's
+parameter trees (``vae_los_angeles_tpu/models/encoders.py``): `encoder_a_apply`
+(Linear → BatchNorm with batch statistics → ReLU → dropout, returning the new
+BatchNorm state) and `encoder_c_apply` (the site embedding's heads).
 """
 
 from __future__ import annotations
 
 from torch import nn
+
+from vae_los_angeles_torch.ops.nn import batchnorm_apply, dropout_apply, linear_apply
 
 DROPOUT_RATE = 0.1
 
@@ -64,3 +71,19 @@ class EncoderC(nn.Module):
     def forward(self, site):
         h = self.embedding(site)
         return self.fc_mu(h), self.fc_logvar(h)
+
+
+def encoder_a_apply(params, state, x, *, train: bool, drop_mask=None, generator=None):
+    """EncoderA on a params tree: returns (mu, logvar, new_state). In train
+    mode the dropout mask is ``drop_mask`` or drawn from ``generator``."""
+    h = linear_apply(params["fc"], x)
+    h, bn_s = batchnorm_apply(params["bn"], state["bn"], h, train=train)
+    h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask,
+                      generator=generator)
+    return linear_apply(params["mu"], h), linear_apply(params["logvar"], h), {"bn": bn_s}
+
+
+def encoder_c_apply(params, site):
+    """EncoderC on a params tree: (mu, logvar) of the site embedding."""
+    h = params["embedding"]["table"][site]
+    return linear_apply(params["mu"], h), linear_apply(params["logvar"], h)

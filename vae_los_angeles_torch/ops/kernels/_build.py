@@ -11,9 +11,9 @@ on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import shutil
+import signal
 import subprocess
 import time
 from pathlib import Path
@@ -31,7 +31,7 @@ class Built(NamedTuple):
     lib: ctypes.CDLL
     path: Path
     seconds: float  # compile time; 0.0 when an up-to-date library was reused
-    log: str  # nvcc/ptxas output (registers, shared memory, spills)
+    log: str  # nvcc/ptxas output (registers, shared memory, spills); "" when reused
 
 
 def _nvcc() -> str:
@@ -48,22 +48,62 @@ def _nvcc() -> str:
     return nvcc
 
 
-@functools.lru_cache(maxsize=None)
+def _stale(name: str) -> bool:
+    so = BUILD_DIR / f"lib{name}.so"
+    return not so.exists() or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu``; returns (process, tmp path, cmd, t0)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"lib{name}.so"
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    # its own process group, so that stopping it stops the compilers it runs
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return proc, tmp, cmd, time.perf_counter()
+
+
+def _finish(name: str, started) -> Built:
+    proc, tmp, cmd, t0 = started
+    log, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    so = BUILD_DIR / f"lib{name}.so"
+    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+    return Built(ctypes.CDLL(str(so)), so, seconds, log)
+
+
+_BUILT: dict = {}
+
+
+def build_all(names) -> dict:
+    """Compile every stale ``csrc/<name>.cu`` at once (one nvcc each, all
+    started together) and load each library once per process."""
+    started = {n: _start(n) for n in names if n not in _BUILT and _stale(n)}
+    try:
+        for n in names:
+            if n in _BUILT:
+                continue
+            if n in started:
+                _BUILT[n] = _finish(n, started.pop(n))
+            else:
+                so = BUILD_DIR / f"lib{n}.so"
+                _BUILT[n] = Built(ctypes.CDLL(str(so)), so, 0.0, "")
+    finally:  # a failed build stops the others: no nvcc outlives the call
+        for proc, tmp, _, _ in started.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:  # its group has ended already
+                pass
+            proc.wait()
+            tmp.unlink(missing_ok=True)
+    return {n: _BUILT[n] for n in names}
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    src = CSRC / f"{name}.cu"
-    so = BUILD_DIR / f"lib{name}.so"
-    seconds, log = 0.0, ""
-    if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-    return Built(ctypes.CDLL(str(so)), so, seconds, log)
+    return build_all([name])[name]

@@ -8,10 +8,13 @@ loads in the other:
     pytrees (JAX layout, see ``utils.weights``) flattened with ``/``
     separators under the ``params/…`` and ``state/…`` roots, an empty dict
     kept as a ``__empty_dict__`` marker leaf;
-  * ``latest_{model}_run_id.txt`` in the working root names the run.
+  * ``latest_{model}_run_id.txt`` in the working root names the run;
+  * ``checkpoints/resume_{model}_{run_id}.npz``: the full training carry
+    under ``carry/…`` and ``meta/epochs_done`` (+ ``meta/seed``), so a run
+    continues exactly (`save_resume` / `load_resume`).
 
-This slice is fp32: a bfloat16 leaf (``.__bf16__`` in the archive, or a
-bfloat16 tensor to save) raises. Resume carries are not ported yet.
+The port is fp32: a bfloat16 leaf (``.__bf16__`` in the archive, or a
+bfloat16 tensor to save) raises.
 """
 
 from __future__ import annotations
@@ -123,6 +126,41 @@ def save_best(model_name: str, run_id: str, params, state=None,
 def write_run_id(model_name: str, run_id: str, root: str = "."):
     with open(os.path.join(root, run_id_file(model_name)), "w") as f:
         f.write(run_id)
+
+
+def resume_path(model_name: str, run_id: str, checkpoint_dir: str = "checkpoints"):
+    return os.path.join(checkpoint_dir, f"resume_{model_name}_{run_id}.npz")
+
+
+def save_resume(model_name: str, run_id: str, carry, n_epochs_done: int,
+                checkpoint_dir: str = "checkpoints", seed: Optional[int] = None):
+    """Persist the full training carry; ``seed`` is the run's seed, which a
+    resumed run needs to continue the same noise schedule."""
+    path = resume_path(model_name, run_id, checkpoint_dir)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    meta = {"epochs_done": np.asarray(n_epochs_done)}
+    if seed is not None:
+        meta["seed"] = np.asarray(seed)
+    np.savez(path, **_flatten({"carry": carry, "meta": meta}))
+    return path
+
+
+def load_resume(model_name: str, run_id: Optional[str] = None,
+                checkpoint_dir: str = "checkpoints", root: str = "."):
+    """(carry with numpy leaves, epochs_done, run_id, seed or None)."""
+    if run_id is None:
+        run_id = get_run_id(model_name, root)
+    if run_id is None:
+        raise FileNotFoundError(f"no run id recorded for model '{model_name}'")
+    path = resume_path(model_name, run_id, checkpoint_dir)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"resume checkpoint not found: {path}")
+    with np.load(path) as archive:
+        flat = {k: archive[k] for k in archive.files}
+    tree = _unflatten(flat)
+    meta = tree["meta"]
+    seed = int(meta["seed"]) if "seed" in meta else None
+    return tree["carry"], int(meta["epochs_done"]), run_id, seed
 
 
 def get_run_id(model_name: str = "rna2dna", root: str = ".") -> Optional[str]:

@@ -10,6 +10,12 @@
     (``load_state_dict`` fills it in) and is ignored when read.
 
 Only the directional VAEs (``rna2dna``, ``dna2rna``) are covered so far.
+
+The trainer's own trees stay in the JAX layout, so moving them across is a
+copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
+each way with dtypes kept — parameters, BatchNorm state, the AdamW moments
+and the full training carry (params, state, opt {step, m, v}, plateau,
+estop, best).
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MODEL_TYPES", "jax_from_state_dict", "state_dict_from_jax"]
+__all__ = ["MODEL_TYPES", "jax_from_state_dict", "state_dict_from_jax", "tree_from_numpy",
+           "tree_to_numpy"]
 
 
 def _linear(key, path):
@@ -110,3 +117,23 @@ def jax_from_state_dict(sd: dict, model_type: str):
     if rest:
         raise ValueError(f"unconsumed state_dict keys for {model_type!r}: {sorted(rest)}")
     return trees["params"], trees["state"]
+
+
+def tree_to_numpy(tree):
+    """Nested dict of tensors (or arrays) → the same tree of numpy arrays,
+    dtypes kept (a 0-d tensor becomes a 0-d array)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def tree_from_numpy(tree, device=None):
+    """Nested dict of arrays (numpy, JAX or tensors) → tensors on ``device``,
+    dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    return torch.from_numpy(np.array(tree)).to(device)  # own copy
