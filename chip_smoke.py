@@ -35,24 +35,50 @@ Phases (any failure raises, and the script exits non-zero):
          draws, another seed others, the dropout keep rate is 0.9 ± 0.005
          over 2.6e5 draws, eps has mean 0 ± 0.01 and variance 1 ± 0.02, and
          a Philox step equals the injected step given its own draws;
+       * the DNA→RNA train step at B in {32, 7, 256} with injected noise:
+         loss rtol 1e-5, the 21 gradients atol 1e-3 + rtol 1e-4 (the JAX
+         DNA→RNA test's), BN stats atol 1e-5; its epoch over 25 steps of 32
+         rows: losses rtol 1e-5, params atol 5e-5, AdamW's m atol 5e-5
+         times the tensor's largest |m| (m is in the gradient's units, and
+         the MSE sum over 32 x 1177 log-expression targets, ~3.7e5 a step
+         here, makes |m| reach ~2e3; fp32 alone moves it by up to 8e-6 of
+         that, CPU float32 against float64), BN var atol 2e-4, both encoder
+         fc biases and both BN running means at 2·lr·steps; every tensor is
+         checked before the first failure is raised;
+         its Philox noise as above, for both dropout masks. Away from the
+         kinks differently: its two BN blocks have 768 units a row (the
+         RNA→DNA encoder 128), so over an epoch's 800 rows no seed clears a
+         margin; instead the injected dropout masks drop the few (row, unit)
+         cells whose BN output lies within 3e-5 of the kink (relative to the
+         layer's largest, walking the plain version's trajectory step by
+         step), where a dropped cell gives both versions the same forward
+         and gradient on either side, and the decoder layer (no dropout)
+         keeps the seed search at 3e-6. Both are ~7x the largest fp32
+         error of those layers against float64 at B = 7;
   4. train end to end: ``run_training`` (rna2dna, USE_PALLAS, the card) on
      the 1024-sample synthetic cohort, 3 epochs of 25 steps, the epoch
      kernel once an epoch; then one epoch each of ``engine.fit``'s
-     train-step path and plain path (the loss kernels' backward);
+     train-step path and plain path (the loss kernels' backward); then the
+     same for dna2rna (``run_training("dna2rna", "dna2rna")``, its epoch
+     and train-step kernels);
   5. serve: ``compare_directional_imputation.main`` on the same cohort's
-     validation split, with the RNA2DNAVAE trained in phase 4 and a seeded
-     DNA2RNAVAE, the served posterior held against the unfused modules;
+     validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
+     phase 4 (through their run-id files), the served posteriors held
+     against the unfused modules, each model's MSE beside the mean
+     baseline's;
   6. time with CUDA events, alternating plain, kernel, kernel, plain: the
-     serving call at B = 205, the train step at B = 32, one 200-step epoch
-     on the 8000-sample cohort, the loss pair, and ``torch.optim.AdamW``
-     (fused) over the same 19 tensors as the yardstick of the epoch's AdamW;
-     one profiled epoch (``torch.profiler``): device time by kernel, the
-     device's busy and idle shares; and ``engine.fit``'s epoch time and
-     samples/s through the epoch kernel at the 1024- and 8000-sample
-     cohorts, validation included.
+     serving call at B = 205, the train steps at B = 32, one 200-step epoch
+     of each direction on the 8000-sample cohort, the loss pair, and
+     ``torch.optim.AdamW`` (fused) over the same 19 or 21 tensors as the
+     yardstick of each epoch's AdamW; one profiled epoch of each direction
+     (``torch.profiler``): device time by kernel, the device's busy and idle
+     shares; and ``engine.fit``'s epoch time and samples/s through each
+     epoch kernel at the 1024- and 8000-sample cohorts, validation
+     included.
 
-Each path (serve, train, train-step, train-plain) is driven with every
-launch count set to 0 just before it and read just after. The line before
+Each path (serve, train, train-step, train-plain and the three dna2rna
+training paths) is driven with every launch count set to 0 just before it
+and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
 files go to a temporary directory.
@@ -78,7 +104,7 @@ from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
 from vae_los_angeles_torch.evaluation import compare_directional_imputation
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
-from vae_los_angeles_torch.models.directional_vae import rna2dna_vae_init
+from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
 from vae_los_angeles_torch.ops.kernels import _build
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
@@ -123,7 +149,14 @@ TRAIN_KERNELS = {
                              "vae_los_angeles_tpu/ops/pallas/fused_loss.py:77", fl.launches),
     "rna2dna_loss_backward": ("vae_los_angeles_torch/csrc/fused_loss.cu",
                               "vae_los_angeles_tpu/ops/pallas/fused_loss.py:95", fl.launches),
+    "dna2rna_train_step": ("vae_los_angeles_torch/csrc/fused_train.cu",
+                           "vae_los_angeles_tpu/ops/pallas/fused_train.py:451", ft.launches),
+    "dna2rna_train_epoch": ("vae_los_angeles_torch/csrc/fused_train.cu",
+                            "vae_los_angeles_tpu/ops/pallas/fused_epoch.py:574", fe.launches),
 }
+GRAD_D2R = dict(atol=1e-3, rtol=1e-4)  # the JAX DNA→RNA step test's (test_pallas_train.py)
+D2R = ft.PARAM_ORDER_D2R
+H1, H2 = 512, 256  # EncoderB's hidden widths (fixed in both packages)
 
 
 def say(msg):
@@ -215,6 +248,35 @@ def epoch_work(n_steps, batch):
     p = n_params()
     rows = n_steps * batch * (CFG.input_dim_a + CFG.input_dim_b + 1)
     return n_steps * (flops + 14 * p), 4 * (6 * p + rows + 4 * 128 + n_steps)
+
+
+def d2r_macs():
+    """Multiply-adds of the forward products of one DNA2RNAVAE row."""
+    l, e = CFG.latent_dim, CFG.embed_dim
+    first = CFG.input_dim_b * H1
+    return first, first + H1 * H2 + 2 * H2 * l + 2 * e * l + l * 128 + 128 * CFG.input_dim_a
+
+
+def n_params_d2r():
+    return sum(v.numel() for v in ft.flatten_params(
+        dna2rna_vae_init(torch.Generator().manual_seed(0), CFG.input_dim_a, CFG.input_dim_b,
+                         N_SITES, CFG.latent_dim, CFG.embed_dim, "meta")[0], D2R).values())
+
+
+def step_work_d2r(batch):
+    first, macs = d2r_macs()
+    flops = 2 * batch * (macs + macs + (macs - first))
+    flops += 30 * batch * (H1 + H2 + CFG.input_dim_a + 2 * CFG.latent_dim)  # BN, loss, masks
+    p = n_params_d2r()
+    rows = batch * (CFG.input_dim_b + CFG.input_dim_a + 1 + CFG.latent_dim + H1 + H2)
+    return flops, 4 * (2 * p + rows + 4 * (H1 + H2) + 1)
+
+
+def epoch_work_d2r(n_steps, batch):
+    flops, _ = step_work_d2r(batch)
+    p = n_params_d2r()
+    rows = n_steps * batch * (CFG.input_dim_b + CFG.input_dim_a + 1)
+    return n_steps * (flops + 14 * p), 4 * (6 * p + rows + 4 * (H1 + H2) + n_steps)
 
 
 def loss_work(batch, backward):
@@ -479,68 +541,260 @@ def check_philox(dev):
         "Philox step equals the injected step given its draws")
 
 
+# ---- DNA→RNA ---------------------------------------------------------------
+
+def d2r_params(dev, seed):
+    return dna2rna_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a,
+                            CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim, dev)
+
+
+def d2r_rows(dev, n, seed):
+    """Rows shaped like the cohort: β-values in (x), log-expression out (t)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return dict(
+        x=torch.rand((n, CFG.input_dim_b), generator=g, device=dev) * 0.98 + 0.01,
+        t=torch.log1p(torch.rand((n, CFG.input_dim_a), generator=g, device=dev) * 50.0),
+        site=torch.randint(0, N_SITES, (n,), generator=g, device=dev),
+        eps=torch.randn((n, CFG.latent_dim), generator=g, device=dev),
+        drop1=(torch.rand((n, H1), generator=g, device=dev) < 0.9).float(),
+        drop2=(torch.rand((n, H2), generator=g, device=dev) < 0.9).float(),
+    )
+
+
+D2R_MARGINS = (3e-5, 3e-6)  # BN'd encoder units (masked), decoder layer 1 (seed search)
+
+
+def d2r_clear_kinks(flat, r):
+    """Drop out (in r's injected masks, in place) the cells of the two BN
+    blocks whose output lies within D2R_MARGINS[0] of the ReLU kink,
+    relative to the layer's largest, in float64; returns (cells dropped,
+    the decoder layer's smallest relative margin)."""
+    p = {k: v.double() for k, v in flat.items()}
+
+    def bn(a, gamma, beta):
+        c = a - a.mean(0)
+        return c * torch.rsqrt(torch.square(c).mean(0) + 1e-5) * gamma + beta
+
+    def clear(h, mask):
+        near = (h.abs() < D2R_MARGINS[0] * h.abs().max()) & (mask > 0)
+        mask[near] = 0.0
+        return int(near.sum())
+
+    h1 = bn(r["x"].double() @ p["w1"] + p["b1"], p["gamma1"], p["beta1"])
+    dropped = clear(h1, r["drop1"])
+    d1 = torch.relu(h1) * r["drop1"].double() / ft.KEEP
+    h2 = bn(d1 @ p["w2"] + p["b2"], p["gamma2"], p["beta2"])
+    dropped += clear(h2, r["drop2"])
+    d2 = torch.relu(h2) * r["drop2"].double() / ft.KEEP
+    e = ft.site_rows(p["emb"], r["site"])
+    mu = 0.5 * ((d2 @ p["wmu"] + p["bmu"]) + (e @ p["smu_w"] + p["smu_b"]))
+    lv = 0.5 * ((d2 @ p["wlv"] + p["blv"]) + (e @ p["slv_w"] + p["slv_b"]))
+    u1 = (mu + r["eps"].double() * torch.exp(0.5 * lv)) @ p["d1w"] + p["d1b"]
+    return dropped, (u1.abs().min() / u1.abs().max()).item()
+
+
+def d2r_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
+    """Rows (``d2r_rows``, n = steps * 32 for an epoch) from the first seed
+    at or after ``seed`` whose decoder margin reaches D2R_MARGINS[1] at
+    every step of the plain version's trajectory from (flat, bn, m0, v0)
+    with AdamW at step0 = 7, their near-kink BN cells dropped
+    (`d2r_clear_kinks`); returns (rows, seed, cells dropped)."""
+    batch = n // steps
+    for s in range(seed, seed + 400):
+        r = d2r_rows(dev, n, s)
+        p, b, dropped, ok = dict(flat), bn, 0, True
+        opt = {"step": torch.tensor(7, device=dev), "m": m0, "v": v0}
+        for i in range(steps):
+            rows = slice(batch * i, batch * (i + 1))
+            step_rows = {k: v[rows] for k, v in r.items()}
+            more, margin = d2r_clear_kinks(p, step_rows)
+            dropped += more
+            if margin < D2R_MARGINS[1]:
+                ok = False
+                break
+            if steps > 1:
+                _, grads, b = ft.dna2rna_train_step_reference(
+                    p, b, step_rows["x"], step_rows["t"], step_rows["site"], step_rows["eps"],
+                    step_rows["drop1"], step_rows["drop2"], BETA)
+                p, opt = optim.adamw_update(p, grads, opt, LR, WD)
+        if ok:
+            return r, s, dropped
+    raise AssertionError(f"no DNA→RNA rows with a decoder margin of {D2R_MARGINS[1]} in 400 "
+                         f"seeds from {seed}")
+
+
+def compare_d2r_step(dev):
+    params, state = d2r_params(dev, 11)
+    flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
+    worst = 0.0
+    for batch in STEP_BATCHES:
+        r, seed, dropped = d2r_away_from_kinks(dev, batch, 1000 * batch + 17, flat, bn)
+        loss, grads, new = ft.dna2rna_fused_train_step(
+            params, state, r["t"], r["x"], r["site"], N_SITES, beta=BETA, eps=r["eps"],
+            drop_mask1=r["drop1"], drop_mask2=r["drop2"])
+        want = ft.dna2rna_train_step_reference(flat, bn, r["x"], r["t"], r["site"], r["eps"],
+                                               r["drop1"], r["drop2"], BETA)
+        torch.cuda.synchronize()
+        check_close(f"d2r train step B={batch} loss", loss, want[0], 0.0, 1e-5)
+        got = ft.flatten_params(grads, D2R)
+        for name, _ in D2R:
+            worst = max(worst, check_close(f"d2r train step B={batch} grad {name}", got[name],
+                                           want[1][name], **GRAD_D2R))
+        for k, a, w in zip(("rm1", "rv1", "rm2", "rv2"), ft.bn_d2r(new), want[2]):
+            worst = max(worst, check_close(f"d2r train step B={batch} BN {k}", a, w, 1e-5, 0.0))
+        say(f"[compare] dna2rna_train_step B={batch}: rows of seed {seed}, {dropped} near-kink "
+            "BN cells dropped")
+    say(f"[compare] dna2rna_train_step: max |kernel - plain| = {worst:.3e} over B={STEP_BATCHES} "
+        "(loss rtol 1e-5, grads atol 1e-3 + rtol 1e-4, BN atol 1e-5)")
+    return worst
+
+
+def compare_d2r_epoch(dev):
+    params, state = d2r_params(dev, 12)
+    flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
+    g = torch.Generator(device=dev).manual_seed(15)
+    m0 = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-3 for k, v in flat.items()}
+    v0 = {k: torch.rand(v.shape, generator=g, device=dev) * 1e-6 for k, v in flat.items()}
+    r, seed, dropped = d2r_away_from_kinks(dev, EPOCH_STEPS * 32, 6100, flat, bn, EPOCH_STEPS,
+                                           m0, v0)
+    say(f"[compare] dna2rna_train_epoch: rows of seed {seed}, {dropped} near-kink BN cells "
+        "dropped")
+    got = fe.dna2rna_fused_epoch(params, ft.unflatten(m0, D2R), ft.unflatten(v0, D2R), state,
+                                 r["x"], r["t"], r["site"], N_SITES, beta=BETA, lr=LR,
+                                 weight_decay=WD, step0=7, n_batches=EPOCH_STEPS, eps_ep=r["eps"],
+                                 drop1_ep=r["drop1"], drop2_ep=r["drop2"])
+    want = fe.dna2rna_epoch_reference(flat, m0, v0, bn, r["x"], r["t"], r["site"], r["eps"],
+                                      r["drop1"], r["drop2"], seed=0, beta=BETA, lr=LR,
+                                      weight_decay=WD, step0=7, n_batches=EPOCH_STEPS)
+    torch.cuda.synchronize()
+    loose = 2 * LR * EPOCH_STEPS
+    check_close("d2r epoch losses", got[0], want[0], 0.0, 1e-5)
+    checks = []  # (what, kernel, plain, atol or None for `loose`, scale of the tensor)
+    for i, tree in ((1, "params"), (2, "m")):
+        flat_got = ft.flatten_params(got[i], D2R)
+        for name, _ in D2R:
+            w = want[i][name]
+            scale = w.abs().max().item() if tree == "m" else 1.0
+            checks.append((f"{tree} {name}", flat_got[name], w,
+                           None if name in ("b1", "b2") else 5e-5 * scale, scale))
+    for k, a, w in zip(("rm1", "rv1", "rm2", "rv2"), ft.bn_d2r(got[4]), want[4]):
+        checks.append((f"BN {k}", a, w, None if k.startswith("rm") else 2e-4, 1.0))
+    failed, worst, worst_loose = [], 0.0, 0.0
+    for what, a, w, atol, scale in checks:
+        err = (a - w).abs().max().item()
+        if not (torch.isfinite(a).all() and err <= (loose if atol is None else atol)):
+            failed.append(f"{what} by {err:.3g} (atol {loose if atol is None else atol:.3g})")
+        if atol is None:
+            worst_loose = max(worst_loose, err)
+        else:
+            worst = max(worst, err / scale)
+    if failed:
+        raise AssertionError("d2r epoch differs from the plain version: " + "; ".join(failed))
+    say(f"[compare] dna2rna_train_epoch: {EPOCH_STEPS} steps; max |kernel - plain| = {worst:.3e} "
+        f"over params and BN var (atol 5e-5/2e-4) and m relative to each tensor's largest "
+        f"(5e-5), {worst_loose:.3e} over both fc biases and BN means (atol {loose}); losses "
+        f"rtol 1e-5")
+    return max(worst, worst_loose)
+
+
+def check_philox_d2r(dev):
+    eps, keep1, keep2 = ft.philox_noise_d2r(7, 3, 512, H1, H2, CFG.latent_dim, dev)
+    again = ft.philox_noise_d2r(7, 3, 512, H1, H2, CFG.latent_dim, dev)
+    other = ft.philox_noise_d2r(8, 3, 512, H1, H2, CFG.latent_dim, dev)
+    if not all(torch.equal(a, b) for a, b in zip((eps, keep1, keep2), again)):
+        raise AssertionError("d2r Philox: the same seed gave different draws")
+    if any(torch.equal(a, b) for a, b in zip((eps, keep1, keep2), other)):
+        raise AssertionError("d2r Philox: different seeds gave the same draws")
+    if torch.equal(keep1[:, :H2], keep2):
+        raise AssertionError("d2r Philox: the two dropout layers drew the same masks")
+    rates = [k.mean().item() for k in (keep1, keep2)]
+    mean, var = eps.mean().item(), eps.var().item()
+    if any(abs(x - 0.9) > 0.005 for x in rates) or abs(mean) > 0.05 or abs(var - 1.0) > 0.05:
+        raise AssertionError(f"d2r Philox: keep rates {rates}, eps mean {mean}, var {var}")
+    params, state = d2r_params(dev, 13)
+    r = d2r_rows(dev, 32, 19)
+    args = (params, state, r["t"], r["x"], r["site"], N_SITES)
+    a = ft.dna2rna_fused_train_step(*args, seed=5, step=4)  # same kernel both ways: exact
+    e, k1, k2 = ft.philox_noise_d2r(5, 4, 32, H1, H2, CFG.latent_dim, dev)
+    b = ft.dna2rna_fused_train_step(*args, eps=e, drop_mask1=k1, drop_mask2=k2)
+    torch.cuda.synchronize()
+    if not torch.equal(a[0], b[0]):
+        raise AssertionError("d2r Philox: the Philox step differs from the injected step")
+    say(f"[compare] d2r Philox: keep rates {rates[0]:.5f} ({keep1.numel()} draws) and "
+        f"{rates[1]:.5f} ({keep2.numel()}), eps mean {mean:.5f} var {var:.5f} over {eps.numel()}; "
+        "reproducible, seed-dependent, a stream for each dropout layer, and the Philox step "
+        "equals the injected step given its draws")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: train, then serve
 
-def phase_train(dev, workdir, tpm, beta, site):
-    """run_training through the epoch kernel, then the train-step and plain
-    paths of engine.fit; returns the launch counts of each path."""
+def phase_train(dev, workdir, tpm, beta, site, task="rna2dna"):
+    """run_training(task, task) through the task's epoch kernel, then the
+    train-step and plain paths of engine.fit; returns the launch counts of
+    each path (train, train_step, train_plain; with "_d2r" for dna2rna) and
+    the run id."""
     cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
                       plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
+    suffix = "" if task == "rna2dna" else "_d2r"
     zero_counts()
-    result, run_id, wall = run_training(cfg=cfg, argv=["--epochs", "3", "--seed", "0"],
+    result, run_id, wall = run_training(task, task, cfg=cfg,
+                                        argv=["--epochs", "3", "--seed", "0"],
                                         data=(tpm, beta, site), n_sites=N_SITES, device=dev,
                                         root=workdir)
-    counts = {"train": read_counts()}
-    if counts["train"]["rna2dna_train_epoch"] != result.epochs_ran or result.epochs_ran != 3:
-        raise AssertionError(f"epoch kernel launched {counts['train']['rna2dna_train_epoch']} "
-                             f"times in {result.epochs_ran} epochs")
+    counts = {"train" + suffix: read_counts()}
+    launched = counts["train" + suffix][f"{task}_train_epoch"]
+    if launched != result.epochs_ran or result.epochs_ran != 3:
+        raise AssertionError(f"{task} epoch kernel launched {launched} times in "
+                             f"{result.epochs_ran} epochs")
     losses = result.train_losses[: result.epochs_ran]
     if not (np.isfinite(losses).all() and np.isfinite(result.val_losses[:3]).all()):
-        raise AssertionError(f"non-finite losses {losses} {result.val_losses}")
+        raise AssertionError(f"{task}: non-finite losses {losses} {result.val_losses}")
     if not losses[2] < losses[0]:
-        raise AssertionError(f"epoch 3's train loss {losses[2]} is not below epoch 1's {losses[0]}")
-    for path in (os.path.join(cfg.checkpoint_dir, f"best_rna2dna_{run_id}.npz"),
-                 os.path.join(cfg.checkpoint_dir, f"resume_rna2dna_{run_id}.npz"),
-                 os.path.join(workdir, "latest_rna2dna_run_id.txt"),
-                 os.path.join(cfg.plots_dir, f"metrics_rna2dna_{run_id}.jsonl")):
+        raise AssertionError(f"{task}: epoch 3's train loss {losses[2]} is not below epoch 1's "
+                             f"{losses[0]}")
+    for path in (os.path.join(cfg.checkpoint_dir, f"best_{task}_{run_id}.npz"),
+                 os.path.join(cfg.checkpoint_dir, f"resume_{task}_{run_id}.npz"),
+                 os.path.join(workdir, f"latest_{task}_run_id.txt"),
+                 os.path.join(cfg.plots_dir, f"metrics_{task}_{run_id}.jsonl")):
         if not os.path.exists(path):
             raise AssertionError(f"run_training did not write {path}")
     n_train = len(train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)[0])
-    say(f"[train] run_training: 3 epochs of {n_train // cfg.batch_size} steps in {wall:.3f} s "
-        f"({engine.samples_trained(n_train, cfg.batch_size, 3) / wall:,.0f} samples/s, first "
-        f"epoch included); train loss {losses.tolist()}, val loss "
-        f"{result.val_losses[:3].tolist()}; artifacts written; launches {counts['train']}")
+    say(f"[train] run_training {task}: 3 epochs of {n_train // cfg.batch_size} steps in "
+        f"{wall:.3f} s ({engine.samples_trained(n_train, cfg.batch_size, 3) / wall:,.0f} "
+        f"samples/s, first epoch included); train loss {losses.tolist()}, val loss "
+        f"{result.val_losses[:3].tolist()}; artifacts written; launches "
+        f"{counts['train' + suffix]}")
 
     tr, va = train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)
     arrays = lambda idx: (tpm[idx], beta[idx], site[idx])  # noqa: E731
-    for path, kw in (("train_step", {"fused_step": True}), ("train_plain", {})):
+    for path, kw in (("train_step" + suffix, {"fused_step": True}),
+                     ("train_plain" + suffix, {})):
         zero_counts()
-        res = engine.fit("rna2dna", cfg, arrays(tr), arrays(va), 1, N_SITES, num_epochs=1,
+        res = engine.fit(task, cfg, arrays(tr), arrays(va), 1, N_SITES, num_epochs=1,
                          device=dev, **kw)
         counts[path] = read_counts()
         if not np.isfinite(res.val_losses).all():
             raise AssertionError(f"{path}: non-finite validation loss")
-        say(f"[train] engine.fit {path}: 1 epoch, val loss {float(res.val_losses[0]):.2f}; "
-            f"launches {counts[path]}")
+        say(f"[train] engine.fit {task} {path}: 1 epoch, val loss "
+            f"{float(res.val_losses[0]):.2f}; launches {counts[path]}")
     return counts, run_id
 
 
-def phase_serve(dev, workdir, tpm, beta, site, trained_run_id):
-    """Serve the validation split with the trained RNA2DNAVAE and a seeded
-    DNA2RNAVAE; returns the launch counts of that run."""
+def phase_serve(dev, workdir, tpm, beta, site, trained):
+    """Serve the validation split with the RNA2DNAVAE and DNA2RNAVAE trained
+    in phase 4 ({model name: run id}, also in their run-id files); returns
+    the launch counts of that run."""
     cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
                       plots_dir=os.path.join(workdir, "plots"))
-    dna2rna = port_model(DNA2RNAVAE, 1, False)
-    params, state = jax_from_state_dict(dna2rna.state_dict(), "dna2rna")
-    run_id = "20260101_000000"
-    checkpoint.save_best("dna2rna", run_id, params, state, cfg.checkpoint_dir)
-    checkpoint.write_run_id("dna2rna", run_id, workdir)
-    p, s, _ = checkpoint.load_best("rna2dna", trained_run_id, cfg.checkpoint_dir)
-    rna2dna = RNA2DNAVAE(CFG.input_dim_a, CFG.input_dim_b, N_SITES, CFG.latent_dim,
-                         CFG.embed_dim).eval()
-    rna2dna.load_state_dict(state_dict_from_jax(p, s, "rna2dna"))
-    modules = {"rna2dna": rna2dna, "dna2rna": dna2rna}
+    modules = {}
+    for ckpt, model_cls in (("rna2dna", RNA2DNAVAE), ("dna2rna", DNA2RNAVAE)):
+        if checkpoint.get_run_id(ckpt, workdir) != trained[ckpt]:
+            raise AssertionError(f"latest_{ckpt}_run_id.txt does not name the trained run")
+        p, s, _ = checkpoint.load_best(ckpt, trained[ckpt], cfg.checkpoint_dir)
+        modules[ckpt] = model_cls(CFG.input_dim_a, CFG.input_dim_b, N_SITES, CFG.latent_dim,
+                                  CFG.embed_dim).eval()
+        modules[ckpt].load_state_dict(state_dict_from_jax(p, s, ckpt))
 
     zero_counts()
     results = compare_directional_imputation.main(cfg=cfg, data=(tpm, beta, site), root=workdir,
@@ -579,10 +833,11 @@ def phase_serve(dev, workdir, tpm, beta, site, trained_run_id):
         say(f"[serve] {ckpt}: served mu/logvar match the unfused module on the card")
     for rec in results:
         say("[serve] " + json.dumps(rec | {"_pearson_all": len(rec["_pearson_all"])}))
-    trained = next(r for r in results if r["Model"] == "RNA2DNAVAE")
-    mean = next(r for r in results if r["Modality"] == "DNA methylation" and r["Model"] != "RNA2DNAVAE")
-    say(f"[serve] trained RNA2DNAVAE MSE {trained['MSE']:.5f} vs mean imputation "
-        f"{mean['MSE']:.5f}; launches during the serving run: {launches}")
+    for model, modality in (("RNA2DNAVAE", "DNA methylation"), ("DNA2RNAVAE", "RNA expression")):
+        vae = next(r for r in results if r["Model"] == model)
+        mean = next(r for r in results if r["Modality"] == modality and r["Model"] != model)
+        say(f"[serve] trained {model} MSE {vae['MSE']:.5f} vs mean imputation {mean['MSE']:.5f}")
+    say(f"[serve] launches during the serving run: {launches}")
     return launches
 
 
@@ -643,14 +898,14 @@ def profile_epoch(fn, what, card):
         say(f"[profile]   {short:48s} {ms:9.3f} ms  {count:6d} launches  {1e3 * ms / count:8.2f} us each")
 
 
-def time_fit(dev, card, n_samples, epochs):
-    """Wall time of ``engine.fit`` through the epoch kernel (validation and
-    the host loop included) on the synthetic cohort of ``n_samples``, after
-    a warm-up run; returns (ms per epoch, samples/s)."""
+def time_fit(dev, card, n_samples, epochs, task="rna2dna"):
+    """Wall time of ``engine.fit`` through the task's epoch kernel
+    (validation and the host loop included) on the synthetic cohort of
+    ``n_samples``, after a warm-up run; returns (ms per epoch, samples/s)."""
     tpm, beta, site = generate_synthetic_arrays(n_samples=n_samples, seed=2)
     tr, va = train_val_indices(n_samples, CFG.train_test_split, CFG.random_seed)
     arrays = lambda idx: (tpm[idx], beta[idx], site[idx])  # noqa: E731
-    run = lambda n: engine.fit("rna2dna", CFG, arrays(tr), arrays(va), 0, N_SITES,  # noqa: E731
+    run = lambda n: engine.fit(task, CFG, arrays(tr), arrays(va), 0, N_SITES,  # noqa: E731
                                num_epochs=n, fused_epoch=True, device=dev)
     run(1)
     torch.cuda.synchronize()
@@ -659,7 +914,8 @@ def time_fit(dev, card, n_samples, epochs):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / res.epochs_ran
     rate = engine.samples_trained(len(tr), CFG.batch_size, 1) / ms * 1e3
-    say(f"[time] engine.fit, epoch kernel, {n_samples}-sample cohort ({len(tr) // CFG.batch_size} "
+    say(f"[time] engine.fit {task}, epoch kernel, {n_samples}-sample cohort "
+        f"({len(tr) // CFG.batch_size} "
         f"steps, {len(va)} validation rows): {ms:.3f} ms per epoch over {res.epochs_ran} epochs, "
         f"{rate:,.0f} samples/s; {card}")
     return ms, rate
@@ -695,9 +951,7 @@ def phase_timing(dev, card):
     tr, _ = train_val_indices(8000, CFG.train_test_split, CFG.random_seed)
     n_steps = len(tr) // 32
     rows = tr[: n_steps * 32]
-    x = torch.as_tensor(tpm[rows]).to(dev)
-    t = torch.as_tensor(beta[rows]).to(dev)
-    s = torch.as_tensor(site[rows]).to(dev)
+    x, t, s = (torch.as_tensor(a[rows]).to(dev) for a in (tpm, beta, site))
     zeros = {k: torch.zeros_like(v) for k, v in flat.items()}
     zt = ft.unflatten(zeros)
     ms, plain_ms = alternate(
@@ -706,7 +960,7 @@ def phase_timing(dev, card):
         lambda: fe.rna2dna_epoch_reference(flat, zeros, zeros, bn["mean"], bn["var"], x, t, s,
                                            None, None, seed=2, beta=BETA, lr=LR, weight_decay=WD,
                                            step0=0, n_batches=n_steps),
-        reps=3, warmup=1)
+        reps=2, warmup=1)
     profile_epoch(lambda: fe.rna2dna_fused_epoch(
         params, zt, zt, state, x, t, s, N_SITES, seed=2, beta=BETA, lr=LR, weight_decay=WD,
         n_batches=n_steps), f"rna2dna_train_epoch ({n_steps} steps)", card)
@@ -740,6 +994,49 @@ def phase_timing(dev, card):
         say(f"[time] {name} B={batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
     time_fit(dev, card, 1024, 10)
     time_fit(dev, card, 8000, 3)
+    out.update(time_d2r(dev, card, t, x, s, n_steps))
+    time_fit(dev, card, 1024, 10, "dna2rna")
+    time_fit(dev, card, 8000, 3, "dna2rna")
+    return out
+
+
+def time_d2r(dev, card, x, t, s, n_steps):
+    """The DNA→RNA step at B = 32, one epoch of ``n_steps`` steps on the
+    rows x (DNA), t (RNA), s (sites), profiled once, and fused AdamW over
+    its 21 tensors; returns {name: (ms, plain_ms, library_ms, bound work)}."""
+    out = {}
+    params, state = d2r_params(dev, 14)
+    flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
+    r = d2r_rows(dev, 32, 20)
+    ms, plain_ms = alternate(
+        lambda: ft.dna2rna_fused_train_step(params, state, r["t"], r["x"], r["site"], N_SITES,
+                                            seed=1, step=0, beta=BETA),
+        lambda: ft.dna2rna_train_step_reference(flat, bn, r["x"], r["t"], r["site"], r["eps"],
+                                                r["drop1"], r["drop2"], BETA))
+    out["dna2rna_train_step"] = (ms, plain_ms, None, step_work_d2r(32))
+    say(f"[time] dna2rna_train_step B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+
+    zeros = {k: torch.zeros_like(v) for k, v in flat.items()}
+    zt = ft.unflatten(zeros, D2R)
+    kernel = lambda: fe.dna2rna_fused_epoch(  # noqa: E731
+        params, zt, zt, state, x, t, s, N_SITES, seed=2, beta=BETA, lr=LR, weight_decay=WD,
+        n_batches=n_steps)
+    ms, plain_ms = alternate(
+        kernel,
+        lambda: fe.dna2rna_epoch_reference(flat, zeros, zeros, bn, x, t, s, None, None, None,
+                                           seed=2, beta=BETA, lr=LR, weight_decay=WD, step0=0,
+                                           n_batches=n_steps),
+        reps=2, warmup=1)
+    profile_epoch(kernel, f"dna2rna_train_epoch ({n_steps} steps)", card)
+    leaves = [v.clone() for v in flat.values()]
+    for p in leaves:
+        p.grad = torch.randn_like(p) * 1e-3
+    adamw = torch.optim.AdamW(leaves, lr=LR, weight_decay=WD, fused=True)
+    library_ms = time_call(adamw.step)
+    out["dna2rna_train_epoch"] = (ms, plain_ms, library_ms, epoch_work_d2r(n_steps, 32))
+    say(f"[time] dna2rna_train_epoch {n_steps} steps x 32 rows: kernel {ms:.4f} ms "
+        f"({x.shape[0] / ms * 1e3:,.0f} samples/s), plain {plain_ms:.4f} ms; torch.optim.AdamW "
+        f"(fused) step over the same 21 tensors {library_ms:.4f} ms (x{n_steps} per epoch); {card}")
     return out
 
 
@@ -767,6 +1064,9 @@ def main():
     errs["rna2dna_train_epoch"] = compare_epoch(dev)
     errs.update(compare_loss(dev))
     check_philox(dev)
+    errs["dna2rna_train_step"] = compare_d2r_step(dev)
+    errs["dna2rna_train_epoch"] = compare_d2r_epoch(dev)
+    check_philox_d2r(dev)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -774,14 +1074,18 @@ def main():
         os.chdir(workdir)  # the run-id protocol writes into the working directory
         try:
             counts, run_id = phase_train(dev, workdir, tpm, beta, site)
-            counts["serve"] = phase_serve(dev, workdir, tpm, beta, site, run_id)
+            counts_d2r, run_id_d2r = phase_train(dev, workdir, tpm, beta, site, "dna2rna")
+            counts.update(counts_d2r)
+            counts["serve"] = phase_serve(dev, workdir, tpm, beta, site,
+                                          {"rna2dna": run_id, "dna2rna": run_id_d2r})
         finally:
             os.chdir(cwd)
     timings = phase_timing(dev, card)
 
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",
                "rna2dna_train_epoch": "train", "rna2dna_loss_forward": "train",
-               "rna2dna_train_step": "train_step", "rna2dna_loss_backward": "train_plain"}
+               "rna2dna_train_step": "train_step", "rna2dna_loss_backward": "train_plain",
+               "dna2rna_train_epoch": "train_d2r", "dna2rna_train_step": "train_step_d2r"}
     sources = {name: "vae_los_angeles_torch/csrc/fused_vae.cu" for name in KERNELS}
     replaces = {name: spec[4] for name, spec in KERNELS.items()}
     for name, (src, rep, _) in TRAIN_KERNELS.items():

@@ -13,9 +13,10 @@ widths are small and no multiple of four, so the zero padding of every
 dimension is exercised, and B = 2100 reaches the 16-row tiles. Tolerance:
 atol = rtol = 1e-4 (fp32 on both sides, summed in different orders). The
 training kernels use the JAX tests' tolerances (``tests/test_pallas_train.py``,
-``tests/test_pallas_epoch.py``), with the encoder fc bias and the BN running
-mean at 2·lr per step (their true gradient is zero; Adam turns its fp32
-noise into steps of up to lr that differ between implementations)."""
+``tests/test_pallas_epoch.py``; the DNA→RNA gradients atol 1e-3 + rtol 1e-4,
+its epoch's params and m atol 5e-5), with the encoder fc biases and the BN
+running means at 2·lr per step (their true gradient is zero; Adam turns its
+fp32 noise into steps of up to lr that differ between implementations)."""
 
 import numpy as np
 import pytest
@@ -269,3 +270,115 @@ def test_fit_paths_launch_their_kernels(path, cuda_device):
     assert delta["rna2dna_train_epoch"] == (2 if path == "fused_epoch" else 0)
     assert delta["rna2dna_train_step"] == (12 if path == "fused_step" else 0)
     assert delta["rna2dna_loss_backward"] == (12 if path == "plain" else 0)
+
+
+# ---- DNA→RNA: the input is DNA (TRAIN_DIMS["din"] wide), the target RNA ----
+GRAD_D2R = dict(atol=1e-3, rtol=1e-4)
+
+
+def d2r_case(dev, batch, n_batches=1, seed=0):
+    """Port-initialised DNA2RNAVAE (params, state) at small odd widths (the
+    encoder's 512 and 256 are fixed) and rows: x the DNA input, t the RNA
+    target, with injected noise."""
+    from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_init
+
+    d = TRAIN_DIMS
+    params, state = dna2rna_vae_init(torch.Generator().manual_seed(seed), d["dout"], d["din"],
+                                     d["sites"], d["latent"], d["embed"], dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = batch * n_batches
+    rows = dict(x=torch.rand((n, d["din"]), generator=g, device=dev),
+                t=torch.randn((n, d["dout"]), generator=g, device=dev),
+                site=torch.randint(0, d["sites"], (n,), generator=g, device=dev),
+                eps=torch.randn((n, d["latent"]), generator=g, device=dev),
+                drop1=(torch.rand((n, 512), generator=g, device=dev) < 0.9).float(),
+                drop2=(torch.rand((n, 256), generator=g, device=dev) < 0.9).float())
+    return params, state, rows
+
+
+# B = 2 is degenerate here: with two rows both BatchNorms' backward is zero in
+# theory, so every gradient before the second BN is fp32 noise
+@pytest.mark.parametrize("batch", [7, 32, 45])
+def test_d2r_train_step_kernel_matches_plain_version(batch, cuda_device):
+    params, state, r = d2r_case(cuda_device, batch)
+    before = ft.launches["dna2rna_train_step"]
+    loss, grads, bn = ft.dna2rna_fused_train_step(
+        params, state, r["t"], r["x"], r["site"], TRAIN_DIMS["sites"], beta=1e-3, eps=r["eps"],
+        drop_mask1=r["drop1"], drop_mask2=r["drop2"])
+    assert ft.launches["dna2rna_train_step"] == before + 1
+    flat = ft.flatten_params(params, ft.PARAM_ORDER_D2R)
+    want = ft.dna2rna_train_step_reference(flat, ft.bn_d2r(state), r["x"], r["t"], r["site"],
+                                           r["eps"], r["drop1"], r["drop2"], 1e-3)
+    torch.testing.assert_close(loss, want[0], rtol=1e-5, atol=0)
+    got = ft.flatten_params(grads, ft.PARAM_ORDER_D2R)
+    for name, _ in ft.PARAM_ORDER_D2R:
+        torch.testing.assert_close(got[name], want[1][name], **GRAD_D2R, msg=name)
+    for a, b in zip(ft.bn_d2r(bn), want[2]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_philox_noise_of_the_d2r_train_kernel(cuda_device):
+    eps, keep1, keep2 = ft.philox_noise_d2r(7, 3, 1024, 512, 256, 20, cuda_device)
+    for keep in (keep1, keep2):
+        assert abs(keep.mean().item() - 0.9) < 0.005
+    assert not torch.equal(keep1[:, :256], keep2)  # a stream for each dropout layer
+    assert abs(eps.mean().item()) < 0.03 and abs(eps.var().item() - 1) < 0.03
+    again = ft.philox_noise_d2r(7, 3, 1024, 512, 256, 20, cuda_device)
+    other = ft.philox_noise_d2r(8, 3, 1024, 512, 256, 20, cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip((eps, keep1, keep2), again))
+    assert not any(torch.equal(a, b) for a, b in zip((eps, keep1, keep2), other))
+    # the Philox step equals the injected step given the draws it makes
+    params, state, r = d2r_case(cuda_device, 16, seed=2)
+    args = (params, state, r["t"], r["x"], r["site"], TRAIN_DIMS["sites"])
+    a = ft.dna2rna_fused_train_step(*args, seed=5, step=1)
+    eps, keep1, keep2 = ft.philox_noise_d2r(5, 1, 16, 512, 256, TRAIN_DIMS["latent"],
+                                            cuda_device)
+    b = ft.dna2rna_fused_train_step(*args, eps=eps, drop_mask1=keep1, drop_mask2=keep2)
+    assert torch.equal(a[0], b[0])
+
+
+def test_d2r_epoch_kernel_matches_plain_version(cuda_device):
+    n_batches, batch, lr = 6, 16, 5e-4
+    params, state, r = d2r_case(cuda_device, batch, n_batches, seed=3)
+    order = ft.PARAM_ORDER_D2R
+    zeros = {k: torch.zeros_like(v) for k, v in ft.flatten_params(params, order).items()}
+    zt = ft.unflatten(zeros, order)
+    before = fe.launches["dna2rna_train_epoch"]
+    got = fe.dna2rna_fused_epoch(params, zt, zt, state, r["x"], r["t"], r["site"],
+                                 TRAIN_DIMS["sites"], lr=lr, step0=2, n_batches=n_batches,
+                                 eps_ep=r["eps"], drop1_ep=r["drop1"], drop2_ep=r["drop2"])
+    assert fe.launches["dna2rna_train_epoch"] == before + 1
+    want = fe.dna2rna_epoch_reference(ft.flatten_params(params, order), zeros, zeros,
+                                      ft.bn_d2r(state), r["x"], r["t"], r["site"], r["eps"],
+                                      r["drop1"], r["drop2"], seed=0, beta=1e-3, lr=lr,
+                                      weight_decay=1e-5, step0=2, n_batches=n_batches)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    loose = 2 * lr * n_batches
+    for tree, ref in ((got[1], want[1]), (got[2], want[2])):
+        flat = ft.flatten_params(tree, order)
+        for name, _ in order:
+            atol = loose if name in ("b1", "b2") else 5e-5
+            torch.testing.assert_close(flat[name], ref[name], atol=atol, rtol=0, msg=name)
+    for i, (a, b) in enumerate(zip(ft.bn_d2r(got[4]), want[4])):
+        torch.testing.assert_close(a, b, atol=loose if i % 2 == 0 else 2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("path", ["plain", "fused_step", "fused_epoch"])
+def test_d2r_fit_paths_launch_their_kernels(path, cuda_device):
+    d = TRAIN_DIMS
+    cfg = Config(input_dim_a=d["dout"], input_dim_b=d["din"], latent_dim=d["latent"],
+                 embed_dim=d["embed"], batch_size=16)
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(96, d["dout"])).astype(np.float32),
+            rng.uniform(size=(96, d["din"])).astype(np.float32),
+            rng.integers(0, d["sites"], size=96))
+    val = tuple(a[:40] for a in data)
+    counts = (ft.launches, fe.launches, fl.launches)
+    before = [dict(c) for c in counts]
+    res = engine.fit("dna2rna", cfg, data, val, 0, d["sites"], num_epochs=2, device=cuda_device,
+                     **({} if path == "plain" else {path: True}))
+    delta = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
+    assert res.epochs_ran == 2 and np.isfinite(res.val_losses).all()
+    assert delta["dna2rna_train_epoch"] == (2 if path == "fused_epoch" else 0)
+    assert delta["dna2rna_train_step"] == (12 if path == "fused_step" else 0)
+    assert not any(v for k, v in delta.items() if k.startswith("rna2dna"))

@@ -1,5 +1,8 @@
-"""Port modules (eval mode) against the JAX package's apply functions on the
-same weights, moved across by ``utils.weights``.
+"""Port modules against the JAX package's apply functions on the same
+weights, moved across by ``utils.weights``: the eval-mode modules, and the
+functional train-mode forwards (``*_vae_apply``, ``encoder_b_apply``,
+``decoder_a_apply``) with the dropout masks and eps that the JAX apply draws
+from its key.
 
 Tolerances: atol = rtol = 1e-5 for one layer, 1e-4 through the whole chain
 (fp32 on the CPU on both sides, summed in different orders)."""
@@ -11,9 +14,13 @@ import pytest
 import torch
 
 from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
+from vae_los_angeles_torch.models import decoders as pdec
+from vae_los_angeles_torch.models import directional_vae as pdv
+from vae_los_angeles_torch.models import encoders as penc
 from vae_los_angeles_torch.models.vae import fuse_posteriors, reparameterize
 from vae_los_angeles_torch.ops.nn import reset_parameters
-from vae_los_angeles_torch.utils.weights import state_dict_from_jax
+from vae_los_angeles_torch.utils.weights import state_dict_from_jax, tree_from_numpy
+from vae_los_angeles_tpu.models import decoders as jdec
 from vae_los_angeles_tpu.models import directional_vae as jdv
 from vae_los_angeles_tpu.models import encoders as jenc
 
@@ -144,3 +151,73 @@ def test_reset_parameters_is_seeded_and_torch_default_shaped():
     bound = 1 / np.sqrt(DIM_A)
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
     assert a.encoder_rna.fc[1].running_var.eq(1).all()
+
+
+def jax_train_noise(model_type, key, n):
+    """The dropout masks and eps that the JAX apply draws from ``key``
+    (``k_drop, k_z = split(key)``; EncoderB splits k_drop once more)."""
+    k_drop, k_z = jax.random.split(key)
+    if model_type == "rna2dna":
+        masks = {"drop_mask": jax.random.bernoulli(k_drop, 0.9, (n, 128))}
+    else:
+        k1, k2 = jax.random.split(k_drop)
+        masks = {"drop_mask1": jax.random.bernoulli(k1, 0.9, (n, 512)),
+                 "drop_mask2": jax.random.bernoulli(k2, 0.9, (n, 256))}
+    eps = jax.random.normal(k_z, (n, LATENT), jnp.float32)
+    return ({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in masks.items()},
+            torch.from_numpy(np.array(eps)))
+
+
+@pytest.mark.parametrize("model_type", sorted(FAMILIES))
+def test_train_forward_with_the_jax_noise(model_type):
+    """The train-mode ``*_vae_apply`` of both packages: recon, posterior and
+    every BatchNorm's new running statistics."""
+    _, j_apply, _, kw, din = FAMILIES[model_type]
+    params, state, _ = make_pair(model_type, seed=2)
+    x, site = inputs(din, seed=3)
+    key = jax.random.PRNGKey(5)
+    out = j_apply(params, state, key, site=jnp.asarray(site), train=True,
+                  **{kw: jnp.asarray(x)})
+    masks, eps = jax_train_noise(model_type, key, len(x))
+    got = getattr(pdv, f"{model_type}_vae_apply")(
+        tree_from_numpy(params), tree_from_numpy(state), site=torch.from_numpy(site),
+        train=True, eps=eps, **masks, **{kw: torch.from_numpy(x)})
+    for a, b in ((got.recon, out.recon), (got.recon_logits, out.recon_logits),
+                 (got.mu, out.mu), (got.logvar, out.logvar)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **CHAIN)
+    want_state = jax.tree.map(np.asarray, out.state)
+    for enc, bns in want_state.items():
+        for bn, stats in bns.items():
+            for k, w in stats.items():
+                np.testing.assert_allclose(got.state[enc][bn][k].numpy(), w, **LAYER)
+
+
+def test_encoder_b_and_decoder_a_layers_in_train_mode():
+    params, state, _ = make_pair("dna2rna", seed=4)
+    x, _ = inputs(DIM_B, seed=4)
+    enc_p, enc_s = tree_from_numpy(params["encoder_dna"]), tree_from_numpy(state["encoder_dna"])
+    k1, k2 = jax.random.split(jax.random.PRNGKey(8))
+    mu, lv, new = jenc.encoder_b_apply(params["encoder_dna"], state["encoder_dna"],
+                                       jnp.asarray(x), train=True, key=jax.random.PRNGKey(8))
+    m1 = torch.from_numpy(np.asarray(jax.random.bernoulli(k1, 0.9, (len(x), 512)), np.float32))
+    m2 = torch.from_numpy(np.asarray(jax.random.bernoulli(k2, 0.9, (len(x), 256)), np.float32))
+    pmu, plv, pnew = penc.encoder_b_apply(enc_p, enc_s, torch.from_numpy(x), train=True,
+                                          drop_mask1=m1, drop_mask2=m2)
+    np.testing.assert_allclose(pmu.numpy(), np.asarray(mu), **CHAIN)
+    np.testing.assert_allclose(plv.numpy(), np.asarray(lv), **CHAIN)
+    assert set(pnew) == {"bn1", "bn2"}
+    for bn in ("bn1", "bn2"):
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(pnew[bn][k].numpy(), np.asarray(new[bn][k]), **LAYER)
+    # eval mode keeps the state; a generator draws both masks, reproducibly
+    _, _, same = penc.encoder_b_apply(enc_p, enc_s, torch.from_numpy(x), train=False)
+    assert same["bn1"] is enc_s["bn1"] and same["bn2"] is enc_s["bn2"]
+    a = penc.encoder_b_apply(enc_p, enc_s, torch.from_numpy(x), train=True,
+                             generator=torch.Generator().manual_seed(1))
+    b = penc.encoder_b_apply(enc_p, enc_s, torch.from_numpy(x), train=True,
+                             generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[0], pmu)
+    z = np.random.default_rng(0).normal(size=(9, LATENT)).astype(np.float32)
+    np.testing.assert_allclose(
+        pdec.decoder_a_apply(tree_from_numpy(params["decoder_rna"]), torch.from_numpy(z)).numpy(),
+        np.asarray(jdec.decoder_a_apply(params["decoder_rna"], jnp.asarray(z))), **LAYER)

@@ -1,6 +1,6 @@
 """The trainer's numerics against their JAX twins on the same numpy inputs:
 train-mode BatchNorm and its running statistics, dropout's scaling, the
-RNA→DNA loss, AdamW over three steps, the plateau and early-stop state
+RNA→DNA and DNA→RNA losses, AdamW over three steps, the plateau and early-stop state
 machines (exactly) and the β schedule.
 
 Tolerances: rtol = 1e-6 for elementwise float32 work, 1e-5 for reductions
@@ -76,6 +76,21 @@ def test_rna2dna_loss_matches_jax(rng, beta):
                                float(jax_losses.kl_divergence(mu, lv)), **RED)
     np.testing.assert_allclose(port_losses.bce_with_logits_sum(T(logits), T(dna)).item(),
                                float(jax_losses.bce_with_logits_sum(logits, dna)), **RED)
+
+
+@pytest.mark.parametrize("beta", [0.0, 1e-3, 0.7])
+def test_dna2rna_loss_matches_jax(rng, beta):
+    recon = rng.normal(0, 2, size=(10, 23)).astype(np.float32)
+    rna = rng.normal(1, 2, size=(10, 23)).astype(np.float32)
+    mu = rng.normal(size=(10, 6)).astype(np.float32)
+    lv = rng.normal(0, 0.5, size=(10, 6)).astype(np.float32)
+    total, aux = port_losses.dna2rna_loss(T(recon), T(rna), T(mu), T(lv), beta)
+    jt, jaux = jax_losses.dna2rna_loss(recon, rna, mu, lv, beta=beta)
+    np.testing.assert_allclose(total.item(), float(jt), **RED)
+    for k in ("recon", "kld"):
+        np.testing.assert_allclose(aux[k].item(), float(jaux[k]), **RED)
+    np.testing.assert_allclose(port_losses.mse_sum(T(recon), T(rna)).item(),
+                               float(jax_losses.mse_sum(recon, rna)), **RED)
 
 
 def test_adamw_three_steps_match_jax(rng):

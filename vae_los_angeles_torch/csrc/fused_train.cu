@@ -1,28 +1,37 @@
-// RNA->DNA directional-VAE training step and whole epoch, for NVIDIA Hopper (sm_90a).
+// Directional-VAE training steps and whole epochs, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels
 //   * rna2dna_train_step  <- vae_los_angeles_tpu/ops/pallas/fused_train.py
 //                            _train_kernel / _train_step_call (rna2dna_fused_train_step)
 //   * rna2dna_train_epoch <- vae_los_angeles_tpu/ops/pallas/fused_epoch.py
 //                            _epoch_kernel / _epoch_call (rna2dna_fused_epoch)
+//   * dna2rna_train_step  <- fused_train.py _d2r_train_kernel / _d2r_train_step_call
+//                            (dna2rna_fused_train_step)
+//   * dna2rna_train_epoch <- fused_epoch.py _d2r_epoch_kernel / _d2r_epoch_call
+//                            (dna2rna_fused_epoch)
 //
-// One step computes what the TPU kernel computes: the train-mode forward
-// (Linear -> batch-statistics BatchNorm -> ReLU -> dropout(0.1) -> mu/logvar
-// heads; the site embedding's heads; arithmetic-mean fusion; z = mu + eps *
-// exp(logvar / 2); decoder latent -> d1 -> d2 -> out logits), the loss
+// One RNA->DNA step computes what the TPU kernel computes: the train-mode
+// forward (Linear -> batch-statistics BatchNorm -> ReLU -> dropout(0.1) ->
+// mu/logvar heads; the site embedding's heads; arithmetic-mean fusion; z = mu
+// + eps * exp(logvar / 2); decoder latent -> d1 -> d2 -> out logits), the loss
 // BCE-with-logits sum + beta * KLD, the hand-derived gradients of all 19
 // tensors of PARAM_ORDER (ops/kernels/fused_train.py) and the BatchNorm
 // running statistics (biased variance to normalise, unbiased to track,
-// momentum 0.1). The epoch runs n_batches such steps, each followed by the
-// torch-order AdamW update (decay first, bias correction at step0 + i + 1)
-// of one flat buffer holding all 19 tensors of p, m and v.
+// momentum 0.1). A DNA->RNA step (namespace d2r below) does the same for
+// EncoderB's two such blocks (512 and 256 wide), DecoderA (latent -> 128 ->
+// out, linear) and the loss MSE sum + beta * KLD: the 21 tensors of
+// PARAM_ORDER_D2R and both BatchNorms' statistics. An epoch runs n_batches
+// such steps, each followed by the torch-order AdamW update (decay first,
+// bias correction at step0 + i + 1) of one flat buffer holding all the
+// tensors of p, m and v.
 //
-// What bounds it on an H100: a step at B = 32 is ~166 MFLOP of fp32 against
-// ~7.6 MB of parameters in and gradients out, so 2.5 us of FMA at 67 TFLOP/s
-// and 2.3 us of memory at 3.35 TB/s. What the simple design below actually
-// pays is latency: ~26 dependent launches a step (~97 us of kernels, and the
-// host's enqueue of the launches, at ~130 us a step in an epoch), with the
-// parameters and moments (11 MB) resident in the 50 MB L2.
+// What bounds it on an H100: a step at B = 32 is ~166 MFLOP (RNA->DNA) or
+// ~136 MFLOP (DNA->RNA) of fp32 against ~7.6 MB of parameters in and
+// gradients out, so ~2-2.5 us of FMA at 67 TFLOP/s and ~2.3 us of memory at
+// 3.35 TB/s. What the simple design below actually pays is latency: ~25
+// dependent launches a step, enqueued by the host one after another, with the
+// parameters and moments (11 MB) resident in the 50 MB L2 (times on the card
+// in PERF.md).
 //
 // The design (simple and deterministic first):
 //   * Every product is one strided tile kernel (`gemm_kernel`, 32 x 32 output
@@ -37,6 +46,8 @@
 //     butterfly shuffles, which leave the same bits in every lane) or one
 //     thread (bias gradients), so no reduction crosses blocks. The posterior
 //     and its backward give each (row, latent) output a warp the same way.
+//     DNA->RNA's first BN block takes its upstream gradient da2 . W2^T from
+//     a split-K product's partials (bn_backward_kernel<false>).
 //   * The loss is summed per block in a fixed tree, then by one block over
 //     the block sums.
 //   * The embedding gradient (the TPU computes one_hot^T . de) gives one
@@ -44,9 +55,10 @@
 //     order; a label outside [0, sites) matches no cell and gathers a zero
 //     row, as the one-hot does.
 //   * Noise: NOISE_INJECTED reads the caller's eps (B, latent) and dropout
-//     mask (B, hidden); NOISE_PHILOX draws them from Philox4x32-10 keyed by the
-//     64-bit seed, with the counter (row, column, step, stream), stream 0 for
-//     dropout (keep iff a 24-bit uniform < 0.9) and 1 for eps (Box-Muller).
+//     masks; NOISE_PHILOX draws them from Philox4x32-10 keyed by the 64-bit
+//     seed, with the counter (row, column, step, stream): stream 0 for the
+//     (first) dropout layer, 2 for DNA->RNA's second (keep iff a 24-bit
+//     uniform < 0.9), 1 for eps (Box-Muller).
 //   * The epoch is one C entry: a host loop over the steps that enqueues each
 //     step's phases and the AdamW kernel on the caller's stream. Python crosses
 //     into C once an epoch.
@@ -75,7 +87,7 @@ constexpr int LOSS_BLOCKS = 64;
 constexpr int THREADS = 256;
 
 enum NoiseMode { NOISE_INJECTED = 0, NOISE_PHILOX = 1 };
-enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1 };
+enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1, STREAM_DROPOUT2 = 2 };
 enum Epilogue { EPI_BIAS_RELU = 0, EPI_RELU_MASK = 1 };
 
 // PARAM_ORDER of ops/kernels/fused_train.py, JAX layout: a Linear's weight
@@ -134,8 +146,10 @@ __device__ __forceinline__ uint4 philox_bits(uint64_t seed, int row, int col, in
 }
 
 // Dropout keep flag of (row, column) at a step: a 24-bit uniform < 0.9.
-__device__ __forceinline__ float philox_keep(uint64_t seed, int row, int col, int step) {
-    const uint32_t bits = philox_bits(seed, row, col, step, STREAM_DROPOUT).x;
+// Each dropout layer draws from a stream of its own.
+__device__ __forceinline__ float philox_keep(uint64_t seed, int row, int col, int step,
+                                             int stream) {
+    const uint32_t bits = philox_bits(seed, row, col, step, stream).x;
     return ((float)(bits >> 8) * (1.0f / 16777216.0f)) < KEEP ? 1.f : 0.f;
 }
 
@@ -249,13 +263,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 constexpr int WARPS = THREADS / 32;
 
 // Encoder BatchNorm (train mode), ReLU and dropout: one warp per column, its
-// lanes over the rows.
+// lanes over the rows. ``stream`` is the dropout layer's Philox stream.
 __global__ void __launch_bounds__(THREADS)
 bn_forward_kernel(const float* __restrict__ part, int splits, int B, int H,
                   const float* __restrict__ b1, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const float* rm_in, const float* rv_in,
                   float* rm_out, float* rv_out, const float* __restrict__ drop_in, int noise,
-                  uint64_t seed, int step, float* __restrict__ xhat, float* __restrict__ dcoef,
+                  uint64_t seed, int step, int stream, float* __restrict__ xhat,
+                  float* __restrict__ dcoef,
                   float* __restrict__ d, float* __restrict__ inv_std) {
     const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
@@ -280,7 +295,8 @@ bn_forward_kernel(const float* __restrict__ part, int splits, int B, int H,
         const size_t i = (size_t)r * H + j;
         const float xh = (xhat[i] - mean) * inv;
         const float h = xh * g + bb;
-        const float keep = noise == NOISE_PHILOX ? philox_keep(seed, r, j, step) : drop_in[i];
+        const float keep = noise == NOISE_PHILOX ? philox_keep(seed, r, j, step, stream)
+                                                 : drop_in[i];
         const float coef = h > 0.f ? keep / KEEP : 0.f;
         xhat[i] = xh;
         dcoef[i] = coef;
@@ -380,6 +396,31 @@ logits_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
         dlogits[idx] = 1.0f / (1.0f + expf(-l)) - tv;
     }
     red[threadIdx.x] = bce;
+    __syncthreads();
+    for (int s = THREADS / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) part[blockIdx.x] = red[0];
+}
+
+// The DNA->RNA head: recon = sum of partials + bias, diff = recon - t,
+// drecon = 2 * diff, and the sum of diff^2 per block (a fixed tree) in
+// part[block]. A fixed grid of LOSS_BLOCKS blocks, as logits_kernel.
+__global__ void __launch_bounds__(THREADS)
+mse_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
+           const float* __restrict__ bias, const float* __restrict__ t,
+           float* __restrict__ drecon, float* __restrict__ part) {
+    __shared__ float red[THREADS];
+    const size_t mn = (size_t)B * O;
+    float sq = 0.f;
+    for (size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x; idx < mn;
+         idx += (size_t)gridDim.x * THREADS) {
+        const float diff = (sum_splits(acc_part, splits, mn, idx) + bias[idx % O]) - t[idx];
+        sq = fmaf(diff, diff, sq);
+        drecon[idx] = 2.0f * diff;
+    }
+    red[threadIdx.x] = sq;
     __syncthreads();
     for (int s = THREADS / 2; s > 0; s >>= 1) {
         if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
@@ -510,13 +551,16 @@ __global__ void emb_grad_kernel(const int64_t* __restrict__ site, const float* _
     g_emb[idx] = acc;
 }
 
-// dd = dmh . wmu^T + dlh . wlv^T, dh = dd * relu mask * dropout / keep, and
-// train-mode BatchNorm's backward, one warp per column, its lanes over the
-// rows: dgamma, dbeta, da1 = inv_std * (dxhat - mean(dxhat) - xhat *
+// dd = dmh . wmu^T + dlh . wlv^T (FROM_HEADS; else dd is the sum of the
+// split-K partials dd_part of a product), dh = dd * relu mask * dropout /
+// keep, and train-mode BatchNorm's backward, one warp per column, its lanes
+// over the rows: dgamma, dbeta, da1 = inv_std * (dxhat - mean(dxhat) - xhat *
 // mean(dxhat * xhat)) and the encoder bias gradient sum(da1).
+template <bool FROM_HEADS>
 __global__ void __launch_bounds__(THREADS)
 bn_backward_kernel(const float* __restrict__ dmh, const float* __restrict__ dlh,
                    const float* __restrict__ wmu, const float* __restrict__ wlv,
+                   const float* __restrict__ dd_part, int splits,
                    const float* __restrict__ dcoef, const float* __restrict__ xhat,
                    const float* __restrict__ inv_std, const float* __restrict__ gamma, int B,
                    int H, int L, float* __restrict__ da1, float* __restrict__ g_gamma,
@@ -526,12 +570,16 @@ bn_backward_kernel(const float* __restrict__ dmh, const float* __restrict__ dlh,
     if (k >= H) return;  // warp-uniform
     float sdh = 0.f, sdhx = 0.f;
     for (int r = lane; r < B; r += 32) {
-        float dd = 0.f;
-        for (int j = 0; j < L; ++j) {
-            dd = fmaf(dmh[(size_t)r * L + j], wmu[(size_t)k * L + j], dd);
-            dd = fmaf(dlh[(size_t)r * L + j], wlv[(size_t)k * L + j], dd);
-        }
         const size_t i = (size_t)r * H + k;
+        float dd = 0.f;
+        if (FROM_HEADS) {
+            for (int j = 0; j < L; ++j) {
+                dd = fmaf(dmh[(size_t)r * L + j], wmu[(size_t)k * L + j], dd);
+                dd = fmaf(dlh[(size_t)r * L + j], wlv[(size_t)k * L + j], dd);
+            }
+        } else {
+            dd = sum_splits(dd_part, splits, (size_t)B * H, i);
+        }
         const float dh = dd * dcoef[i];
         da1[i] = dh;
         sdh += dh;
@@ -559,12 +607,13 @@ bn_backward_kernel(const float* __restrict__ dmh, const float* __restrict__ dlh,
 }
 
 // The noise NOISE_PHILOX draws at (seed, step): dropout keep flags
-// (B, hidden) and eps (B, latent), for checking its statistics.
-__global__ void noise_kernel(uint64_t seed, int step, int B, int H, int L, float* __restrict__ keep,
-                             float* __restrict__ eps) {
+// (B, hidden) of one stream and, when eps is given, eps (B, latent), for
+// checking its statistics.
+__global__ void noise_kernel(uint64_t seed, int step, int B, int H, int stream, int L,
+                             float* __restrict__ keep, float* __restrict__ eps) {
     const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx < B * H) keep[idx] = philox_keep(seed, idx / H, idx % H, step);
-    if (idx < B * L) eps[idx] = philox_normal(seed, idx / L, idx % L, step);
+    if (idx < B * H) keep[idx] = philox_keep(seed, idx / H, idx % H, step, stream);
+    if (eps && idx < B * L) eps[idx] = philox_normal(seed, idx / L, idx % L, step);
 }
 
 // torch-order AdamW over one flat buffer: decay first, then the
@@ -656,7 +705,7 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H, 1}, w.scratch, B, H, X, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H, P[B1], P[GAMMA], P[BNBETA], rm_in, rv_in, rm_out, rv_out, drop_in,
-        noise, seed, step, w.xhat, w.dcoef, w.d, w.inv_std);
+        noise, seed, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
     LAUNCHED();
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
@@ -709,9 +758,9 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[SMU_W],
                                                                P[SLV_W], B, S, E, L, G[EMB]);
     LAUNCHED();
-    bn_backward_kernel<<<blocks(H, WARPS), THREADS, 0, st>>>(w.dmh, w.dlh, P[WMU], P[WLV], w.dcoef,
-                                                       w.xhat, w.inv_std, P[GAMMA], B, H, L,
-                                                       w.da1, G[GAMMA], G[BNBETA], G[B1]);
+    bn_backward_kernel<true><<<blocks(H, WARPS), THREADS, 0, st>>>(
+        w.dmh, w.dlh, P[WMU], P[WLV], nullptr, 0, w.dcoef, w.xhat, w.inv_std, P[GAMMA], B, H, L,
+        w.da1, G[GAMMA], G[BNBETA], G[B1]);
     LAUNCHED();
     CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H, 1}, G[W1], X, H, B, 1, st, nullptr));
     return 0;
@@ -725,6 +774,181 @@ bool valid(const Dims& d, int B) {
 Dims dims_from(const int* dims) {
     return Dims{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7]};
 }
+
+// ---------------------------------------------------------------------------
+// DNA->RNA: EncoderB (two Linear -> BatchNorm -> ReLU -> dropout blocks),
+// the site posterior, DecoderA (latent -> d1 -> ReLU -> out, linear), MSE sum
+// + beta * KLD. The same phase kernels as RNA->DNA; what differs is the
+// chain: two BN blocks (the second's dropout on Philox stream
+// STREAM_DROPOUT2), block 1's upstream gradient dd1 = da2 . W2^T as a split-K
+// product read by the buffered BN backward, and the MSE head.
+namespace d2r {
+
+// PARAM_ORDER_D2R of ops/kernels/fused_train.py, JAX layout.
+enum Param {
+    W1, B1, G1, BT1, W2, B2, G2, BT2, WMU, BMU, WLV, BLV, EMB, SMU_W, SMU_B, SLV_W, SLV_B,
+    D1W, D1B, D2W, D2B, N_PARAMS
+};
+
+struct Dims {
+    int in, h1, h2, latent, sites, embed, d1, out;
+};
+
+Dims from(const int* dims) {
+    return Dims{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7]};
+}
+
+bool valid(const Dims& d, int B) {
+    return B >= 1 && d.in > 0 && d.h1 > 0 && d.h2 > 0 && d.latent > 0 && d.sites > 0 &&
+           d.embed > 0 && d.d1 > 0 && d.out > 0;
+}
+
+long long param_offsets(const Dims& d, long long* off) {
+    long long s[N_PARAMS];
+    s[W1] = (long long)d.in * d.h1; s[B1] = d.h1; s[G1] = d.h1; s[BT1] = d.h1;
+    s[W2] = (long long)d.h1 * d.h2; s[B2] = d.h2; s[G2] = d.h2; s[BT2] = d.h2;
+    s[WMU] = (long long)d.h2 * d.latent; s[BMU] = d.latent;
+    s[WLV] = (long long)d.h2 * d.latent; s[BLV] = d.latent;
+    s[EMB] = (long long)d.sites * d.embed;
+    s[SMU_W] = (long long)d.embed * d.latent; s[SMU_B] = d.latent;
+    s[SLV_W] = (long long)d.embed * d.latent; s[SLV_B] = d.latent;
+    s[D1W] = (long long)d.latent * d.d1; s[D1B] = d.d1;
+    s[D2W] = (long long)d.d1 * d.out; s[D2B] = d.out;
+    long long total = 0;
+    for (int i = 0; i < N_PARAMS; ++i) {
+        off[i] = total;
+        total += s[i];
+    }
+    return total;
+}
+
+struct Work {
+    float *xhat1, *dcoef1, *d1, *inv1, *xhat2, *dcoef2, *d2, *inv2, *e, *mu, *lv, *epsv, *sigma,
+        *z, *rd1, *drecon, *du1, *dmh, *dlh, *da2, *da1, *part, *scratch, *grads;
+    size_t total;
+};
+
+Work plan(float* base, const Dims& d, int B, bool with_grads) {
+    Work w;
+    size_t o = 0;
+    auto take = [&](size_t n) {
+        float* p = base ? base + o : nullptr;
+        o += (n + 3) & ~(size_t)3;
+        return p;
+    };
+    const size_t BH1 = (size_t)B * d.h1, BH2 = (size_t)B * d.h2, BL = (size_t)B * d.latent;
+    w.xhat1 = take(BH1); w.dcoef1 = take(BH1); w.d1 = take(BH1); w.inv1 = take(d.h1);
+    w.xhat2 = take(BH2); w.dcoef2 = take(BH2); w.d2 = take(BH2); w.inv2 = take(d.h2);
+    w.e = take((size_t)B * d.embed);
+    w.mu = take(BL); w.lv = take(BL); w.epsv = take(BL); w.sigma = take(BL); w.z = take(BL);
+    w.rd1 = take((size_t)B * d.d1); w.drecon = take((size_t)B * d.out);
+    w.du1 = take((size_t)B * d.d1);
+    w.dmh = take(BL); w.dlh = take(BL); w.da2 = take(BH2); w.da1 = take(BH1);
+    w.part = take(LOSS_BLOCKS);
+    // the largest split-K product's partial sums
+    const int shapes[6][3] = {{B, d.h1, d.in}, {B, d.h2, d.h1}, {B, d.d1, d.latent},
+                              {B, d.out, d.d1}, {B, d.d1, d.out}, {B, d.h1, d.h2}};
+    size_t scratch = 0;
+    for (auto& s : shapes) {
+        const Split sp = split_for(s[0], s[1], s[2], 1 << 20);
+        scratch = max_sz(scratch, (size_t)sp.splits * s[0] * s[1]);
+    }
+    w.scratch = take(scratch);
+    long long off[N_PARAMS];
+    w.grads = with_grads ? take((size_t)param_offsets(d, off)) : nullptr;
+    w.total = o;
+    return w;
+}
+
+// One step: forward, loss, every gradient, the new running stats of both
+// BatchNorms. bn_in/bn_out: rm1 (h1), rv1 (h1), rm2 (h2), rv2 (h2).
+int step_phases(const float* x, const float* t, const int64_t* site, const float* p,
+                const Dims& d, int B, const float* bn_in, float* bn_out, const float* eps_in,
+                const float* drop1_in, const float* drop2_in, int noise, uint64_t seed, int step,
+                float beta, float* loss, float* g, const Work& w, cudaStream_t st) {
+    long long off[N_PARAMS];
+    param_offsets(d, off);
+    const float* P[N_PARAMS];
+    float* G[N_PARAMS];
+    for (int i = 0; i < N_PARAMS; ++i) {
+        P[i] = p + off[i];
+        G[i] = g + off[i];
+    }
+    const int X = d.in, H1 = d.h1, H2 = d.h2, L = d.latent, S = d.sites, E = d.embed;
+    const int D1 = d.d1, O = d.out;
+    int sp = 1;
+    const int BIG = 1 << 20;
+
+    // ---- forward: encoder blocks 1 and 2, posterior, decoder, loss ----
+    CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H1, 1}, w.scratch, B, H1, X, BIG, st, &sp));
+    bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, B, H1, P[B1], P[G1], P[BT1], bn_in, bn_in + H1, bn_out, bn_out + H1,
+        drop1_in, noise, seed, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.d1, H1, 1}, Mat{P[W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
+    const float* bn2_in = bn_in + 2 * H1;
+    float* bn2_out = bn_out + 2 * H1;
+    bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, B, H2, P[B2], P[G2], P[BT2], bn2_in, bn2_in + H2, bn2_out, bn2_out + H2,
+        drop2_in, noise, seed, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2, w.inv2);
+    LAUNCHED();
+    const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
+                         P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
+    posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
+        w.d2, site, heads, B, H2, L, S, E, eps_in, noise, seed, step, w.e, w.mu, w.lv, w.epsv,
+        w.sigma, w.z);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.scratch, B, D1, L, BIG, st, &sp));
+    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, P[D1B],
+                                                                nullptr, w.rd1, EPI_BIAS_RELU);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.rd1, D1, 1}, Mat{P[D2W], O, 1}, w.scratch, B, O, D1, BIG, st, &sp));
+    mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, O, P[D2B], t, w.drecon,
+                                                w.part);
+    LAUNCHED();
+    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, loss);
+    LAUNCHED();
+
+    // ---- backward: decoder ----
+    CHECK(gemm(Mat{w.rd1, 1, D1}, Mat{w.drecon, O, 1}, G[D2W], D1, O, B, 1, st, nullptr));
+    colsum_kernel<<<blocks(O), THREADS, 0, st>>>(w.drecon, B, O, G[D2B]);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.drecon, O, 1}, Mat{P[D2W], 1, O}, w.scratch, B, D1, O, BIG, st, &sp));
+    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, nullptr,
+                                                                w.rd1, w.du1, EPI_RELU_MASK);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, st, nullptr));
+    colsum_kernel<<<blocks(D1), THREADS, 0, st>>>(w.du1, B, D1, G[D1B]);
+    LAUNCHED();
+
+    // ---- backward: posterior, heads, site embedding ----
+    posterior_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
+        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, w.dmh, w.dlh);
+    LAUNCHED();
+    const HeadGrads hg = {G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
+    head_grads_kernel<<<blocks((size_t)2 * H2 * L + 2 * E * L + 2 * L), THREADS, 0, st>>>(
+        w.d2, w.e, w.dmh, w.dlh, B, H2, E, L, hg);
+    LAUNCHED();
+    emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[SMU_W],
+                                                               P[SLV_W], B, S, E, L, G[EMB]);
+    LAUNCHED();
+
+    // ---- backward: encoder block 2, then block 1 through dd1 = da2 . W2^T ----
+    bn_backward_kernel<true><<<blocks(H2, WARPS), THREADS, 0, st>>>(
+        w.dmh, w.dlh, P[WMU], P[WLV], nullptr, 0, w.dcoef2, w.xhat2, w.inv2, P[G2], B, H2, L,
+        w.da2, G[G2], G[BT2], G[B2]);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.d1, 1, H1}, Mat{w.da2, H2, 1}, G[W2], H1, H2, B, 1, st, nullptr));
+    CHECK(gemm(Mat{w.da2, H2, 1}, Mat{P[W2], 1, H2}, w.scratch, B, H1, H2, BIG, st, &sp));
+    bn_backward_kernel<false><<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        nullptr, nullptr, nullptr, nullptr, w.scratch, sp, w.dcoef1, w.xhat1, w.inv1, P[G1], B,
+        H1, 0, w.da1, G[G1], G[BT1], G[B1]);
+    LAUNCHED();
+    CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H1, 1}, G[W1], X, H1, B, 1, st, nullptr));
+    return 0;
+}
+
+}  // namespace d2r
 
 }  // namespace
 
@@ -806,8 +1030,100 @@ int rna2dna_train_noise(unsigned long long seed, int step, int batch, int hidden
                         float* keep, float* eps, void* stream) {
     if (batch < 1 || hidden < 1 || latent < 1) return (int)cudaErrorInvalidValue;
     const size_t n = (size_t)batch * (hidden > latent ? hidden : latent);
-    noise_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>((uint64_t)seed, step, batch,
-                                                                  hidden, latent, keep, eps);
+    noise_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (uint64_t)seed, step, batch, hidden, STREAM_DROPOUT, latent, keep, eps);
+    return (int)cudaGetLastError();
+}
+
+// ---- DNA->RNA ------------------------------------------------------------
+
+// Floats in one DNA->RNA parameter buffer (the 21 tensors of
+// PARAM_ORDER_D2R). dims: in, h1, h2, latent, sites, embed, d1, out.
+long long dna2rna_param_count(const int* dims) {
+    long long off[d2r::N_PARAMS];
+    return d2r::param_offsets(d2r::from(dims), off);
+}
+
+// Floats of device workspace a DNA->RNA step (with_grads 0) or epoch
+// (with_grads 1) needs at this batch size.
+long long dna2rna_train_workspace_floats(const int* dims, int batch, int with_grads) {
+    return (long long)d2r::plan(nullptr, d2r::from(dims), batch, with_grads != 0).total;
+}
+
+// One DNA->RNA train step. x (B, in) the DNA input, t (B, out) the RNA
+// target, site (B,) int64; params: the flat parameter buffer; bn_in/bn_out:
+// rm1, rv1 (h1) and rm2, rv2 (h2) in one buffer each; eps_in (B, latent),
+// drop1_in (B, h1) and drop2_in (B, h2) when noise == 0, ignored when 1
+// (Philox); loss (1,), grads: a flat buffer like params; work:
+// dna2rna_train_workspace_floats(dims, B, 0) floats.
+int dna2rna_train_step(const float* x, const float* t, const int64_t* site, const float* params,
+                       const int* dims, int batch, const float* bn_in, float* bn_out,
+                       const float* eps_in, const float* drop1_in, const float* drop2_in,
+                       int noise, unsigned long long seed, int step, float beta, float* loss,
+                       float* grads, float* work, void* stream) {
+    const d2r::Dims d = d2r::from(dims);
+    if (!d2r::valid(d, batch) ||
+        (noise == NOISE_INJECTED && (!eps_in || !drop1_in || !drop2_in)) ||
+        (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const d2r::Work w = d2r::plan(work, d, batch, false);
+    return d2r::step_phases(x, t, site, params, d, batch, bn_in, bn_out, eps_in, drop1_in,
+                            drop2_in, noise, (uint64_t)seed, step, beta, loss, grads, w,
+                            (cudaStream_t)stream);
+}
+
+// One DNA->RNA epoch of n_batches steps on x_ep (n_batches * B, in), t_ep,
+// site_ep, eps_ep/drop1_ep/drop2_ep (injected mode), updating params, m, v
+// (flat buffers) and bn (rm1, rv1, rm2, rv2) in place; losses (n_batches,).
+// Step i draws its noise with step index i and applies AdamW with bias
+// correction at step0 + i + 1.
+int dna2rna_train_epoch(const float* x_ep, const float* t_ep, const int64_t* site_ep,
+                        float* params, float* m, float* v, const int* dims, int batch,
+                        int n_batches, float* bn, const float* eps_ep, const float* drop1_ep,
+                        const float* drop2_ep, int noise, unsigned long long seed, float beta,
+                        float lr, float wd, long long step0, float* losses, float* work,
+                        void* stream) {
+    const d2r::Dims d = d2r::from(dims);
+    if (!d2r::valid(d, batch) || n_batches < 1 ||
+        (noise == NOISE_INJECTED && (!eps_ep || !drop1_ep || !drop2_ep)) ||
+        (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    const d2r::Work w = d2r::plan(work, d, batch, true);
+    long long off[d2r::N_PARAMS];
+    const long long n_params = d2r::param_offsets(d, off);
+    const bool inj = noise == NOISE_INJECTED;
+    for (int i = 0; i < n_batches; ++i) {
+        const size_t r0 = (size_t)i * batch;
+        CHECK(d2r::step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d,
+                               batch, bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
+                               inj ? drop1_ep + r0 * d.h1 : nullptr,
+                               inj ? drop2_ep + r0 * d.h2 : nullptr, noise, (uint64_t)seed, i,
+                               beta, losses + i, w.grads, w, st));
+        const double t_step = (double)(step0 + i + 1);
+        const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
+        const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(params, m, v, w.grads,
+                                                                    n_params, lr, wd, bc1, bc2);
+        LAUNCHED();
+    }
+    return 0;
+}
+
+// The dropout masks (B, h1), (B, h2) and eps (B, latent) that a DNA->RNA
+// step at (seed, step) draws in NOISE_PHILOX mode.
+int dna2rna_train_noise(unsigned long long seed, int step, int batch, int h1, int h2, int latent,
+                        float* keep1, float* keep2, float* eps, void* stream) {
+    if (batch < 1 || h1 < 1 || h2 < 1 || latent < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t n = (size_t)batch * (h1 > latent ? h1 : latent);
+    noise_kernel<<<blocks(n), THREADS, 0, st>>>((uint64_t)seed, step, batch, h1, STREAM_DROPOUT,
+                                                latent, keep1, eps);
+    LAUNCHED();
+    noise_kernel<<<blocks((size_t)batch * h2), THREADS, 0, st>>>(
+        (uint64_t)seed, step, batch, h2, STREAM_DROPOUT2, 0, keep2, nullptr);
     return (int)cudaGetLastError();
 }
 

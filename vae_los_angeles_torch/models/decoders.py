@@ -8,8 +8,9 @@
     as the JAX package's ``decoder_b_apply_logits`` does. The reference's
     trailing Sigmoid has no parameters, so the keys are unchanged.
 
-`decoder_b_apply_logits` is the same chain on the JAX package's parameter
-tree (``fc1``/``fc2``/``fc3``), for the trainer.
+`decoder_a_apply` and `decoder_b_apply_logits` are the same chains on the
+JAX package's parameter trees (``fc1``/``fc2`` and ``fc1``/``fc2``/``fc3``),
+for the trainer.
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ class DecoderB(nn.Module):
     def forward(self, z):
         """Logits (pre-sigmoid)."""
         return self.fc(z)
+
+
+def decoder_a_apply(params, z):
+    """DecoderA on a params tree: the RNA reconstruction (linear head)."""
+    return linear_apply(params["fc2"], torch.relu(linear_apply(params["fc1"], z)))
 
 
 def decoder_b_apply_logits(params, z):

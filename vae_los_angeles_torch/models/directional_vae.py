@@ -13,13 +13,14 @@ Either input may be None (the unmatched-cohort path imputes without a site).
 unfused reference and the home of the weights.
 
 Training works on the JAX package's ``(params, state)`` trees of tensors
-(the checkpoint layout and the kernels' layout): `rna2dna_vae_init` draws
-them from a ``torch.Generator`` with PyTorch's default initialisations, and
-`rna2dna_vae_apply` is the train- or eval-mode forward of
-``vae_los_angeles_tpu/models/directional_vae.py``'s ``rna2dna_vae_apply``,
-with the new BatchNorm state in its output. Its noise (the dropout mask and
-the reparameterisation's eps) is injected for tests or drawn from an
-explicit generator.
+(the checkpoint layout and the kernels' layout): `rna2dna_vae_init` and
+`dna2rna_vae_init` draw them from a ``torch.Generator`` with PyTorch's
+default initialisations, and `rna2dna_vae_apply` and `dna2rna_vae_apply` are
+the train- or eval-mode forwards of
+``vae_los_angeles_tpu/models/directional_vae.py``'s functions of those names,
+with the new BatchNorm state in their output. Their noise (the dropout
+masks and the reparameterisation's eps) is injected for tests or drawn from
+an explicit generator.
 """
 
 from __future__ import annotations
@@ -29,12 +30,18 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from vae_los_angeles_torch.models.decoders import DecoderA, DecoderB, decoder_b_apply_logits
+from vae_los_angeles_torch.models.decoders import (
+    DecoderA,
+    DecoderB,
+    decoder_a_apply,
+    decoder_b_apply_logits,
+)
 from vae_los_angeles_torch.models.encoders import (
     EncoderA,
     EncoderB,
     EncoderC,
     encoder_a_apply,
+    encoder_b_apply,
     encoder_c_apply,
 )
 from vae_los_angeles_torch.models.vae import fuse_posteriors, reparameterize
@@ -110,14 +117,27 @@ class DirectionalVAEOutput(NamedTuple):
     state: dict
 
 
+def _init(model_cls, model_type, generator, rna_dim, dna_dim, n_sites, latent_dim, embed_dim,
+          device):
+    module = reset_parameters(model_cls(rna_dim, dna_dim, n_sites, latent_dim, embed_dim),
+                              generator)
+    params, state = jax_from_state_dict(module.state_dict(), model_type)
+    return tree_from_numpy(params, device), tree_from_numpy(state, device)
+
+
 def rna2dna_vae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_sites: int,
                      latent_dim: int, embed_dim: int = 32, device=None):
     """(params, state) trees of an RNA2DNAVAE with PyTorch's default
     initialisations drawn from ``generator`` (a CPU generator), on ``device``."""
-    module = reset_parameters(RNA2DNAVAE(rna_dim, dna_dim, n_sites, latent_dim, embed_dim),
-                              generator)
-    params, state = jax_from_state_dict(module.state_dict(), "rna2dna")
-    return tree_from_numpy(params, device), tree_from_numpy(state, device)
+    return _init(RNA2DNAVAE, "rna2dna", generator, rna_dim, dna_dim, n_sites, latent_dim,
+                 embed_dim, device)
+
+
+def dna2rna_vae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_sites: int,
+                     latent_dim: int, embed_dim: int = 32, device=None):
+    """(params, state) trees of a DNA2RNAVAE, as `rna2dna_vae_init`."""
+    return _init(DNA2RNAVAE, "dna2rna", generator, rna_dim, dna_dim, n_sites, latent_dim,
+                 embed_dim, device)
 
 
 def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False,
@@ -143,3 +163,30 @@ def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False
     z = reparameterize(mu, logvar, eps, generator)
     logits = decoder_b_apply_logits(params["decoder_dna"], z)
     return DirectionalVAEOutput(torch.sigmoid(logits), logits, mu, logvar, new_state)
+
+
+def dna2rna_vae_apply(params, state, dna=None, site=None, *, train: bool = False,
+                      eps: Optional[torch.Tensor] = None,
+                      drop_mask1: Optional[torch.Tensor] = None,
+                      drop_mask2: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> DirectionalVAEOutput:
+    """DNA2RNAVAE forward on a params tree; ``eps`` and the encoder's two
+    dropout masks inject the noise, else it is drawn from ``generator``.
+    ``recon_logits`` is ``recon`` (a linear head)."""
+    if dna is None and site is None:
+        raise ValueError("at least one of dna/site must be provided")
+    mus, logvars, new_state = [], [], dict(state)
+    if dna is not None:
+        mu_d, lv_d, new_state["encoder_dna"] = encoder_b_apply(
+            params["encoder_dna"], state["encoder_dna"], dna, train=train,
+            drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator)
+        mus.append(mu_d)
+        logvars.append(lv_d)
+    if site is not None:
+        mu_s, lv_s = encoder_c_apply(params["encoder_site"], site)
+        mus.append(mu_s)
+        logvars.append(lv_s)
+    mu, logvar = fuse_posteriors(mus, logvars)
+    z = reparameterize(mu, logvar, eps, generator)
+    recon = decoder_a_apply(params["decoder_rna"], z)
+    return DirectionalVAEOutput(recon, recon, mu, logvar, new_state)

@@ -17,7 +17,8 @@ Each forward returns (mu, logvar).
 The trainer's train-mode forward is functional, on the JAX package's
 parameter trees (``vae_los_angeles_tpu/models/encoders.py``): `encoder_a_apply`
 (Linear → BatchNorm with batch statistics → ReLU → dropout, returning the new
-BatchNorm state) and `encoder_c_apply` (the site embedding's heads).
+BatchNorm state), `encoder_b_apply` (two such blocks, returning both BatchNorm
+states) and `encoder_c_apply` (the site embedding's heads).
 """
 
 from __future__ import annotations
@@ -81,6 +82,24 @@ def encoder_a_apply(params, state, x, *, train: bool, drop_mask=None, generator=
     h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask,
                       generator=generator)
     return linear_apply(params["mu"], h), linear_apply(params["logvar"], h), {"bn": bn_s}
+
+
+def encoder_b_apply(params, state, x, *, train: bool, drop_mask1=None, drop_mask2=None,
+                    generator=None):
+    """EncoderB on a params tree: returns (mu, logvar, new_state) with the
+    new state of both BatchNorms. In train mode the dropout masks (B, 512)
+    and (B, 256) are ``drop_mask1``/``drop_mask2`` or drawn from
+    ``generator``, block 1's first."""
+    h = linear_apply(params["fc1"], x.reshape(x.shape[0], -1))
+    h, bn1 = batchnorm_apply(params["bn1"], state["bn1"], h, train=train)
+    h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask1,
+                      generator=generator)
+    h = linear_apply(params["fc2"], h)
+    h, bn2 = batchnorm_apply(params["bn2"], state["bn2"], h, train=train)
+    h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask2,
+                      generator=generator)
+    return (linear_apply(params["mu"], h), linear_apply(params["logvar"], h),
+            {"bn1": bn1, "bn2": bn2})
 
 
 def encoder_c_apply(params, site):

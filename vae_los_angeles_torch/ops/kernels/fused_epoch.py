@@ -1,6 +1,6 @@
-"""Whole RNA2DNAVAE training epoch: every step of the epoch and its AdamW
-update in one call (counterpart of the rna2dna part of
-``vae_los_angeles_tpu/ops/pallas/fused_epoch.py``).
+"""Whole directional-VAE training epoch: every step of the epoch and its
+AdamW update in one call (counterpart of
+``vae_los_angeles_tpu/ops/pallas/fused_epoch.py``, both directions).
 
 ``losses, new_params, new_m, new_v, new_bn = rna2dna_fused_epoch(params,
 opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_sites, seed=..., beta=...,
@@ -23,7 +23,14 @@ together or not at all; without them step i draws from Philox keyed by
 ``seed`` with step index i (the kernel), or from the plain version's
 generator for (seed, i).
 
-``launches`` counts calls of the epoch entry, one an epoch.
+``dna2rna_fused_epoch`` takes the same arguments for a DNA2RNAVAE, with
+``x_ep`` the DNA input, ``t_ep`` the RNA target and the two dropout masks
+``drop1_ep`` (n·B, 512) and ``drop2_ep`` (n·B, 256): ``dna2rna_train_epoch``
+in the same source on CUDA tensors (21 tensors in each of p, m and v, both
+BatchNorms' running statistics in one buffer), `dna2rna_epoch_reference`
+on CPU tensors.
+
+``launches`` counts calls of the epoch entries, one an epoch.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 
-launches = {"rna2dna_train_epoch": 0}
+launches = {"rna2dna_train_epoch": 0, "dna2rna_train_epoch": 0}
 
 
 def rna2dna_epoch_reference(flat_p, flat_m, flat_v, rm, rv, x_ep, t_ep, site_ep, eps_ep,
@@ -59,13 +66,10 @@ def rna2dna_epoch_reference(flat_p, flat_m, flat_v, rm, rv, x_ep, t_ep, site_ep,
     return torch.stack(losses), p, opt["m"], opt["v"], rm, rv
 
 
-def rna2dna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_sites, *,
-                        seed=0, beta=1e-3, lr=5e-4, weight_decay=1e-5, step0=0, n_batches,
-                        eps_ep=None, drop_ep=None):
-    """One epoch of ``n_batches`` AdamW steps. Returns (per-batch losses,
-    new_params, new_m, new_v, new_bn_state)."""
+def _check_epoch(x_ep, n_batches):
+    """Rows of the epoch, after checking that ``n_batches`` divides them
+    into batches of 2 or more."""
     rows = x_ep.shape[0] if isinstance(x_ep, torch.Tensor) else 0
-    n_batches = int(n_batches)
     if n_batches < 1 or rows % n_batches:
         raise ValueError(
             f"epoch row count {rows} not divisible by n_batches={n_batches}: rows would "
@@ -74,17 +78,31 @@ def rna2dna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_s
         )
     if rows // n_batches < 2:
         raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {rows // n_batches}")
+    return rows
+
+
+def _check_moments(order, flat_p, flat_m, flat_v, dev, seed):
+    for name, _ in order:
+        for tree, t in (("m", flat_m[name]), ("v", flat_v[name])):
+            ft.check_tensor(f"{tree}/{name}", t, dev, torch.float32, flat_p[name].shape)
+    if not 0 <= seed < 2**63:
+        raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+
+
+def rna2dna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_sites, *,
+                        seed=0, beta=1e-3, lr=5e-4, weight_decay=1e-5, step0=0, n_batches,
+                        eps_ep=None, drop_ep=None):
+    """One epoch of ``n_batches`` AdamW steps. Returns (per-batch losses,
+    new_params, new_m, new_v, new_bn_state)."""
+    n_batches = int(n_batches)
+    rows = _check_epoch(x_ep, n_batches)
     use_prng = ft.check_noise_args(eps_ep=eps_ep, drop_ep=drop_ep)
     flat_p, flat_m, flat_v = (ft.flatten_params(t) for t in (params, opt_m, opt_v))
     bn = bn_state["encoder_rna"]["bn"]
     dev = ft.check_step_inputs(flat_p, bn["mean"], bn["var"], x_ep, t_ep, site_ep, n_sites,
                                eps_ep, drop_ep, rows)
-    for name, _ in ft.PARAM_ORDER:
-        for tree, t in (("m", flat_m[name]), ("v", flat_v[name])):
-            ft.check_tensor(f"{tree}/{name}", t, dev, torch.float32, flat_p[name].shape)
     seed, step0 = int(seed), int(step0)
-    if not 0 <= seed < 2**63:
-        raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+    _check_moments(ft.PARAM_ORDER, flat_p, flat_m, flat_v, dev, seed)
     if dev.type == "cpu":
         losses, p, m, v, rm, rv = rna2dna_epoch_reference(
             flat_p, flat_m, flat_v, bn["mean"], bn["var"], x_ep, t_ep, site_ep, eps_ep, drop_ep,
@@ -120,3 +138,81 @@ def _launch_epoch(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, eps_ep, drop_
     ft.raise_on(lib, err, "rna2dna_train_epoch")
     launches["rna2dna_train_epoch"] += 1
     return (losses, ft.unpack(p, flat_p), ft.unpack(m, flat_p), ft.unpack(v, flat_p), rm, rv)
+
+
+def dna2rna_epoch_reference(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, eps_ep, drop1_ep,
+                            drop2_ep, *, seed, beta, lr, weight_decay, step0, n_batches):
+    """Plain version: returns (losses, p, m, v, bn) with {name: tensor}
+    trees and ``bn`` = (rm1, rv1, rm2, rv2)."""
+    batch = x_ep.shape[0] // n_batches
+    _, h1, h2, latent, *_ = ft.dims_of_d2r(flat_p)
+    opt = {"step": torch.tensor(step0, dtype=torch.int32, device=x_ep.device),
+           "m": dict(flat_m), "v": dict(flat_v)}
+    p, losses = dict(flat_p), []
+    for i in range(n_batches):
+        rows = slice(i * batch, (i + 1) * batch)
+        if eps_ep is None:
+            eps, drop1, drop2 = ft.draw_noise_d2r(batch, latent, h1, h2, seed, i, x_ep.device)
+        else:
+            eps, drop1, drop2 = eps_ep[rows], drop1_ep[rows], drop2_ep[rows]
+        loss, grads, bn = ft.dna2rna_train_step_reference(
+            p, bn, x_ep[rows], t_ep[rows], site_ep[rows], eps, drop1, drop2, beta)
+        losses.append(loss)
+        p, opt = optim.adamw_update(p, grads, opt, lr, weight_decay)
+    return torch.stack(losses), p, opt["m"], opt["v"], bn
+
+
+def dna2rna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_sites, *,
+                        seed=0, beta=1e-3, lr=5e-4, weight_decay=1e-5, step0=0, n_batches,
+                        eps_ep=None, drop1_ep=None, drop2_ep=None):
+    """One DNA→RNA epoch of ``n_batches`` AdamW steps; ``x_ep`` is the
+    epoch's DNA input, ``t_ep`` the RNA target. Returns (per-batch losses,
+    new_params, new_m, new_v, new_bn_state)."""
+    n_batches = int(n_batches)
+    rows = _check_epoch(x_ep, n_batches)
+    use_prng = ft.check_noise_args(eps_ep=eps_ep, drop1_ep=drop1_ep, drop2_ep=drop2_ep)
+    order = ft.PARAM_ORDER_D2R
+    flat_p, flat_m, flat_v = (ft.flatten_params(t, order) for t in (params, opt_m, opt_v))
+    bn = ft.bn_d2r(bn_state)
+    dev = ft.check_d2r_inputs(flat_p, bn, x_ep, t_ep, site_ep, n_sites, eps_ep, drop1_ep,
+                              drop2_ep, rows)
+    seed, step0 = int(seed), int(step0)
+    _check_moments(order, flat_p, flat_m, flat_v, dev, seed)
+    if dev.type == "cpu":
+        losses, p, m, v, bn = dna2rna_epoch_reference(
+            flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, eps_ep, drop1_ep, drop2_ep,
+            seed=seed, beta=float(beta), lr=float(lr), weight_decay=float(weight_decay),
+            step0=step0, n_batches=n_batches)
+    else:
+        losses, p, m, v, bn = _launch_epoch_d2r(
+            flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, (eps_ep, drop1_ep, drop2_ep),
+            use_prng, seed, float(beta), float(lr), float(weight_decay), step0, n_batches)
+    return (losses, ft.unflatten(p, order), ft.unflatten(m, order), ft.unflatten(v, order),
+            ft.bn_d2r_tree(bn))
+
+
+def _launch_epoch_d2r(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, noise, use_prng, seed,
+                      beta, lr, wd, step0, n_batches):
+    lib = ft.library()
+    order = ft.PARAM_ORDER_D2R
+    dev = x_ep.device
+    batch = x_ep.shape[0] // n_batches
+    dims_t = ft.dims_of_d2r(flat_p)
+    dims = (ctypes.c_int * 8)(*dims_t)
+    p, m, v = (ft.pack(t, order) for t in (flat_p, flat_m, flat_v))
+    bn_buf = torch.cat(bn)
+    losses = torch.empty(n_batches, device=dev, dtype=torch.float32)
+    work = torch.empty(lib.dna2rna_train_workspace_floats(dims, batch, 1), device=dev,
+                       dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    noise_ptrs = (None, None, None) if use_prng else tuple(t.data_ptr() for t in noise)
+    with torch.cuda.device(dev):
+        err = lib.dna2rna_train_epoch(
+            x_ep.data_ptr(), t_ep.data_ptr(), site_ep.data_ptr(), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), dims, batch, n_batches, bn_buf.data_ptr(), *noise_ptrs,
+            ft.NOISE_PHILOX if use_prng else ft.NOISE_INJECTED, seed, beta, lr, wd, step0,
+            losses.data_ptr(), work.data_ptr(), stream)
+    ft.raise_on(lib, err, "dna2rna_train_epoch")
+    launches["dna2rna_train_epoch"] += 1
+    return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
+            ft.unpack(v, flat_p, order), ft.split_bn(bn_buf, dims_t[1], dims_t[2]))

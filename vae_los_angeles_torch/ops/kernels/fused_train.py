@@ -1,25 +1,34 @@
-"""One fused RNA2DNAVAE train step: forward and hand-derived backward
-(counterpart of the rna2dna part of ``vae_los_angeles_tpu/ops/pallas/fused_train.py``).
+"""One fused directional-VAE train step: forward and hand-derived backward
+(counterpart of ``vae_los_angeles_tpu/ops/pallas/fused_train.py``, both
+directions).
 
 ``loss, grads, new_state = rna2dna_fused_train_step(params, state, rna, dna,
 site, n_sites, seed=..., step=..., beta=..., eps=..., drop_mask=...)`` takes
 the JAX package's ``(params, state)`` trees (tensors in its layout) and
 returns the sum loss BCE + beta * KLD, the gradients of all 19 tensors of
-`PARAM_ORDER` as a tree, and the new BatchNorm running statistics:
+`PARAM_ORDER` as a tree, and the new BatchNorm running statistics.
+``dna2rna_fused_train_step(params, state, rna, dna, site, n_sites, seed=...,
+step=..., beta=..., eps=..., drop_mask1=..., drop_mask2=...)`` does the same
+for a DNA2RNAVAE (DNA in, RNA the target): MSE sum + beta * KLD, the 21
+tensors of `PARAM_ORDER_D2R`, both BatchNorms' running statistics.
 
-  * CUDA tensors: one call of ``rna2dna_train_step`` in ``csrc/fused_train.cu``
-    (built at first use), which enqueues the step's phases on the current
-    stream; a tensor it does not take raises, nothing falls back;
-  * CPU tensors: `rna2dna_train_step_reference`, the plain PyTorch version
-    of the same hand-derived arithmetic.
+  * CUDA tensors: one call of ``rna2dna_train_step`` or ``dna2rna_train_step``
+    in ``csrc/fused_train.cu`` (built at first use), which enqueues the
+    step's phases on the current stream; a tensor it does not take raises,
+    nothing falls back;
+  * CPU tensors: `rna2dna_train_step_reference` or
+    `dna2rna_train_step_reference`, the plain PyTorch version of the same
+    hand-derived arithmetic.
 
-Noise: ``eps`` (B, latent) and ``drop_mask`` (B, 128) are injected together
-or not at all (`check_noise_args`). Without them the kernel draws both from
+Noise: ``eps`` (B, latent) and the dropout masks (``drop_mask`` (B, 128);
+``drop_mask1`` (B, 512) and ``drop_mask2`` (B, 256)) are injected together
+or not at all (`check_noise_args`). Without them the kernel draws them from
 Philox4x32-10 keyed by ``seed`` with counter (row, column, ``step``,
-stream); the plain version draws from a ``torch.Generator`` seeded from
-(seed, step), so the two agree only in distribution there.
+stream), a stream for each dropout layer and one for eps; the plain version
+draws from a ``torch.Generator`` seeded from (seed, step), so the two agree
+only in distribution there.
 
-``launches`` counts the kernel's launches.
+``launches`` counts the kernels' launches.
 """
 
 from __future__ import annotations
@@ -60,7 +69,33 @@ PARAM_ORDER = [
     ("d3b", ("decoder_dna", "fc3", "b")),
 ]
 
-launches = {"rna2dna_train_step": 0}
+# DNA2RNAVAE: EncoderB's two blocks, the site posterior, DecoderA.
+PARAM_ORDER_D2R = [
+    ("w1", ("encoder_dna", "fc1", "w")),
+    ("b1", ("encoder_dna", "fc1", "b")),
+    ("gamma1", ("encoder_dna", "bn1", "gamma")),
+    ("beta1", ("encoder_dna", "bn1", "beta")),
+    ("w2", ("encoder_dna", "fc2", "w")),
+    ("b2", ("encoder_dna", "fc2", "b")),
+    ("gamma2", ("encoder_dna", "bn2", "gamma")),
+    ("beta2", ("encoder_dna", "bn2", "beta")),
+    ("wmu", ("encoder_dna", "mu", "w")),
+    ("bmu", ("encoder_dna", "mu", "b")),
+    ("wlv", ("encoder_dna", "logvar", "w")),
+    ("blv", ("encoder_dna", "logvar", "b")),
+    ("emb", ("encoder_site", "embedding", "table")),
+    ("smu_w", ("encoder_site", "mu", "w")),
+    ("smu_b", ("encoder_site", "mu", "b")),
+    ("slv_w", ("encoder_site", "logvar", "w")),
+    ("slv_b", ("encoder_site", "logvar", "b")),
+    ("d1w", ("decoder_rna", "fc1", "w")),
+    ("d1b", ("decoder_rna", "fc1", "b")),
+    ("d2w", ("decoder_rna", "fc2", "w")),
+    ("d2b", ("decoder_rna", "fc2", "b")),
+]
+BN_D2R = ("bn1", "bn2")  # EncoderB's BatchNorms, in the kernel's order
+
+launches = {"rna2dna_train_step": 0, "dna2rna_train_step": 0}
 
 
 def check_noise_args(**named):
@@ -77,10 +112,10 @@ def check_noise_args(**named):
     return len(missing) == len(named)
 
 
-def flatten_params(params):
-    """{name: tensor} in `PARAM_ORDER` from a params tree."""
+def flatten_params(params, order=PARAM_ORDER):
+    """{name: tensor} in ``order`` from a params tree."""
     flat = {}
-    for name, path in PARAM_ORDER:
+    for name, path in order:
         node = params
         for p in path:
             node = node[p]
@@ -88,10 +123,10 @@ def flatten_params(params):
     return flat
 
 
-def unflatten(flat):
+def unflatten(flat, order=PARAM_ORDER):
     """Params-shaped tree from {name: tensor}."""
     tree = {}
-    for name, path in PARAM_ORDER:
+    for name, path in order:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -106,15 +141,22 @@ def dims_of(flat):
             flat["d2w"].shape[1], flat["d3w"].shape[1])
 
 
-def pack(flat):
-    """One flat float32 buffer holding the tensors of `PARAM_ORDER` in order."""
-    return torch.cat([flat[name].reshape(-1) for name, _ in PARAM_ORDER])
+def dims_of_d2r(flat):
+    """(in, h1, h2, latent, sites, embed, d1, out) of a flat DNA2RNAVAE tree."""
+    return (flat["w1"].shape[0], flat["w1"].shape[1], flat["w2"].shape[1],
+            flat["wmu"].shape[1], flat["emb"].shape[0], flat["emb"].shape[1],
+            flat["d1w"].shape[1], flat["d2w"].shape[1])
 
 
-def unpack(buf, like):
+def pack(flat, order=PARAM_ORDER):
+    """One flat float32 buffer holding the tensors of ``order`` in order."""
+    return torch.cat([flat[name].reshape(-1) for name, _ in order])
+
+
+def unpack(buf, like, order=PARAM_ORDER):
     """Views of ``buf`` shaped like the tensors of ``like`` ({name: tensor})."""
     out, o = {}, 0
-    for name, _ in PARAM_ORDER:
+    for name, _ in order:
         n = like[name].numel()
         out[name] = buf[o:o + n].view(like[name].shape)
         o += n
@@ -143,18 +185,46 @@ def draw_noise(batch, latent, hidden, seed, step, device):
     return eps, drop
 
 
+def draw_noise_d2r(batch, latent, h1, h2, seed, step, device):
+    """(eps, dropout mask 1, dropout mask 2) from `step_generator`: the plain
+    version's DNA→RNA noise."""
+    g = step_generator(seed, step, device)
+    drop1 = (torch.rand((batch, h1), generator=g, device=device) < KEEP).to(torch.float32)
+    drop2 = (torch.rand((batch, h2), generator=g, device=device) < KEEP).to(torch.float32)
+    eps = torch.randn((batch, latent), generator=g, device=device)
+    return eps, drop1, drop2
+
+
+def _bn_train_forward(a, gamma, beta):
+    """Train-mode BatchNorm: (h, xhat, inv_std, batch mean, biased var)."""
+    mean = a.mean(0)
+    var = torch.square(a - mean).mean(0)
+    inv_std = torch.rsqrt(var + BN_EPS)
+    xhat = (a - mean) * inv_std
+    return xhat * gamma + beta, xhat, inv_std, mean, var
+
+
+def _bn_train_backward(dh, xhat, inv_std, gamma):
+    """(da, dgamma, dbeta) of train-mode BatchNorm, hand-derived."""
+    dxhat = dh * gamma
+    da = inv_std * (dxhat - dxhat.mean(0) - xhat * (dxhat * xhat).mean(0))
+    return da, (dh * xhat).sum(0), dh.sum(0)
+
+
+def _running(rm, rv, mean, var, batch):
+    unbias = batch / max(batch - 1, 1)
+    return (1.0 - BN_MOMENTUM) * rm + BN_MOMENTUM * mean, \
+        (1.0 - BN_MOMENTUM) * rv + BN_MOMENTUM * var * unbias
+
+
 def rna2dna_train_step_reference(flat, rm, rv, x, t, site, eps, drop, beta):
     """Plain PyTorch version of the kernel, on {name: tensor} params:
     returns (loss, {name: grad}, new_rm, new_rv). The gradients are the TPU
     kernel's hand-derived ones (``fused_train.py`` ``_train_kernel``)."""
     p = flat
     batch = x.shape[0]
-    a1 = x @ p["w1"] + p["b1"]
-    mu_b = a1.mean(0)
-    var_b = torch.square(a1 - mu_b).mean(0)
-    inv_std = torch.rsqrt(var_b + BN_EPS)
-    xhat = (a1 - mu_b) * inv_std
-    h = xhat * p["gamma"] + p["bnbeta"]
+    h, xhat, inv_std, mu_b, var_b = _bn_train_forward(x @ p["w1"] + p["b1"], p["gamma"],
+                                                      p["bnbeta"])
     relu_mask = (h > 0).to(h.dtype)
     d = h * relu_mask * drop / KEEP
 
@@ -173,9 +243,7 @@ def rna2dna_train_step_reference(flat, rm, rv, x, t, site, eps, drop, beta):
                     + torch.log1p(torch.exp(-torch.abs(logits))))
     kld = -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv))
     loss = bce + beta * kld
-    unbias = batch / max(batch - 1, 1)
-    new_rm = (1.0 - BN_MOMENTUM) * rm + BN_MOMENTUM * mu_b
-    new_rv = (1.0 - BN_MOMENTUM) * rv + BN_MOMENTUM * var_b * unbias
+    new_rm, new_rv = _running(rm, rv, mu_b, var_b, batch)
 
     g = {}
     dlogits = torch.sigmoid(logits) - t
@@ -197,12 +265,69 @@ def rna2dna_train_step_reference(flat, rm, rv, x, t, site, eps, drop, beta):
     g["emb"] = torch.zeros_like(p["emb"]).index_add_(
         0, site.clamp(0, n_sites - 1), de * valid[:, None].to(de.dtype))
     dd = dmh @ p["wmu"].T + dlh @ p["wlv"].T
-    dh = dd * drop / KEEP * relu_mask
-    g["gamma"], g["bnbeta"] = (dh * xhat).sum(0), dh.sum(0)
-    dxhat = dh * p["gamma"]
-    da1 = inv_std * (dxhat - dxhat.mean(0) - xhat * (dxhat * xhat).mean(0))
+    da1, g["gamma"], g["bnbeta"] = _bn_train_backward(dd * drop / KEEP * relu_mask, xhat,
+                                                      inv_std, p["gamma"])
     g["w1"], g["b1"] = x.T @ da1, da1.sum(0)
     return loss, {name: g[name] for name, _ in PARAM_ORDER}, new_rm, new_rv
+
+
+def dna2rna_train_step_reference(flat, bn, x, t, site, eps, drop1, drop2, beta):
+    """Plain PyTorch version of the DNA→RNA kernel, on {name: tensor} params
+    and ``bn`` = (rm1, rv1, rm2, rv2): returns (loss, {name: grad}, new bn).
+    ``x`` is the DNA input, ``t`` the RNA target. The gradients are the TPU
+    kernel's hand-derived ones (``fused_train.py`` ``_d2r_train_kernel``)."""
+    p = flat
+    batch = x.shape[0]
+    h1, xhat1, inv1, mean1, var1 = _bn_train_forward(x @ p["w1"] + p["b1"], p["gamma1"],
+                                                     p["beta1"])
+    rmask1 = (h1 > 0).to(h1.dtype)
+    d1 = h1 * rmask1 * drop1 / KEEP
+    h2, xhat2, inv2, mean2, var2 = _bn_train_forward(d1 @ p["w2"] + p["b2"], p["gamma2"],
+                                                     p["beta2"])
+    rmask2 = (h2 > 0).to(h2.dtype)
+    d2 = h2 * rmask2 * drop2 / KEEP
+
+    e = site_rows(p["emb"], site)
+    mu = 0.5 * ((d2 @ p["wmu"] + p["bmu"]) + (e @ p["smu_w"] + p["smu_b"]))
+    lv = 0.5 * ((d2 @ p["wlv"] + p["blv"]) + (e @ p["slv_w"] + p["slv_b"]))
+    sigma = torch.exp(0.5 * lv)
+    z = mu + eps * sigma
+    u1 = z @ p["d1w"] + p["d1b"]
+    rd1 = torch.relu(u1)
+    diff = (rd1 @ p["d2w"] + p["d2b"]) - t
+
+    mse = torch.sum(diff * diff)
+    kld = -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv))
+    loss = mse + beta * kld
+    rm1, rv1, rm2, rv2 = bn
+    new_bn = (*_running(rm1, rv1, mean1, var1, batch), *_running(rm2, rv2, mean2, var2, batch))
+
+    g = {}
+    drecon = 2.0 * diff
+    g["d2w"], g["d2b"] = rd1.T @ drecon, drecon.sum(0)
+    du1 = (drecon @ p["d2w"].T) * (u1 > 0)
+    g["d1w"], g["d1b"] = z.T @ du1, du1.sum(0)
+    dz = du1 @ p["d1w"].T
+    dmh = 0.5 * (dz + beta * mu)
+    dlh = 0.5 * (dz * eps * 0.5 * sigma + (-0.5 * beta) * (1.0 - torch.exp(lv)))
+    g["wmu"], g["bmu"] = d2.T @ dmh, dmh.sum(0)
+    g["wlv"], g["blv"] = d2.T @ dlh, dlh.sum(0)
+    g["smu_w"], g["smu_b"] = e.T @ dmh, dmh.sum(0)
+    g["slv_w"], g["slv_b"] = e.T @ dlh, dlh.sum(0)
+    de = dmh @ p["smu_w"].T + dlh @ p["slv_w"].T
+    n_sites = p["emb"].shape[0]
+    valid = (site >= 0) & (site < n_sites)
+    g["emb"] = torch.zeros_like(p["emb"]).index_add_(
+        0, site.clamp(0, n_sites - 1), de * valid[:, None].to(de.dtype))
+    dd2 = dmh @ p["wmu"].T + dlh @ p["wlv"].T
+    da2, g["gamma2"], g["beta2"] = _bn_train_backward(dd2 * drop2 / KEEP * rmask2, xhat2, inv2,
+                                                      p["gamma2"])
+    g["w2"], g["b2"] = d1.T @ da2, da2.sum(0)
+    dd1 = da2 @ p["w2"].T
+    da1, g["gamma1"], g["beta1"] = _bn_train_backward(dd1 * drop1 / KEEP * rmask1, xhat1, inv1,
+                                                      p["gamma1"])
+    g["w1"], g["b1"] = x.T @ da1, da1.sum(0)
+    return loss, {name: g[name] for name, _ in PARAM_ORDER_D2R}, new_bn
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,6 +347,17 @@ def library():
     lib.rna2dna_train_epoch.restype = i
     lib.rna2dna_train_noise.argtypes = [u64, i, i, i, i, p, p, p]
     lib.rna2dna_train_noise.restype = i
+    lib.dna2rna_param_count.argtypes = [p]
+    lib.dna2rna_param_count.restype = ll
+    lib.dna2rna_train_workspace_floats.argtypes = [p, i, i]
+    lib.dna2rna_train_workspace_floats.restype = ll
+    lib.dna2rna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, u64, i, f, p, p, p, p]
+    lib.dna2rna_train_step.restype = i
+    lib.dna2rna_train_epoch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, u64, f, f, f, ll,
+                                        p, p, p]
+    lib.dna2rna_train_epoch.restype = i
+    lib.dna2rna_train_noise.argtypes = [u64, i, i, i, i, i, p, p, p, p]
+    lib.dna2rna_train_noise.restype = i
     lib.fused_train_error_string.argtypes = [i]
     lib.fused_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -246,17 +382,25 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_step_inputs(flat, rm, rv, rna, dna, site, n_sites, eps, drop, rows):
-    """Validate what the kernel takes: every tensor float32 (site int64),
-    contiguous, on the parameters' device, at the shapes of `dims_of`."""
+def _check_params(flat, order, n_sites):
+    """The parameters' device, after checking that every tensor is float32
+    and contiguous there and that the table has ``n_sites`` rows."""
     dev = flat["w1"].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
-    for name, _ in PARAM_ORDER:
+    for name, _ in order:
         check_tensor(name, flat[name], dev, torch.float32, flat[name].shape)
-    din, hid, latent, sites, _, _, _, dout = dims_of(flat)
-    if n_sites != sites:
-        raise ValueError(f"n_sites={n_sites} but the embedding table has {sites} rows")
+    if n_sites != flat["emb"].shape[0]:
+        raise ValueError(f"n_sites={n_sites} but the embedding table has "
+                         f"{flat['emb'].shape[0]} rows")
+    return dev
+
+
+def check_step_inputs(flat, rm, rv, rna, dna, site, n_sites, eps, drop, rows):
+    """Validate what the kernel takes: every tensor float32 (site int64),
+    contiguous, on the parameters' device, at the shapes of `dims_of`."""
+    dev = _check_params(flat, PARAM_ORDER, n_sites)
+    din, hid, latent, _, _, _, _, dout = dims_of(flat)
     check_tensor("running mean", rm, dev, torch.float32, (hid,))
     check_tensor("running var", rv, dev, torch.float32, (hid,))
     check_tensor("rna", rna, dev, torch.float32, (rows, din))
@@ -266,6 +410,36 @@ def check_step_inputs(flat, rm, rv, rna, dna, site, n_sites, eps, drop, rows):
         check_tensor("eps", eps, dev, torch.float32, (rows, latent))
         check_tensor("drop_mask", drop, dev, torch.float32, (rows, hid))
     return dev
+
+
+def check_d2r_inputs(flat, bn, dna, rna, site, n_sites, eps, drop1, drop2, rows):
+    """`check_step_inputs` for the DNA→RNA kernel: ``bn`` is (rm1, rv1,
+    rm2, rv2), ``dna`` the input, ``rna`` the target."""
+    dev = _check_params(flat, PARAM_ORDER_D2R, n_sites)
+    din, h1, h2, latent, _, _, _, dout = dims_of_d2r(flat)
+    for name, t, width in zip(("bn1 mean", "bn1 var", "bn2 mean", "bn2 var"), bn,
+                              (h1, h1, h2, h2)):
+        check_tensor(name, t, dev, torch.float32, (width,))
+    check_tensor("dna", dna, dev, torch.float32, (rows, din))
+    check_tensor("rna", rna, dev, torch.float32, (rows, dout))
+    check_tensor("site", site, dev, torch.int64, (rows,))
+    if eps is not None:
+        check_tensor("eps", eps, dev, torch.float32, (rows, latent))
+        check_tensor("drop_mask1", drop1, dev, torch.float32, (rows, h1))
+        check_tensor("drop_mask2", drop2, dev, torch.float32, (rows, h2))
+    return dev
+
+
+def bn_d2r(state):
+    """(rm1, rv1, rm2, rv2) of a DNA2RNAVAE's BatchNorm state tree."""
+    enc = state["encoder_dna"]
+    return tuple(enc[k][s] for k in BN_D2R for s in ("mean", "var"))
+
+
+def bn_d2r_tree(bn):
+    """The BatchNorm state tree of (rm1, rv1, rm2, rv2)."""
+    rm1, rv1, rm2, rv2 = bn
+    return {"encoder_dna": {"bn1": {"mean": rm1, "var": rv1}, "bn2": {"mean": rm2, "var": rv2}}}
 
 
 def rna2dna_fused_train_step(params, state, rna, dna, site, n_sites, *, seed=0, step=0,
@@ -318,6 +492,65 @@ def _launch_step(flat, bn, rna, dna, site, eps, drop, use_prng, seed, step, beta
     return loss[0], unpack(grads, flat), rm, rv
 
 
+def dna2rna_fused_train_step(params, state, rna, dna, site, n_sites, *, seed=0, step=0,
+                             beta=1e-3, eps=None, drop_mask1=None, drop_mask2=None):
+    """One fused DNA→RNA train step (DNA in, RNA the target): returns
+    (loss, grads tree, new_state)."""
+    flat = flatten_params(params, PARAM_ORDER_D2R)
+    bn = bn_d2r(state)
+    use_prng = check_noise_args(eps=eps, drop_mask1=drop_mask1, drop_mask2=drop_mask2)
+    batch = dna.shape[0] if isinstance(dna, torch.Tensor) else -1
+    if batch < 2:
+        raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {batch}")
+    dev = check_d2r_inputs(flat, bn, dna, rna, site, n_sites, eps, drop_mask1, drop_mask2, batch)
+    seed, step = int(seed), int(step)
+    if not 0 <= seed < 2**63:
+        raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+    if dev.type == "cpu":
+        if use_prng:
+            _, h1, h2, latent, *_ = dims_of_d2r(flat)
+            eps, drop_mask1, drop_mask2 = draw_noise_d2r(batch, latent, h1, h2, seed, step, dev)
+        loss, grads, bn = dna2rna_train_step_reference(flat, bn, dna, rna, site, eps, drop_mask1,
+                                                       drop_mask2, float(beta))
+    else:
+        loss, grads, bn = _launch_step_d2r(flat, bn, dna, rna, site, eps, drop_mask1, drop_mask2,
+                                           use_prng, seed, step, float(beta))
+    return loss, unflatten(grads, PARAM_ORDER_D2R), bn_d2r_tree(bn)
+
+
+def split_bn(buf, h1, h2):
+    """(rm1, rv1, rm2, rv2) views of one (2·h1 + 2·h2,) buffer."""
+    return tuple(buf.split((h1, h1, h2, h2)))
+
+
+def _launch_step_d2r(flat, bn, dna, rna, site, eps, drop1, drop2, use_prng, seed, step, beta):
+    lib = library()
+    dev = dna.device
+    batch = dna.shape[0]
+    dims_t = dims_of_d2r(flat)
+    dims = (ctypes.c_int * 8)(*dims_t)
+    params = pack(flat, PARAM_ORDER_D2R)
+    grads = torch.empty_like(params)
+    loss = torch.empty(1, device=dev, dtype=torch.float32)
+    bn_in = torch.cat(bn)
+    bn_out = torch.empty_like(bn_in)
+    work = torch.empty(lib.dna2rna_train_workspace_floats(dims, batch, 0), device=dev,
+                       dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    noise = (None, None, None) if use_prng else (eps.data_ptr(), drop1.data_ptr(),
+                                                 drop2.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.dna2rna_train_step(
+            dna.data_ptr(), rna.data_ptr(), site.data_ptr(), params.data_ptr(), dims, batch,
+            bn_in.data_ptr(), bn_out.data_ptr(), *noise,
+            NOISE_PHILOX if use_prng else NOISE_INJECTED, seed, step, beta, loss.data_ptr(),
+            grads.data_ptr(), work.data_ptr(), stream)
+    raise_on(lib, err, "dna2rna_train_step")
+    launches["dna2rna_train_step"] += 1
+    return (loss[0], unpack(grads, flat, PARAM_ORDER_D2R),
+            split_bn(bn_out, dims_t[1], dims_t[2]))
+
+
 def philox_noise(seed, step, batch, hidden, latent, device):
     """(eps (batch, latent), dropout mask (batch, hidden)) that the kernel
     draws at (seed, step) without injected noise: a test of its generator,
@@ -331,3 +564,19 @@ def philox_noise(seed, step, batch, hidden, latent, device):
                                       torch.cuda.current_stream(device).cuda_stream)
     raise_on(lib, err, "rna2dna_train_noise")
     return eps, keep
+
+
+def philox_noise_d2r(seed, step, batch, h1, h2, latent, device):
+    """(eps (batch, latent), dropout masks (batch, h1) and (batch, h2)) that
+    the DNA→RNA kernel draws at (seed, step) without injected noise: a test
+    of its generator, not a path of the trainer (it counts no launch)."""
+    lib = library()
+    keep1 = torch.empty((batch, h1), device=device, dtype=torch.float32)
+    keep2 = torch.empty((batch, h2), device=device, dtype=torch.float32)
+    eps = torch.empty((batch, latent), device=device, dtype=torch.float32)
+    with torch.cuda.device(device):
+        err = lib.dna2rna_train_noise(int(seed), int(step), batch, h1, h2, latent,
+                                      keep1.data_ptr(), keep2.data_ptr(), eps.data_ptr(),
+                                      torch.cuda.current_stream(device).cuda_stream)
+    raise_on(lib, err, "dna2rna_train_noise")
+    return eps, keep1, keep2

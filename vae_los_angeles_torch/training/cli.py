@@ -1,14 +1,15 @@
-"""Training CLI for the RNA→DNA directional VAE (counterpart of
-``vae_los_angeles_tpu/training/cli.py``, task ``rna2dna``).
+"""Training CLI for the directional VAEs (counterpart of
+``vae_los_angeles_tpu/training/cli.py``, tasks ``rna2dna`` and ``dna2rna``).
 
     python -m vae_los_angeles_torch.training.cli [--epochs N] [--seed S]
-        [--data_path data/processed_data.pkl] [--resume]
+        [--data_path data/processed_data.pkl] [--resume]      # RNA→DNA
+    python -m vae_los_angeles_torch.train_dna2rna [same flags]  # DNA→RNA
 
 It follows the JAX CLI: load the cohort, split 80/20 (`train_val_indices`),
 train with β-warmup + AdamW + the plateau scheduler + early stopping
 (`engine.fit`), print the per-epoch lines and append them to
-``plots/metrics_rna2dna_<run_id>.jsonl``, save ``best_rna2dna_<run_id>.npz``
-and ``resume_rna2dna_<run_id>.npz``, write ``latest_rna2dna_run_id.txt`` and
+``plots/metrics_<model>_<run_id>.jsonl``, save ``best_<model>_<run_id>.npz``
+and ``resume_<model>_<run_id>.npz``, write ``latest_<model>_run_id.txt`` and
 report the wall clock and samples/s. ``--resume`` continues the latest run
 from its carry, and says so instead of training when that run had already
 stopped early.
@@ -199,6 +200,11 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
 def main_rna2dna(argv=None):
     """Entry point: ``python -m vae_los_angeles_torch.training.cli``."""
     return run_training("rna2dna", "rna2dna", argv=argv)
+
+
+def main_dna2rna(argv=None):
+    """Entry point: ``python -m vae_los_angeles_torch.train_dna2rna``."""
+    return run_training("dna2rna", "dna2rna", argv=argv)
 
 
 if __name__ == "__main__":

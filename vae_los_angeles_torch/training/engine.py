@@ -19,10 +19,11 @@ Semantics carried over from the JAX engine:
 
 Three paths compute an epoch:
   * plain: autograd over the task's loss, then ``ops.optim.adamw_update``;
-  * ``fused_step=True``: the train-step kernel each step
+  * ``fused_step=True``: the task's train-step kernel each step
     (``ops.kernels.fused_train``), then ``adamw_update``;
-  * ``fused_epoch=True``: the epoch kernel once per epoch
+  * ``fused_epoch=True``: the task's epoch kernel once per epoch
     (``ops.kernels.fused_epoch``), every step and its AdamW inside.
+Both kernel paths exist for ``rna2dna`` and ``dna2rna`` (`FUSED`).
 
 Noise comes from the run's ``seed``: epoch e shuffles with a generator seeded
 from (seed, e), the plain path draws its dropout and eps from the same
@@ -38,7 +39,7 @@ Adafactor.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,6 +52,23 @@ from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.training.tasks import Batch, get_task
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
+
+
+class Fused(NamedTuple):
+    """A task's kernels: the train step takes (rna, dna) in both directions;
+    the epoch takes its input rows and its target rows of the epoch."""
+
+    step: Callable  # fused_train.*_fused_train_step
+    epoch: Callable  # fused_epoch.*_fused_epoch
+    epoch_rows: Callable  # Batch -> (x_ep, t_ep)
+
+
+FUSED = {
+    "rna2dna": Fused(ft.rna2dna_fused_train_step, fe.rna2dna_fused_epoch,
+                     lambda ep: (ep.tpm, ep.beta)),
+    "dna2rna": Fused(ft.dna2rna_fused_train_step, fe.dna2rna_fused_epoch,
+                     lambda ep: (ep.beta, ep.tpm)),
+}
 
 
 class FitResult(NamedTuple):
@@ -125,7 +143,7 @@ def _as_batch(arrays, device) -> Batch:
     return Batch(to(tpm, torch.float32), to(beta, torch.float32), to(site, torch.int64))
 
 
-def _check_supported(cfg, fused_step, fused_epoch, masked_sizes, mesh):
+def _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh):
     if masked_sizes:
         raise ValueError("masked_sizes is not ported: the port trains exact-shape runs")
     if mesh is not None:
@@ -138,6 +156,9 @@ def _check_supported(cfg, fused_step, fused_epoch, masked_sizes, mesh):
         raise ValueError(f"optimizer={cfg.optimizer!r}: the port trains with AdamW only")
     if fused_step and fused_epoch:
         raise ValueError("choose one of fused_step and fused_epoch")
+    if (fused_step or fused_epoch) and task_name not in FUSED:
+        raise ValueError(f"task {task_name!r} has no fused kernels; the kernel paths train "
+                         f"{sorted(FUSED)}")
 
 
 def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_sites: int, *,
@@ -151,7 +172,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     ``seed`` seeds the initialisation (when neither ``init_params`` nor
     ``resume_carry`` is given), the shuffles and the noise. Runs on the card
     unless ``device="cpu"`` or ``cfg.platform == "cpu"``."""
-    _check_supported(cfg, fused_step, fused_epoch, masked_sizes, mesh)
+    _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh)
     task = get_task(task_name)
     device = resolve_device(device, cfg)
     if num_epochs is None:  # an explicit 0 means "no training epochs"
@@ -209,10 +230,10 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         params, state, opt = carry["params"], carry["state"], carry["opt"]
         if fused_epoch:
             ep = train.take(perm[: n_full * batch_size])
-            losses, params, m, v, state = fe.rna2dna_fused_epoch(
-                params, opt["m"], opt["v"], state, ep.tpm, ep.beta, ep.site, n_sites,
-                seed=eseed, beta=beta, lr=lr, weight_decay=hp["weight_decay"], step0=step_host,
-                n_batches=n_full)
+            losses, params, m, v, state = FUSED[task_name].epoch(
+                params, opt["m"], opt["v"], state, *FUSED[task_name].epoch_rows(ep), ep.site,
+                n_sites, seed=eseed, beta=beta, lr=lr, weight_decay=hp["weight_decay"],
+                step0=step_host, n_batches=n_full)
             opt = {"step": opt["step"] + n_full, "m": m, "v": v}
             train_sum = losses.sum()
         else:
@@ -220,7 +241,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             for b in range(n_batches):
                 batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
                 if fused_step:
-                    loss, grads, state = ft.rna2dna_fused_train_step(
+                    loss, grads, state = FUSED[task_name].step(
                         params, state, batch.tpm, batch.beta, batch.site, n_sites, seed=eseed,
                         step=b, beta=beta)
                 else:
@@ -276,5 +297,5 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
     return per_epoch * epochs
 
 
-__all__ = ["FitResult", "beta_schedule", "epoch_seed", "fit", "hyperparams", "init_carry",
-           "samples_trained"]
+__all__ = ["FUSED", "FitResult", "beta_schedule", "epoch_seed", "fit", "hyperparams",
+           "init_carry", "samples_trained"]

@@ -2,12 +2,16 @@
 binds a model family to its init / loss / predict / target for the trainer.
 
 Every batch is the (tpm, beta, site) triple `Batch`; the task decides which
-fields are inputs and which the target. Only ``rna2dna`` is ported: RNA in,
-DNA methylation out, BCE-with-logits sum + β·KLD with β warming up.
+fields are inputs and which the target. Ported so far:
 
-The loss goes through ``ops.kernels.fused_loss.rna2dna_loss_fused``, the
-trainer's loss with its closed-form backward: on the card that is the loss
-kernel pair, on the CPU its plain version (``ops.losses.rna2dna_loss``).
+  * ``rna2dna``: RNA in, DNA methylation out, BCE-with-logits sum + β·KLD
+    with β warming up. The loss goes through
+    ``ops.kernels.fused_loss.rna2dna_loss_fused``, the trainer's loss with its
+    closed-form backward: on the card that is the loss kernel pair, on the
+    CPU its plain version (``ops.losses.rna2dna_loss``).
+  * ``dna2rna``: DNA methylation in, RNA out, MSE sum + β·KLD with β warming
+    up, through ``ops.losses.dna2rna_loss`` (plain PyTorch, as the JAX
+    engine leaves that loss to XLA).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from vae_los_angeles_torch.models import directional_vae
 from vae_los_angeles_torch.ops.kernels.fused_loss import rna2dna_loss_fused
+from vae_los_angeles_torch.ops.losses import dna2rna_loss
 
 
 class Batch(NamedTuple):
@@ -39,7 +44,8 @@ class Task(NamedTuple):
     # init(generator, cfg, n_sites, device) -> (params, bn_state)
     init: Callable
     # loss(params, state, batch, beta_kl, train, generator, eps=None,
-    #      drop_mask=None) -> (loss_sum, new_state)
+    #      **dropout masks) -> (loss_sum, new_state); the masks are drop_mask
+    #      (rna2dna) or drop_mask1 and drop_mask2 (dna2rna)
     loss: Callable
     # predict(params, state, batch, generator) -> imputed target (eval mode)
     predict: Callable
@@ -68,9 +74,30 @@ def _rna2dna_predict(params, state, batch, generator=None):
         params, state, rna=batch.tpm, site=batch.site, train=False, generator=generator).recon
 
 
+def _dna2rna_init(generator, cfg, n_sites, device=None):
+    return directional_vae.dna2rna_vae_init(
+        generator, cfg.input_dim_a, cfg.input_dim_b, n_sites, cfg.latent_dim, cfg.embed_dim,
+        device)
+
+
+def _dna2rna_loss(params, state, batch, beta_kl, train, generator=None, eps=None,
+                  drop_mask1=None, drop_mask2=None):
+    out = directional_vae.dna2rna_vae_apply(
+        params, state, dna=batch.beta, site=batch.site, train=train, eps=eps,
+        drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator)
+    return dna2rna_loss(out.recon, batch.tpm, out.mu, out.logvar, beta_kl)[0], out.state
+
+
+def _dna2rna_predict(params, state, batch, generator=None):
+    return directional_vae.dna2rna_vae_apply(
+        params, state, dna=batch.beta, site=batch.site, train=False, generator=generator).recon
+
+
 TASKS = {
     "rna2dna": Task("rna2dna", _rna2dna_init, _rna2dna_loss, _rna2dna_predict,
                     lambda batch: batch.beta, True),
+    "dna2rna": Task("dna2rna", _dna2rna_init, _dna2rna_loss, _dna2rna_predict,
+                    lambda batch: batch.tpm, True),
 }
 
 
