@@ -55,30 +55,49 @@ Phases (any failure raises, and the script exits non-zero):
          and gradient on either side, and the decoder layer (no dropout)
          keeps the seed search at 3e-6. Both are ~7x the largest fp32
          error of those layers against float64 at B = 7;
+       * the tri-modal train step at B in {32, 7, 256} with injected noise
+         and class weights in [0.5, 2), γ = 1.7: loss rtol 1e-5, the 39
+         gradients atol 1e-3 + rtol 1e-4 (2e-3 for the three encoder fc
+         biases feeding BN, as the JAX test), BN stats atol 1e-5, the
+         near-kink cells of its three BN blocks (896 units a row) dropped
+         and its four decoder ReLU layers (960 units a row) held at 3e-6 by
+         the seed search (`mm_clear_kinks`); its epoch against the plain
+         version over 4 steps of 32 (the seed search along the plain
+         trajectory), then over 25 steps against a chain of the step kernel
+         and AdamW (the same phase kernels, so no kink lies between them):
+         losses rtol 1e-5, params atol 5e-5, m atol 5e-5 of each tensor's
+         largest |m| (or 1), BN var atol 2e-4, the three fc biases and BN
+         running means at 2·lr·steps; every tensor is checked before the
+         first failure is raised; its Philox noise as above, for its three
+         dropout masks;
   4. train end to end: ``run_training`` (rna2dna, USE_PALLAS, the card) on
      the 1024-sample synthetic cohort, 3 epochs of 25 steps, the epoch
      kernel once an epoch; then one epoch each of ``engine.fit``'s
      train-step path and plain path (the loss kernels' backward); then the
      same for dna2rna (``run_training("dna2rna", "dna2rna")``, its epoch
-     and train-step kernels);
+     and train-step kernels), and, after serving, for the tri-modal model
+     (``run_training("multimodal", "multivae", use_class_weights=True)``);
   5. serve: ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
      phase 4 (through their run-id files), the served posteriors held
      against the unfused modules, each model's MSE beside the mean
-     baseline's;
+     baseline's; evaluate: ``evaluation.evaluate.main`` on the
+     MultiModalVAE trained in phase 4 writes ``evaluation_results.json``
+     with two records of finite metrics, each printed beside the mean
+     baseline's MSE;
   6. time with CUDA events, alternating plain, kernel, kernel, plain: the
      serving call at B = 205, the train steps at B = 32, one 200-step epoch
-     of each direction on the 8000-sample cohort, the loss pair, and
-     ``torch.optim.AdamW`` (fused) over the same 19 or 21 tensors as the
-     yardstick of each epoch's AdamW; one profiled epoch of each direction
-     (``torch.profiler``): device time by kernel, the device's busy and idle
-     shares; and ``engine.fit``'s epoch time and samples/s through each
-     epoch kernel at the 1024- and 8000-sample cohorts, validation
+     of each model on the 8000-sample cohort, the loss pair, and
+     ``torch.optim.AdamW`` (fused) over the same 19, 21 or 39 tensors as
+     the yardstick of each epoch's AdamW; one profiled epoch of each model
+     (``torch.profiler``): device time by kernel, the device's busy and
+     idle shares; and ``engine.fit``'s epoch time and samples/s through
+     each epoch kernel at the 1024- and 8000-sample cohorts, validation
      included.
 
-Each path (serve, train, train-step, train-plain and the three dna2rna
-training paths) is driven with every launch count set to 0 just before it
-and read just after. The line before
+Each path (serve, evaluate, train, train-step, train-plain and the three
+training paths of dna2rna and of the tri-modal model) is driven with every
+launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
 files go to a temporary directory.
@@ -101,10 +120,11 @@ from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
-from vae_los_angeles_torch.evaluation import compare_directional_imputation
+from vae_los_angeles_torch.evaluation import compare_directional_imputation, evaluate
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
 from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
+from vae_los_angeles_torch.models.vae import multimodal_vae_init
 from vae_los_angeles_torch.ops.kernels import _build
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
@@ -113,7 +133,7 @@ from vae_los_angeles_torch.ops.kernels import fused_vae as fv
 from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint, engine
-from vae_los_angeles_torch.training.cli import run_training
+from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 
 CFG = Config()  # the live widths: RNA 1177, DNA 1211, latent 20, site embedding 32
@@ -153,9 +173,17 @@ TRAIN_KERNELS = {
                            "vae_los_angeles_tpu/ops/pallas/fused_train.py:451", ft.launches),
     "dna2rna_train_epoch": ("vae_los_angeles_torch/csrc/fused_train.cu",
                             "vae_los_angeles_tpu/ops/pallas/fused_epoch.py:574", fe.launches),
+    "multimodal_train_step": ("vae_los_angeles_torch/csrc/fused_train.cu",
+                              "vae_los_angeles_tpu/ops/pallas/fused_train_multimodal.py:317",
+                              ft.launches),
+    "multimodal_train_epoch": ("vae_los_angeles_torch/csrc/fused_train.cu",
+                               "vae_los_angeles_tpu/ops/pallas/fused_epoch_multimodal.py:376",
+                               fe.launches),
 }
 GRAD_D2R = dict(atol=1e-3, rtol=1e-4)  # the JAX DNA→RNA step test's (test_pallas_train.py)
 D2R = ft.PARAM_ORDER_D2R
+MM = ft.PARAM_ORDER_MM
+GAMMA = 1.7  # the JAX tri-modal tests' γ (test_pallas_multimodal.py)
 H1, H2 = 512, 256  # EncoderB's hidden widths (fixed in both packages)
 
 
@@ -277,6 +305,38 @@ def epoch_work_d2r(n_steps, batch):
     p = n_params_d2r()
     rows = n_steps * batch * (CFG.input_dim_b + CFG.input_dim_a + 1)
     return n_steps * (flops + 14 * p), 4 * (6 * p + rows + 4 * (H1 + H2) + n_steps)
+
+
+def mm_macs():
+    """Multiply-adds of the forward products of one MultiModalVAE row, and
+    of its two first layers (which have no dX product)."""
+    l, e, s = CFG.latent_dim, CFG.embed_dim, N_SITES
+    a, b = CFG.input_dim_a, CFG.input_dim_b
+    first = a * 128 + b * H1
+    return first, (first + 2 * 128 * l + H1 * H2 + 2 * H2 * l + 2 * e * l + l * 128 + 128 * a
+                   + l * 256 + 256 * 512 + 512 * b + l * 64 + 64 * s)
+
+
+def n_params_mm():
+    return sum(v.numel() for v in ft.flatten_params(mm_params("meta", 0)[0], MM).values())
+
+
+def step_work_mm(batch):
+    first, macs = mm_macs()
+    flops = 2 * batch * (macs + macs + (macs - first))
+    units = 128 + H1 + H2 + CFG.input_dim_a + CFG.input_dim_b + N_SITES + 2 * CFG.latent_dim
+    flops += 30 * batch * units  # BN, heads, losses, masks
+    p = n_params_mm()
+    rows = batch * (CFG.input_dim_a + CFG.input_dim_b + 1 + CFG.latent_dim + 128 + H1 + H2)
+    return flops, 4 * (2 * p + rows + N_SITES + 4 * (128 + H1 + H2) + 1)
+
+
+def epoch_work_mm(n_steps, batch):
+    flops, _ = step_work_mm(batch)
+    p = n_params_mm()
+    rows = n_steps * batch * (CFG.input_dim_a + CFG.input_dim_b + 1)
+    return (n_steps * (flops + 14 * p),
+            4 * (6 * p + rows + N_SITES + 4 * (128 + H1 + H2) + n_steps))
 
 
 def loss_work(batch, backward):
@@ -564,63 +624,73 @@ def d2r_rows(dev, n, seed):
 D2R_MARGINS = (3e-5, 3e-6)  # BN'd encoder units (masked), decoder layer 1 (seed search)
 
 
+def clear_block(x, w, b, gamma, beta, mask):
+    """One Linear -> train-mode BatchNorm -> ReLU -> dropout block in
+    float64 that drops out (in ``mask``, in place) the cells whose BN output
+    lies within D2R_MARGINS[0] of the ReLU kink, relative to the layer's
+    largest; returns (the block's output, cells dropped)."""
+    c = x @ w + b
+    c = c - c.mean(0)
+    h = c * torch.rsqrt(torch.square(c).mean(0) + 1e-5) * gamma + beta
+    near = (h.abs() < D2R_MARGINS[0] * h.abs().max()) & (mask > 0)
+    mask[near] = 0.0
+    return torch.relu(h) * mask.double() / ft.KEEP, int(near.sum())
+
+
 def d2r_clear_kinks(flat, r):
-    """Drop out (in r's injected masks, in place) the cells of the two BN
-    blocks whose output lies within D2R_MARGINS[0] of the ReLU kink,
-    relative to the layer's largest, in float64; returns (cells dropped,
-    the decoder layer's smallest relative margin)."""
+    """Drop out (in r's injected masks, in place) the near-kink cells of the
+    two BN blocks (`clear_block`); returns (cells dropped, the decoder
+    layer's smallest relative margin)."""
     p = {k: v.double() for k, v in flat.items()}
-
-    def bn(a, gamma, beta):
-        c = a - a.mean(0)
-        return c * torch.rsqrt(torch.square(c).mean(0) + 1e-5) * gamma + beta
-
-    def clear(h, mask):
-        near = (h.abs() < D2R_MARGINS[0] * h.abs().max()) & (mask > 0)
-        mask[near] = 0.0
-        return int(near.sum())
-
-    h1 = bn(r["x"].double() @ p["w1"] + p["b1"], p["gamma1"], p["beta1"])
-    dropped = clear(h1, r["drop1"])
-    d1 = torch.relu(h1) * r["drop1"].double() / ft.KEEP
-    h2 = bn(d1 @ p["w2"] + p["b2"], p["gamma2"], p["beta2"])
-    dropped += clear(h2, r["drop2"])
-    d2 = torch.relu(h2) * r["drop2"].double() / ft.KEEP
+    d1, n1 = clear_block(r["x"].double(), p["w1"], p["b1"], p["gamma1"], p["beta1"], r["drop1"])
+    d2, n2 = clear_block(d1, p["w2"], p["b2"], p["gamma2"], p["beta2"], r["drop2"])
     e = ft.site_rows(p["emb"], r["site"])
     mu = 0.5 * ((d2 @ p["wmu"] + p["bmu"]) + (e @ p["smu_w"] + p["smu_b"]))
     lv = 0.5 * ((d2 @ p["wlv"] + p["blv"]) + (e @ p["slv_w"] + p["slv_b"]))
     u1 = (mu + r["eps"].double() * torch.exp(0.5 * lv)) @ p["d1w"] + p["d1b"]
-    return dropped, (u1.abs().min() / u1.abs().max()).item()
+    return n1 + n2, (u1.abs().min() / u1.abs().max()).item()
 
 
-def d2r_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
-    """Rows (``d2r_rows``, n = steps * 32 for an epoch) from the first seed
-    at or after ``seed`` whose decoder margin reaches D2R_MARGINS[1] at
-    every step of the plain version's trajectory from (flat, bn, m0, v0)
-    with AdamW at step0 = 7, their near-kink BN cells dropped
-    (`d2r_clear_kinks`); returns (rows, seed, cells dropped)."""
+def away_from_kinks_masked(what, make_rows, clear, plain_step, dev, n, seed, flat, bn, steps=1,
+                           m0=None, v0=None):
+    """Rows (``make_rows(dev, n, seed)``, n = steps * batch for an epoch)
+    from the first seed at or after ``seed`` whose decoder margin reaches
+    D2R_MARGINS[1] at every step of the plain version's trajectory
+    (``plain_step(p, bn, step_rows) -> (grads, bn)``) from (flat, bn, m0,
+    v0) with AdamW at step0 = 7, their near-kink BN cells dropped
+    (``clear(p, step_rows) -> (cells dropped, decoder margin)``); returns
+    (rows, seed, cells dropped). A "cw" entry is shared by every step."""
     batch = n // steps
     for s in range(seed, seed + 400):
-        r = d2r_rows(dev, n, s)
+        r = make_rows(dev, n, s)
         p, b, dropped, ok = dict(flat), bn, 0, True
         opt = {"step": torch.tensor(7, device=dev), "m": m0, "v": v0}
         for i in range(steps):
             rows = slice(batch * i, batch * (i + 1))
-            step_rows = {k: v[rows] for k, v in r.items()}
-            more, margin = d2r_clear_kinks(p, step_rows)
+            step_rows = {k: (v if k == "cw" else v[rows]) for k, v in r.items()}
+            more, margin = clear(p, step_rows)
             dropped += more
             if margin < D2R_MARGINS[1]:
                 ok = False
                 break
             if steps > 1:
-                _, grads, b = ft.dna2rna_train_step_reference(
-                    p, b, step_rows["x"], step_rows["t"], step_rows["site"], step_rows["eps"],
-                    step_rows["drop1"], step_rows["drop2"], BETA)
+                grads, b = plain_step(p, b, step_rows)
                 p, opt = optim.adamw_update(p, grads, opt, LR, WD)
         if ok:
             return r, s, dropped
-    raise AssertionError(f"no DNA→RNA rows with a decoder margin of {D2R_MARGINS[1]} in 400 "
+    raise AssertionError(f"no {what} rows with a decoder margin of {D2R_MARGINS[1]} in 400 "
                          f"seeds from {seed}")
+
+
+def d2r_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
+    """`away_from_kinks_masked` for DNA→RNA (``d2r_rows``, `d2r_clear_kinks`)."""
+    def plain_step(p, b, r):
+        _, grads, b = ft.dna2rna_train_step_reference(p, b, r["x"], r["t"], r["site"], r["eps"],
+                                                      r["drop1"], r["drop2"], BETA)
+        return grads, b
+
+    return away_from_kinks_masked("DNA→RNA", d2r_rows, d2r_clear_kinks, plain_step, dev, n, seed,
+                                  flat, bn, steps, m0, v0)
 
 
 def compare_d2r_step(dev):
@@ -726,22 +796,242 @@ def check_philox_d2r(dev):
         "equals the injected step given its draws")
 
 
+# ---- MultiModalVAE -----------------------------------------------------------
+
+def mm_params(dev, seed):
+    return multimodal_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a,
+                               CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim, dev)
+
+
+def mm_rows(dev, n, seed):
+    """Rows shaped like the cohort (log-expression a, β-values b), sites,
+    injected noise, and class weights in [0.5, 2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return dict(
+        a=torch.log1p(torch.rand((n, CFG.input_dim_a), generator=g, device=dev) * 50.0),
+        b=torch.rand((n, CFG.input_dim_b), generator=g, device=dev) * 0.98 + 0.01,
+        site=torch.randint(0, N_SITES, (n,), generator=g, device=dev),
+        eps=torch.randn((n, CFG.latent_dim), generator=g, device=dev),
+        drop_a=(torch.rand((n, 128), generator=g, device=dev) < 0.9).float(),
+        drop_b1=(torch.rand((n, H1), generator=g, device=dev) < 0.9).float(),
+        drop_b2=(torch.rand((n, H2), generator=g, device=dev) < 0.9).float(),
+        cw=torch.rand(N_SITES, generator=g, device=dev) * 1.5 + 0.5,
+    )
+
+
+MM_NOISE = ("eps", "drop_a", "drop_b1", "drop_b2")
+MM_ZERO_GRAD = ("a_b1", "b_b1", "b_b2")  # encoder fc biases feeding train-mode BatchNorm
+
+
+def mm_clear_kinks(flat, r):
+    """`d2r_clear_kinks` for the tri-modal step: the near-kink cells of its
+    three BN blocks dropped; returns (cells dropped, the smallest relative
+    margin of its four decoder ReLU layers)."""
+    p = {k: v.double() for k, v in flat.items()}
+    ad, n1 = clear_block(r["a"].double(), p["a_w1"], p["a_b1"], p["a_gamma"], p["a_beta"],
+                         r["drop_a"])
+    bd1, n2 = clear_block(r["b"].double(), p["b_w1"], p["b_b1"], p["b_gamma1"], p["b_beta1"],
+                          r["drop_b1"])
+    bd2, n3 = clear_block(bd1, p["b_w2"], p["b_b2"], p["b_gamma2"], p["b_beta2"], r["drop_b2"])
+    e = p["emb"][r["site"]]
+    mu = ((ad @ p["a_wmu"] + p["a_bmu"]) + (bd2 @ p["b_wmu"] + p["b_bmu"])
+          + (e @ p["c_wmu"] + p["c_bmu"])) / 3.0
+    lv = ((ad @ p["a_wlv"] + p["a_blv"]) + (bd2 @ p["b_wlv"] + p["b_blv"])
+          + (e @ p["c_wlv"] + p["c_blv"])) / 3.0
+    z = mu + r["eps"].double() * torch.exp(0.5 * lv)
+    ub1 = z @ p["db_w1"] + p["db_b1"]
+    us = (z @ p["da_w1"] + p["da_b1"], ub1, torch.relu(ub1) @ p["db_w2"] + p["db_b2"],
+          z @ p["dc_w1"] + p["dc_b1"])
+    return n1 + n2 + n3, min((u.abs().min() / u.abs().max()).item() for u in us)
+
+
+def mm_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
+    """`away_from_kinks_masked` for the tri-modal step (``mm_rows``,
+    `mm_clear_kinks`)."""
+    def plain_step(p, b, r):
+        _, grads, b = ft.multimodal_train_step_reference(
+            p, b, r["a"], r["b"], r["site"], r["cw"], *(r[k] for k in MM_NOISE), BETA, GAMMA)
+        return grads, b
+
+    return away_from_kinks_masked("tri-modal", mm_rows, mm_clear_kinks, plain_step, dev, n, seed,
+                                  flat, bn, steps, m0, v0)
+
+
+def check_all(what, checks):
+    """Check every (name, kernel, plain, atol, rtol) before raising the
+    first failure; returns the largest |kernel - plain| over the checks
+    other than the losses (whose scale is the loss's)."""
+    failed, worst = [], 0.0
+    for name, a, w, atol, rtol in checks:
+        err = (a - w).abs().max().item()
+        if not (torch.isfinite(a).all() and torch.allclose(a, w, atol=atol, rtol=rtol)):
+            failed.append(f"{name} by {err:.3g} (atol {atol:.3g}, rtol {rtol:.3g})")
+        if not name.startswith("loss"):
+            worst = max(worst, err)
+    if failed:
+        raise AssertionError(f"{what} differs from the plain version: " + "; ".join(failed))
+    return worst
+
+
+def compare_mm_step(dev):
+    params, state = mm_params(dev, 21)
+    flat, bn = ft.flatten_params(params, MM), ft.bn_mm(state)
+    worst = 0.0
+    for batch in STEP_BATCHES:
+        r, seed, dropped = mm_away_from_kinks(dev, batch, 1000 * batch + 31, flat, bn)
+        loss, grads, new = ft.multimodal_fused_train_step(
+            params, state, r["a"], r["b"], r["site"], N_SITES, beta=BETA, gamma=GAMMA,
+            class_weights=r["cw"], **{k: r[k] for k in MM_NOISE})
+        want = ft.multimodal_train_step_reference(flat, bn, r["a"], r["b"], r["site"], r["cw"],
+                                                  *(r[k] for k in MM_NOISE), BETA, GAMMA)
+        torch.cuda.synchronize()
+        got = ft.flatten_params(grads, MM)
+        checks = [("loss", loss, want[0], 0.0, 1e-5)]
+        checks += [(f"grad {name}", got[name], want[1][name],
+                    2e-3 if name in MM_ZERO_GRAD else 1e-3, 1e-4) for name, _ in MM]
+        checks += [(f"BN {k}", a, w, 1e-5, 0.0) for k, a, w in zip(
+            ("a_rm", "a_rv", "b_rm1", "b_rv1", "b_rm2", "b_rv2"), ft.bn_mm(new), want[2])]
+        worst = max(worst, check_all(f"multimodal train step B={batch}", checks))
+        say(f"[compare] multimodal_train_step B={batch}: rows of seed {seed}, {dropped} near-kink "
+            "BN cells dropped")
+    say(f"[compare] multimodal_train_step: max |kernel - plain| = {worst:.3e} over "
+        f"B={STEP_BATCHES} (loss rtol 1e-5, grads atol 1e-3 (2e-3 for the 3 fc biases feeding "
+        "BN) + rtol 1e-4, BN atol 1e-5)")
+    return worst
+
+
+def mm_epoch_checks(got, want, steps):
+    """(name, kernel, other, atol, rtol) of an epoch's params, m (relative to
+    each tensor's largest |m|), BN stats: the fc biases feeding BN and the
+    BN running means at 2·lr·steps."""
+    loose = 2 * LR * steps
+    checks = []
+    for i, tree in ((1, "params"), (2, "m")):
+        flat_got = ft.flatten_params(got[i], MM)
+        for name, _ in MM:
+            w = want[i][name]
+            scale = max(w.abs().max().item(), 1.0) if tree == "m" else 1.0
+            checks.append((f"{tree} {name}", flat_got[name], w,
+                           loose if name in MM_ZERO_GRAD else 5e-5 * scale, 0.0))
+    for k, a, w in zip(("a_rm", "a_rv", "b_rm1", "b_rv1", "b_rm2", "b_rv2"), ft.bn_mm(got[4]),
+                       want[4]):
+        checks.append((f"BN {k}", a, w, loose if "_rm" in k else 2e-4, 0.0))
+    return checks
+
+
+MM_SHORT_STEPS = 4
+
+
+def compare_mm_epoch(dev):
+    """The epoch kernel against its plain version over a short epoch (the
+    decoder seed search cannot clear 25 steps), then over 25 steps against
+    a chain of the step kernel and AdamW, which runs the same phase kernels."""
+    params, state = mm_params(dev, 22)
+    flat, bn = ft.flatten_params(params, MM), ft.bn_mm(state)
+    g = torch.Generator(device=dev).manual_seed(25)
+    m0 = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-3 for k, v in flat.items()}
+    v0 = {k: torch.rand(v.shape, generator=g, device=dev) * 1e-6 for k, v in flat.items()}
+    r, seed, dropped = mm_away_from_kinks(dev, MM_SHORT_STEPS * 32, 6200, flat, bn,
+                                          MM_SHORT_STEPS, m0, v0)
+    noise = {f"{k.replace('drop_', 'drop')}_ep": r[k] for k in MM_NOISE}
+    args = dict(beta=BETA, gamma=GAMMA, lr=LR, weight_decay=WD, step0=7)
+    got = fe.multimodal_fused_epoch(params, ft.unflatten(m0, MM), ft.unflatten(v0, MM), state,
+                                    r["a"], r["b"], r["site"], N_SITES, class_weights=r["cw"],
+                                    n_batches=MM_SHORT_STEPS, **noise, **args)
+    want = fe.multimodal_epoch_reference(flat, m0, v0, bn, r["a"], r["b"], r["site"], r["cw"],
+                                         tuple(r[k] for k in MM_NOISE), seed=0,
+                                         n_batches=MM_SHORT_STEPS, **args)
+    torch.cuda.synchronize()
+    worst = check_all(f"multimodal epoch ({MM_SHORT_STEPS} steps, plain)",
+                      [("losses", got[0], want[0], 0.0, 1e-5)]
+                      + mm_epoch_checks(got, want, MM_SHORT_STEPS))
+    say(f"[compare] multimodal_train_epoch vs plain: {MM_SHORT_STEPS} steps x 32, rows of seed "
+        f"{seed}, {dropped} near-kink BN cells dropped; max |kernel - plain| = {worst:.3e}")
+
+    # 25 steps: the epoch kernel against the step kernel + AdamW, step by step
+    r = mm_rows(dev, EPOCH_STEPS * 32, 6300)
+    noise = {f"{k.replace('drop_', 'drop')}_ep": r[k] for k in MM_NOISE}
+    got = fe.multimodal_fused_epoch(params, ft.unflatten(m0, MM), ft.unflatten(v0, MM), state,
+                                    r["a"], r["b"], r["site"], N_SITES, class_weights=r["cw"],
+                                    n_batches=EPOCH_STEPS, **noise, **args)
+    p, s = params, state
+    opt = {"step": torch.tensor(7, dtype=torch.int32, device=dev), "m": ft.unflatten(m0, MM),
+           "v": ft.unflatten(v0, MM)}
+    losses = []
+    for i in range(EPOCH_STEPS):
+        rows = slice(32 * i, 32 * (i + 1))
+        loss, grads, s = ft.multimodal_fused_train_step(
+            p, s, r["a"][rows], r["b"][rows], r["site"][rows], N_SITES, beta=BETA, gamma=GAMMA,
+            class_weights=r["cw"], **{k: r[k][rows] for k in MM_NOISE})
+        losses.append(loss)
+        p, opt = optim.adamw_update(p, grads, opt, LR, WD)
+    chain = (torch.stack(losses), ft.flatten_params(p, MM), ft.flatten_params(opt["m"], MM), None,
+             ft.bn_mm(s))
+    torch.cuda.synchronize()
+    worst_chain = check_all(f"multimodal epoch ({EPOCH_STEPS} steps, step-kernel chain)",
+                            [("losses", got[0], chain[0], 0.0, 1e-5)]
+                            + mm_epoch_checks(got, chain, EPOCH_STEPS))
+    say(f"[compare] multimodal_train_epoch vs the step kernel + AdamW: {EPOCH_STEPS} steps x 32; "
+        f"max |epoch - chain| = {worst_chain:.3e} (params atol 5e-5, m 5e-5 of each tensor's "
+        f"largest |m|, BN var 2e-4, the 3 fc biases and BN means {2 * LR * EPOCH_STEPS}); losses "
+        "rtol 1e-5")
+    return max(worst, worst_chain)
+
+
+def check_philox_mm(dev):
+    draws = ft.philox_noise_mm(7, 3, 512, 128, H1, H2, CFG.latent_dim, dev)
+    again = ft.philox_noise_mm(7, 3, 512, 128, H1, H2, CFG.latent_dim, dev)
+    other = ft.philox_noise_mm(8, 3, 512, 128, H1, H2, CFG.latent_dim, dev)
+    if not all(torch.equal(a, b) for a, b in zip(draws, again)):
+        raise AssertionError("mm Philox: the same seed gave different draws")
+    if any(torch.equal(a, b) for a, b in zip(draws, other)):
+        raise AssertionError("mm Philox: different seeds gave the same draws")
+    eps, ka, kb1, kb2 = draws
+    if (torch.equal(ka, kb1[:, :128]) or torch.equal(kb1[:, :H2], kb2)
+            or torch.equal(ka, kb2[:, :128])):
+        raise AssertionError("mm Philox: two dropout layers drew the same masks")
+    rates = [k.mean().item() for k in (ka, kb1, kb2)]
+    big = ft.philox_noise_mm(11, 0, 8192, 128, 8, 8, CFG.latent_dim, dev)[0]
+    mean, var = big.mean().item(), big.var().item()
+    if any(abs(x - 0.9) > 0.005 for x in rates) or abs(mean) > 0.01 or abs(var - 1.0) > 0.02:
+        raise AssertionError(f"mm Philox: keep rates {rates}, eps mean {mean}, var {var}")
+    params, state = mm_params(dev, 23)
+    r = mm_rows(dev, 32, 29)
+    args = (params, state, r["a"], r["b"], r["site"], N_SITES)
+    a = ft.multimodal_fused_train_step(*args, seed=5, step=4, class_weights=r["cw"])
+    noise = ft.philox_noise_mm(5, 4, 32, 128, H1, H2, CFG.latent_dim, dev)
+    b = ft.multimodal_fused_train_step(*args, class_weights=r["cw"], **dict(zip(MM_NOISE, noise)))
+    torch.cuda.synchronize()
+    if not torch.equal(a[0], b[0]):
+        raise AssertionError("mm Philox: the Philox step differs from the injected step")
+    say(f"[compare] mm Philox: keep rates {rates[0]:.5f}, {rates[1]:.5f}, {rates[2]:.5f} "
+        f"({ka.numel()}, {kb1.numel()}, {kb2.numel()} draws), eps mean {mean:.5f} var {var:.5f} "
+        f"over {big.numel()}; reproducible, seed-dependent, a stream for each dropout layer, "
+        "and the Philox step equals the injected step given its draws")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: train, then serve
 
+MODEL_OF = {"rna2dna": "rna2dna", "dna2rna": "dna2rna", "multimodal": "multivae"}
+SUFFIX = {"rna2dna": "", "dna2rna": "_d2r", "multimodal": "_mm"}
+
+
 def phase_train(dev, workdir, tpm, beta, site, task="rna2dna"):
-    """run_training(task, task) through the task's epoch kernel, then the
-    train-step and plain paths of engine.fit; returns the launch counts of
-    each path (train, train_step, train_plain; with "_d2r" for dna2rna) and
-    the run id."""
+    """run_training(task, its model name) through the task's epoch kernel
+    (the tri-modal one with balanced class weights, as ``main_multimodal``),
+    then the train-step and plain paths of engine.fit; returns the launch
+    counts of each path (train, train_step, train_plain; with "_d2r" for
+    dna2rna and "_mm" for multimodal) and the run id."""
     cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
                       plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
-    suffix = "" if task == "rna2dna" else "_d2r"
+    suffix, model = SUFFIX[task], MODEL_OF[task]
+    tri = task == "multimodal"
     zero_counts()
-    result, run_id, wall = run_training(task, task, cfg=cfg,
+    result, run_id, wall = run_training(task, model, cfg=cfg,
                                         argv=["--epochs", "3", "--seed", "0"],
                                         data=(tpm, beta, site), n_sites=N_SITES, device=dev,
-                                        root=workdir)
+                                        root=workdir, use_class_weights=tri)
     counts = {"train" + suffix: read_counts()}
     launched = counts["train" + suffix][f"{task}_train_epoch"]
     if launched != result.epochs_ran or result.epochs_ran != 3:
@@ -753,10 +1043,10 @@ def phase_train(dev, workdir, tpm, beta, site, task="rna2dna"):
     if not losses[2] < losses[0]:
         raise AssertionError(f"{task}: epoch 3's train loss {losses[2]} is not below epoch 1's "
                              f"{losses[0]}")
-    for path in (os.path.join(cfg.checkpoint_dir, f"best_{task}_{run_id}.npz"),
-                 os.path.join(cfg.checkpoint_dir, f"resume_{task}_{run_id}.npz"),
-                 os.path.join(workdir, f"latest_{task}_run_id.txt"),
-                 os.path.join(cfg.plots_dir, f"metrics_{task}_{run_id}.jsonl")):
+    for path in (os.path.join(cfg.checkpoint_dir, f"best_{model}_{run_id}.npz"),
+                 os.path.join(cfg.checkpoint_dir, f"resume_{model}_{run_id}.npz"),
+                 os.path.join(workdir, f"latest_{model}_run_id.txt"),
+                 os.path.join(cfg.plots_dir, f"metrics_{model}_{run_id}.jsonl")):
         if not os.path.exists(path):
             raise AssertionError(f"run_training did not write {path}")
     n_train = len(train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)[0])
@@ -768,17 +1058,49 @@ def phase_train(dev, workdir, tpm, beta, site, task="rna2dna"):
 
     tr, va = train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)
     arrays = lambda idx: (tpm[idx], beta[idx], site[idx])  # noqa: E731
+    cw = compute_class_weights(site[tr], N_SITES) if tri else None
     for path, kw in (("train_step" + suffix, {"fused_step": True}),
                      ("train_plain" + suffix, {})):
         zero_counts()
         res = engine.fit(task, cfg, arrays(tr), arrays(va), 1, N_SITES, num_epochs=1,
-                         device=dev, **kw)
+                         device=dev, class_weights=cw, **kw)
         counts[path] = read_counts()
         if not np.isfinite(res.val_losses).all():
             raise AssertionError(f"{path}: non-finite validation loss")
         say(f"[train] engine.fit {task} {path}: 1 epoch, val loss "
             f"{float(res.val_losses[0]):.2f}; launches {counts[path]}")
     return counts, run_id
+
+
+def phase_evaluate(dev, workdir, tpm, beta, site, run_id):
+    """``evaluate.main`` on the MultiModalVAE trained in phase 4 (through its
+    run-id file): two records of finite metrics in evaluation_results.json,
+    each printed beside the mean baseline's MSE; returns the launch counts of
+    that run (the tri-modal loader serves through the plain forward)."""
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      plots_dir=os.path.join(workdir, "plots"))
+    if evaluate.get_run_id(root=workdir) != run_id:
+        raise AssertionError("latest_multivae_run_id.txt does not name the trained run")
+    zero_counts()
+    records = evaluate.main(cfg=cfg, data=(tpm, beta, site), device=dev, root=workdir)
+    launches = read_counts()
+    path = os.path.join(cfg.plots_dir, "evaluation_results.json")
+    with open(path) as f:
+        saved = json.load(f)
+    if saved["run_id"] != run_id or len(saved["results"]) != 2:
+        raise AssertionError(f"{path}: {saved}")
+    for rec in saved["results"]:
+        for key in ("MSE", "MAE", "CosineSimilarity", "PearsonMean"):
+            if not math.isfinite(rec[key]):
+                raise AssertionError(f"non-finite {key} in {rec['Modality']}")
+    _, va = train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)
+    rna_mean, dna_mean = compare_directional_imputation.get_mean_imputation_predictions(
+        tpm[va], beta[va])
+    for rec, truth, mean in zip(records, (beta[va], tpm[va]), (dna_mean, rna_mean)):
+        say(f"[evaluate] MultiModalVAE {rec['Modality']}: MSE {rec['MSE']:.5f} vs mean "
+            f"imputation {float(np.mean((truth - mean) ** 2)):.5f}; " + json.dumps(rec))
+    say(f"[evaluate] evaluation_results.json written; launches {launches}")
+    return launches
 
 
 def phase_serve(dev, workdir, tpm, beta, site, trained):
@@ -997,6 +1319,9 @@ def phase_timing(dev, card):
     out.update(time_d2r(dev, card, t, x, s, n_steps))
     time_fit(dev, card, 1024, 10, "dna2rna")
     time_fit(dev, card, 8000, 3, "dna2rna")
+    out.update(time_mm(dev, card, x, t, s, n_steps))
+    time_fit(dev, card, 1024, 10, "multimodal")
+    time_fit(dev, card, 8000, 3, "multimodal")
     return out
 
 
@@ -1040,6 +1365,49 @@ def time_d2r(dev, card, x, t, s, n_steps):
     return out
 
 
+def time_mm(dev, card, a, b, s, n_steps):
+    """The tri-modal step at B = 32, one epoch of ``n_steps`` steps on the
+    RNA rows a, DNA rows b and sites s (balanced class weights), profiled
+    once, and fused AdamW over its 39 tensors; returns {name: (ms, plain_ms,
+    library_ms, bound work)}."""
+    out = {}
+    params, state = mm_params(dev, 24)
+    flat, bn = ft.flatten_params(params, MM), ft.bn_mm(state)
+    r = mm_rows(dev, 32, 30)
+    ms, plain_ms = alternate(
+        lambda: ft.multimodal_fused_train_step(params, state, r["a"], r["b"], r["site"], N_SITES,
+                                               seed=1, step=0, beta=BETA, gamma=GAMMA,
+                                               class_weights=r["cw"]),
+        lambda: ft.multimodal_train_step_reference(flat, bn, r["a"], r["b"], r["site"], r["cw"],
+                                                   *(r[k] for k in MM_NOISE), BETA, GAMMA))
+    out["multimodal_train_step"] = (ms, plain_ms, None, step_work_mm(32))
+    say(f"[time] multimodal_train_step B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+
+    cw = torch.as_tensor(compute_class_weights(s.cpu().numpy(), N_SITES)).to(dev)
+    zeros = {k: torch.zeros_like(v) for k, v in flat.items()}
+    zt = ft.unflatten(zeros, MM)
+    kernel = lambda: fe.multimodal_fused_epoch(  # noqa: E731
+        params, zt, zt, state, a, b, s, N_SITES, seed=2, beta=BETA, gamma=GAMMA,
+        class_weights=cw, lr=LR, weight_decay=WD, n_batches=n_steps)
+    ms, plain_ms = alternate(
+        kernel,
+        lambda: fe.multimodal_epoch_reference(flat, zeros, zeros, bn, a, b, s, cw, (None,) * 4,
+                                              seed=2, beta=BETA, gamma=GAMMA, lr=LR,
+                                              weight_decay=WD, step0=0, n_batches=n_steps),
+        reps=2, warmup=1)
+    profile_epoch(kernel, f"multimodal_train_epoch ({n_steps} steps)", card)
+    leaves = [v.clone() for v in flat.values()]
+    for p in leaves:
+        p.grad = torch.randn_like(p) * 1e-3
+    adamw = torch.optim.AdamW(leaves, lr=LR, weight_decay=WD, fused=True)
+    library_ms = time_call(adamw.step)
+    out["multimodal_train_epoch"] = (ms, plain_ms, library_ms, epoch_work_mm(n_steps, 32))
+    say(f"[time] multimodal_train_epoch {n_steps} steps x 32 rows: kernel {ms:.4f} ms "
+        f"({a.shape[0] / ms * 1e3:,.0f} samples/s), plain {plain_ms:.4f} ms; torch.optim.AdamW "
+        f"(fused) step over the same 39 tensors {library_ms:.4f} ms (x{n_steps} per epoch); {card}")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_policy.require_cuda()
@@ -1067,6 +1435,9 @@ def main():
     errs["dna2rna_train_step"] = compare_d2r_step(dev)
     errs["dna2rna_train_epoch"] = compare_d2r_epoch(dev)
     check_philox_d2r(dev)
+    errs["multimodal_train_step"] = compare_mm_step(dev)
+    errs["multimodal_train_epoch"] = compare_mm_epoch(dev)
+    check_philox_mm(dev)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -1078,6 +1449,9 @@ def main():
             counts.update(counts_d2r)
             counts["serve"] = phase_serve(dev, workdir, tpm, beta, site,
                                           {"rna2dna": run_id, "dna2rna": run_id_d2r})
+            counts_mm, run_id_mm = phase_train(dev, workdir, tpm, beta, site, "multimodal")
+            counts.update(counts_mm)
+            counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
         finally:
             os.chdir(cwd)
     timings = phase_timing(dev, card)
@@ -1085,7 +1459,8 @@ def main():
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",
                "rna2dna_train_epoch": "train", "rna2dna_loss_forward": "train",
                "rna2dna_train_step": "train_step", "rna2dna_loss_backward": "train_plain",
-               "dna2rna_train_epoch": "train_d2r", "dna2rna_train_step": "train_step_d2r"}
+               "dna2rna_train_epoch": "train_d2r", "dna2rna_train_step": "train_step_d2r",
+               "multimodal_train_epoch": "train_mm", "multimodal_train_step": "train_step_mm"}
     sources = {name: "vae_los_angeles_torch/csrc/fused_vae.cu" for name in KERNELS}
     replaces = {name: spec[4] for name, spec in KERNELS.items()}
     for name, (src, rep, _) in TRAIN_KERNELS.items():

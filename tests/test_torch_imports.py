@@ -31,6 +31,8 @@ def run(args, cwd, env_extra=None, timeout=240):
 def test_slice_modules_listed():
     assert "vae_los_angeles_torch.ops.kernels.fused_vae" in SLICE_MODULES
     assert "vae_los_angeles_torch.evaluation.compare_directional_imputation" in SLICE_MODULES
+    assert "vae_los_angeles_torch.evaluation.evaluate" in SLICE_MODULES
+    assert "vae_los_angeles_torch.train" in SLICE_MODULES
     assert len(SLICE_MODULES) >= 20
 
 

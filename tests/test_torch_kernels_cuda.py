@@ -14,9 +14,11 @@ dimension is exercised, and B = 2100 reaches the 16-row tiles. Tolerance:
 atol = rtol = 1e-4 (fp32 on both sides, summed in different orders). The
 training kernels use the JAX tests' tolerances (``tests/test_pallas_train.py``,
 ``tests/test_pallas_epoch.py``; the DNA→RNA gradients atol 1e-3 + rtol 1e-4,
-its epoch's params and m atol 5e-5), with the encoder fc biases and the BN
-running means at 2·lr per step (their true gradient is zero; Adam turns its
-fp32 noise into steps of up to lr that differ between implementations)."""
+its epoch's params and m atol 5e-5; the tri-modal gradients atol 1e-3 +
+rtol 1e-4, 2e-3 for the encoder fc biases), with the encoder fc biases and
+the BN running means at 2·lr per step in the epochs (their true gradient is
+zero; Adam turns its fp32 noise into steps of up to lr that differ between
+implementations)."""
 
 import numpy as np
 import pytest
@@ -382,3 +384,123 @@ def test_d2r_fit_paths_launch_their_kernels(path, cuda_device):
     assert delta["dna2rna_train_epoch"] == (2 if path == "fused_epoch" else 0)
     assert delta["dna2rna_train_step"] == (12 if path == "fused_step" else 0)
     assert not any(v for k, v in delta.items() if k.startswith("rna2dna"))
+
+
+# ---- MultiModalVAE: a the RNA rows (TRAIN_DIMS["din"] wide), b the DNA rows ----
+MM_ZERO_GRAD = ("a_b1", "b_b1", "b_b2")  # the encoder fc biases feeding train-mode BatchNorm
+
+
+def mm_case(dev, batch, n_batches=1, seed=0):
+    """Port-initialised MultiModalVAE (params, state) at small odd widths (the
+    hidden widths are fixed), rows with injected noise, and class weights."""
+    from vae_los_angeles_torch.models.vae import multimodal_vae_init
+
+    d = TRAIN_DIMS
+    params, state = multimodal_vae_init(torch.Generator().manual_seed(seed), d["din"], d["dout"],
+                                        d["sites"], d["latent"], d["embed"], dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = batch * n_batches
+    rows = dict(a=torch.randn((n, d["din"]), generator=g, device=dev),
+                b=torch.rand((n, d["dout"]), generator=g, device=dev),
+                site=torch.randint(0, d["sites"], (n,), generator=g, device=dev),
+                eps=torch.randn((n, d["latent"]), generator=g, device=dev),
+                drop_a=(torch.rand((n, 128), generator=g, device=dev) < 0.9).float(),
+                drop_b1=(torch.rand((n, 512), generator=g, device=dev) < 0.9).float(),
+                drop_b2=(torch.rand((n, 256), generator=g, device=dev) < 0.9).float())
+    cw = torch.rand(d["sites"], generator=g, device=dev) * 1.5 + 0.5
+    return params, state, rows, cw
+
+
+MM_NOISE = ("eps", "drop_a", "drop_b1", "drop_b2")
+
+
+@pytest.mark.parametrize("batch", [7, 32])
+def test_mm_train_step_kernel_matches_plain_version(batch, cuda_device):
+    params, state, r, cw = mm_case(cuda_device, batch)
+    before = ft.launches["multimodal_train_step"]
+    loss, grads, bn = ft.multimodal_fused_train_step(
+        params, state, r["a"], r["b"], r["site"], TRAIN_DIMS["sites"], beta=1e-3, gamma=1.7,
+        class_weights=cw, **{k: r[k] for k in MM_NOISE})
+    assert ft.launches["multimodal_train_step"] == before + 1
+    flat = ft.flatten_params(params, ft.PARAM_ORDER_MM)
+    want = ft.multimodal_train_step_reference(flat, ft.bn_mm(state), r["a"], r["b"], r["site"],
+                                              cw, *(r[k] for k in MM_NOISE), 1e-3, 1.7)
+    torch.testing.assert_close(loss, want[0], rtol=1e-5, atol=0)
+    got = ft.flatten_params(grads, ft.PARAM_ORDER_MM)
+    for name, _ in ft.PARAM_ORDER_MM:
+        atol = 2e-3 if name in MM_ZERO_GRAD else 1e-3
+        torch.testing.assert_close(got[name], want[1][name], atol=atol, rtol=1e-4, msg=name)
+    for a, b in zip(ft.bn_mm(bn), want[2]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_philox_noise_of_the_mm_train_kernel(cuda_device):
+    eps, keep_a, keep_b1, keep_b2 = ft.philox_noise_mm(7, 3, 1024, 128, 512, 256, 20,
+                                                       cuda_device)
+    for keep in (keep_a, keep_b1, keep_b2):
+        assert abs(keep.mean().item() - 0.9) < 0.005
+    # a stream for each dropout layer
+    assert not torch.equal(keep_a, keep_b1[:, :128]) and not torch.equal(keep_b1[:, :256], keep_b2)
+    assert not torch.equal(keep_a, keep_b2[:, :128])
+    assert abs(eps.mean().item()) < 0.03 and abs(eps.var().item() - 1) < 0.03
+    again = ft.philox_noise_mm(7, 3, 1024, 128, 512, 256, 20, cuda_device)
+    other = ft.philox_noise_mm(8, 3, 1024, 128, 512, 256, 20, cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip((eps, keep_a, keep_b1, keep_b2), again))
+    assert not any(torch.equal(a, b) for a, b in zip((eps, keep_a, keep_b1, keep_b2), other))
+    # the Philox step equals the injected step given the draws it makes
+    params, state, r, cw = mm_case(cuda_device, 16, seed=2)
+    args = (params, state, r["a"], r["b"], r["site"], TRAIN_DIMS["sites"])
+    a = ft.multimodal_fused_train_step(*args, seed=5, step=1, class_weights=cw)
+    noise = ft.philox_noise_mm(5, 1, 16, 128, 512, 256, TRAIN_DIMS["latent"], cuda_device)
+    b = ft.multimodal_fused_train_step(*args, class_weights=cw, **dict(zip(MM_NOISE, noise)))
+    assert torch.equal(a[0], b[0])
+
+
+def test_mm_epoch_kernel_matches_plain_version(cuda_device):
+    n_batches, batch, lr = 4, 16, 5e-4
+    params, state, r, cw = mm_case(cuda_device, batch, n_batches, seed=3)
+    order = ft.PARAM_ORDER_MM
+    zeros = {k: torch.zeros_like(v) for k, v in ft.flatten_params(params, order).items()}
+    zt = ft.unflatten(zeros, order)
+    noise = {f"{k.replace('drop_', 'drop')}_ep": r[k] for k in MM_NOISE}
+    before = fe.launches["multimodal_train_epoch"]
+    got = fe.multimodal_fused_epoch(params, zt, zt, state, r["a"], r["b"], r["site"],
+                                    TRAIN_DIMS["sites"], gamma=1.7, class_weights=cw, lr=lr,
+                                    step0=2, n_batches=n_batches, **noise)
+    assert fe.launches["multimodal_train_epoch"] == before + 1
+    want = fe.multimodal_epoch_reference(ft.flatten_params(params, order), zeros, zeros,
+                                         ft.bn_mm(state), r["a"], r["b"], r["site"], cw,
+                                         tuple(r[k] for k in MM_NOISE), seed=0, beta=1e-3,
+                                         gamma=1.7, lr=lr, weight_decay=1e-5, step0=2,
+                                         n_batches=n_batches)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    loose = 2 * lr * n_batches
+    for tree, ref in ((got[1], want[1]), (got[2], want[2])):
+        flat = ft.flatten_params(tree, order)
+        for name, _ in order:
+            atol = loose if name in MM_ZERO_GRAD else 5e-5
+            torch.testing.assert_close(flat[name], ref[name], atol=atol, rtol=0, msg=name)
+    for i, (a, b) in enumerate(zip(ft.bn_mm(got[4]), want[4])):
+        torch.testing.assert_close(a, b, atol=loose if i % 2 == 0 else 2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("path", ["plain", "fused_step", "fused_epoch"])
+def test_mm_fit_paths_launch_their_kernels(path, cuda_device):
+    d = TRAIN_DIMS
+    cfg = Config(input_dim_a=d["din"], input_dim_b=d["dout"], latent_dim=d["latent"],
+                 embed_dim=d["embed"], batch_size=16)
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(96, d["din"])).astype(np.float32),
+            rng.uniform(size=(96, d["dout"])).astype(np.float32),
+            rng.integers(0, d["sites"], size=96))
+    val = tuple(a[:40] for a in data)
+    counts = (ft.launches, fe.launches, fl.launches)
+    before = [dict(c) for c in counts]
+    res = engine.fit("multimodal", cfg, data, val, 0, d["sites"], num_epochs=2,
+                     device=cuda_device, class_weights=np.linspace(0.5, 2.0, d["sites"]),
+                     **({} if path == "plain" else {path: True}))
+    delta = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
+    assert res.epochs_ran == 2 and np.isfinite(res.val_losses).all()
+    assert delta["multimodal_train_epoch"] == (2 if path == "fused_epoch" else 0)
+    assert delta["multimodal_train_step"] == (12 if path == "fused_step" else 0)
+    assert not any(v for k, v in delta.items() if not k.startswith("multimodal"))

@@ -6,16 +6,19 @@ import numpy as np
 import pytest
 import torch
 
-from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
+from vae_los_angeles_torch.models import DNA2RNAVAE, MultiModalVAE, RNA2DNAVAE
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from vae_los_angeles_tpu.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
+from vae_los_angeles_tpu.models.vae import multimodal_vae_init
 from vae_los_angeles_tpu.utils.torch_import import export_state_dict
 
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 40, 56, 5, 8, 6
 FAMILIES = {
     "rna2dna": (rna2dna_vae_init, RNA2DNAVAE),
     "dna2rna": (dna2rna_vae_init, DNA2RNAVAE),
+    "multivae": (multimodal_vae_init, MultiModalVAE),
 }
+SITE_ENCODER = {"rna2dna": "encoder_site", "dna2rna": "encoder_site", "multivae": "encoder_c"}
 
 
 def jax_model(model_type, seed=0):
@@ -59,8 +62,9 @@ def test_port_module_loads_strictly_and_exports_back(model_type):
     model.load_state_dict(state_dict_from_jax(params, state, model_type), strict=True)
     # the module's own state_dict (num_batches_tracked included) maps back
     p2, s2 = jax_from_state_dict(model.state_dict(), model_type)
+    site = SITE_ENCODER[model_type]
     np.testing.assert_array_equal(
-        p2["encoder_site"]["embedding"]["table"], params["encoder_site"]["embedding"]["table"]
+        p2[site]["embedding"]["table"], params[site]["embedding"]["table"]
     )
     for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((p2, s2))):
         np.testing.assert_array_equal(a, b)
@@ -76,4 +80,4 @@ def test_wrong_layout_raises():
     with pytest.raises(KeyError):
         jax_from_state_dict({k: v for k, v in sd.items() if "fc_mu" not in k}, "rna2dna")
     with pytest.raises(ValueError, match="unknown model type"):
-        state_dict_from_jax(params, state, "multivae")
+        state_dict_from_jax(params, state, "rna2dna_ae")

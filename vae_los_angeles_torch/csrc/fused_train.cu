@@ -87,7 +87,7 @@ constexpr int LOSS_BLOCKS = 64;
 constexpr int THREADS = 256;
 
 enum NoiseMode { NOISE_INJECTED = 0, NOISE_PHILOX = 1 };
-enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1, STREAM_DROPOUT2 = 2 };
+enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1, STREAM_DROPOUT2 = 2, STREAM_DROPOUT3 = 3 };
 enum Epilogue { EPI_BIAS_RELU = 0, EPI_RELU_MASK = 1 };
 
 // PARAM_ORDER of ops/kernels/fused_train.py, JAX layout: a Linear's weight
@@ -950,6 +950,458 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
 
 }  // namespace d2r
 
+// ---------------------------------------------------------------------------
+// Tri-modal MultiModalVAE: EncoderA (RNA: one Linear -> BatchNorm -> ReLU ->
+// dropout block), EncoderB (DNA: two such blocks), EncoderC (site
+// embedding), the mean of the three posteriors, DecoderA (latent -> 128 ->
+// RNA, linear), DecoderB (latent -> 256 -> 512 -> DNA logits), DecoderC
+// (latent -> 64 -> site logits), and the loss MSE sum + BCE sum + gamma *
+// class-weighted CE sum + beta * KLD. The same phase kernels as the
+// directional steps; new are the three-source posterior and its backward,
+// the cross-entropy head and the four-term loss finish.
+namespace mm {
+
+// PARAM_ORDER_MM of ops/kernels/fused_train.py, JAX layout.
+enum Param {
+    A_W1, A_B1, A_G, A_BT, A_WMU, A_BMU, A_WLV, A_BLV,
+    B_W1, B_B1, B_G1, B_BT1, B_W2, B_B2, B_G2, B_BT2, B_WMU, B_BMU, B_WLV, B_BLV,
+    EMB, C_WMU, C_BMU, C_WLV, C_BLV,
+    DA_W1, DA_B1, DA_W2, DA_B2,
+    DB_W1, DB_B1, DB_W2, DB_B2, DB_W3, DB_B3,
+    DC_W1, DC_B1, DC_W2, DC_B2, N_PARAMS
+};
+
+// in_a (RNA), in_b (DNA), EncoderA's hidden, EncoderB's two, latent, sites,
+// embedding, DecoderA's hidden, DecoderB's two, DecoderC's hidden.
+struct Dims {
+    int a, b, ha, hb1, hb2, latent, sites, embed, da, db1, db2, dc;
+};
+
+constexpr int N_DIMS = 12;
+
+Dims from(const int* d) {
+    return Dims{d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7], d[8], d[9], d[10], d[11]};
+}
+
+bool valid(const Dims& d, int B) {
+    return B >= 1 && d.a > 0 && d.b > 0 && d.ha > 0 && d.hb1 > 0 && d.hb2 > 0 && d.latent > 0 &&
+           d.sites > 0 && d.embed > 0 && d.da > 0 && d.db1 > 0 && d.db2 > 0 && d.dc > 0;
+}
+
+long long param_offsets(const Dims& d, long long* off) {
+    const long long L = d.latent;
+    long long s[N_PARAMS];
+    s[A_W1] = (long long)d.a * d.ha; s[A_B1] = d.ha; s[A_G] = d.ha; s[A_BT] = d.ha;
+    s[A_WMU] = d.ha * L; s[A_BMU] = L; s[A_WLV] = d.ha * L; s[A_BLV] = L;
+    s[B_W1] = (long long)d.b * d.hb1; s[B_B1] = d.hb1; s[B_G1] = d.hb1; s[B_BT1] = d.hb1;
+    s[B_W2] = (long long)d.hb1 * d.hb2; s[B_B2] = d.hb2; s[B_G2] = d.hb2; s[B_BT2] = d.hb2;
+    s[B_WMU] = d.hb2 * L; s[B_BMU] = L; s[B_WLV] = d.hb2 * L; s[B_BLV] = L;
+    s[EMB] = (long long)d.sites * d.embed;
+    s[C_WMU] = d.embed * L; s[C_BMU] = L; s[C_WLV] = d.embed * L; s[C_BLV] = L;
+    s[DA_W1] = L * d.da; s[DA_B1] = d.da; s[DA_W2] = (long long)d.da * d.a; s[DA_B2] = d.a;
+    s[DB_W1] = L * d.db1; s[DB_B1] = d.db1; s[DB_W2] = (long long)d.db1 * d.db2;
+    s[DB_B2] = d.db2; s[DB_W3] = (long long)d.db2 * d.b; s[DB_B3] = d.b;
+    s[DC_W1] = L * d.dc; s[DC_B1] = d.dc; s[DC_W2] = (long long)d.dc * d.sites;
+    s[DC_B2] = d.sites;
+    long long total = 0;
+    for (int i = 0; i < N_PARAMS; ++i) {
+        off[i] = total;
+        total += s[i];
+    }
+    return total;
+}
+
+// Running statistics, one buffer: a_rm, a_rv (ha), b_rm1, b_rv1 (hb1),
+// b_rm2, b_rv2 (hb2).
+long long bn_floats(const Dims& d) { return 2LL * (d.ha + d.hb1 + d.hb2); }
+
+struct Heads3 {
+    const float *a_wmu, *a_bmu, *a_wlv, *a_blv, *b_wmu, *b_bmu, *b_wlv, *b_blv, *emb, *c_wmu,
+        *c_bmu, *c_wlv, *c_blv;
+};
+
+// The three posteriors, their mean and z: one warp per (row, latent index),
+// its lanes over each head's input index; the grid's threads also store the
+// gathered embedding rows. mu = (mu_a + mu_b + mu_c) * (1/3) in that order,
+// as the TPU kernel adds them.
+__global__ void __launch_bounds__(THREADS)
+posterior3_kernel(const float* __restrict__ da, int HA, const float* __restrict__ db, int HB,
+                  const int64_t* __restrict__ site, Heads3 w, int B, int L, int S, int E,
+                  const float* __restrict__ eps_in, int noise, uint64_t seed, int step,
+                  float* __restrict__ e, float* __restrict__ mu, float* __restrict__ lv,
+                  float* __restrict__ epsv, float* __restrict__ sigma, float* __restrict__ z) {
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int idx = tid; idx < B * E; idx += gridDim.x * blockDim.x) {
+        const int r = idx / E, c = idx - r * E;
+        const int64_t s = site[r];
+        e[idx] = (s >= 0 && s < S) ? w.emb[s * E + c] : 0.f;
+    }
+    const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (idx >= B * L) return;  // warp-uniform
+    const int r = idx / L, j = idx - r * L;
+    float ma = 0.f, la = 0.f, mb = 0.f, lb = 0.f, mc = 0.f, lc = 0.f;
+    for (int k = lane; k < HA; k += 32) {
+        const float v = da[(size_t)r * HA + k];
+        ma = fmaf(v, w.a_wmu[(size_t)k * L + j], ma);
+        la = fmaf(v, w.a_wlv[(size_t)k * L + j], la);
+    }
+    for (int k = lane; k < HB; k += 32) {
+        const float v = db[(size_t)r * HB + k];
+        mb = fmaf(v, w.b_wmu[(size_t)k * L + j], mb);
+        lb = fmaf(v, w.b_wlv[(size_t)k * L + j], lb);
+    }
+    const int64_t s = site[r];
+    const bool ok = s >= 0 && s < S;
+    for (int c = lane; c < E; c += 32) {
+        const float v = ok ? w.emb[s * E + c] : 0.f;
+        mc = fmaf(v, w.c_wmu[(size_t)c * L + j], mc);
+        lc = fmaf(v, w.c_wlv[(size_t)c * L + j], lc);
+    }
+    ma = warp_sum(ma) + w.a_bmu[j];
+    la = warp_sum(la) + w.a_blv[j];
+    mb = warp_sum(mb) + w.b_bmu[j];
+    lb = warp_sum(lb) + w.b_blv[j];
+    mc = warp_sum(mc) + w.c_bmu[j];
+    lc = warp_sum(lc) + w.c_blv[j];
+    if (lane != 0) return;
+    const float third = 1.0f / 3.0f;
+    const float m = (ma + mb + mc) * third;
+    const float v = (la + lb + lc) * third;
+    const float ep = noise == NOISE_PHILOX ? philox_normal(seed, r, j, step) : eps_in[idx];
+    const float sg = expf(0.5f * v);
+    mu[idx] = m;
+    lv[idx] = v;
+    epsv[idx] = ep;
+    sigma[idx] = sg;
+    z[idx] = m + ep * sg;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+    return v;
+}
+
+// The site head: logits = sum of partials + bias, a stable log-softmax,
+// ce_rows[r] = w[y] * -log_softmax[y] and dlogits = (gamma * w[y]) *
+// (softmax - one_hot(y)). One warp per row, its lanes over the classes;
+// cw == nullptr means every weight is 1. The wrapper refuses a label outside
+// [0, S).
+__global__ void __launch_bounds__(THREADS)
+ce_kernel(const float* __restrict__ acc_part, int splits, int B, int S,
+          const float* __restrict__ bias, const int64_t* __restrict__ site,
+          const float* __restrict__ cw, float gamma, float* __restrict__ dlogits,
+          float* __restrict__ ce_rows) {
+    const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (r >= B) return;  // warp-uniform
+    const size_t mn = (size_t)B * S;
+    float mx = -INFINITY;
+    for (int c = lane; c < S; c += 32)
+        mx = fmaxf(mx, sum_splits(acc_part, splits, mn, (size_t)r * S + c) + bias[c]);
+    mx = warp_max(mx);
+    float se = 0.f;
+    for (int c = lane; c < S; c += 32)
+        se += expf((sum_splits(acc_part, splits, mn, (size_t)r * S + c) + bias[c]) - mx);
+    const float lse = logf(warp_sum(se));
+    const int64_t y = site[r];
+    const float wy = cw ? cw[y] : 1.f;
+    const float gw = gamma * wy;
+    float nll = 0.f;
+    for (int c = lane; c < S; c += 32) {
+        const float lp = ((sum_splits(acc_part, splits, mn, (size_t)r * S + c) + bias[c]) - mx) - lse;
+        const float oh = c == y ? 1.f : 0.f;
+        if (c == y) nll = -lp;
+        dlogits[(size_t)r * S + c] = gw * (expf(lp) - oh);
+    }
+    nll = warp_sum(nll);  // one lane holds it, the others add zeros
+    if (lane == 0) ce_rows[r] = wy * nll;
+}
+
+// loss = mse + bce + gamma * ce + beta * KLD from the block sums of the MSE
+// and BCE heads, the CE rows and the posterior, in fixed trees; one block.
+__global__ void __launch_bounds__(THREADS)
+loss_finish4_kernel(const float* __restrict__ part_mse, const float* __restrict__ part_bce,
+                   int n_part, const float* __restrict__ ce_rows, int B,
+                   const float* __restrict__ mu, const float* __restrict__ lv, int n_lat,
+                   float beta, float gamma, float* loss) {
+    __shared__ float r0[THREADS], r1[THREADS], r2[THREADS], r3[THREADS];
+    float a = 0.f, b = 0.f, c = 0.f, k = 0.f;
+    for (int i = threadIdx.x; i < n_part; i += THREADS) {
+        a += part_mse[i];
+        b += part_bce[i];
+    }
+    for (int i = threadIdx.x; i < B; i += THREADS) c += ce_rows[i];
+    for (int i = threadIdx.x; i < n_lat; i += THREADS) {
+        const float m = mu[i], v = lv[i];
+        k += 1.0f + v - m * m - expf(v);
+    }
+    r0[threadIdx.x] = a;
+    r1[threadIdx.x] = b;
+    r2[threadIdx.x] = c;
+    r3[threadIdx.x] = k;
+    __syncthreads();
+    for (int s = THREADS / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) {
+            r0[threadIdx.x] += r0[threadIdx.x + s];
+            r1[threadIdx.x] += r1[threadIdx.x + s];
+            r2[threadIdx.x] += r2[threadIdx.x + s];
+            r3[threadIdx.x] += r3[threadIdx.x + s];
+        }
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) *loss = r0[0] + r1[0] + gamma * r2[0] + beta * (-0.5f * r3[0]);
+}
+
+// dz = dua . da_w1^T + dub1 . db_w1^T + duc . dc_w1^T (added in that order),
+// then the posterior's backward: dmu/3 and dlogvar/3 (each of the three
+// fused posteriors takes a third). One warp per (row, j).
+__global__ void __launch_bounds__(THREADS)
+posterior3_backward_kernel(const float* __restrict__ dua, const float* __restrict__ da_w1,
+                           int DA, const float* __restrict__ dub1,
+                           const float* __restrict__ db_w1, int DB1,
+                           const float* __restrict__ duc, const float* __restrict__ dc_w1,
+                           int DC, int B, int L, const float* __restrict__ mu,
+                           const float* __restrict__ lv, const float* __restrict__ epsv,
+                           const float* __restrict__ sigma, float beta,
+                           float* __restrict__ dmh, float* __restrict__ dlh) {
+    const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (idx >= B * L) return;  // warp-uniform
+    const int r = idx / L, j = idx - r * L;
+    float za = 0.f, zb = 0.f, zc = 0.f;
+    for (int k = lane; k < DA; k += 32) za = fmaf(dua[(size_t)r * DA + k], da_w1[(size_t)j * DA + k], za);
+    for (int k = lane; k < DB1; k += 32)
+        zb = fmaf(dub1[(size_t)r * DB1 + k], db_w1[(size_t)j * DB1 + k], zb);
+    for (int k = lane; k < DC; k += 32) zc = fmaf(duc[(size_t)r * DC + k], dc_w1[(size_t)j * DC + k], zc);
+    const float dz = (warp_sum(za) + warp_sum(zb)) + warp_sum(zc);
+    if (lane != 0) return;
+    const float third = 1.0f / 3.0f;
+    const float dmu = dz + beta * mu[idx];
+    const float dlv = dz * epsv[idx] * 0.5f * sigma[idx] + (-0.5f * beta) * (1.0f - expf(lv[idx]));
+    dmh[idx] = third * dmu;
+    dlh[idx] = third * dlv;
+}
+
+struct Work {
+    float *xa, *dca, *ad, *inva, *xb1, *dcb1, *bd1, *invb1, *xb2, *dcb2, *bd2, *invb2, *e, *mu,
+        *lv, *epsv, *sigma, *z, *ra, *rb1, *rb2, *rc, *drecon, *dlogits_b, *dlogits_c, *ce_rows,
+        *dua, *dub2, *dub1, *duc, *dmh, *dlh, *daa, *dba2, *dba1, *part_mse, *part_bce, *scratch,
+        *grads;
+    size_t total;
+};
+
+Work plan(float* base, const Dims& d, int B, bool with_grads) {
+    Work w;
+    size_t o = 0;
+    auto take = [&](size_t n) {
+        float* p = base ? base + o : nullptr;
+        o += (n + 3) & ~(size_t)3;
+        return p;
+    };
+    const size_t Bs = (size_t)B, BL = Bs * d.latent;
+    w.xa = take(Bs * d.ha); w.dca = take(Bs * d.ha); w.ad = take(Bs * d.ha); w.inva = take(d.ha);
+    w.xb1 = take(Bs * d.hb1); w.dcb1 = take(Bs * d.hb1); w.bd1 = take(Bs * d.hb1);
+    w.invb1 = take(d.hb1);
+    w.xb2 = take(Bs * d.hb2); w.dcb2 = take(Bs * d.hb2); w.bd2 = take(Bs * d.hb2);
+    w.invb2 = take(d.hb2);
+    w.e = take(Bs * d.embed);
+    w.mu = take(BL); w.lv = take(BL); w.epsv = take(BL); w.sigma = take(BL); w.z = take(BL);
+    w.ra = take(Bs * d.da); w.rb1 = take(Bs * d.db1); w.rb2 = take(Bs * d.db2);
+    w.rc = take(Bs * d.dc);
+    w.drecon = take(Bs * d.a); w.dlogits_b = take(Bs * d.b); w.dlogits_c = take(Bs * d.sites);
+    w.ce_rows = take(Bs);
+    w.dua = take(Bs * d.da); w.dub2 = take(Bs * d.db2); w.dub1 = take(Bs * d.db1);
+    w.duc = take(Bs * d.dc);
+    w.dmh = take(BL); w.dlh = take(BL);
+    w.daa = take(Bs * d.ha); w.dba2 = take(Bs * d.hb2); w.dba1 = take(Bs * d.hb1);
+    w.part_mse = take(LOSS_BLOCKS); w.part_bce = take(LOSS_BLOCKS);
+    // the largest split-K product's partial sums
+    const int L = d.latent;
+    const int shapes[15][3] = {{B, d.ha, d.a},    {B, d.hb1, d.b},   {B, d.hb2, d.hb1},
+                               {B, d.da, L},      {B, d.a, d.da},    {B, d.db1, L},
+                               {B, d.db2, d.db1}, {B, d.b, d.db2},   {B, d.dc, L},
+                               {B, d.sites, d.dc}, {B, d.da, d.a},   {B, d.db2, d.b},
+                               {B, d.db1, d.db2}, {B, d.dc, d.sites}, {B, d.hb1, d.hb2}};
+    size_t scratch = 0;
+    for (auto& s : shapes) {
+        const Split sp = split_for(s[0], s[1], s[2], 1 << 20);
+        scratch = max_sz(scratch, (size_t)sp.splits * s[0] * s[1]);
+    }
+    w.scratch = take(scratch);
+    long long off[N_PARAMS];
+    w.grads = with_grads ? take((size_t)param_offsets(d, off)) : nullptr;
+    w.total = o;
+    return w;
+}
+
+// Two decoder layers' backward: the weight gradient act^T . dy (a product of
+// its own), the bias gradient (column sums) and, when dx is given, dx =
+// (dy . w^T) * (ref > 0) through a split-K product and the epilogue.
+int linear_backward(const float* act, int K, const float* dy, int N, const float* w, int B,
+                    float* gw, float* gb, const float* ref, float* dx, const Work& wk,
+                    cudaStream_t st) {
+    CHECK(gemm(Mat{act, 1, K}, Mat{dy, N, 1}, gw, K, N, B, 1, st, nullptr));
+    colsum_kernel<<<blocks(N), THREADS, 0, st>>>(dy, B, N, gb);
+    LAUNCHED();
+    if (!dx) return 0;
+    int sp = 1;
+    CHECK(gemm(Mat{dy, N, 1}, Mat{w, 1, N}, wk.scratch, B, K, N, 1 << 20, st, &sp));
+    epilogue_kernel<<<blocks((size_t)B * K), THREADS, 0, st>>>(wk.scratch, sp, B, K, nullptr, ref,
+                                                               dx, EPI_RELU_MASK);
+    LAUNCHED();
+    return 0;
+}
+
+// x . W + b through ReLU into out: a split-K product and the epilogue.
+int linear_relu(const float* x, int K, const float* w, const float* b, int N, int B, float* out,
+                const Work& wk, cudaStream_t st) {
+    int sp = 1;
+    CHECK(gemm(Mat{x, K, 1}, Mat{w, N, 1}, wk.scratch, B, N, K, 1 << 20, st, &sp));
+    epilogue_kernel<<<blocks((size_t)B * N), THREADS, 0, st>>>(wk.scratch, sp, B, N, b, nullptr,
+                                                               out, EPI_BIAS_RELU);
+    LAUNCHED();
+    return 0;
+}
+
+// One step: forward, loss, every gradient, the new running stats of the
+// three BatchNorms (bn_in/bn_out as bn_floats). a (B, in_a) is the RNA input
+// and target, b (B, in_b) the DNA input and target.
+int step_phases(const float* a, const float* b, const int64_t* site, const float* cw,
+                const float* p, const Dims& d, int B, const float* bn_in, float* bn_out,
+                const float* eps_in, const float* dropa_in, const float* dropb1_in,
+                const float* dropb2_in, int noise, uint64_t seed, int step, float beta,
+                float gamma, float* loss, float* g, const Work& w, cudaStream_t st) {
+    long long off[N_PARAMS];
+    param_offsets(d, off);
+    const float* P[N_PARAMS];
+    float* G[N_PARAMS];
+    for (int i = 0; i < N_PARAMS; ++i) {
+        P[i] = p + off[i];
+        G[i] = g + off[i];
+    }
+    const int A = d.a, Bd = d.b, HA = d.ha, H1 = d.hb1, H2 = d.hb2, L = d.latent, S = d.sites;
+    const int E = d.embed;
+    const int BIG = 1 << 20;
+    int sp = 1;
+    const float* bn_a_in = bn_in;
+    const float* bn_b1_in = bn_in + 2 * HA;
+    const float* bn_b2_in = bn_b1_in + 2 * H1;
+    float* bn_a_out = bn_out;
+    float* bn_b1_out = bn_out + 2 * HA;
+    float* bn_b2_out = bn_b1_out + 2 * H1;
+
+    // ---- forward: the three encoders ----
+    CHECK(gemm(Mat{a, A, 1}, Mat{P[A_W1], HA, 1}, w.scratch, B, HA, A, BIG, st, &sp));
+    bn_forward_kernel<<<blocks(HA, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, B, HA, P[A_B1], P[A_G], P[A_BT], bn_a_in, bn_a_in + HA, bn_a_out,
+        bn_a_out + HA, dropa_in, noise, seed, step, STREAM_DROPOUT, w.xa, w.dca, w.ad, w.inva);
+    LAUNCHED();
+    CHECK(gemm(Mat{b, Bd, 1}, Mat{P[B_W1], H1, 1}, w.scratch, B, H1, Bd, BIG, st, &sp));
+    bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, B, H1, P[B_B1], P[B_G1], P[B_BT1], bn_b1_in, bn_b1_in + H1, bn_b1_out,
+        bn_b1_out + H1, dropb1_in, noise, seed, step, STREAM_DROPOUT2, w.xb1, w.dcb1, w.bd1,
+        w.invb1);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.bd1, H1, 1}, Mat{P[B_W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
+    bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, B, H2, P[B_B2], P[B_G2], P[B_BT2], bn_b2_in, bn_b2_in + H2, bn_b2_out,
+        bn_b2_out + H2, dropb2_in, noise, seed, step, STREAM_DROPOUT3, w.xb2, w.dcb2, w.bd2,
+        w.invb2);
+    LAUNCHED();
+    const Heads3 heads = {P[A_WMU], P[A_BMU], P[A_WLV], P[A_BLV], P[B_WMU], P[B_BMU], P[B_WLV],
+                          P[B_BLV], P[EMB],   P[C_WMU], P[C_BMU], P[C_WLV], P[C_BLV]};
+    posterior3_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
+        w.ad, HA, w.bd2, H2, site, heads, B, L, S, E, eps_in, noise, seed, step, w.e, w.mu, w.lv,
+        w.epsv, w.sigma, w.z);
+    LAUNCHED();
+
+    // ---- forward: the three decoders and their heads ----
+    CHECK(linear_relu(w.z, L, P[DA_W1], P[DA_B1], d.da, B, w.ra, w, st));
+    CHECK(gemm(Mat{w.ra, d.da, 1}, Mat{P[DA_W2], A, 1}, w.scratch, B, A, d.da, BIG, st, &sp));
+    mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, A, P[DA_B2], a, w.drecon,
+                                                w.part_mse);
+    LAUNCHED();
+    CHECK(linear_relu(w.z, L, P[DB_W1], P[DB_B1], d.db1, B, w.rb1, w, st));
+    CHECK(linear_relu(w.rb1, d.db1, P[DB_W2], P[DB_B2], d.db2, B, w.rb2, w, st));
+    CHECK(gemm(Mat{w.rb2, d.db2, 1}, Mat{P[DB_W3], Bd, 1}, w.scratch, B, Bd, d.db2, BIG, st,
+               &sp));
+    logits_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, Bd, P[DB_B3], b, w.dlogits_b,
+                                                   w.part_bce);
+    LAUNCHED();
+    CHECK(linear_relu(w.z, L, P[DC_W1], P[DC_B1], d.dc, B, w.rc, w, st));
+    CHECK(gemm(Mat{w.rc, d.dc, 1}, Mat{P[DC_W2], S, 1}, w.scratch, B, S, d.dc, BIG, st, &sp));
+    ce_kernel<<<blocks(B, WARPS), THREADS, 0, st>>>(w.scratch, sp, B, S, P[DC_B2], site, cw,
+                                                    gamma, w.dlogits_c, w.ce_rows);
+    LAUNCHED();
+    loss_finish4_kernel<<<1, THREADS, 0, st>>>(w.part_mse, w.part_bce, LOSS_BLOCKS, w.ce_rows, B,
+                                              w.mu, w.lv, B * L, beta, gamma, loss);
+    LAUNCHED();
+
+    // ---- backward: the decoders ----
+    CHECK(linear_backward(w.ra, d.da, w.drecon, A, P[DA_W2], B, G[DA_W2], G[DA_B2], w.ra, w.dua,
+                          w, st));
+    CHECK(linear_backward(w.z, L, w.dua, d.da, nullptr, B, G[DA_W1], G[DA_B1], nullptr, nullptr,
+                          w, st));
+    CHECK(linear_backward(w.rb2, d.db2, w.dlogits_b, Bd, P[DB_W3], B, G[DB_W3], G[DB_B3], w.rb2,
+                          w.dub2, w, st));
+    CHECK(linear_backward(w.rb1, d.db1, w.dub2, d.db2, P[DB_W2], B, G[DB_W2], G[DB_B2], w.rb1,
+                          w.dub1, w, st));
+    CHECK(linear_backward(w.z, L, w.dub1, d.db1, nullptr, B, G[DB_W1], G[DB_B1], nullptr,
+                          nullptr, w, st));
+    CHECK(linear_backward(w.rc, d.dc, w.dlogits_c, S, P[DC_W2], B, G[DC_W2], G[DC_B2], w.rc,
+                          w.duc, w, st));
+    CHECK(linear_backward(w.z, L, w.duc, d.dc, nullptr, B, G[DC_W1], G[DC_B1], nullptr, nullptr,
+                          w, st));
+
+    // ---- backward: posterior, the three heads, the site embedding ----
+    posterior3_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
+        w.dua, P[DA_W1], d.da, w.dub1, P[DB_W1], d.db1, w.duc, P[DC_W1], d.dc, B, L, w.mu, w.lv,
+        w.epsv, w.sigma, beta, w.dmh, w.dlh);
+    LAUNCHED();
+    const HeadGrads ac = {G[A_WMU], G[A_BMU], G[A_WLV], G[A_BLV],
+                          G[C_WMU], G[C_BMU], G[C_WLV], G[C_BLV]};
+    head_grads_kernel<<<blocks((size_t)2 * HA * L + 2 * E * L + 2 * L), THREADS, 0, st>>>(
+        w.ad, w.e, w.dmh, w.dlh, B, HA, E, L, ac);
+    LAUNCHED();
+    // EncoderB's heads: no site part (E = 0), the bias written once a thread
+    const HeadGrads bh = {G[B_WMU], G[B_BMU], G[B_WLV], G[B_BLV],
+                          nullptr,  G[B_BMU], nullptr,  G[B_BLV]};
+    head_grads_kernel<<<blocks((size_t)2 * H2 * L + 2 * L), THREADS, 0, st>>>(
+        w.bd2, nullptr, w.dmh, w.dlh, B, H2, 0, L, bh);
+    LAUNCHED();
+    emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[C_WMU],
+                                                               P[C_WLV], B, S, E, L, G[EMB]);
+    LAUNCHED();
+
+    // ---- backward: EncoderA's block, EncoderB's block 2 then block 1 ----
+    bn_backward_kernel<true><<<blocks(HA, WARPS), THREADS, 0, st>>>(
+        w.dmh, w.dlh, P[A_WMU], P[A_WLV], nullptr, 0, w.dca, w.xa, w.inva, P[A_G], B, HA, L,
+        w.daa, G[A_G], G[A_BT], G[A_B1]);
+    LAUNCHED();
+    CHECK(gemm(Mat{a, 1, A}, Mat{w.daa, HA, 1}, G[A_W1], A, HA, B, 1, st, nullptr));
+    bn_backward_kernel<true><<<blocks(H2, WARPS), THREADS, 0, st>>>(
+        w.dmh, w.dlh, P[B_WMU], P[B_WLV], nullptr, 0, w.dcb2, w.xb2, w.invb2, P[B_G2], B, H2, L,
+        w.dba2, G[B_G2], G[B_BT2], G[B_B2]);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.bd1, 1, H1}, Mat{w.dba2, H2, 1}, G[B_W2], H1, H2, B, 1, st, nullptr));
+    CHECK(gemm(Mat{w.dba2, H2, 1}, Mat{P[B_W2], 1, H2}, w.scratch, B, H1, H2, BIG, st, &sp));
+    bn_backward_kernel<false><<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        nullptr, nullptr, nullptr, nullptr, w.scratch, sp, w.dcb1, w.xb1, w.invb1, P[B_G1], B,
+        H1, 0, w.dba1, G[B_G1], G[B_BT1], G[B_B1]);
+    LAUNCHED();
+    CHECK(gemm(Mat{b, 1, Bd}, Mat{w.dba1, H1, 1}, G[B_W1], Bd, H1, B, 1, st, nullptr));
+    return 0;
+}
+
+bool noise_ok(int noise, const float* eps, const float* da, const float* db1, const float* db2) {
+    if (noise == NOISE_PHILOX) return true;
+    return noise == NOISE_INJECTED && eps && da && db1 && db2;
+}
+
+}  // namespace mm
+
 }  // namespace
 
 extern "C" {
@@ -1124,6 +1576,103 @@ int dna2rna_train_noise(unsigned long long seed, int step, int batch, int h1, in
     LAUNCHED();
     noise_kernel<<<blocks((size_t)batch * h2), THREADS, 0, st>>>(
         (uint64_t)seed, step, batch, h2, STREAM_DROPOUT2, 0, keep2, nullptr);
+    return (int)cudaGetLastError();
+}
+
+// ---- MultiModalVAE ---------------------------------------------------------
+
+// Floats in one tri-modal parameter buffer (the 39 tensors of
+// PARAM_ORDER_MM). dims: in_a, in_b, ha, hb1, hb2, latent, sites, embed, da,
+// db1, db2, dc.
+long long multimodal_param_count(const int* dims) {
+    long long off[mm::N_PARAMS];
+    return mm::param_offsets(mm::from(dims), off);
+}
+
+// Floats of device workspace a tri-modal step (with_grads 0) or epoch
+// (with_grads 1) needs at this batch size.
+long long multimodal_train_workspace_floats(const int* dims, int batch, int with_grads) {
+    return (long long)mm::plan(nullptr, mm::from(dims), batch, with_grads != 0).total;
+}
+
+// One tri-modal train step. a (B, in_a) RNA and b (B, in_b) DNA, each both
+// an input and a target; site (B,) int64 in [0, sites); cw (sites,) class
+// weights or null for ones; params: the flat parameter buffer; bn_in/bn_out:
+// a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2 in one buffer each; eps_in (B,
+// latent), dropa_in (B, ha), dropb1_in (B, hb1), dropb2_in (B, hb2) when
+// noise == 0, ignored when 1 (Philox); loss (1,), grads: a flat buffer like
+// params; work: multimodal_train_workspace_floats(dims, B, 0) floats.
+int multimodal_train_step(const float* a, const float* b, const int64_t* site, const float* cw,
+                          const float* params, const int* dims, int batch, const float* bn_in,
+                          float* bn_out, const float* eps_in, const float* dropa_in,
+                          const float* dropb1_in, const float* dropb2_in, int noise,
+                          unsigned long long seed, int step, float beta, float gamma, float* loss,
+                          float* grads, float* work, void* stream) {
+    const mm::Dims d = mm::from(dims);
+    if (!mm::valid(d, batch) || !mm::noise_ok(noise, eps_in, dropa_in, dropb1_in, dropb2_in)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const mm::Work w = mm::plan(work, d, batch, false);
+    return mm::step_phases(a, b, site, cw, params, d, batch, bn_in, bn_out, eps_in, dropa_in,
+                           dropb1_in, dropb2_in, noise, (uint64_t)seed, step, beta, gamma, loss,
+                           grads, w, (cudaStream_t)stream);
+}
+
+// One tri-modal epoch of n_batches steps on a_ep (n_batches * B, in_a),
+// b_ep, site_ep, the injected noise (eps_ep, dropa_ep, dropb1_ep, dropb2_ep)
+// when noise == 0, updating params, m, v (flat buffers) and bn (as the
+// step's) in place; losses (n_batches,). Step i draws its noise with step
+// index i and applies AdamW with bias correction at step0 + i + 1.
+int multimodal_train_epoch(const float* a_ep, const float* b_ep, const int64_t* site_ep,
+                           const float* cw, float* params, float* m, float* v, const int* dims,
+                           int batch, int n_batches, float* bn, const float* eps_ep,
+                           const float* dropa_ep, const float* dropb1_ep, const float* dropb2_ep,
+                           int noise, unsigned long long seed, float beta, float gamma, float lr,
+                           float wd, long long step0, float* losses, float* work, void* stream) {
+    const mm::Dims d = mm::from(dims);
+    if (!mm::valid(d, batch) || n_batches < 1 ||
+        !mm::noise_ok(noise, eps_ep, dropa_ep, dropb1_ep, dropb2_ep)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    const mm::Work w = mm::plan(work, d, batch, true);
+    long long off[mm::N_PARAMS];
+    const long long n_params = mm::param_offsets(d, off);
+    const bool inj = noise == NOISE_INJECTED;
+    for (int i = 0; i < n_batches; ++i) {
+        const size_t r0 = (size_t)i * batch;
+        CHECK(mm::step_phases(a_ep + r0 * d.a, b_ep + r0 * d.b, site_ep + r0, cw, params, d,
+                              batch, bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
+                              inj ? dropa_ep + r0 * d.ha : nullptr,
+                              inj ? dropb1_ep + r0 * d.hb1 : nullptr,
+                              inj ? dropb2_ep + r0 * d.hb2 : nullptr, noise, (uint64_t)seed, i,
+                              beta, gamma, losses + i, w.grads, w, st));
+        const double t_step = (double)(step0 + i + 1);
+        const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
+        const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(params, m, v, w.grads,
+                                                                    n_params, lr, wd, bc1, bc2);
+        LAUNCHED();
+    }
+    return 0;
+}
+
+// The dropout masks (B, ha), (B, hb1), (B, hb2) and eps (B, latent) that a
+// tri-modal step at (seed, step) draws in NOISE_PHILOX mode.
+int multimodal_train_noise(unsigned long long seed, int step, int batch, int ha, int hb1,
+                           int hb2, int latent, float* keep_a, float* keep_b1, float* keep_b2,
+                           float* eps, void* stream) {
+    if (batch < 1 || ha < 1 || hb1 < 1 || hb2 < 1 || latent < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const size_t n = (size_t)batch * (ha > latent ? ha : latent);
+    noise_kernel<<<blocks(n), THREADS, 0, st>>>((uint64_t)seed, step, batch, ha, STREAM_DROPOUT,
+                                                latent, keep_a, eps);
+    LAUNCHED();
+    noise_kernel<<<blocks((size_t)batch * hb1), THREADS, 0, st>>>(
+        (uint64_t)seed, step, batch, hb1, STREAM_DROPOUT2, 0, keep_b1, nullptr);
+    LAUNCHED();
+    noise_kernel<<<blocks((size_t)batch * hb2), THREADS, 0, st>>>(
+        (uint64_t)seed, step, batch, hb2, STREAM_DROPOUT3, 0, keep_b2, nullptr);
     return (int)cudaGetLastError();
 }
 

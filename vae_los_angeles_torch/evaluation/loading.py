@@ -1,18 +1,22 @@
 """Model loading for serving (counterpart of
 ``vae_los_angeles_tpu/evaluation/loading.py``).
 
-Rebuilds a directional VAE from the run-id + checkpoint protocol and wraps it
-in a callable with the reference's forward signature:
+Rebuilds a model from the run-id + checkpoint protocol and wraps it in a
+callable with the reference's forward signature:
 
     model = load_rna2dna()          # via latest_rna2dna_run_id.txt
     recon, mu, logvar = model(rna=x, site=s)   # numpy in, numpy out
+    model = load_multimodal()       # via latest_multivae_run_id.txt
+    out_a, out_b, out_c, mu, logvar = model(a=x)   # any subset of a, b, site
 
-At load the checkpoint's weights are BN-folded and staged on the device
-once. The loaders run on the card (one launch of the fused kernel,
-``ops.kernels.fused_vae``, per call) and raise without one, unless the
-caller asks for the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the
-kernel's plain version serves.
-The tri-modal loader is not ported yet.
+At load a directional checkpoint's weights are BN-folded and staged on the
+device once; each call is one launch of the fused kernel
+(``ops.kernels.fused_vae``). The tri-modal model serves through its plain
+eval-mode forward (``models.vae.multimodal_vae_apply``, BatchNorm on its
+running statistics): the JAX loader runs no Pallas kernel there either. The
+loaders run on the card and raise without one, unless the caller asks for
+the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the kernels' plain
+versions serve.
 """
 
 from __future__ import annotations
@@ -24,8 +28,25 @@ import torch
 
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.device import resolve_device
+from vae_los_angeles_torch.models.vae import multimodal_vae_apply
 from vae_los_angeles_torch.ops.kernels.fused_vae import FusedDNA2RNA, FusedRNA2DNA
 from vae_los_angeles_torch.training import checkpoint
+from vae_los_angeles_torch.utils.weights import tree_from_numpy
+
+
+def _check_sites(site, n_sites):
+    site = np.asarray(site)
+    if site.size and (site.min() < 0 or site.max() >= n_sites):
+        raise ValueError(f"site labels must lie in [0, {n_sites})")
+    return site.astype(np.int64)
+
+
+def _seed_of(generator: Optional[torch.Generator]) -> int:
+    """A seed drawn from ``generator``; without one every call uses the same
+    fixed seed, as the JAX loader's fixed key does."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
 
 
 class LoadedDirectionalVAE:
@@ -50,20 +71,41 @@ class LoadedDirectionalVAE:
         x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
         site_t = None
         if site is not None:
-            site = np.asarray(site)
-            n_sites = self._fused.n_sites
-            if site.size and (site.min() < 0 or site.max() >= n_sites):
-                raise ValueError(f"site labels must lie in [0, {n_sites})")
-            site_t = torch.as_tensor(site.astype(np.int64)).to(self.device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=generator.device))
-        recon, mu, logvar = self._fused(x, site_t, seed=seed)
+            site_t = torch.as_tensor(_check_sites(site, self._fused.n_sites)).to(self.device)
+        recon, mu, logvar = self._fused(x, site_t, seed=_seed_of(generator))
         return recon.cpu().numpy(), mu.cpu().numpy(), logvar.cpu().numpy()
 
 
-def _load(model_name, label, fused_cls, input_kw, run_id, cfg, root, device):
+class LoadedMultiModalVAE:
+    """Callable over a MultiModalVAE's weights: returns (out_a, out_b,
+    out_c, mu, logvar) as numpy arrays, like the reference's forward."""
+
+    def __init__(self, params, state, run_id=None, device=None, cfg: Optional[Config] = None):
+        self.device = resolve_device(device, cfg)
+        self.params = tree_from_numpy(params, self.device)
+        self.state = tree_from_numpy(state, self.device)
+        self.n_sites = self.params["encoder_c"]["embedding"]["table"].shape[0]
+        self.run_id = run_id
+
+    def __call__(self, a=None, b=None, site=None, generator: Optional[torch.Generator] = None):
+        """Any subset of RNA ``a``, DNA ``b`` and ``site``; z is sampled
+        from a device generator seeded from ``generator`` (`_seed_of`)."""
+        to = lambda x: None if x is None else torch.as_tensor(  # noqa: E731
+            np.asarray(x, np.float32)).to(self.device)
+        site_t = None
+        if site is not None:
+            site_t = torch.as_tensor(_check_sites(site, self.n_sites)).to(self.device)
+        gen = torch.Generator(device=self.device).manual_seed(_seed_of(generator))
+        with torch.no_grad():
+            out = multimodal_vae_apply(self.params, self.state, a=to(a), b=to(b), site=site_t,
+                                       train=False, generator=gen)
+        return tuple(t.cpu().numpy() for t in (out.out_a, out.out_b, out.out_c, out.mu,
+                                                out.logvar))
+
+
+def _read(model_name, label, run_id, cfg, root, device):
+    """(params, state, run id, device, cfg) of the named run's best
+    checkpoint, or None (with a warning) when there is none."""
     cfg = cfg or Config.from_env()
     device = resolve_device(device, cfg)  # raises before any file is read
     if cfg.compute_dtype not in ("float32", "fp32"):
@@ -76,7 +118,12 @@ def _load(model_name, label, fused_cls, input_kw, run_id, cfg, root, device):
         print(f"Warning: {e}")
         return None
     print(f"✓ {label} model loaded successfully (run {rid})")
-    return LoadedDirectionalVAE(fused_cls, input_kw, params, state, rid, device, cfg)
+    return params, state, rid, device, cfg
+
+
+def _load(model_name, label, fused_cls, input_kw, run_id, cfg, root, device):
+    got = _read(model_name, label, run_id, cfg, root, device)
+    return None if got is None else LoadedDirectionalVAE(fused_cls, input_kw, *got)
 
 
 def load_rna2dna(run_id: Optional[str] = None, cfg: Optional[Config] = None,
@@ -87,3 +134,9 @@ def load_rna2dna(run_id: Optional[str] = None, cfg: Optional[Config] = None,
 def load_dna2rna(run_id: Optional[str] = None, cfg: Optional[Config] = None,
                  root: str = ".", device=None) -> Optional[LoadedDirectionalVAE]:
     return _load("dna2rna", "DNA2RNAVAE", FusedDNA2RNA, "dna", run_id, cfg, root, device)
+
+
+def load_multimodal(run_id: Optional[str] = None, cfg: Optional[Config] = None,
+                    root: str = ".", device=None) -> Optional[LoadedMultiModalVAE]:
+    got = _read("multivae", "MultiModalVAE", run_id, cfg, root, device)
+    return None if got is None else LoadedMultiModalVAE(*got)

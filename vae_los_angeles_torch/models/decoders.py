@@ -7,10 +7,12 @@
     returns LOGITS; the caller applies the sigmoid for β-values in [0, 1],
     as the JAX package's ``decoder_b_apply_logits`` does. The reference's
     trailing Sigmoid has no parameters, so the keys are unchanged.
+  * DecoderC (site): ``fc`` = Linear(latent, 64) → ReLU → Linear(64,
+    n_sites), the site logits (keys ``fc.0``, ``fc.2``).
 
-`decoder_a_apply` and `decoder_b_apply_logits` are the same chains on the
-JAX package's parameter trees (``fc1``/``fc2`` and ``fc1``/``fc2``/``fc3``),
-for the trainer.
+`decoder_a_apply`, `decoder_b_apply_logits` and `decoder_c_apply` are the
+same chains on the JAX package's parameter trees (``fc1``/``fc2``,
+``fc1``/``fc2``/``fc3`` and ``fc1``/``fc2``), for the trainer.
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ class DecoderB(nn.Module):
         return self.fc(z)
 
 
+class DecoderC(nn.Module):
+    def __init__(self, latent_dim: int, n_sites: int):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(latent_dim, 64), nn.ReLU(), nn.Linear(64, n_sites))
+
+    def forward(self, z):
+        """Site logits."""
+        return self.fc(z)
+
+
 def decoder_a_apply(params, z):
     """DecoderA on a params tree: the RNA reconstruction (linear head)."""
     return linear_apply(params["fc2"], torch.relu(linear_apply(params["fc1"], z)))
@@ -56,3 +68,8 @@ def decoder_b_apply_logits(params, z):
     h = torch.relu(linear_apply(params["fc1"], z))
     h = torch.relu(linear_apply(params["fc2"], h))
     return linear_apply(params["fc3"], h)
+
+
+def decoder_c_apply(params, z):
+    """DecoderC on a params tree: the site logits."""
+    return linear_apply(params["fc2"], torch.relu(linear_apply(params["fc1"], z)))

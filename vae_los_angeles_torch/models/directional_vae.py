@@ -44,9 +44,7 @@ from vae_los_angeles_torch.models.encoders import (
     encoder_b_apply,
     encoder_c_apply,
 )
-from vae_los_angeles_torch.models.vae import fuse_posteriors, reparameterize
-from vae_los_angeles_torch.ops.nn import reset_parameters
-from vae_los_angeles_torch.utils.weights import jax_from_state_dict, tree_from_numpy
+from vae_los_angeles_torch.models.vae import fuse_posteriors, init_from_module, reparameterize
 
 
 class _DirectionalVAE(nn.Module):
@@ -119,10 +117,8 @@ class DirectionalVAEOutput(NamedTuple):
 
 def _init(model_cls, model_type, generator, rna_dim, dna_dim, n_sites, latent_dim, embed_dim,
           device):
-    module = reset_parameters(model_cls(rna_dim, dna_dim, n_sites, latent_dim, embed_dim),
-                              generator)
-    params, state = jax_from_state_dict(module.state_dict(), model_type)
-    return tree_from_numpy(params, device), tree_from_numpy(state, device)
+    return init_from_module(model_cls(rna_dim, dna_dim, n_sites, latent_dim, embed_dim),
+                            model_type, generator, device)
 
 
 def rna2dna_vae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_sites: int,

@@ -1,6 +1,7 @@
-"""Whole directional-VAE training epoch: every step of the epoch and its
-AdamW update in one call (counterpart of
-``vae_los_angeles_tpu/ops/pallas/fused_epoch.py``, both directions).
+"""Whole training epoch: every step of the epoch and its AdamW update in one
+call (counterpart of ``vae_los_angeles_tpu/ops/pallas/fused_epoch.py``, both
+directional VAEs, and of ``ops/pallas/fused_epoch_multimodal.py``, the
+tri-modal VAE).
 
 ``losses, new_params, new_m, new_v, new_bn = rna2dna_fused_epoch(params,
 opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_sites, seed=..., beta=...,
@@ -30,6 +31,16 @@ in the same source on CUDA tensors (21 tensors in each of p, m and v, both
 BatchNorms' running statistics in one buffer), `dna2rna_epoch_reference`
 on CPU tensors.
 
+``multimodal_fused_epoch(params, opt_m, opt_v, bn_state, a_ep, b_ep, site_ep,
+n_sites, seed=..., beta=..., gamma=..., class_weights=..., lr=...,
+weight_decay=..., step0=..., n_batches=..., eps_ep=..., dropa_ep=...,
+dropb1_ep=..., dropb2_ep=...)`` does it for a MultiModalVAE: ``a_ep`` the
+epoch's RNA rows and ``b_ep`` its DNA rows (each an input and a target), the
+three dropout masks injected as (n·B, 128), (n·B, 512) and (n·B, 256);
+``multimodal_train_epoch`` on CUDA tensors (39 tensors in each of p, m and
+v, the three BatchNorms' statistics in one buffer),
+`multimodal_epoch_reference` on CPU tensors.
+
 ``launches`` counts calls of the epoch entries, one an epoch.
 """
 
@@ -42,7 +53,7 @@ import torch
 from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 
-launches = {"rna2dna_train_epoch": 0, "dna2rna_train_epoch": 0}
+launches = {"rna2dna_train_epoch": 0, "dna2rna_train_epoch": 0, "multimodal_train_epoch": 0}
 
 
 def rna2dna_epoch_reference(flat_p, flat_m, flat_v, rm, rv, x_ep, t_ep, site_ep, eps_ep,
@@ -216,3 +227,84 @@ def _launch_epoch_d2r(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, noise, us
     launches["dna2rna_train_epoch"] += 1
     return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
             ft.unpack(v, flat_p, order), ft.split_bn(bn_buf, dims_t[1], dims_t[2]))
+
+
+def multimodal_epoch_reference(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise, *,
+                               seed, beta, gamma, lr, weight_decay, step0, n_batches):
+    """Plain version: returns (losses, p, m, v, bn) with {name: tensor}
+    trees and ``bn`` the six running statistics (``ft.bn_mm``); ``noise`` is
+    (eps_ep, dropa_ep, dropb1_ep, dropb2_ep) or Nones."""
+    batch = a_ep.shape[0] // n_batches
+    _, _, ha, hb1, hb2, latent, *_ = ft.dims_of_mm(flat_p)
+    opt = {"step": torch.tensor(step0, dtype=torch.int32, device=a_ep.device),
+           "m": dict(flat_m), "v": dict(flat_v)}
+    p, losses = dict(flat_p), []
+    for i in range(n_batches):
+        rows = slice(i * batch, (i + 1) * batch)
+        if noise[0] is None:
+            step_noise = ft.draw_noise_mm(batch, latent, ha, hb1, hb2, seed, i, a_ep.device)
+        else:
+            step_noise = tuple(t[rows] for t in noise)
+        loss, grads, bn = ft.multimodal_train_step_reference(
+            p, bn, a_ep[rows], b_ep[rows], site_ep[rows], cw, *step_noise, beta, gamma)
+        losses.append(loss)
+        p, opt = optim.adamw_update(p, grads, opt, lr, weight_decay)
+    return torch.stack(losses), p, opt["m"], opt["v"], bn
+
+
+def multimodal_fused_epoch(params, opt_m, opt_v, bn_state, a_ep, b_ep, site_ep, n_sites, *,
+                           seed=0, beta=1e-3, gamma=1.0, class_weights=None, lr=5e-4,
+                           weight_decay=1e-5, step0=0, n_batches, eps_ep=None, dropa_ep=None,
+                           dropb1_ep=None, dropb2_ep=None):
+    """One tri-modal epoch of ``n_batches`` AdamW steps on the epoch's RNA
+    rows ``a_ep`` and DNA rows ``b_ep``. Returns (per-batch losses,
+    new_params, new_m, new_v, new_bn_state)."""
+    n_batches = int(n_batches)
+    rows = _check_epoch(a_ep, n_batches)
+    use_prng = ft.check_noise_args(eps_ep=eps_ep, dropa_ep=dropa_ep, dropb1_ep=dropb1_ep,
+                                   dropb2_ep=dropb2_ep)
+    order = ft.PARAM_ORDER_MM
+    flat_p, flat_m, flat_v = (ft.flatten_params(t, order) for t in (params, opt_m, opt_v))
+    bn = ft.bn_mm(bn_state)
+    noise = (eps_ep, dropa_ep, dropb1_ep, dropb2_ep)
+    dev = ft.check_mm_inputs(flat_p, bn, a_ep, b_ep, site_ep, n_sites, class_weights, noise, rows)
+    seed, step0 = int(seed), int(step0)
+    _check_moments(order, flat_p, flat_m, flat_v, dev, seed)
+    if dev.type == "cpu":
+        losses, p, m, v, bn = multimodal_epoch_reference(
+            flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, class_weights, noise, seed=seed,
+            beta=float(beta), gamma=float(gamma), lr=float(lr), weight_decay=float(weight_decay),
+            step0=step0, n_batches=n_batches)
+    else:
+        losses, p, m, v, bn = _launch_epoch_mm(
+            flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, class_weights, noise, use_prng, seed,
+            float(beta), float(gamma), float(lr), float(weight_decay), step0, n_batches)
+    return (losses, ft.unflatten(p, order), ft.unflatten(m, order), ft.unflatten(v, order),
+            ft.bn_mm_tree(bn))
+
+
+def _launch_epoch_mm(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise, use_prng, seed,
+                     beta, gamma, lr, wd, step0, n_batches):
+    lib = ft.library()
+    order = ft.PARAM_ORDER_MM
+    dev = a_ep.device
+    batch = a_ep.shape[0] // n_batches
+    dims_t = ft.dims_of_mm(flat_p)
+    dims = (ctypes.c_int * 12)(*dims_t)
+    p, m, v = (ft.pack(t, order) for t in (flat_p, flat_m, flat_v))
+    bn_buf = torch.cat(bn)
+    losses = torch.empty(n_batches, device=dev, dtype=torch.float32)
+    work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 1), device=dev,
+                       dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    noise_ptrs = (None,) * 4 if use_prng else tuple(t.data_ptr() for t in noise)
+    with torch.cuda.device(dev):
+        err = lib.multimodal_train_epoch(
+            a_ep.data_ptr(), b_ep.data_ptr(), site_ep.data_ptr(), ft._ptr(cw), p.data_ptr(),
+            m.data_ptr(), v.data_ptr(), dims, batch, n_batches, bn_buf.data_ptr(), *noise_ptrs,
+            ft.NOISE_PHILOX if use_prng else ft.NOISE_INJECTED, seed, beta, gamma, lr, wd, step0,
+            losses.data_ptr(), work.data_ptr(), stream)
+    ft.raise_on(lib, err, "multimodal_train_epoch")
+    launches["multimodal_train_epoch"] += 1
+    return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
+            ft.unpack(v, flat_p, order), ft.split_bn_mm(bn_buf, *dims_t[2:5]))

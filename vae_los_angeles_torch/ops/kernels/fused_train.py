@@ -1,6 +1,6 @@
-"""One fused directional-VAE train step: forward and hand-derived backward
-(counterpart of ``vae_los_angeles_tpu/ops/pallas/fused_train.py``, both
-directions).
+"""One fused train step: forward and hand-derived backward (counterpart of
+``vae_los_angeles_tpu/ops/pallas/fused_train.py``, both directional VAEs,
+and of ``ops/pallas/fused_train_multimodal.py``, the tri-modal VAE).
 
 ``loss, grads, new_state = rna2dna_fused_train_step(params, state, rna, dna,
 site, n_sites, seed=..., step=..., beta=..., eps=..., drop_mask=...)`` takes
@@ -11,18 +11,25 @@ returns the sum loss BCE + beta * KLD, the gradients of all 19 tensors of
 step=..., beta=..., eps=..., drop_mask1=..., drop_mask2=...)`` does the same
 for a DNA2RNAVAE (DNA in, RNA the target): MSE sum + beta * KLD, the 21
 tensors of `PARAM_ORDER_D2R`, both BatchNorms' running statistics.
+``multimodal_fused_train_step(params, state, a, b, site, n_sites, seed=...,
+step=..., beta=..., gamma=..., class_weights=..., eps=..., drop_a=...,
+drop_b1=..., drop_b2=...)`` does it for a MultiModalVAE (RNA ``a`` and DNA
+``b``, each an input and a target): MSE sum + BCE sum + gamma * class-weighted
+CE sum + beta * KLD, the 39 tensors of `PARAM_ORDER_MM`, the three
+BatchNorms' running statistics; a site label outside [0, n_sites) raises.
 
-  * CUDA tensors: one call of ``rna2dna_train_step`` or ``dna2rna_train_step``
-    in ``csrc/fused_train.cu`` (built at first use), which enqueues the
-    step's phases on the current stream; a tensor it does not take raises,
-    nothing falls back;
-  * CPU tensors: `rna2dna_train_step_reference` or
-    `dna2rna_train_step_reference`, the plain PyTorch version of the same
-    hand-derived arithmetic.
+  * CUDA tensors: one call of ``rna2dna_train_step``, ``dna2rna_train_step``
+    or ``multimodal_train_step`` in ``csrc/fused_train.cu`` (built at first
+    use), which enqueues the step's phases on the current stream; a tensor
+    it does not take raises, nothing falls back;
+  * CPU tensors: `rna2dna_train_step_reference`,
+    `dna2rna_train_step_reference` or `multimodal_train_step_reference`, the
+    plain PyTorch version of the same hand-derived arithmetic.
 
 Noise: ``eps`` (B, latent) and the dropout masks (``drop_mask`` (B, 128);
-``drop_mask1`` (B, 512) and ``drop_mask2`` (B, 256)) are injected together
-or not at all (`check_noise_args`). Without them the kernel draws them from
+``drop_mask1`` (B, 512) and ``drop_mask2`` (B, 256); ``drop_a`` (B, 128),
+``drop_b1`` (B, 512) and ``drop_b2`` (B, 256)) are injected together or not
+at all (`check_noise_args`). Without them the kernel draws them from
 Philox4x32-10 keyed by ``seed`` with counter (row, column, ``step``,
 stream), a stream for each dropout layer and one for eps; the plain version
 draws from a ``torch.Generator`` seeded from (seed, step), so the two agree
@@ -95,7 +102,52 @@ PARAM_ORDER_D2R = [
 ]
 BN_D2R = ("bn1", "bn2")  # EncoderB's BatchNorms, in the kernel's order
 
-launches = {"rna2dna_train_step": 0, "dna2rna_train_step": 0}
+# MultiModalVAE: the 39 tensors of the JAX package's PARAM_ORDER_MM, in its
+# order (EncoderA, EncoderB, EncoderC, DecoderA, DecoderB, DecoderC).
+PARAM_ORDER_MM = [
+    ("a_w1", ("encoder_a", "fc", "w")),
+    ("a_b1", ("encoder_a", "fc", "b")),
+    ("a_gamma", ("encoder_a", "bn", "gamma")),
+    ("a_beta", ("encoder_a", "bn", "beta")),
+    ("a_wmu", ("encoder_a", "mu", "w")),
+    ("a_bmu", ("encoder_a", "mu", "b")),
+    ("a_wlv", ("encoder_a", "logvar", "w")),
+    ("a_blv", ("encoder_a", "logvar", "b")),
+    ("b_w1", ("encoder_b", "fc1", "w")),
+    ("b_b1", ("encoder_b", "fc1", "b")),
+    ("b_gamma1", ("encoder_b", "bn1", "gamma")),
+    ("b_beta1", ("encoder_b", "bn1", "beta")),
+    ("b_w2", ("encoder_b", "fc2", "w")),
+    ("b_b2", ("encoder_b", "fc2", "b")),
+    ("b_gamma2", ("encoder_b", "bn2", "gamma")),
+    ("b_beta2", ("encoder_b", "bn2", "beta")),
+    ("b_wmu", ("encoder_b", "mu", "w")),
+    ("b_bmu", ("encoder_b", "mu", "b")),
+    ("b_wlv", ("encoder_b", "logvar", "w")),
+    ("b_blv", ("encoder_b", "logvar", "b")),
+    ("emb", ("encoder_c", "embedding", "table")),
+    ("c_wmu", ("encoder_c", "mu", "w")),
+    ("c_bmu", ("encoder_c", "mu", "b")),
+    ("c_wlv", ("encoder_c", "logvar", "w")),
+    ("c_blv", ("encoder_c", "logvar", "b")),
+    ("da_w1", ("decoder_a", "fc1", "w")),
+    ("da_b1", ("decoder_a", "fc1", "b")),
+    ("da_w2", ("decoder_a", "fc2", "w")),
+    ("da_b2", ("decoder_a", "fc2", "b")),
+    ("db_w1", ("decoder_b", "fc1", "w")),
+    ("db_b1", ("decoder_b", "fc1", "b")),
+    ("db_w2", ("decoder_b", "fc2", "w")),
+    ("db_b2", ("decoder_b", "fc2", "b")),
+    ("db_w3", ("decoder_b", "fc3", "w")),
+    ("db_b3", ("decoder_b", "fc3", "b")),
+    ("dc_w1", ("decoder_c", "fc1", "w")),
+    ("dc_b1", ("decoder_c", "fc1", "b")),
+    ("dc_w2", ("decoder_c", "fc2", "w")),
+    ("dc_b2", ("decoder_c", "fc2", "b")),
+]
+BN_MM = (("encoder_a", "bn"), ("encoder_b", "bn1"), ("encoder_b", "bn2"))  # kernel's order
+
+launches = {"rna2dna_train_step": 0, "dna2rna_train_step": 0, "multimodal_train_step": 0}
 
 
 def check_noise_args(**named):
@@ -148,6 +200,15 @@ def dims_of_d2r(flat):
             flat["d1w"].shape[1], flat["d2w"].shape[1])
 
 
+def dims_of_mm(flat):
+    """(in_a, in_b, ha, hb1, hb2, latent, sites, embed, da, db1, db2, dc) of
+    a flat MultiModalVAE tree."""
+    return (flat["a_w1"].shape[0], flat["b_w1"].shape[0], flat["a_w1"].shape[1],
+            flat["b_w1"].shape[1], flat["b_w2"].shape[1], flat["a_wmu"].shape[1],
+            flat["emb"].shape[0], flat["emb"].shape[1], flat["da_w1"].shape[1],
+            flat["db_w1"].shape[1], flat["db_w2"].shape[1], flat["dc_w1"].shape[1])
+
+
 def pack(flat, order=PARAM_ORDER):
     """One flat float32 buffer holding the tensors of ``order`` in order."""
     return torch.cat([flat[name].reshape(-1) for name, _ in order])
@@ -193,6 +254,15 @@ def draw_noise_d2r(batch, latent, h1, h2, seed, step, device):
     drop2 = (torch.rand((batch, h2), generator=g, device=device) < KEEP).to(torch.float32)
     eps = torch.randn((batch, latent), generator=g, device=device)
     return eps, drop1, drop2
+
+
+def draw_noise_mm(batch, latent, ha, hb1, hb2, seed, step, device):
+    """(eps, drop_a, drop_b1, drop_b2) from `step_generator`: the plain
+    version's tri-modal noise."""
+    g = step_generator(seed, step, device)
+    drops = [(torch.rand((batch, h), generator=g, device=device) < KEEP).to(torch.float32)
+             for h in (ha, hb1, hb2)]
+    return (torch.randn((batch, latent), generator=g, device=device), *drops)
 
 
 def _bn_train_forward(a, gamma, beta):
@@ -330,6 +400,97 @@ def dna2rna_train_step_reference(flat, bn, x, t, site, eps, drop1, drop2, beta):
     return loss, {name: g[name] for name, _ in PARAM_ORDER_D2R}, new_bn
 
 
+def multimodal_train_step_reference(flat, bn, a, b, site, cw, eps, drop_a, drop_b1, drop_b2,
+                                   beta, gamma):
+    """Plain PyTorch version of the tri-modal kernel, on {name: tensor}
+    params, ``bn`` = (a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2) and ``cw`` the
+    class weights (n_sites,) or None: returns (loss, {name: grad}, new bn).
+    The gradients are the TPU kernel's hand-derived ones
+    (``fused_train_multimodal.py`` ``_mm_kernel``)."""
+    p = flat
+    batch = a.shape[0]
+    third = 1.0 / 3.0
+    ah, axhat, ainv, amean, avar = _bn_train_forward(a @ p["a_w1"] + p["a_b1"], p["a_gamma"],
+                                                     p["a_beta"])
+    armask = (ah > 0).to(ah.dtype)
+    ad = ah * armask * drop_a / KEEP
+    bh1, bxhat1, binv1, bmean1, bvar1 = _bn_train_forward(b @ p["b_w1"] + p["b_b1"],
+                                                          p["b_gamma1"], p["b_beta1"])
+    brmask1 = (bh1 > 0).to(bh1.dtype)
+    bd1 = bh1 * brmask1 * drop_b1 / KEEP
+    bh2, bxhat2, binv2, bmean2, bvar2 = _bn_train_forward(bd1 @ p["b_w2"] + p["b_b2"],
+                                                          p["b_gamma2"], p["b_beta2"])
+    brmask2 = (bh2 > 0).to(bh2.dtype)
+    bd2 = bh2 * brmask2 * drop_b2 / KEEP
+    e = p["emb"][site]
+    mu = ((ad @ p["a_wmu"] + p["a_bmu"]) + (bd2 @ p["b_wmu"] + p["b_bmu"])
+          + (e @ p["c_wmu"] + p["c_bmu"])) * third
+    lv = ((ad @ p["a_wlv"] + p["a_blv"]) + (bd2 @ p["b_wlv"] + p["b_blv"])
+          + (e @ p["c_wlv"] + p["c_blv"])) * third
+    sigma = torch.exp(0.5 * lv)
+    z = mu + eps * sigma
+
+    ua = z @ p["da_w1"] + p["da_b1"]
+    ra = torch.relu(ua)
+    diff_a = (ra @ p["da_w2"] + p["da_b2"]) - a
+    ub1 = z @ p["db_w1"] + p["db_b1"]
+    rb1 = torch.relu(ub1)
+    ub2 = rb1 @ p["db_w2"] + p["db_b2"]
+    rb2 = torch.relu(ub2)
+    logits_b = rb2 @ p["db_w3"] + p["db_b3"]
+    uc = z @ p["dc_w1"] + p["dc_b1"]
+    rc = torch.relu(uc)
+    log_probs = torch.log_softmax(rc @ p["dc_w2"] + p["dc_b2"], dim=1)
+    onehot = torch.nn.functional.one_hot(site, log_probs.shape[1]).to(log_probs.dtype)
+    w_row = torch.ones_like(diff_a[:, :1]) if cw is None else cw[site][:, None]
+
+    mse = torch.sum(diff_a * diff_a)
+    bce = torch.sum(torch.clamp(logits_b, min=0.0) - logits_b * b
+                    + torch.log1p(torch.exp(-torch.abs(logits_b))))
+    ce = torch.sum(w_row * -torch.sum(log_probs * onehot, dim=1, keepdim=True))
+    kld = -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv))
+    loss = mse + bce + gamma * ce + beta * kld
+    a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2 = bn
+    new_bn = (*_running(a_rm, a_rv, amean, avar, batch),
+              *_running(b_rm1, b_rv1, bmean1, bvar1, batch),
+              *_running(b_rm2, b_rv2, bmean2, bvar2, batch))
+
+    g = {}
+    drecon = 2.0 * diff_a
+    g["da_w2"], g["da_b2"] = ra.T @ drecon, drecon.sum(0)
+    dua = (drecon @ p["da_w2"].T) * (ua > 0)
+    g["da_w1"], g["da_b1"] = z.T @ dua, dua.sum(0)
+    dlogits_b = torch.sigmoid(logits_b) - b
+    g["db_w3"], g["db_b3"] = rb2.T @ dlogits_b, dlogits_b.sum(0)
+    dub2 = (dlogits_b @ p["db_w3"].T) * (ub2 > 0)
+    g["db_w2"], g["db_b2"] = rb1.T @ dub2, dub2.sum(0)
+    dub1 = (dub2 @ p["db_w2"].T) * (ub1 > 0)
+    g["db_w1"], g["db_b1"] = z.T @ dub1, dub1.sum(0)
+    dlogits_c = gamma * w_row * (torch.exp(log_probs) - onehot)
+    g["dc_w2"], g["dc_b2"] = rc.T @ dlogits_c, dlogits_c.sum(0)
+    duc = (dlogits_c @ p["dc_w2"].T) * (uc > 0)
+    g["dc_w1"], g["dc_b1"] = z.T @ duc, duc.sum(0)
+    dz = dua @ p["da_w1"].T + dub1 @ p["db_w1"].T + duc @ p["dc_w1"].T
+    dmh = third * (dz + beta * mu)
+    dlh = third * (dz * eps * 0.5 * sigma + (-0.5 * beta) * (1.0 - torch.exp(lv)))
+    for pre, act in (("a", ad), ("b", bd2), ("c", e)):
+        g[f"{pre}_wmu"], g[f"{pre}_bmu"] = act.T @ dmh, dmh.sum(0)
+        g[f"{pre}_wlv"], g[f"{pre}_blv"] = act.T @ dlh, dlh.sum(0)
+    g["emb"] = onehot.T @ (dmh @ p["c_wmu"].T + dlh @ p["c_wlv"].T)
+    dad = dmh @ p["a_wmu"].T + dlh @ p["a_wlv"].T
+    da1, g["a_gamma"], g["a_beta"] = _bn_train_backward(dad * drop_a / KEEP * armask, axhat, ainv,
+                                                        p["a_gamma"])
+    g["a_w1"], g["a_b1"] = a.T @ da1, da1.sum(0)
+    dbd2 = dmh @ p["b_wmu"].T + dlh @ p["b_wlv"].T
+    dba2, g["b_gamma2"], g["b_beta2"] = _bn_train_backward(dbd2 * drop_b2 / KEEP * brmask2, bxhat2,
+                                                           binv2, p["b_gamma2"])
+    g["b_w2"], g["b_b2"] = bd1.T @ dba2, dba2.sum(0)
+    dba1, g["b_gamma1"], g["b_beta1"] = _bn_train_backward(
+        (dba2 @ p["b_w2"].T) * drop_b1 / KEEP * brmask1, bxhat1, binv1, p["b_gamma1"])
+    g["b_w1"], g["b_b1"] = b.T @ dba1, dba1.sum(0)
+    return loss, {name: g[name] for name, _ in PARAM_ORDER_MM}, new_bn
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """libfused_train.so, built at first use, with its C signatures declared."""
@@ -358,6 +519,18 @@ def library():
     lib.dna2rna_train_epoch.restype = i
     lib.dna2rna_train_noise.argtypes = [u64, i, i, i, i, i, p, p, p, p]
     lib.dna2rna_train_noise.restype = i
+    lib.multimodal_param_count.argtypes = [p]
+    lib.multimodal_param_count.restype = ll
+    lib.multimodal_train_workspace_floats.argtypes = [p, i, i]
+    lib.multimodal_train_workspace_floats.restype = ll
+    lib.multimodal_train_step.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, f,
+                                          p, p, p, p]
+    lib.multimodal_train_step.restype = i
+    lib.multimodal_train_epoch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i, u64, f,
+                                           f, f, f, ll, p, p, p]
+    lib.multimodal_train_epoch.restype = i
+    lib.multimodal_train_noise.argtypes = [u64, i, i, i, i, i, i, p, p, p, p, p]
+    lib.multimodal_train_noise.restype = i
     lib.fused_train_error_string.argtypes = [i]
     lib.fused_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -385,7 +558,7 @@ def check_tensor(name, t, device, dtype, shape):
 def _check_params(flat, order, n_sites):
     """The parameters' device, after checking that every tensor is float32
     and contiguous there and that the table has ``n_sites`` rows."""
-    dev = flat["w1"].device
+    dev = flat[order[0][0]].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     for name, _ in order:
@@ -580,3 +753,131 @@ def philox_noise_d2r(seed, step, batch, h1, h2, latent, device):
                                       torch.cuda.current_stream(device).cuda_stream)
     raise_on(lib, err, "dna2rna_train_noise")
     return eps, keep1, keep2
+
+
+# ---- MultiModalVAE ---------------------------------------------------------
+
+def bn_mm(state):
+    """(a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2) of a MultiModalVAE's
+    BatchNorm state tree."""
+    return tuple(state[enc][bn][s] for enc, bn in BN_MM for s in ("mean", "var"))
+
+
+def bn_mm_tree(bn):
+    """The BatchNorm state tree of (a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2)."""
+    a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2 = bn
+    return {"encoder_a": {"bn": {"mean": a_rm, "var": a_rv}},
+            "encoder_b": {"bn1": {"mean": b_rm1, "var": b_rv1},
+                          "bn2": {"mean": b_rm2, "var": b_rv2}}}
+
+
+def split_bn_mm(buf, ha, hb1, hb2):
+    """The six running-statistics views of one (2·ha + 2·hb1 + 2·hb2,) buffer."""
+    return tuple(buf.split((ha, ha, hb1, hb1, hb2, hb2)))
+
+
+def check_sites(site, n_sites):
+    """Refuse a site label outside [0, n_sites): the cross-entropy head and
+    the class weights index by it. On the card this reads two numbers back."""
+    if site.numel():
+        lo, hi = torch.stack(torch.aminmax(site)).tolist()
+        if lo < 0 or hi >= n_sites:
+            raise ValueError(f"site labels must lie in [0, {n_sites}), got [{lo}, {hi}]")
+
+
+def check_mm_inputs(flat, bn, a, b, site, n_sites, class_weights, noise, rows):
+    """Validate what the tri-modal kernel takes: every tensor float32 (site
+    int64), contiguous, on the parameters' device, at the shapes of
+    `dims_of_mm`; ``noise`` is (eps, drop_a, drop_b1, drop_b2) or Nones."""
+    dev = _check_params(flat, PARAM_ORDER_MM, n_sites)
+    din_a, din_b, ha, hb1, hb2, latent, *_ = dims_of_mm(flat)
+    for name, t, width in zip(("a bn mean", "a bn var", "b bn1 mean", "b bn1 var", "b bn2 mean",
+                               "b bn2 var"), bn, (ha, ha, hb1, hb1, hb2, hb2)):
+        check_tensor(name, t, dev, torch.float32, (width,))
+    check_tensor("a", a, dev, torch.float32, (rows, din_a))
+    check_tensor("b", b, dev, torch.float32, (rows, din_b))
+    check_tensor("site", site, dev, torch.int64, (rows,))
+    if class_weights is not None:
+        check_tensor("class_weights", class_weights, dev, torch.float32, (n_sites,))
+    if noise[0] is not None:
+        for name, t, width in zip(("eps", "drop_a", "drop_b1", "drop_b2"), noise,
+                                  (latent, ha, hb1, hb2)):
+            check_tensor(name, t, dev, torch.float32, (rows, width))
+    check_sites(site, n_sites)
+    return dev
+
+
+def multimodal_fused_train_step(params, state, a, b, site, n_sites, *, seed=0, step=0, beta=1e-3,
+                                gamma=1.0, class_weights=None, eps=None, drop_a=None,
+                                drop_b1=None, drop_b2=None):
+    """One fused tri-modal train step (RNA ``a``, DNA ``b``, both inputs and
+    targets): returns (loss, grads tree, new_state). ``class_weights`` is a
+    float32 tensor (n_sites,) on the parameters' device, or None for ones."""
+    flat = flatten_params(params, PARAM_ORDER_MM)
+    bn = bn_mm(state)
+    use_prng = check_noise_args(eps=eps, drop_a=drop_a, drop_b1=drop_b1, drop_b2=drop_b2)
+    batch = a.shape[0] if isinstance(a, torch.Tensor) else -1
+    if batch < 2:
+        raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {batch}")
+    noise = (eps, drop_a, drop_b1, drop_b2)
+    dev = check_mm_inputs(flat, bn, a, b, site, n_sites, class_weights, noise, batch)
+    seed, step = int(seed), int(step)
+    if not 0 <= seed < 2**63:
+        raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+    if dev.type == "cpu":
+        if use_prng:
+            _, _, ha, hb1, hb2, latent, *_ = dims_of_mm(flat)
+            noise = draw_noise_mm(batch, latent, ha, hb1, hb2, seed, step, dev)
+        loss, grads, bn = multimodal_train_step_reference(flat, bn, a, b, site, class_weights,
+                                                          *noise, float(beta), float(gamma))
+    else:
+        loss, grads, bn = _launch_step_mm(flat, bn, a, b, site, class_weights, noise, use_prng,
+                                          seed, step, float(beta), float(gamma))
+    return loss, unflatten(grads, PARAM_ORDER_MM), bn_mm_tree(bn)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_step_mm(flat, bn, a, b, site, cw, noise, use_prng, seed, step, beta, gamma):
+    lib = library()
+    dev = a.device
+    batch = a.shape[0]
+    dims_t = dims_of_mm(flat)
+    dims = (ctypes.c_int * 12)(*dims_t)
+    params = pack(flat, PARAM_ORDER_MM)
+    grads = torch.empty_like(params)
+    loss = torch.empty(1, device=dev, dtype=torch.float32)
+    bn_in = torch.cat(bn)
+    bn_out = torch.empty_like(bn_in)
+    work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 0), device=dev,
+                       dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    noise_ptrs = (None,) * 4 if use_prng else tuple(t.data_ptr() for t in noise)
+    with torch.cuda.device(dev):
+        err = lib.multimodal_train_step(
+            a.data_ptr(), b.data_ptr(), site.data_ptr(), _ptr(cw), params.data_ptr(), dims, batch,
+            bn_in.data_ptr(), bn_out.data_ptr(), *noise_ptrs,
+            NOISE_PHILOX if use_prng else NOISE_INJECTED, seed, step, beta, gamma,
+            loss.data_ptr(), grads.data_ptr(), work.data_ptr(), stream)
+    raise_on(lib, err, "multimodal_train_step")
+    launches["multimodal_train_step"] += 1
+    return (loss[0], unpack(grads, flat, PARAM_ORDER_MM),
+            split_bn_mm(bn_out, dims_t[2], dims_t[3], dims_t[4]))
+
+
+def philox_noise_mm(seed, step, batch, ha, hb1, hb2, latent, device):
+    """(eps (batch, latent), dropout masks (batch, ha), (batch, hb1),
+    (batch, hb2)) that the tri-modal kernel draws at (seed, step) without
+    injected noise: a test of its generator, not a path of the trainer (it
+    counts no launch)."""
+    lib = library()
+    keeps = [torch.empty((batch, h), device=device, dtype=torch.float32) for h in (ha, hb1, hb2)]
+    eps = torch.empty((batch, latent), device=device, dtype=torch.float32)
+    with torch.cuda.device(device):
+        err = lib.multimodal_train_noise(int(seed), int(step), batch, ha, hb1, hb2, latent,
+                                         *(k.data_ptr() for k in keeps), eps.data_ptr(),
+                                         torch.cuda.current_stream(device).cuda_stream)
+    raise_on(lib, err, "multimodal_train_noise")
+    return (eps, *keeps)

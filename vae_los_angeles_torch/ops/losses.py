@@ -5,13 +5,19 @@
   * ``bce_with_logits_sum`` = sum(max(l, 0) - l*t + log1p(e^-|l|)), BCE from
     logits (equal to sigmoid → BCE without its log(0));
   * ``mse_sum`` = sum((pred - target)^2);
+  * ``cross_entropy_sum`` = sum of w[y] * nll over the rows (torch's
+    ``F.cross_entropy(weight=w, reduction="sum")``: not renormalised by the
+    weights);
   * ``rna2dna_loss`` = BCE sum + beta * KLD and ``dna2rna_loss`` = MSE sum +
-    beta * KLD, each returning (total, aux).
+    beta * KLD, each returning (total, aux);
+  * ``vae_loss`` = MSE sum (RNA) + BCE sum (DNA) + gamma * weighted CE sum
+    (site) + beta * KLD, the tri-modal loss, returning (total, aux).
 
 The RNA→DNA trainer calls the fused version (``ops.kernels.fused_loss``),
-whose plain version is this module's ``rna2dna_loss``. The DNA→RNA trainer
-calls ``dna2rna_loss`` itself: the JAX package has no loss kernel for that
-direction either. The other families' losses are not ported yet.
+whose plain version is this module's ``rna2dna_loss``. The DNA→RNA and
+tri-modal trainers call ``dna2rna_loss`` and ``vae_loss`` themselves: the JAX
+package leaves those losses to XLA too. The directional AEs' losses and the
+``row_mask`` variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +37,33 @@ def bce_with_logits_sum(logits, target):
 
 def mse_sum(pred, target):
     return torch.sum(torch.square(pred - target))
+
+
+def cross_entropy_sum(logits, labels, class_weights=None):
+    """Sum over the rows of ``w[y] * -log softmax(logits)[y]`` (``w`` = 1
+    without class weights)."""
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
+    if class_weights is not None:
+        nll = nll * torch.as_tensor(class_weights, dtype=nll.dtype, device=nll.device)[labels]
+    return torch.sum(nll)
+
+
+def vae_loss(recon_a, a, recon_b_logits, b, recon_c, site, mu, logvar, beta=1e-3, gamma=1.0,
+             class_weights=None):
+    """Tri-modal loss; ``recon_b_logits`` are pre-sigmoid DNA logits. Any
+    reconstruction term may be None (with or without its target). Returns
+    (total, {"recon": .., "class": .., "kld": ..})."""
+    recon = torch.zeros((), dtype=mu.dtype, device=mu.device)
+    if recon_a is not None and a is not None:
+        recon = recon + mse_sum(recon_a, a)
+    if recon_b_logits is not None and b is not None:
+        recon = recon + bce_with_logits_sum(recon_b_logits, b)
+    class_loss = torch.zeros((), dtype=mu.dtype, device=mu.device)
+    if recon_c is not None and site is not None:
+        class_loss = cross_entropy_sum(recon_c, site, class_weights)
+    kld = kl_divergence(mu, logvar)
+    return recon + gamma * class_loss + beta * kld, {"recon": recon, "class": class_loss,
+                                                     "kld": kld}
 
 
 def rna2dna_loss(recon_dna_logits, dna, mu, logvar, beta=1e-3):

@@ -1,9 +1,14 @@
-"""Training CLI for the directional VAEs (counterpart of
-``vae_los_angeles_tpu/training/cli.py``, tasks ``rna2dna`` and ``dna2rna``).
+"""Training CLI (counterpart of ``vae_los_angeles_tpu/training/cli.py``,
+tasks ``rna2dna``, ``dna2rna`` and ``multimodal``).
 
     python -m vae_los_angeles_torch.training.cli [--epochs N] [--seed S]
         [--data_path data/processed_data.pkl] [--resume]      # RNA→DNA
     python -m vae_los_angeles_torch.train_dna2rna [same flags]  # DNA→RNA
+    python -m vae_los_angeles_torch.train [same flags]          # tri-modal
+
+The tri-modal run (``main_multimodal``, model name ``multivae``) weighs the
+site cross-entropy with the balanced class weights of the training rows
+(`compute_class_weights`).
 
 It follows the JAX CLI: load the cohort, split 80/20 (`train_val_indices`),
 train with β-warmup + AdamW + the plateau scheduler + early stopping
@@ -67,6 +72,18 @@ def load_data(cfg: Config, data_path=None):
     return dataset, n_sites
 
 
+def compute_class_weights(site_labels, n_classes):
+    """Balanced class weights: ``n / (k · count_c)`` for each of the k
+    classes present in ``site_labels`` (sklearn's ``compute_class_weight(
+    "balanced")``), 1 for a class that is absent. numpy only."""
+    labels = np.asarray(site_labels).astype(np.int64).reshape(-1)
+    present, counts = np.unique(labels, return_counts=True)
+    weights = np.ones(n_classes, dtype=np.float32)
+    weights[present] = (len(labels) / (len(present) * counts.astype(np.float64))).astype(
+        np.float32)
+    return weights
+
+
 def _parse(model_name, argv):
     parser = argparse.ArgumentParser(description=f"Train {model_name} on an NVIDIA GPU")
     parser.add_argument("--epochs", type=int, default=None)
@@ -81,9 +98,12 @@ def _parse(model_name, argv):
 
 
 def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: Config = None,
-                 argv=None, data=None, n_sites=None, device=None, root: str = "."):
+                 argv=None, data=None, n_sites=None, device=None, root: str = ".",
+                 use_class_weights: bool = False):
     """Train, save and report; returns (FitResult or None, run_id, wall seconds).
-    ``root`` is where the run-id file goes (the working directory by default)."""
+    ``root`` is where the run-id file goes (the working directory by default);
+    ``use_class_weights`` weighs the site loss by the training rows' balanced
+    class weights (the tri-modal task)."""
     args = _parse(model_name, argv)
     cfg = cfg or Config.from_env()
     device = resolve_device(device, cfg)
@@ -139,6 +159,8 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
                     dataset.primary_site[tr_idx])
     val_arrays = (dataset.tpm_data[va_idx], dataset.beta_data[va_idx],
                   dataset.primary_site[va_idx])
+    class_weights = (compute_class_weights(dataset.primary_site[tr_idx], n_sites)
+                     if use_class_weights else None)
 
     num_epochs = cfg.num_epochs if args.epochs is None else args.epochs
     print(f"\nStarting training for {num_epochs} epochs...")
@@ -151,7 +173,8 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     t0 = time.perf_counter()
     result = engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
                         num_epochs=num_epochs, resume_carry=resume_carry,
-                        start_epoch=start_epoch, fused_epoch=fused_epoch, device=device)
+                        start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
+                        class_weights=class_weights)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -205,6 +228,12 @@ def main_rna2dna(argv=None):
 def main_dna2rna(argv=None):
     """Entry point: ``python -m vae_los_angeles_torch.train_dna2rna``."""
     return run_training("dna2rna", "dna2rna", argv=argv)
+
+
+def main_multimodal(argv=None):
+    """Entry point: ``python -m vae_los_angeles_torch.train`` (the root
+    ``train.py``): the tri-modal MultiModalVAE with balanced class weights."""
+    return run_training("multimodal", "multivae", argv=argv, use_class_weights=True)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,12 @@ Three paths compute an epoch:
     (``ops.kernels.fused_train``), then ``adamw_update``;
   * ``fused_epoch=True``: the task's epoch kernel once per epoch
     (``ops.kernels.fused_epoch``), every step and its AdamW inside.
-Both kernel paths exist for ``rna2dna`` and ``dna2rna`` (`FUSED`).
+Both kernel paths exist for ``rna2dna``, ``dna2rna`` and ``multimodal``
+(`FUSED`). ``class_weights`` (the tri-modal task's per-site weights of the
+cross-entropy term) and γ (``hp["gamma"]``) reach the train loss, the
+validation loss and both kernels; the directional tasks ignore them. The
+tri-modal kernels' wrappers check the site labels' range, one more read of
+two numbers a call.
 
 Noise comes from the run's ``seed``: epoch e shuffles with a generator seeded
 from (seed, e), the plain path draws its dropout and eps from the same
@@ -55,19 +60,31 @@ from vae_los_angeles_torch.utils.weights import tree_from_numpy
 
 
 class Fused(NamedTuple):
-    """A task's kernels: the train step takes (rna, dna) in both directions;
-    the epoch takes its input rows and its target rows of the epoch."""
+    """A task's kernels: the train step takes (rna, dna) in every task; the
+    epoch takes the epoch's rows in the order ``epoch_rows`` gives them
+    (input then target for the directional tasks; RNA then DNA, each an
+    input and a target, for the tri-modal one); ``loss_args`` gives the
+    keyword arguments of both kernels' loss beyond β."""
 
     step: Callable  # fused_train.*_fused_train_step
     epoch: Callable  # fused_epoch.*_fused_epoch
-    epoch_rows: Callable  # Batch -> (x_ep, t_ep)
+    epoch_rows: Callable  # Batch -> the epoch's row arrays
+    loss_args: Callable  # (gamma, class_weights) -> {keyword: value}
+
+
+def _no_loss_args(gamma, class_weights):
+    return {}
 
 
 FUSED = {
     "rna2dna": Fused(ft.rna2dna_fused_train_step, fe.rna2dna_fused_epoch,
-                     lambda ep: (ep.tpm, ep.beta)),
+                     lambda ep: (ep.tpm, ep.beta), _no_loss_args),
     "dna2rna": Fused(ft.dna2rna_fused_train_step, fe.dna2rna_fused_epoch,
-                     lambda ep: (ep.beta, ep.tpm)),
+                     lambda ep: (ep.beta, ep.tpm), _no_loss_args),
+    "multimodal": Fused(ft.multimodal_fused_train_step, fe.multimodal_fused_epoch,
+                        lambda ep: (ep.tpm, ep.beta),
+                        lambda gamma, class_weights: {"gamma": gamma,
+                                                      "class_weights": class_weights}),
 }
 
 
@@ -165,13 +182,14 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         num_epochs: Optional[int] = None, drop_last: bool = True, hp=None, init_params=None,
         init_state=None, resume_carry=None, start_epoch: int = 0, fused_step: bool = False,
         fused_epoch: bool = False, device=None, masked_sizes: bool = False,
-        mesh=None) -> FitResult:
+        mesh=None, class_weights=None) -> FitResult:
     """Train a task end to end; returns the best-validation snapshot.
 
     ``train_arrays``/``val_arrays`` are (tpm, beta, site) arrays or tensors;
     ``seed`` seeds the initialisation (when neither ``init_params`` nor
-    ``resume_carry`` is given), the shuffles and the noise. Runs on the card
-    unless ``device="cpu"`` or ``cfg.platform == "cpu"``."""
+    ``resume_carry`` is given), the shuffles and the noise;
+    ``class_weights`` (n_sites,) weighs the tri-modal cross-entropy term.
+    Runs on the card unless ``device="cpu"`` or ``cfg.platform == "cpu"``."""
     _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh)
     task = get_task(task_name)
     device = resolve_device(device, cfg)
@@ -179,6 +197,10 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         num_epochs = cfg.num_epochs
     hp = hyperparams(cfg) if hp is None else hp
     train, val = _as_batch(train_arrays, device), _as_batch(val_arrays, device)
+    if class_weights is not None:
+        class_weights = torch.as_tensor(np.asarray(class_weights, np.float32)).to(device)
+    loss_kw = {"gamma": hp["gamma"], "class_weights": class_weights}
+    fused_kw = FUSED[task_name].loss_args(**loss_kw)
     batch_size = int(cfg.batch_size)
     n_train, n_val = len(train), len(val)
     n_full = n_train // batch_size
@@ -233,7 +255,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             losses, params, m, v, state = FUSED[task_name].epoch(
                 params, opt["m"], opt["v"], state, *FUSED[task_name].epoch_rows(ep), ep.site,
                 n_sites, seed=eseed, beta=beta, lr=lr, weight_decay=hp["weight_decay"],
-                step0=step_host, n_batches=n_full)
+                step0=step_host, n_batches=n_full, **fused_kw)
             opt = {"step": opt["step"] + n_full, "m": m, "v": v}
             train_sum = losses.sum()
         else:
@@ -243,10 +265,10 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
                 if fused_step:
                     loss, grads, state = FUSED[task_name].step(
                         params, state, batch.tpm, batch.beta, batch.site, n_sites, seed=eseed,
-                        step=b, beta=beta)
+                        step=b, beta=beta, **fused_kw)
                 else:
                     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-                    loss, state = task.loss(leaves, state, batch, beta, True, gen)
+                    loss, state = task.loss(leaves, state, batch, beta, True, gen, **loss_kw)
                     flat = tree_leaves(leaves)
                     grads_flat = iter(torch.autograd.grad(loss, flat))
                     grads = tree_map(lambda _: next(grads_flat), leaves)
@@ -257,7 +279,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         train_loss = train_sum / n_batches
 
         with torch.no_grad():
-            val_sum, _ = task.loss(params, state, val, beta, False, gen)
+            val_sum, _ = task.loss(params, state, val, beta, False, gen, **loss_kw)
         val_loss = val_sum / n_val_batches
         plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
                                      hp["sched_patience"])

@@ -12,6 +12,13 @@ fields are inputs and which the target. Ported so far:
   * ``dna2rna``: DNA methylation in, RNA out, MSE sum + β·KLD with β warming
     up, through ``ops.losses.dna2rna_loss`` (plain PyTorch, as the JAX
     engine leaves that loss to XLA).
+  * ``multimodal``: the tri-modal MultiModalVAE, RNA, DNA and site in, all
+    three reconstructed, MSE sum + BCE sum + γ·class-weighted CE sum + β·KLD
+    with β warming up, through ``ops.losses.vae_loss`` (plain PyTorch, as in
+    the JAX engine); it predicts DNA from RNA alone.
+
+Every loss takes ``gamma`` and ``class_weights``; the directional tasks
+ignore them, as the JAX tasks do.
 """
 
 from __future__ import annotations
@@ -20,9 +27,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from vae_los_angeles_torch.models import directional_vae
+from vae_los_angeles_torch.models import directional_vae, vae
 from vae_los_angeles_torch.ops.kernels.fused_loss import rna2dna_loss_fused
-from vae_los_angeles_torch.ops.losses import dna2rna_loss
+from vae_los_angeles_torch.ops.losses import dna2rna_loss, vae_loss
 
 
 class Batch(NamedTuple):
@@ -43,9 +50,10 @@ class Task(NamedTuple):
     name: str
     # init(generator, cfg, n_sites, device) -> (params, bn_state)
     init: Callable
-    # loss(params, state, batch, beta_kl, train, generator, eps=None,
-    #      **dropout masks) -> (loss_sum, new_state); the masks are drop_mask
-    #      (rna2dna) or drop_mask1 and drop_mask2 (dna2rna)
+    # loss(params, state, batch, beta_kl, train, generator, *, gamma=1.0,
+    #      class_weights=None, eps=None, **dropout masks) -> (loss_sum,
+    #      new_state); the masks are drop_mask (rna2dna), drop_mask1 and
+    #      drop_mask2 (dna2rna), or drop_a, drop_b1 and drop_b2 (multimodal)
     loss: Callable
     # predict(params, state, batch, generator) -> imputed target (eval mode)
     predict: Callable
@@ -60,8 +68,8 @@ def _rna2dna_init(generator, cfg, n_sites, device=None):
         device)
 
 
-def _rna2dna_loss(params, state, batch, beta_kl, train, generator=None, eps=None,
-                  drop_mask=None):
+def _rna2dna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
+                  class_weights=None, eps=None, drop_mask=None):
     out = directional_vae.rna2dna_vae_apply(
         params, state, rna=batch.tpm, site=batch.site, train=train, eps=eps,
         drop_mask=drop_mask, generator=generator)
@@ -80,8 +88,8 @@ def _dna2rna_init(generator, cfg, n_sites, device=None):
         device)
 
 
-def _dna2rna_loss(params, state, batch, beta_kl, train, generator=None, eps=None,
-                  drop_mask1=None, drop_mask2=None):
+def _dna2rna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
+                  class_weights=None, eps=None, drop_mask1=None, drop_mask2=None):
     out = directional_vae.dna2rna_vae_apply(
         params, state, dna=batch.beta, site=batch.site, train=train, eps=eps,
         drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator)
@@ -93,11 +101,35 @@ def _dna2rna_predict(params, state, batch, generator=None):
         params, state, dna=batch.beta, site=batch.site, train=False, generator=generator).recon
 
 
+def _multimodal_init(generator, cfg, n_sites, device=None):
+    return vae.multimodal_vae_init(generator, cfg.input_dim_a, cfg.input_dim_b, n_sites,
+                                   cfg.latent_dim, cfg.embed_dim, device)
+
+
+def _multimodal_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
+                     class_weights=None, eps=None, drop_a=None, drop_b1=None, drop_b2=None):
+    out = vae.multimodal_vae_apply(
+        params, state, a=batch.tpm, b=batch.beta, site=batch.site, train=train, eps=eps,
+        drop_a=drop_a, drop_b1=drop_b1, drop_b2=drop_b2, generator=generator)
+    total, _ = vae_loss(out.out_a, batch.tpm, out.out_b_logits, batch.beta, out.out_c, batch.site,
+                        out.mu, out.logvar, beta=beta_kl, gamma=gamma,
+                        class_weights=class_weights)
+    return total, out.state
+
+
+def _multimodal_predict(params, state, batch, generator=None):
+    """DNA imputed from RNA alone."""
+    return vae.multimodal_vae_apply(params, state, a=batch.tpm, train=False,
+                                    generator=generator).out_b
+
+
 TASKS = {
     "rna2dna": Task("rna2dna", _rna2dna_init, _rna2dna_loss, _rna2dna_predict,
                     lambda batch: batch.beta, True),
     "dna2rna": Task("dna2rna", _dna2rna_init, _dna2rna_loss, _dna2rna_predict,
                     lambda batch: batch.tpm, True),
+    "multimodal": Task("multimodal", _multimodal_init, _multimodal_loss, _multimodal_predict,
+                       lambda batch: batch.beta, True),
 }
 
 

@@ -9,7 +9,8 @@
   * ``num_batches_tracked`` has no JAX counterpart: it is not emitted
     (``load_state_dict`` fills it in) and is ignored when read.
 
-Only the directional VAEs (``rna2dna``, ``dna2rna``) are covered so far.
+The directional VAEs (``rna2dna``, ``dna2rna``) and the tri-modal VAE
+(``multivae``) are covered; the directional AEs are not ported yet.
 
 The trainer's own trees stay in the JAX layout, so moving them across is a
 copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
@@ -45,28 +46,45 @@ def _encoder_c(key, path):
             + _linear(f"{key}.fc_logvar", path + ("logvar",)))
 
 
+def _encoder_a(key, path):
+    return (_linear(f"{key}.fc.0", path + ("fc",)) + _batchnorm(f"{key}.fc.1", path + ("bn",))
+            + _linear(f"{key}.fc_mu", path + ("mu",))
+            + _linear(f"{key}.fc_logvar", path + ("logvar",)))
+
+
+def _encoder_b(key, path):
+    return (_linear(f"{key}.fc.0", path + ("fc1",)) + _batchnorm(f"{key}.fc.1", path + ("bn1",))
+            + _linear(f"{key}.fc.4", path + ("fc2",)) + _batchnorm(f"{key}.fc.5", path + ("bn2",))
+            + _linear(f"{key}.fc_mu", path + ("mu",))
+            + _linear(f"{key}.fc_logvar", path + ("logvar",)))
+
+
+def _decoder(key, path, n_layers):
+    """A Sequential of Linear → ReLU pairs: keys fc.0, fc.2, ... → fc1, fc2, ..."""
+    return [t for i in range(n_layers)
+            for t in _linear(f"{key}.fc.{2 * i}", path + (f"fc{i + 1}",))]
+
+
 # (state_dict key, JAX tree, path in that tree, transposed) for each tensor
 MODEL_TYPES = {
     "rna2dna": (
-        _linear("encoder_rna.fc.0", ("encoder_rna", "fc"))
-        + _batchnorm("encoder_rna.fc.1", ("encoder_rna", "bn"))
-        + _linear("encoder_rna.fc_mu", ("encoder_rna", "mu"))
-        + _linear("encoder_rna.fc_logvar", ("encoder_rna", "logvar"))
+        _encoder_a("encoder_rna", ("encoder_rna",))
         + _encoder_c("encoder_site", ("encoder_site",))
-        + _linear("decoder_dna.fc.0", ("decoder_dna", "fc1"))
-        + _linear("decoder_dna.fc.2", ("decoder_dna", "fc2"))
-        + _linear("decoder_dna.fc.4", ("decoder_dna", "fc3"))
+        + _decoder("decoder_dna", ("decoder_dna",), 3)
     ),
     "dna2rna": (
-        _linear("encoder_dna.fc.0", ("encoder_dna", "fc1"))
-        + _batchnorm("encoder_dna.fc.1", ("encoder_dna", "bn1"))
-        + _linear("encoder_dna.fc.4", ("encoder_dna", "fc2"))
-        + _batchnorm("encoder_dna.fc.5", ("encoder_dna", "bn2"))
-        + _linear("encoder_dna.fc_mu", ("encoder_dna", "mu"))
-        + _linear("encoder_dna.fc_logvar", ("encoder_dna", "logvar"))
+        _encoder_b("encoder_dna", ("encoder_dna",))
         + _encoder_c("encoder_site", ("encoder_site",))
-        + _linear("decoder_rna.fc.0", ("decoder_rna", "fc1"))
-        + _linear("decoder_rna.fc.2", ("decoder_rna", "fc2"))
+        + _decoder("decoder_rna", ("decoder_rna",), 2)
+    ),
+    # MultiModalVAE: EncoderA/B/C, DecoderA (RNA), DecoderB (DNA), DecoderC (site)
+    "multivae": (
+        _encoder_a("encoder_a", ("encoder_a",))
+        + _encoder_b("encoder_b", ("encoder_b",))
+        + _encoder_c("encoder_c", ("encoder_c",))
+        + _decoder("decoder_a", ("decoder_a",), 2)
+        + _decoder("decoder_b", ("decoder_b",), 3)
+        + _decoder("decoder_c", ("decoder_c",), 2)
     ),
 }
 
