@@ -1,6 +1,6 @@
 """Diagnostic probes of the training kernels on one NVIDIA GPU.
 
-    python3 chip_probes.py first|grads|race|chain
+    python3 chip_probes.py first|grads|race|chain|widths
 
 ``chip_smoke.py`` is the check; these are the measurements that shaped it,
 kept so that the numbers quoted from them in ``PERF.md`` and ``ROADMAP.md``
@@ -17,7 +17,12 @@ can be made again:
     at other batch sizes: deterministic, and shape- and data-dependent;
   * ``chain``: every intermediate of one step (from the kernel's
     workspace) against float64 recomputed from the kernel's own previous
-    stage.
+    stage;
+  * ``widths``: ``engine.fit``'s ms an epoch for rna2dna on 512 synthetic
+    samples at DecoderB widths from the cohort's (1211) to the whole
+    methylome's (450,000), on the plain path and on the kernel path through
+    the epoch kernel and through the wide head kernel: where
+    ``engine.WIDE_HEAD_MIN_DIM_B`` lies.
 """
 
 from __future__ import annotations
@@ -233,7 +238,48 @@ def probe_chain(dev, batch=32):
     check("g_w1", G["w1"], x.T @ w["da1"])
 
 
-PROBES = {"first": probe_first, "grads": probe_grads, "race": probe_race, "chain": probe_chain}
+def probe_widths(dev, widths=(1211, 65536, 131072, 262144, 450_000), samples=512):
+    from vae_los_angeles_torch.data.splits import train_val_indices
+    from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
+    from vae_los_angeles_torch.models.directional_vae import rna2dna_vae_init
+    from vae_los_angeles_torch.training import engine
+
+    _build.build_all(["fused_train", "fused_loss", "fused_wide"])
+    print(cs.card_line())
+    threshold = engine.WIDE_HEAD_MIN_DIM_B
+    tr, va = train_val_indices(samples, cs.CFG.train_test_split, cs.CFG.random_seed)
+    for width in widths:
+        tpm, beta, site = generate_synthetic_arrays(n_samples=samples, dim_b=width, seed=5)
+        rows = [[torch.as_tensor(a[idx]).to(dev) for a in (tpm, beta, site)] for idx in (tr, va)]
+        cfg = cs.CFG.replace(input_dim_b=width)
+        init = rna2dna_vae_init(torch.Generator().manual_seed(0), cfg.input_dim_a, width,
+                                N_SITES, cfg.latent_dim, cfg.embed_dim, dev)
+        line = []
+        for path, min_width, kw in (("plain", threshold, {}),
+                                    ("epoch kernel", width + 1, {"fused_epoch": True}),
+                                    ("wide head", width, {"fused_epoch": True})):
+            engine.WIDE_HEAD_MIN_DIM_B = min_width
+            try:
+                def fit(n):
+                    return engine.fit("rna2dna", cfg, *rows, 0, N_SITES, num_epochs=n,
+                                      device=dev, init_params=init[0], init_state=init[1], **kw)
+                fit(1)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fit(3)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / 3
+            finally:
+                engine.WIDE_HEAD_MIN_DIM_B = threshold
+            line.append(f"{path} {ms:.3f} ms (train loss {res.train_losses.tolist()})")
+            del res
+        print(f"[widths] dim_b {width}: " + "; ".join(line), flush=True)
+        del rows, init
+        torch.cuda.empty_cache()
+
+
+PROBES = {"first": probe_first, "grads": probe_grads, "race": probe_race, "chain": probe_chain,
+          "widths": probe_widths}
 
 
 def main(argv):

@@ -29,8 +29,10 @@ Phases (any failure raises, and the script exits non-zero):
          about 3x the fp32 differences measured there. Nearer, two fp32
          implementations can take different sides and their gradients differ
          by a whole term (seen at B = 32: one flipped unit moved d2w by 0.17);
-       * the loss pair at B in {32, 205}: value rtol 1e-5, gradients
-         rtol 1e-5 + atol 1e-7;
+       * the loss pair at B in {32, 205} and, as the wide paths run it, at
+         32 x 450,000 (a training batch) and 103 x 450,000 (the validation
+         split of 512 samples): value rtol 1e-5, gradients rtol 1e-5 +
+         atol 1e-7;
        * the training kernels' Philox noise: the same seed gives the same
          draws, another seed others, the dropout keep rate is 0.9 ± 0.005
          over 2.6e5 draws, eps has mean 0 ± 0.01 and variance 1 ± 0.02, and
@@ -70,6 +72,17 @@ Phases (any failure raises, and the script exits non-zero):
          running means at 2·lr·steps; every tensor is checked before the
          first failure is raised; its Philox noise as above, for its three
          dropout masks;
+       * the wide head (``fused_wide_output_step``) at the whole-methylome
+         width, D = 450,000 columns, d_in = 512, at batch 32 and 256, over 3
+         chained steps with the state threaded through, from non-zero
+         moments (as the JAX test's inputs; from zero moments the first Adam
+         step is lr·g/|g|, and a gradient within rounding of 0 can take
+         either sign in two fp32 implementations, moving W by 2·lr): W and b
+         atol 0.02·lr (where v is small the Adam step amplifies the
+         gradient's fp32 differences; measured 4.3e-6 at lr 5e-4), the
+         moments and dh within 2e-5 of each tensor's largest magnitude (dh
+         sums 450,000 products in another order; measured 3.3e-6), the loss
+         rtol 1e-5, the step exactly;
   4. train end to end: ``run_training`` (rna2dna, USE_PALLAS, the card) on
      the 1024-sample synthetic cohort, 3 epochs of 25 steps, the epoch
      kernel once an epoch; then one epoch each of ``engine.fit``'s
@@ -77,6 +90,19 @@ Phases (any failure raises, and the script exits non-zero):
      same for dna2rna (``run_training("dna2rna", "dna2rna")``, its epoch
      and train-step kernels), and, after serving, for the tri-modal model
      (``run_training("multimodal", "multivae", use_class_weights=True)``);
+     and, after evaluating, the whole-methylome-width regime
+     (`phase_train_wide`): RNA→DNA at dim_b = 450,000 on 512 synthetic
+     samples, batch 32: ``run_training`` with ``--moments_dtype bfloat16``
+     and USE_PALLAS (routed to the plain path) for 2 epochs, then resumed
+     for one; ``run_training`` with fp32 AdamW and USE_PALLAS for 2
+     epochs, which at this width trains through the wide head kernel once
+     a step (``engine.uses_wide_head``, the ``wide`` path); then
+     ``engine.fit`` for 2 epochs each with fp32 AdamW, bf16 compute, bf16
+     moments and Adafactor on the plain path, and with fp32 AdamW on the
+     kernel path (the wide head), each after an untimed warm-up epoch,
+     from the same initial weights with the rows on the card; each with its
+     ms an epoch, samples/s and peak device memory, finite losses and a
+     falling train loss;
   5. serve: ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
      phase 4 (through their run-id files), the served posteriors held
@@ -93,10 +119,13 @@ Phases (any failure raises, and the script exits non-zero):
      (``torch.profiler``): device time by kernel, the device's busy and
      idle shares; and ``engine.fit``'s epoch time and samples/s through
      each epoch kernel at the 1024- and 8000-sample cohorts, validation
-     included.
+     included; the wide head at batch 32 and 256 against its plain version
+     and the library composite (cuBLAS products, ``torch.sigmoid`` and
+     ``torch.optim.AdamW(fused=True)``), profiled once.
 
-Each path (serve, evaluate, train, train-step, train-plain and the three
-training paths of dna2rna and of the tri-modal model) is driven with every
+Each path (serve, evaluate, train, train-step, train-plain, the three
+training paths of dna2rna and of the tri-modal model, and train-wide and
+wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -108,6 +137,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -130,10 +160,12 @@ from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_vae as fv
+from vae_los_angeles_torch.ops.kernels import fused_wide as fw
 from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
+from vae_los_angeles_torch.utils.tree import tree_leaves
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 
 CFG = Config()  # the live widths: RNA 1177, DNA 1211, latent 20, site embedding 32
@@ -147,7 +179,7 @@ EPOCH_STEPS = 25
 LR, WD, BETA = 5e-4, 1e-5, 1e-3
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-SOURCES = ("fused_vae", "fused_train", "fused_loss")
+SOURCES = ("fused_vae", "fused_train", "fused_loss", "fused_wide")
 KERNELS = {
     # name: (wrapper, model, checkpoint name, input width, TPU kernel it replaces)
     "rna2dna_fused_forward": (
@@ -179,12 +211,18 @@ TRAIN_KERNELS = {
     "multimodal_train_epoch": ("vae_los_angeles_torch/csrc/fused_train.cu",
                                "vae_los_angeles_tpu/ops/pallas/fused_epoch_multimodal.py:376",
                                fe.launches),
+    "fused_wide_output_step": ("vae_los_angeles_torch/csrc/fused_wide.cu",
+                               "vae_los_angeles_tpu/ops/pallas/fused_wide.py:194", fw.launches),
 }
 GRAD_D2R = dict(atol=1e-3, rtol=1e-4)  # the JAX DNA→RNA step test's (test_pallas_train.py)
 D2R = ft.PARAM_ORDER_D2R
 MM = ft.PARAM_ORDER_MM
 GAMMA = 1.7  # the JAX tri-modal tests' γ (test_pallas_multimodal.py)
 H1, H2 = 512, 256  # EncoderB's hidden widths (fixed in both packages)
+WIDE_D, WIDE_K = 450_000, 512  # Illumina 450k probes; DecoderB's last hidden width
+WIDE_BATCHES = (32, 256)
+WIDE_LR, WIDE_WD = 5e-4, 1e-5
+WIDE_SAMPLES = 512
 
 
 def say(msg):
@@ -202,7 +240,7 @@ def card_line():
 def zero_counts():
     for cls, *_ in KERNELS.values():
         cls.launches = 0
-    for counter in (ft.launches, fe.launches, fl.launches):
+    for counter in (ft.launches, fe.launches, fl.launches, fw.launches):
         for k in counter:
             counter[k] = 0
 
@@ -344,6 +382,15 @@ def loss_work(batch, backward):
     if backward:
         return 5 * n + 6 * nl, 4 * (3 * n + 4 * nl + 2)
     return 6 * n + 6 * nl, 4 * (2 * n + 2 * nl + 3)
+
+
+def wide_work(batch):
+    """The wide head's step: three batch x d_in x D products, the BCE and
+    dy per (row, column), 14 operations of AdamW per parameter; W, m and v
+    read and written once, the target and h read once, dh written once."""
+    kd, nd = WIDE_K * WIDE_D, batch * WIDE_D
+    flops = 6 * batch * kd + 12 * nd + 14 * (kd + WIDE_D)
+    return flops, 4 * (6 * kd + nd + 2 * batch * WIDE_K + 6 * WIDE_D + 1)
 
 
 def bound(work):
@@ -549,12 +596,20 @@ def compare_epoch(dev):
     return max(worst, worst_loose)
 
 
+def wide_loss_shapes():
+    """The loss pair's shapes on the wide paths: a training batch and the
+    whole validation split, at the whole-methylome width."""
+    _, va = train_val_indices(WIDE_SAMPLES, CFG.train_test_split, CFG.random_seed)
+    return [(CFG.batch_size, WIDE_D), (len(va), WIDE_D)]
+
+
 def compare_loss(dev):
     worst = {"rna2dna_loss_forward": 0.0, "rna2dna_loss_backward": 0.0}
-    for batch in LOSS_BATCHES:
+    shapes = [(batch, CFG.input_dim_b) for batch in LOSS_BATCHES] + wide_loss_shapes()
+    for batch, width in shapes:
         g = torch.Generator(device=dev).manual_seed(batch)
-        logits = (torch.randn((batch, CFG.input_dim_b), generator=g, device=dev) * 3)
-        t = torch.rand((batch, CFG.input_dim_b), generator=g, device=dev)
+        logits = (torch.randn((batch, width), generator=g, device=dev) * 3)
+        t = torch.rand((batch, width), generator=g, device=dev)
         mu = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
         lv = torch.randn((batch, CFG.latent_dim), generator=g, device=dev) * 0.5
         leaves = [a.clone().requires_grad_(True) for a in (logits, mu, lv)]
@@ -567,12 +622,13 @@ def compare_loss(dev):
                      kld * g13)
         torch.cuda.synchronize()
         worst["rna2dna_loss_forward"] = max(worst["rna2dna_loss_forward"], check_close(
-            f"loss B={batch}", val, ref, 0.0, 1e-5))
+            f"loss {batch}x{width}", val, ref, 0.0, 1e-5))
         for i, (a, b) in enumerate(zip(grads, ref_grads)):
             worst["rna2dna_loss_backward"] = max(worst["rna2dna_loss_backward"], check_close(
-                f"loss B={batch} grad {i}", a, b, 1e-7, 1e-5))
+                f"loss {batch}x{width} grad {i}", a, b, 1e-7, 1e-5))
     say(f"[compare] loss pair: max |kernel - plain| = {worst['rna2dna_loss_forward']:.3e} "
-        f"(forward), {worst['rna2dna_loss_backward']:.3e} (backward) over B={LOSS_BATCHES}")
+        f"(forward), {worst['rna2dna_loss_backward']:.3e} (backward) over "
+        f"{', '.join(f'{b}x{w}' for b, w in shapes)}")
     return worst
 
 
@@ -1013,6 +1069,58 @@ def check_philox_mm(dev):
 # ---------------------------------------------------------------------------
 # phases 4-5: train, then serve
 
+WIDE_NAMES = ("w", "b", "m_w", "v_w", "m_b", "v_b", "step", "dh", "loss")
+
+
+def wide_inputs(dev, batch, seed):
+    """h, target and the head's state at the full width, drawn as the JAX
+    test's ``_inputs`` (non-zero moments), with step 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((batch, WIDE_K), generator=g, device=dev),
+            torch.rand((batch, WIDE_D), generator=g, device=dev),
+            torch.randn((WIDE_K, WIDE_D), generator=g, device=dev) * 0.05,
+            torch.randn((WIDE_D,), generator=g, device=dev) * 0.05,
+            torch.randn((WIDE_K, WIDE_D), generator=g, device=dev) * 0.01,
+            torch.rand((WIDE_K, WIDE_D), generator=g, device=dev) * 1e-4,
+            torch.randn((WIDE_D,), generator=g, device=dev) * 0.01,
+            torch.rand((WIDE_D,), generator=g, device=dev) * 1e-4,
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def compare_wide(dev):
+    """The wide head against its plain version over 3 chained steps at batch
+    32 and 256 (tolerances in the module docstring); returns the largest
+    absolute error over W, b, the moments and dh (the loss, ~1e7, is held
+    relative)."""
+    worst = 0.0
+    for batch in WIDE_BATCHES:
+        h, t, *state = wide_inputs(dev, batch, batch)
+        kern = plain = tuple(state)
+        for i in range(3):
+            got = fw.fused_wide_output_step(h, t, *kern, WIDE_LR, WIDE_WD)
+            want = fw.fused_wide_output_step_reference(h, t, *plain, WIDE_LR, WIDE_WD)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, e in zip(WIDE_NAMES, got, want):
+                err = float((a.double() - e.double()).abs().max())
+                scale = float(e.double().abs().max())
+                errs[name] = err
+                limit = {"w": 0.02 * WIDE_LR, "b": 0.02 * WIDE_LR, "step": 0.0,
+                         "loss": 1e-5 * scale}.get(name, 2e-5 * scale)
+                if not err <= limit:
+                    raise AssertionError(f"wide head B={batch} step {i}: {name} max |kernel - "
+                                         f"plain| {err:.3e} > {limit:.3e}")
+                if name not in ("step", "loss"):
+                    worst = max(worst, err)
+            say(f"[compare] fused_wide_output_step {WIDE_K}x{WIDE_D} B={batch} step {i}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (max |kernel - plain|)")
+            kern, plain = got[:7], want[:7]
+        del h, t, state, kern, plain, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+
 MODEL_OF = {"rna2dna": "rna2dna", "dna2rna": "dna2rna", "multimodal": "multivae"}
 SUFFIX = {"rna2dna": "", "dna2rna": "_d2r", "multimodal": "_mm"}
 
@@ -1101,6 +1209,123 @@ def phase_evaluate(dev, workdir, tpm, beta, site, run_id):
             f"imputation {float(np.mean((truth - mean) ** 2)):.5f}; " + json.dumps(rec))
     say(f"[evaluate] evaluation_results.json written; launches {launches}")
     return launches
+
+
+def _wide_fit_line(what, wall, epochs, n_train, result, card):
+    losses = result.train_losses[: result.epochs_ran]
+    if result.epochs_ran != epochs or not (np.isfinite(losses).all()
+                                           and np.isfinite(result.val_losses[:epochs]).all()):
+        raise AssertionError(f"wide {what}: {result.epochs_ran} epochs, losses {losses} "
+                             f"{result.val_losses}")
+    if epochs > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"wide {what}: train loss {losses.tolist()} does not fall")
+    ms = wall * 1e3 / epochs
+    rate = engine.samples_trained(n_train, CFG.batch_size, epochs) / wall
+    say(f"[train-wide] {what}: {ms:.3f} ms an epoch over {epochs} epochs ({rate:,.0f} samples/s),"
+        f" peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; train loss "
+        f"{losses.tolist()}, val loss {result.val_losses[:epochs].tolist()}; {card}")
+
+
+def phase_train_wide(dev, workdir, card):
+    """RNA→DNA at the whole-methylome width (module docstring, phase 4);
+    returns the launch counts of the ``run_training`` runs (train_wide) and
+    of the wide head's fit (wide)."""
+    t0 = time.perf_counter()
+    tpm, beta, site = generate_synthetic_arrays(n_samples=WIDE_SAMPLES, dim_b=WIDE_D, seed=5)
+    say(f"[train-wide] synthetic cohort {tpm.shape} + {beta.shape} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = CFG.replace(input_dim_b=WIDE_D, checkpoint_dir=os.path.join(workdir, "wide_ckpt"),
+                      plots_dir=os.path.join(workdir, "wide_plots"), use_pallas=True)
+    tr, va = train_val_indices(WIDE_SAMPLES, cfg.train_test_split, cfg.random_seed)
+    counts = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result, run_id, wall = run_training(
+        "rna2dna", "rna2dna", cfg=cfg,
+        argv=["--epochs", "2", "--seed", "0", "--moments_dtype", "bfloat16"],
+        data=(tpm, beta, site), n_sites=N_SITES, device=dev, root=workdir)
+    if result.carry["opt"]["m"]["decoder_dna"]["fc3"]["w"].dtype != torch.bfloat16:
+        raise AssertionError("--moments_dtype bfloat16 did not reach the carry")
+    for path in (os.path.join(cfg.checkpoint_dir, f"best_rna2dna_{run_id}.npz"),
+                 os.path.join(cfg.checkpoint_dir, f"resume_rna2dna_{run_id}.npz"),
+                 os.path.join(workdir, "latest_rna2dna_run_id.txt")):
+        if not os.path.exists(path):
+            raise AssertionError(f"run_training did not write {path}")
+    _wide_fit_line("run_training, bf16 moments (USE_PALLAS routed to the plain path; the "
+                   "host-side initialisation included)", wall, 2, len(tr), result, card)
+    resumed, rid, wall = run_training(
+        "rna2dna", "rna2dna", cfg=cfg,
+        argv=["--resume", "--epochs", "1", "--moments_dtype", "bfloat16"],
+        data=(tpm, beta, site), n_sites=N_SITES, device=dev, root=workdir)
+    steps = len(tr) // cfg.batch_size
+    if rid != run_id or int(resumed.carry["opt"]["step"]) != 3 * steps:
+        raise AssertionError(f"the resumed run {rid} is at step "
+                             f"{int(resumed.carry['opt']['step'])}, not {3 * steps}")
+    _wide_fit_line("run_training --resume (bf16 moments from the carry; its copy to the card "
+                   "included)", wall, 1, len(tr), resumed, card)
+    counts["train_wide"] = read_counts()
+    if counts["train_wide"]["rna2dna_train_epoch"]:
+        raise AssertionError("bf16 moments reached the epoch kernel")
+    del result, resumed
+    shutil.rmtree(cfg.checkpoint_dir)
+
+    # fp32 AdamW with USE_PALLAS: at this width the kernel path is the wide head
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result, _, wall = run_training(
+        "rna2dna", "rna2dna", cfg=cfg, argv=["--epochs", "2", "--seed", "0"],
+        data=(tpm, beta, site), n_sites=N_SITES, device=dev, root=workdir)
+    counts["wide"] = read_counts()
+    if (counts["wide"]["fused_wide_output_step"] != 2 * steps
+            or counts["wide"]["rna2dna_train_epoch"]):
+        raise AssertionError(f"run_training at the wide width launched the wide head "
+                             f"{counts['wide']['fused_wide_output_step']} times in {2 * steps} "
+                             f"steps and the epoch kernel "
+                             f"{counts['wide']['rna2dna_train_epoch']} times")
+    _wide_fit_line("run_training, fp32 AdamW (USE_PALLAS: the wide head kernel once a step; "
+                   "the host-side initialisation included)", wall, 2, len(tr), result, card)
+    del result
+    shutil.rmtree(cfg.checkpoint_dir)
+
+    # the rows and the initial weights go to the card once, outside the timing
+    train_rows, val_rows = ([torch.as_tensor(a[idx]).to(dev) for a in (tpm, beta, site)]
+                            for idx in (tr, va))
+    plain = cfg.replace(use_pallas=False)
+    t0 = time.perf_counter()
+    init = rna2dna_vae_init(torch.Generator().manual_seed(0), plain.input_dim_a, WIDE_D, N_SITES,
+                            plain.latent_dim, plain.embed_dim, dev)
+    say(f"[train-wide] initial weights ({sum(t.numel() for t in tree_leaves(init[0])):,} "
+        f"parameters) drawn in {time.perf_counter() - t0:.1f} s")
+    for what, run_cfg, kw in (("engine.fit fp32 AdamW", plain, {}),
+                              ("engine.fit compute_dtype=bfloat16",
+                               plain.replace(compute_dtype="bfloat16"), {}),
+                              ("engine.fit moments_dtype=bfloat16",
+                               plain.replace(moments_dtype="bfloat16"), {}),
+                              ("engine.fit optimizer=adafactor",
+                               plain.replace(optimizer="adafactor"), {}),
+                              ("engine.fit fp32 AdamW, kernel path (the wide head kernel)",
+                               plain, {"fused_epoch": True})):
+        fit = lambda n: engine.fit(  # noqa: E731
+            "rna2dna", run_cfg, train_rows, val_rows, 0, N_SITES, num_epochs=n, device=dev,
+            init_params=init[0], init_state=init[1], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(1)  # warm-up: the path's one-time costs stay out of the timed run
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fit(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        say(f"[train-wide] {what}: warm-up epoch {warm * 1e3:.1f} ms")
+        _wide_fit_line(what, wall, 2, len(tr), res, card)
+        del res
+    del train_rows, val_rows, init
+    torch.cuda.empty_cache()
+    say(f"[train-wide] launches: run_training bf16 moments {counts['train_wide']}; "
+        f"run_training fp32 {counts['wide']}")
+    return counts
 
 
 def phase_serve(dev, workdir, tpm, beta, site, trained):
@@ -1408,6 +1633,48 @@ def time_mm(dev, card, a, b, s, n_steps):
     return out
 
 
+def time_wide(dev, card):
+    """The wide head at batch 32 and 256 against its plain version and the
+    library composite, profiled once at each; returns {name: (ms, plain_ms,
+    library_ms, bound work)} at batch 32, the training batch."""
+    import torch.nn.functional as F
+
+    out = {}
+    for batch in WIDE_BATCHES:
+        h, t, w, b, mw, vw, mb, vb, step = wide_inputs(dev, batch, 100 + batch)
+        kernel = lambda: fw.fused_wide_output_step(  # noqa: E731
+            h, t, w, b, mw, vw, mb, vb, step, WIDE_LR, WIDE_WD)
+        ms, plain_ms = alternate(
+            kernel, lambda: fw.fused_wide_output_step_reference(
+                h, t, w, b, mw, vw, mb, vb, step, WIDE_LR, WIDE_WD), reps=5, warmup=2)
+        lw, lb = w.clone(), b.clone()
+        lw.grad, lb.grad = torch.empty_like(lw), torch.empty_like(lb)
+        adamw = torch.optim.AdamW([lw, lb], lr=WIDE_LR, weight_decay=WIDE_WD, fused=True)
+
+        def library():
+            logits = torch.addmm(lb, h, lw)
+            loss = F.binary_cross_entropy_with_logits(logits, t, reduction="sum")
+            dy = torch.sigmoid(logits) - t
+            torch.mm(h.t(), dy, out=lw.grad)
+            torch.sum(dy, 0, out=lb.grad)
+            dh = dy @ lw.t()
+            adamw.step()
+            return loss, dh
+
+        library_ms = time_call(library, reps=5, warmup=2)
+        profile_epoch(kernel, f"fused_wide_output_step B={batch}", card)
+        work = wide_work(batch)
+        bound_ms, bound_by = bound(work)
+        say(f"[time] fused_wide_output_step {WIDE_K}x{WIDE_D} B={batch}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library (cuBLAS + fused AdamW) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); {card}")
+        if batch == WIDE_BATCHES[0]:
+            out["fused_wide_output_step"] = (ms, plain_ms, library_ms, work)
+        del h, t, w, b, mw, vw, mb, vb, lw, lb, adamw
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_policy.require_cuda()
@@ -1438,6 +1705,7 @@ def main():
     errs["multimodal_train_step"] = compare_mm_step(dev)
     errs["multimodal_train_epoch"] = compare_mm_epoch(dev)
     check_philox_mm(dev)
+    errs["fused_wide_output_step"] = compare_wide(dev)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -1452,15 +1720,18 @@ def main():
             counts_mm, run_id_mm = phase_train(dev, workdir, tpm, beta, site, "multimodal")
             counts.update(counts_mm)
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
+            counts.update(phase_train_wide(dev, workdir, card))
         finally:
             os.chdir(cwd)
     timings = phase_timing(dev, card)
+    timings.update(time_wide(dev, card))
 
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",
                "rna2dna_train_epoch": "train", "rna2dna_loss_forward": "train",
                "rna2dna_train_step": "train_step", "rna2dna_loss_backward": "train_plain",
                "dna2rna_train_epoch": "train_d2r", "dna2rna_train_step": "train_step_d2r",
-               "multimodal_train_epoch": "train_mm", "multimodal_train_step": "train_step_mm"}
+               "multimodal_train_epoch": "train_mm", "multimodal_train_step": "train_step_mm",
+               "fused_wide_output_step": "wide"}
     sources = {name: "vae_los_angeles_torch/csrc/fused_vae.cu" for name in KERNELS}
     replaces = {name: spec[4] for name, spec in KERNELS.items()}
     for name, (src, rep, _) in TRAIN_KERNELS.items():

@@ -103,13 +103,30 @@ def test_flat_format_is_identical(tmp_path):
 
 
 def test_bfloat16_is_refused(tmp_path):
+    """A bf16 leaf round-trips bit for bit as JAX's uint16 + ``.__bf16__``
+    format, in both directions between the packages; what is still refused
+    is a key that ends with that reserved marker (JAX
+    ``test_checkpoint_rejects_reserved_bf16_marker``), a '/' in a key and a
+    list node."""
     import jax.numpy as jnp
 
-    jax_ckpt.save(str(tmp_path / "bf16.npz"), {"w": jnp.ones((2, 2), jnp.bfloat16)})
-    with pytest.raises(ValueError, match="bfloat16"):
-        port_ckpt.load(str(tmp_path / "bf16.npz"))
-    with pytest.raises(ValueError, match="bfloat16"):
-        port_ckpt.save(str(tmp_path / "x.npz"), {"w": torch.ones(2, dtype=torch.bfloat16)})
+    vals = np.random.default_rng(0).normal(size=(3, 5)).astype(np.float32)
+    jax_ckpt.save(str(tmp_path / "bf16.npz"), {"w": jnp.asarray(vals, jnp.bfloat16)},
+                  {"s": jnp.ones(2)})
+    params, state = port_ckpt.load(str(tmp_path / "bf16.npz"))
+    assert params["w"].dtype == torch.bfloat16
+    want = torch.from_numpy(vals).to(torch.bfloat16)  # round to nearest even, as astype
+    assert torch.equal(params["w"].view(torch.int16), want.view(torch.int16))
+    np.testing.assert_array_equal(state["s"], np.ones(2, np.float32))
+    port_ckpt.save(str(tmp_path / "p.npz"), {"w": want, "b": torch.ones(2)})
+    with np.load(tmp_path / "p.npz") as f:
+        assert sorted(f.files) == ["params/b", "params/w.__bf16__"]
+    back, _ = jax_ckpt.load(str(tmp_path / "p.npz"))
+    assert back["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(back["w"]).view(np.uint16),
+                                  want.view(torch.int16).numpy().view(np.uint16))
+    with pytest.raises(ValueError, match="reserved bfloat16 storage marker"):
+        port_ckpt.save(str(tmp_path / "x.npz"), {"w.__bf16__": np.zeros(1)})
     with pytest.raises(ValueError):
         port_ckpt.save(str(tmp_path / "x.npz"), {"a/b": np.zeros(1)})
     with pytest.raises(TypeError):

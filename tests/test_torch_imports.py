@@ -33,7 +33,8 @@ def test_slice_modules_listed():
     assert "vae_los_angeles_torch.evaluation.compare_directional_imputation" in SLICE_MODULES
     assert "vae_los_angeles_torch.evaluation.evaluate" in SLICE_MODULES
     assert "vae_los_angeles_torch.train" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 20
+    assert "vae_los_angeles_torch.ops.kernels.fused_wide" in SLICE_MODULES
+    assert len(SLICE_MODULES) >= 21
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():

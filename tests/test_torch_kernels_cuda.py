@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (``csrc/fused_vae.cu``, ``csrc/fused_train.cu``,
-``csrc/fused_loss.cu``) against their plain PyTorch versions, on the card.
+``csrc/fused_loss.cu``, ``csrc/fused_wide.cu``) against their plain PyTorch
+versions, on the card.
 
 Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips, with a
 reason, where ``torch.cuda.is_available()`` is False. The file imports no
@@ -18,7 +19,10 @@ its epoch's params and m atol 5e-5; the tri-modal gradients atol 1e-3 +
 rtol 1e-4, 2e-3 for the encoder fc biases), with the encoder fc biases and
 the BN running means at 2·lr per step in the epochs (their true gradient is
 zero; Adam turns its fp32 noise into steps of up to lr that differ between
-implementations)."""
+implementations). The wide head over three chained steps, as
+``chip_smoke.compare_wide`` holds it at 512 x 450,000: W and b atol 0.02·lr,
+the moments and dh within 2e-5 of each tensor's largest magnitude, the loss
+rtol 1e-5."""
 
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_vae as fv
+from vae_los_angeles_torch.ops.kernels import fused_wide as fw
 from vae_los_angeles_torch.training import engine
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint
@@ -504,3 +509,104 @@ def test_mm_fit_paths_launch_their_kernels(path, cuda_device):
     assert delta["multimodal_train_epoch"] == (2 if path == "fused_epoch" else 0)
     assert delta["multimodal_train_step"] == (12 if path == "fused_step" else 0)
     assert not any(v for k, v in delta.items() if not k.startswith("multimodal"))
+
+
+# ---- the wide head (B8): odd widths, a ragged last column tile, two row tiles ----
+WIDE_NAMES = ("w", "b", "m_w", "v_w", "m_b", "v_b", "step", "dh", "loss")
+
+
+def wide_inputs(dev, n, d_in, big, seed=0):
+    """Inputs drawn as the JAX test's ``_inputs``: non-zero moments, so no
+    gradient within rounding of 0 decides the sign of an Adam step."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((n, d_in), generator=g, device=dev),
+            torch.rand((n, big), generator=g, device=dev),
+            torch.randn((d_in, big), generator=g, device=dev) * 0.05,
+            torch.randn((big,), generator=g, device=dev) * 0.05,
+            torch.randn((d_in, big), generator=g, device=dev) * 0.01,
+            torch.rand((d_in, big), generator=g, device=dev) * 1e-4,
+            torch.randn((big,), generator=g, device=dev) * 0.01,
+            torch.rand((big,), generator=g, device=dev) * 1e-4)
+
+
+def check_wide(got, want, lr):
+    for name, a, e in zip(WIDE_NAMES, got, want):
+        err = float((a.double() - e.double()).abs().max())
+        if name in ("w", "b"):
+            assert err <= 0.02 * lr, (name, err)
+        elif name == "step":
+            assert int(a) == int(e), name
+        elif name == "loss":
+            assert err <= 1e-5 * abs(float(e)), (name, err)
+        else:
+            assert err <= 2e-5 * float(e.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("n,d_in,big", [(7, 40, 301), (70, 72, 1000), (130, 16, 257)])
+def test_wide_kernel_matches_plain_version_over_three_steps(n, d_in, big, cuda_device):
+    h, t, *state = wide_inputs(cuda_device, n, d_in, big)
+    state = tuple(state) + (torch.zeros((), dtype=torch.int32, device=cuda_device),)
+    sk = sr = state
+    before = fw.launches["fused_wide_output_step"]
+    for _ in range(3):
+        got = fw.fused_wide_output_step(h, t, *sk, 1e-3, 1e-2)
+        want = fw.fused_wide_output_step_reference(h, t, *sr, 1e-3, 1e-2)
+        torch.cuda.synchronize()
+        check_wide(got, want, 1e-3)
+        sk, sr = got[:7], want[:7]
+    assert fw.launches["fused_wide_output_step"] - before == 3
+    assert got[0].shape == (d_in, big) and got[7].shape == (n, d_in)
+
+
+def test_run_training_takes_the_wide_head_from_the_threshold_on(cuda_device, monkeypatch,
+                                                                 tmp_path, capsys):
+    """With USE_PALLAS and fp32 AdamW the CLI trains rna2dna data at least
+    WIDE_HEAD_MIN_DIM_B probes wide (lowered to 301 here) through the wide
+    head each step, and says so; narrower data through the epoch kernel."""
+    from vae_los_angeles_torch.training.cli import run_training
+
+    monkeypatch.setattr(engine, "WIDE_HEAD_MIN_DIM_B", 301)
+    rng = np.random.default_rng(2)
+    for width, path, heads, epochs in ((301, "wide head kernel", 6, 0),
+                                       (300, "epoch kernel", 0, 1)):
+        cfg = Config(input_dim_a=DIM_A, input_dim_b=width, latent_dim=LATENT,
+                     embed_dim=EMBED, batch_size=16, use_pallas=True,
+                     checkpoint_dir=str(tmp_path / "checkpoints"),
+                     plots_dir=str(tmp_path / "plots"))
+        data = (rng.normal(size=(120, DIM_A)).astype(np.float32),
+                rng.uniform(size=(120, width)).astype(np.float32),
+                rng.integers(0, N_SITES, size=120))
+        before = (fw.launches["fused_wide_output_step"], fe.launches["rna2dna_train_epoch"])
+        run_training("rna2dna", "rna2dna", cfg=cfg, argv=["--epochs", "1"], data=data,
+                     n_sites=N_SITES, device=cuda_device, root=str(tmp_path))
+        assert f"path: {path}" in capsys.readouterr().out
+        assert fw.launches["fused_wide_output_step"] - before[0] == heads
+        assert fe.launches["rna2dna_train_epoch"] - before[1] == epochs
+
+
+def test_wide_kernel_refuses_more_rows_than_it_takes(cuda_device):
+    h, t, *state = wide_inputs(cuda_device, 900, 8, 64)
+    with pytest.raises(ValueError, match="at most"):
+        fw.fused_wide_output_step(h, t, *state, 0, 1e-3, 0.0)
+
+
+def test_fit_through_the_wide_head_launches_it_each_step(cuda_device, monkeypatch):
+    """The epoch kernel's request at a width that takes the wide head (the
+    threshold lowered to 301 probes) launches it each step, and no epoch
+    kernel."""
+    cfg = Config(input_dim_a=DIM_A, input_dim_b=301, latent_dim=LATENT, embed_dim=EMBED,
+                 batch_size=16)
+    rng = np.random.default_rng(1)
+    data = (rng.normal(size=(96, DIM_A)).astype(np.float32),
+            rng.uniform(size=(96, 301)).astype(np.float32), rng.integers(0, N_SITES, size=96))
+    val = tuple(a[:40] for a in data)
+    monkeypatch.setattr(engine, "WIDE_HEAD_MIN_DIM_B", 301)
+    before = fw.launches["fused_wide_output_step"]
+    epochs_before = fe.launches["rna2dna_train_epoch"]
+    head = engine.fit("rna2dna", cfg, data, val, 0, N_SITES, num_epochs=2, device=cuda_device,
+                      fused_epoch=True)
+    assert fw.launches["fused_wide_output_step"] - before == 12
+    assert fe.launches["rna2dna_train_epoch"] == epochs_before
+    plain = engine.fit("rna2dna", cfg, data, val, 0, N_SITES, num_epochs=2, device=cuda_device)
+    assert np.isfinite(head.train_losses).all() and head.train_losses[1] < head.train_losses[0]
+    np.testing.assert_allclose(head.train_losses, plain.train_losses, rtol=1e-4)

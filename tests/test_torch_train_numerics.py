@@ -109,8 +109,21 @@ def test_adamw_three_steps_match_jax(rng):
         np.testing.assert_allclose(got["a"]["w"].numpy(), np.asarray(want["a"]["w"]), rtol=1e-6,
                                    atol=1e-7)
         np.testing.assert_allclose(got["b"].numpy(), np.asarray(want["b"]), rtol=1e-6, atol=1e-7)
-    with pytest.raises(ValueError, match="fp32"):
-        port_optim.adamw_init(to_t(params), "bfloat16")
+    # moments stored in bf16: the same three updates, the stored bits equal
+    # JAX's (both round the fp32 update to nearest even), the params as above
+    p, st = to_t(params), port_optim.adamw_init(to_t(params), "bfloat16")
+    jp, jst = params, jax_optim.adamw_init(params, jnp.bfloat16)
+    for g in grads:
+        p, st = port_optim.adamw_update(p, to_t(g), st, 5e-3, 1e-2)
+        jp, jst = jax_optim.adamw_update(jp, g, jst, 5e-3, 1e-2)
+    for key in ("m", "v"):
+        for got, want in ((st[key]["a"]["w"], jst[key]["a"]["w"]), (st[key]["b"], jst[key]["b"])):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                                          np.asarray(want).view(np.uint16))
+    np.testing.assert_allclose(p["a"]["w"].numpy(), np.asarray(jp["a"]["w"]), rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="unsupported"):
+        port_optim.adamw_init(to_t(params), "float16")
 
 
 VAL_SEQUENCES = {

@@ -71,9 +71,18 @@ class Config:
     # Accelerator knobs (no reference equivalent)
     use_pallas: bool = False  # the hand-written kernels (the port's name for it)
     platform: Optional[str] = None  # "cpu" runs on the CPU; else the card
-    compute_dtype: str = "float32"  # the port trains and serves fp32 only
-    moments_dtype: str = "float32"  # fp32 AdamW moments only
-    optimizer: str = "adamw"  # AdamW only in the port so far
+    # Mixed precision of the plain training and serving paths: "float32"
+    # (the reference's fp32 recipe) or "bfloat16" (2-D parameters cast to
+    # bf16 inside the loss, fp32 products, fp32 masters/BN/losses/optimizer;
+    # ops.nn.cast_matmul_params).
+    compute_dtype: str = "float32"  # env override: COMPUTE_DTYPE=bfloat16
+    # Optimizer moment STORAGE dtype: "float32" or "bfloat16" (updates still
+    # computed in fp32; ops.optim.adamw_init).
+    moments_dtype: str = "float32"  # env override: MOMENTS_DTYPE=bfloat16
+    # "adamw" (torch-parity recipe) or "adafactor" (factored second moments,
+    # no first moment; ops.optim.adafactor_init). The CUDA kernels are fp32
+    # AdamW programs, so the three knobs above train on the plain path.
+    optimizer: str = "adamw"  # env override: OPTIMIZER=adafactor
     debug_nans: bool = False  # env override: DEBUG_NANS=1
 
     @classmethod

@@ -1,6 +1,9 @@
 """The port's one device and precision policy.
 
-  * Every tensor is float32.
+  * Every tensor is float32, except where the caller asks for bfloat16
+    (``Config.compute_dtype`` or ``moments_dtype``): then the 2-D weights of
+    a forward or the optimizer's stored moments are bf16, and every product
+    and sum is still taken in fp32.
   * TF32 is off for matrix products and for cuDNN. A float32 product on an
     H100 would otherwise be free to round its inputs to TF32 (about three
     decimal digits); the reference runs with

@@ -17,6 +17,13 @@ running statistics): the JAX loader runs no Pallas kernel there either. The
 loaders run on the card and raise without one, unless the caller asks for
 the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the kernels' plain
 versions serve.
+
+With ``COMPUTE_DTYPE=bfloat16`` (``cfg.compute_dtype``) every model serves
+through its plain eval forward with its 2-D weights cast to bf16 once at
+load (``ops.nn.cast_matmul_params``; fp32 products, fp32 biases and
+BatchNorm), as the JAX loader serves bf16 through its XLA path; the
+directional kernels are fp32 programs, and with ``USE_PALLAS`` set the
+loader says so.
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import torch
 
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.device import resolve_device
+from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_apply, rna2dna_vae_apply
 from vae_los_angeles_torch.models.vae import multimodal_vae_apply
 from vae_los_angeles_torch.ops.kernels.fused_vae import FusedDNA2RNA, FusedRNA2DNA
+from vae_los_angeles_torch.ops.nn import cast_matmul_params, resolve_compute_dtype
 from vae_los_angeles_torch.training import checkpoint
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
 
@@ -41,6 +50,13 @@ def _check_sites(site, n_sites):
     return site.astype(np.int64)
 
 
+def _place(params, state, device, cfg):
+    """(params with 2-D leaves in the serving dtype, state) on ``device``."""
+    dtype = resolve_compute_dtype(cfg.compute_dtype if cfg is not None else None)
+    return (cast_matmul_params(tree_from_numpy(params, device), dtype),
+            tree_from_numpy(state, device))
+
+
 def _seed_of(generator: Optional[torch.Generator]) -> int:
     """A seed drawn from ``generator``; without one every call uses the same
     fixed seed, as the JAX loader's fixed key does."""
@@ -49,16 +65,30 @@ def _seed_of(generator: Optional[torch.Generator]) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
 
 
+_PLAIN_APPLY = {"rna": rna2dna_vae_apply, "dna": dna2rna_vae_apply}
+
+
 class LoadedDirectionalVAE:
     """Callable over one directional VAE's weights: returns (recon, mu,
-    logvar) as numpy arrays, like the reference's forward."""
+    logvar) as numpy arrays, like the reference's forward. One launch of the
+    fused kernel a call, or the plain eval forward with bf16 weights when
+    ``cfg.compute_dtype`` is bfloat16."""
 
     def __init__(self, fused_cls, input_kw: str, params, state, run_id=None, device=None,
                  cfg: Optional[Config] = None):
         self._kw = input_kw  # "rna" or "dna"
         self.device = resolve_device(device, cfg)
-        self._fused = fused_cls(params, state, self.device)
         self.run_id = run_id
+        self._fused = self._plain = None
+        if cfg is None or resolve_compute_dtype(cfg.compute_dtype) == torch.float32:
+            self._fused = fused_cls(params, state, self.device)
+            self.n_sites = self._fused.n_sites
+            return
+        if cfg.use_pallas:
+            print(f"COMPUTE_DTYPE={cfg.compute_dtype}: serving via the plain path (the CUDA "
+                  "kernels are fp32 programs)")
+        self._plain = _place(params, state, self.device, cfg)
+        self.n_sites = self._plain[0]["encoder_site"]["embedding"]["table"].shape[0]
 
     def __call__(self, site=None, generator: Optional[torch.Generator] = None, **kwargs):
         """``generator`` gives the seed of the sampled z; without one every
@@ -71,8 +101,15 @@ class LoadedDirectionalVAE:
         x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
         site_t = None
         if site is not None:
-            site_t = torch.as_tensor(_check_sites(site, self._fused.n_sites)).to(self.device)
-        recon, mu, logvar = self._fused(x, site_t, seed=_seed_of(generator))
+            site_t = torch.as_tensor(_check_sites(site, self.n_sites)).to(self.device)
+        if self._fused is not None:
+            recon, mu, logvar = self._fused(x, site_t, seed=_seed_of(generator))
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(_seed_of(generator))
+            with torch.no_grad():
+                out = _PLAIN_APPLY[self._kw](*self._plain, site=site_t, train=False,
+                                             generator=gen, **{self._kw: x})
+            recon, mu, logvar = out.recon, out.mu, out.logvar
         return recon.cpu().numpy(), mu.cpu().numpy(), logvar.cpu().numpy()
 
 
@@ -82,8 +119,7 @@ class LoadedMultiModalVAE:
 
     def __init__(self, params, state, run_id=None, device=None, cfg: Optional[Config] = None):
         self.device = resolve_device(device, cfg)
-        self.params = tree_from_numpy(params, self.device)
-        self.state = tree_from_numpy(state, self.device)
+        self.params, self.state = _place(params, state, self.device, cfg)
         self.n_sites = self.params["encoder_c"]["embedding"]["table"].shape[0]
         self.run_id = run_id
 
@@ -108,10 +144,7 @@ def _read(model_name, label, run_id, cfg, root, device):
     checkpoint, or None (with a warning) when there is none."""
     cfg = cfg or Config.from_env()
     device = resolve_device(device, cfg)  # raises before any file is read
-    if cfg.compute_dtype not in ("float32", "fp32"):
-        raise ValueError(
-            f"COMPUTE_DTYPE={cfg.compute_dtype}: the port serves fp32 only"
-        )
+    resolve_compute_dtype(cfg.compute_dtype)  # an unknown dtype raises here too
     try:
         params, state, rid = checkpoint.load_best(model_name, run_id, cfg.checkpoint_dir, root)
     except FileNotFoundError as e:

@@ -12,7 +12,9 @@
 
 `decoder_a_apply`, `decoder_b_apply_logits` and `decoder_c_apply` are the
 same chains on the JAX package's parameter trees (``fc1``/``fc2``,
-``fc1``/``fc2``/``fc3`` and ``fc1``/``fc2``), for the trainer.
+``fc1``/``fc2``/``fc3`` and ``fc1``/``fc2``), for the trainer;
+`decoder_b_hidden` stops before DecoderB's output layer, the 512 x dim_b
+layer that the wide head kernel (``ops.kernels.fused_wide``) trains.
 """
 
 from __future__ import annotations
@@ -63,11 +65,15 @@ def decoder_a_apply(params, z):
     return linear_apply(params["fc2"], torch.relu(linear_apply(params["fc1"], z)))
 
 
+def decoder_b_hidden(params, z):
+    """DecoderB up to its output layer: the 512-wide input of ``fc3``."""
+    h = torch.relu(linear_apply(params["fc1"], z))
+    return torch.relu(linear_apply(params["fc2"], h))
+
+
 def decoder_b_apply_logits(params, z):
     """DecoderB on a params tree: the DNA logits."""
-    h = torch.relu(linear_apply(params["fc1"], z))
-    h = torch.relu(linear_apply(params["fc2"], h))
-    return linear_apply(params["fc3"], h)
+    return linear_apply(params["fc3"], decoder_b_hidden(params, z))
 
 
 def decoder_c_apply(params, z):

@@ -20,7 +20,11 @@ the train- or eval-mode forwards of
 ``vae_los_angeles_tpu/models/directional_vae.py``'s functions of those names,
 with the new BatchNorm state in their output. Their noise (the dropout
 masks and the reparameterisation's eps) is injected for tests or drawn from
-an explicit generator.
+an explicit generator. `rna2dna_vae_hidden` is the RNA2DNAVAE forward up to
+DecoderB's output layer, with the same draws in the same order: the trainer's
+wide-head path (``training.engine``: rna2dna's kernel path at
+``engine.WIDE_HEAD_MIN_DIM_B`` probes or more) trains that layer with a
+kernel.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ from vae_los_angeles_torch.models.decoders import (
     DecoderA,
     DecoderB,
     decoder_a_apply,
-    decoder_b_apply_logits,
+    decoder_b_hidden,
 )
+from vae_los_angeles_torch.ops.nn import linear_apply
 from vae_los_angeles_torch.models.encoders import (
     EncoderA,
     EncoderB,
@@ -136,12 +141,12 @@ def dna2rna_vae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_s
                  embed_dim, device)
 
 
-def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False,
-                      eps: Optional[torch.Tensor] = None,
-                      drop_mask: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> DirectionalVAEOutput:
-    """RNA2DNAVAE forward on a params tree; ``eps`` and ``drop_mask`` inject
-    the noise, else it is drawn from ``generator`` (on the tensors' device)."""
+def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = False,
+                       eps: Optional[torch.Tensor] = None,
+                       drop_mask: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+    """RNA2DNAVAE forward up to DecoderB's output layer: (h, mu, logvar,
+    new_state), h the (n, 512) input of ``decoder_dna/fc3``."""
     if rna is None and site is None:
         raise ValueError("at least one of rna/site must be provided")
     mus, logvars, new_state = [], [], dict(state)
@@ -157,7 +162,18 @@ def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False
         logvars.append(lv_s)
     mu, logvar = fuse_posteriors(mus, logvars)
     z = reparameterize(mu, logvar, eps, generator)
-    logits = decoder_b_apply_logits(params["decoder_dna"], z)
+    return decoder_b_hidden(params["decoder_dna"], z), mu, logvar, new_state
+
+
+def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False,
+                      eps: Optional[torch.Tensor] = None,
+                      drop_mask: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> DirectionalVAEOutput:
+    """RNA2DNAVAE forward on a params tree; ``eps`` and ``drop_mask`` inject
+    the noise, else it is drawn from ``generator`` (on the tensors' device)."""
+    h, mu, logvar, new_state = rna2dna_vae_hidden(params, state, rna, site, train=train, eps=eps,
+                                                  drop_mask=drop_mask, generator=generator)
+    logits = linear_apply(params["decoder_dna"]["fc3"], h)
     return DirectionalVAEOutput(torch.sigmoid(logits), logits, mu, logvar, new_state)
 
 

@@ -143,6 +143,7 @@ def rna2dna_loss_fused(logits, dna, mu, logvar, beta=1e-3):
     """BCE-with-logits sum + beta * KLD (0-d tensor), differentiable in
     logits, mu, logvar and a tensor beta."""
     if not isinstance(beta, torch.Tensor):
-        beta = torch.tensor(float(beta), dtype=torch.float32, device=logits.device)
+        # a fill, not a copy from the host (which waits for the card's queue to drain)
+        beta = torch.full((), float(beta), dtype=torch.float32, device=logits.device)
     _check(logits, dna, mu, logvar, beta)
     return RNA2DNALoss.apply(logits, dna, mu, logvar, beta)

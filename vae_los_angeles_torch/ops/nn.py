@@ -17,6 +17,17 @@ semantics, on tensors in its layout (a Linear's ``w`` is (in, out)):
 and tracks the unbiased one (factor B/(B-1)) with momentum 0.1;
 `dropout_apply` zeroes with probability ``rate`` and scales what it keeps
 by 1/(1 - rate), from an injected mask or an explicit ``torch.Generator``.
+
+Mixed precision (``Config.compute_dtype = "bfloat16"``), the JAX package's
+policy: `cast_matmul_params` casts the 2-D leaves (Linear weights and the
+Embedding table) to bf16 inside the differentiated loss, so the gradients
+reach the fp32 masters as fp32; `linear_apply` follows the weight's dtype
+and returns fp32. JAX's ``jnp.dot(bf16, bf16, preferred_element_type=f32)``
+is an fp32 product of bf16 values; ``torch.matmul`` of two bf16 tensors
+would round its result to bf16, so both operands are upcast to fp32 first.
+A product of two bf16 values is exact in fp32, so this is JAX's arithmetic
+up to the order of the sum, and it has autograd on every device (the
+``torch.mm(..., out_dtype=float32)`` overload has no derivative).
 """
 
 from __future__ import annotations
@@ -58,8 +69,38 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module
 
 
 def linear_apply(params, x):
-    """``x @ w + b`` with ``w`` stored (in, out)."""
-    return x @ params["w"] + params["b"]
+    """``x @ w + b`` with ``w`` stored (in, out). A reduced-precision weight
+    casts ``x`` to its dtype and the product is taken in fp32 (module
+    docstring); the result is fp32 either way."""
+    w = params["w"]
+    if w.dtype == torch.float32:
+        return x @ w + params["b"]
+    x = x.to(w.dtype)
+    return x.to(torch.float32) @ w.to(torch.float32) + params["b"]
+
+
+def resolve_compute_dtype(compute_dtype):
+    """Map a ``Config.compute_dtype`` (or ``moments_dtype``) string, or a
+    torch dtype, to a torch dtype; anything else raises."""
+    if compute_dtype in ("float32", "fp32", None, torch.float32):
+        return torch.float32
+    if compute_dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(
+        f"unsupported compute_dtype {compute_dtype!r}; valid: 'float32' (default), 'bfloat16'"
+    )
+
+
+def cast_matmul_params(params, dtype):
+    """Cast every 2-D leaf of a params tree (Linear weights, Embedding
+    tables) to ``dtype``; 1-D leaves (biases, BatchNorm gamma/beta) stay
+    fp32. ``params`` itself when ``dtype`` is fp32. Differentiable: the
+    gradient of a cast leaf comes back in the master's dtype."""
+    if dtype == torch.float32:
+        return params
+    if isinstance(params, dict):
+        return {k: cast_matmul_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.dim() == 2 else params
 
 
 def batchnorm_apply(params, state, x, *, train: bool):

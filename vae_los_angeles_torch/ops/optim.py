@@ -4,21 +4,31 @@
   * AdamW as ``torch.optim.AdamW`` computes it: decoupled decay applied
     multiplicatively BEFORE the Adam step, bias correction at the global
     step, eps added after the square root; betas (0.9, 0.999), eps 1e-8.
-    fp32 moments only.
+    The moments may be STORED in bfloat16 (``adamw_init(params,
+    "bfloat16")``): the update upcasts them, computes in fp32 and rounds
+    back to nearest even, as the JAX package's ``astype`` does, so the same
+    fp32 values give the same stored bits.
+  * Adafactor (Shazeer & Stern 2018) with an external learning rate and no
+    first moment: factored row and column statistics of g² + eps1 for
+    leaves of two or more dimensions, a full statistic for 1-D leaves;
+    β₂ₜ = 1 − t^−0.8, the update RMS-clipped to 1, decoupled decay first.
+    State keys ``step``, ``vr`` and ``vc`` as in JAX (``vc`` is a (0,)
+    placeholder for a 1-D leaf).
   * ReduceLROnPlateau, torch's defaults: mode 'min', threshold 1e-4
     relative, cooldown 0; ``lr`` is the rate for the NEXT epoch.
   * Early stopping on strict improvement, with the flag that tells the
     trainer to take a best snapshot.
 
 Every state is a dict of 0-d tensors updated with ``torch.where``, so a
-trainer reads nothing back to the host to step them. Adafactor and bf16
-moments are not ported: they raise.
+trainer reads nothing back to the host to step them. `OPTIMIZERS` maps
+``Config.optimizer`` to its (init, update) pair.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 
 ADAM_B1 = 0.9
@@ -27,33 +37,46 @@ ADAM_EPS = 1e-8
 PLATEAU_THRESHOLD = 1e-4  # torch default, threshold_mode='rel'
 
 
-def adamw_init(params, moments_dtype=None):
-    """Fresh AdamW state: step 0 and zero moments shaped like ``params``."""
-    if moments_dtype not in (None, "float32", "fp32", torch.float32):
-        raise ValueError(f"moments_dtype={moments_dtype!r}: the port keeps fp32 moments only")
+def _step_of(params):
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
-    return {
-        "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": tree_map(torch.zeros_like, params),
-        "v": tree_map(torch.zeros_like, params),
-    }
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def adamw_init(params, moments_dtype=None):
+    """Fresh AdamW state: step 0 and zero moments shaped like ``params``,
+    stored in ``moments_dtype`` ("bfloat16", a torch dtype, or None/"float32"
+    for the parameters' own dtype)."""
+    dt = None if moments_dtype is None else resolve_compute_dtype(moments_dtype)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
+    return {"step": _step_of(params), "m": tree_map(zeros, params),
+            "v": tree_map(zeros, params)}
+
+
+def bias_corrections(step):
+    """(step + 1, 1 - β1^t, 1 - β2^t) at t = step + 1, in fp32 on the step's
+    device, as `adamw_update` computes them."""
+    new_step = step + 1
+    t = new_step.to(torch.float32)
+    # fills, not copies from the host: a copy to the card waits for its queue to drain
+    bc1 = 1.0 - torch.pow(torch.full((), ADAM_B1, dtype=torch.float32, device=t.device), t)
+    bc2 = 1.0 - torch.pow(torch.full((), ADAM_B2, dtype=torch.float32, device=t.device), t)
+    return new_step, bc1, bc2
 
 
 def adamw_update(params, grads, state, lr, weight_decay):
     """One AdamW step; ``lr`` and ``weight_decay`` may be floats or 0-d
-    tensors. Returns (new_params, new_state)."""
-    step = state["step"] + 1
-    t = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32, device=t.device), t)
-    bc2 = 1.0 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32, device=t.device), t)
+    tensors. Moments stored reduced are upcast, updated in fp32 and rounded
+    back to their storage dtype. Returns (new_params, new_state)."""
+    step, bc1, bc2 = bias_corrections(state["step"])
 
     def leaf(p, g, m, v):
-        m = ADAM_B1 * m + (1.0 - ADAM_B1) * g
-        v = ADAM_B2 * v + (1.0 - ADAM_B2) * torch.square(g)
+        mdt, vdt = m.dtype, v.dtype
+        m = ADAM_B1 * m.to(torch.float32) + (1.0 - ADAM_B1) * g
+        v = ADAM_B2 * v.to(torch.float32) + (1.0 - ADAM_B2) * torch.square(g)
         p = p * (1.0 - lr * weight_decay)  # torch order: decay first
         p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-        return p, m, v
+        return p, m.to(mdt), v.to(vdt)
 
     out = tree_map(leaf, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
 
@@ -61,6 +84,71 @@ def adamw_update(params, grads, state, lr, weight_decay):
         return tree_map(lambda o: o[i], out)
 
     return pick(0), {"step": step, "m": pick(1), "v": pick(2)}
+
+
+ADAFACTOR_EPS1 = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_DECAY = -0.8
+
+
+def adafactor_init(params, moments_dtype=None):
+    """Fresh Adafactor state: step 0, row statistics ``vr`` (the full
+    statistic of a 1-D leaf) and column statistics ``vc`` (a (0,)
+    placeholder for a 1-D leaf), zeros in ``moments_dtype`` (default fp32)."""
+    dt = resolve_compute_dtype(moments_dtype)
+
+    def row(p):
+        shape = p.shape[:-1] if p.dim() >= 2 else p.shape
+        return torch.zeros(shape, dtype=dt, device=p.device)
+
+    def col(p):
+        shape = p.shape[:-2] + p.shape[-1:] if p.dim() >= 2 else (0,)
+        return torch.zeros(shape, dtype=dt, device=p.device)
+
+    return {"step": _step_of(params), "vr": tree_map(row, params), "vc": tree_map(col, params)}
+
+
+def adafactor_update(params, grads, state, lr, weight_decay):
+    """One Adafactor step: β₂ₜ = 1 − t^−0.8; a factored leaf's statistics
+    are the row and column means of g² + eps1 and approximate rsqrt(v) as
+    rsqrt(row / mean(row)) ⊗ rsqrt(col); the update is RMS-clipped to 1,
+    scaled by ``lr`` and applied after the decoupled decay. Math in fp32,
+    statistics rounded back to their storage dtype."""
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    beta2t = 1.0 - torch.pow(t, ADAFACTOR_DECAY)
+
+    def leaf(p, g, vr, vc):
+        vrdt, vcdt = vr.dtype, vc.dtype
+        u = torch.square(g) + ADAFACTOR_EPS1
+        if p.dim() >= 2:
+            vr = beta2t * vr.to(torch.float32) + (1.0 - beta2t) * u.mean(-1)
+            vc = beta2t * vc.to(torch.float32) + (1.0 - beta2t) * u.mean(-2)
+            r = torch.rsqrt(vr / vr.mean(-1, keepdim=True))
+            c = torch.rsqrt(vc)
+            upd = r[..., :, None] * c[..., None, :] * g
+        else:
+            vr = beta2t * vr.to(torch.float32) + (1.0 - beta2t) * u
+            upd = torch.rsqrt(vr) * g
+        rms = torch.sqrt(torch.mean(torch.square(upd)))
+        upd = upd / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
+        p = p * (1.0 - lr * weight_decay)  # decoupled decay first, as HF orders it
+        p = p - lr * upd
+        return p, vr.to(vrdt), vc.to(vcdt)
+
+    out = tree_map(leaf, params, grads, state["vr"], state["vc"])
+
+    def pick(i):
+        return tree_map(lambda o: o[i], out)
+
+    return pick(0), {"step": step, "vr": pick(1), "vc": pick(2)}
+
+
+# (init, update) pairs the trainer selects from by Config.optimizer
+OPTIMIZERS = {
+    "adamw": (adamw_init, adamw_update),  # the torch-parity default
+    "adafactor": (adafactor_init, adafactor_update),  # the wide-regime choice
+}
 
 
 def plateau_init(lr, device=None):

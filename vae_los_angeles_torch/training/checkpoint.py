@@ -13,8 +13,13 @@ loads in the other:
     under ``carry/…`` and ``meta/epochs_done`` (+ ``meta/seed``), so a run
     continues exactly (`save_resume` / `load_resume`).
 
-The port is fp32: a bfloat16 leaf (``.__bf16__`` in the archive, or a
-bfloat16 tensor to save) raises.
+A bfloat16 leaf (bf16 optimizer moments, a bf16 parameter) is stored as
+its uint16 bit pattern under its key plus the ``.__bf16__`` marker, the JAX
+package's format, and viewed back on load. numpy has no bfloat16 of its own,
+so such a leaf loads as a CPU ``torch.bfloat16`` tensor beside the numpy
+leaves (``utils.weights.tree_from_numpy`` takes either); to save, a leaf may
+be a bf16 tensor or a numpy array of ``ml_dtypes.bfloat16`` (what
+``jax.device_get`` returns). A key that itself ends with the marker raises.
 """
 
 from __future__ import annotations
@@ -36,14 +41,18 @@ def new_run_id() -> str:
 
 
 def _leaf(x, where):
+    """(key suffix, numpy array) of a leaf to store."""
     if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
-            raise ValueError(f"bfloat16 leaf at '{where}': the port stores fp32 checkpoints only")
-        return x.detach().cpu().numpy()
+            return _BF16, x.view(torch.int16).numpy().view(np.uint16)
+        return "", x.numpy()
     arr = np.asarray(x)
-    if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
-        raise ValueError(f"bfloat16 leaf at '{where}': the port stores fp32 checkpoints only")
-    return arr
+    if arr.dtype.name == "bfloat16":
+        return _BF16, arr.view(np.uint16)
+    if arr.dtype.kind == "V":
+        raise ValueError(f"leaf at '{where}' has the untyped dtype {arr.dtype}")
+    return "", arr
 
 
 def _flatten(tree, prefix=""):
@@ -70,7 +79,8 @@ def _flatten(tree, prefix=""):
             f"{type(tree).__name__} at '{prefix[:-1] or '<root>'}'"
         )
     else:
-        out[prefix[:-1]] = _leaf(tree, prefix[:-1])
+        suffix, arr = _leaf(tree, prefix[:-1])
+        out[prefix[:-1] + suffix] = arr
     return out
 
 
@@ -78,10 +88,8 @@ def _unflatten(flat):
     tree = {}
     for key, val in flat.items():
         if key.endswith(_BF16):
-            raise ValueError(
-                f"checkpoint leaf {key!r} is stored as bfloat16; this port "
-                "serves fp32 checkpoints only"
-            )
+            key = key[: -len(_BF16)]
+            val = torch.from_numpy(np.ascontiguousarray(val).view(np.int16)).view(torch.bfloat16)
         parts = key.split("/")
         node = tree
         for p in parts[:-1]:
@@ -101,7 +109,7 @@ def save(path: str, params, state=None):
 
 
 def load(path: str) -> Tuple[dict, dict]:
-    """(params, state) with numpy leaves."""
+    """(params, state) with numpy leaves (bf16 ones as CPU bf16 tensors)."""
     with np.load(path) as archive:
         flat = {k: archive[k] for k in archive.files}
     tree = _unflatten(flat)
@@ -147,7 +155,8 @@ def save_resume(model_name: str, run_id: str, carry, n_epochs_done: int,
 
 def load_resume(model_name: str, run_id: Optional[str] = None,
                 checkpoint_dir: str = "checkpoints", root: str = "."):
-    """(carry with numpy leaves, epochs_done, run_id, seed or None)."""
+    """(carry with numpy leaves (bf16 ones as CPU bf16 tensors), epochs_done,
+    run_id, seed or None)."""
     if run_id is None:
         run_id = get_run_id(model_name, root)
     if run_id is None:

@@ -2,7 +2,9 @@
 tasks ``rna2dna``, ``dna2rna`` and ``multimodal``).
 
     python -m vae_los_angeles_torch.training.cli [--epochs N] [--seed S]
-        [--data_path data/processed_data.pkl] [--resume]      # RNA→DNA
+        [--data_path data/processed_data.pkl] [--resume]
+        [--compute_dtype bfloat16] [--moments_dtype bfloat16]
+        [--optimizer adafactor]                                # RNA→DNA
     python -m vae_los_angeles_torch.train_dna2rna [same flags]  # DNA→RNA
     python -m vae_los_angeles_torch.train [same flags]          # tri-modal
 
@@ -22,7 +24,16 @@ stopped early.
 It runs on the card unless asked for the CPU (``device="cpu"`` or
 ``DEVICE=cpu``). With ``use_pallas`` (``USE_PALLAS=1``) on the card, every
 epoch is one call of the epoch kernel, as the JAX CLI picks its whole-epoch
-kernel on a TPU; otherwise the plain path trains.
+kernel on a TPU; otherwise the plain path trains. RNA→DNA data at least
+``engine.WIDE_HEAD_MIN_DIM_B`` probes wide trains there through the wide head
+kernel instead, once a step.
+
+The wide-regime knobs ``--compute_dtype bfloat16``, ``--moments_dtype
+bfloat16`` and ``--optimizer adafactor`` (``COMPUTE_DTYPE``,
+``MOMENTS_DTYPE``, ``OPTIMIZER`` in the environment; an explicit flag wins)
+train on the plain path: with ``USE_PALLAS=1`` and any of them set, the CLI
+says so and trains there, as the JAX CLI routes them to its XLA path, since
+the CUDA kernels are fp32 AdamW programs.
 
 ``run_training(data=(tpm, beta, site))`` takes the cohort as arrays (the
 tests and ``chip_smoke.py`` do); without it the CLI reads
@@ -48,6 +59,7 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.device import resolve_device
+from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.tasks import get_task
 from vae_los_angeles_torch.utils.tree import tree_map
@@ -94,7 +106,29 @@ def _parse(model_name, argv):
     parser.add_argument(
         "--resume", action="store_true",
         help="continue the latest run from its saved training state")
+    parser.add_argument(
+        "--compute_dtype", choices=["float32", "bfloat16"], default=None,
+        help="bfloat16 = matmul operands cast to bf16 inside the loss, fp32 products, fp32 "
+        "masters/optimizer/BN (plain path). Same as COMPUTE_DTYPE env")
+    parser.add_argument(
+        "--moments_dtype", choices=["float32", "bfloat16"], default=None,
+        help="bfloat16 = optimizer moments stored reduced, fp32 math. Same as MOMENTS_DTYPE env")
+    parser.add_argument(
+        "--optimizer", choices=["adamw", "adafactor"], default=None,
+        help="adafactor = factored second moments, no first moment (plain path). Default "
+        "adamw = torch-parity recipe. Same as OPTIMIZER env")
     return parser.parse_args(argv)
+
+
+def _reduced_knobs(cfg: Config) -> dict:
+    """The wide-regime knobs set away from the fp32 AdamW recipe, by their
+    environment names."""
+    reduced = {name: value for name, value in (("COMPUTE_DTYPE", cfg.compute_dtype),
+                                               ("MOMENTS_DTYPE", cfg.moments_dtype))
+               if resolve_compute_dtype(value) != torch.float32}
+    if cfg.optimizer != "adamw":
+        reduced["OPTIMIZER"] = cfg.optimizer
+    return reduced
 
 
 def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: Config = None,
@@ -106,6 +140,12 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     class weights (the tri-modal task)."""
     args = _parse(model_name, argv)
     cfg = cfg or Config.from_env()
+    # explicit flags win over env/config spellings of the same knobs
+    overrides = {k: v for k, v in (("compute_dtype", args.compute_dtype),
+                                   ("moments_dtype", args.moments_dtype),
+                                   ("optimizer", args.optimizer)) if v is not None}
+    if overrides:
+        cfg = cfg.replace(**overrides)
     device = resolve_device(device, cfg)
     task = get_task(task_name)
 
@@ -166,7 +206,15 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     print(f"\nStarting training for {num_epochs} epochs...")
     print(f"Early stopping patience: {cfg.patience}")
     fused_epoch = bool(cfg.use_pallas) and device.type == "cuda"
-    print(f"Device: {device}; path: {'epoch kernel' if fused_epoch else 'plain'}")
+    reduced = _reduced_knobs(cfg)
+    if reduced and cfg.use_pallas:
+        req = ", ".join(f"{k}={v}" for k, v in reduced.items())
+        print(f"{req}: using the plain path (the CUDA kernels are fp32 AdamW programs)")
+        fused_epoch = False
+    path = "plain"
+    if fused_epoch:
+        path = "wide head kernel" if engine.uses_wide_head(task_name, cfg) else "epoch kernel"
+    print(f"Device: {device}; path: {path}")
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)

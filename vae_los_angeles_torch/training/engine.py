@@ -17,14 +17,23 @@ Semantics carried over from the JAX engine:
     plateau's rate) once per epoch, its only host sync, and breaks; their
     loss rows stay NaN.
 
-Three paths compute an epoch:
-  * plain: autograd over the task's loss, then ``ops.optim.adamw_update``;
+Four paths compute an epoch:
+  * plain: autograd over the task's loss, then the optimizer's update;
   * ``fused_step=True``: the task's train-step kernel each step
     (``ops.kernels.fused_train``), then ``adamw_update``;
   * ``fused_epoch=True``: the task's epoch kernel once per epoch
-    (``ops.kernels.fused_epoch``), every step and its AdamW inside.
-Both kernel paths exist for ``rna2dna``, ``dna2rna`` and ``multimodal``
-(`FUSED`). ``class_weights`` (the tri-modal task's per-site weights of the
+    (``ops.kernels.fused_epoch``), every step and its AdamW inside;
+  * the wide head (``rna2dna`` at ``cfg.input_dim_b >=
+    WIDE_HEAD_MIN_DIM_B``, the whole-methylome-width regime): what
+    ``fused_step`` and ``fused_epoch`` train there, chosen by the data's
+    width (`uses_wide_head`). Autograd over the trunk up to DecoderB's
+    output layer, and that layer's step (logits, BCE sum, its gradients, dh
+    with the pre-update weight and its AdamW) in the wide head kernel
+    (``ops.kernels.fused_wide``), whose dh is back-propagated through the
+    trunk; then ``adamw_update`` of the trunk. The same loss and updates as
+    the plain path.
+The step and epoch kernels exist for ``rna2dna``, ``dna2rna`` and
+``multimodal`` (`FUSED`). ``class_weights`` (the tri-modal task's per-site weights of the
 cross-entropy term) and γ (``hp["gamma"]``) reach the train loss, the
 validation loss and both kernels; the directional tasks ignore them. The
 tri-modal kernels' wrappers check the site labels' range, one more read of
@@ -37,9 +46,20 @@ value with the step index. So a fused_step and a fused_epoch run of one seed
 see the same noise. The threefry streams of the JAX engine cannot be
 matched: runs agree with it statistically, not bit for bit.
 
+The wide-regime knobs of the JAX engine apply to the plain path:
+``cfg.compute_dtype = "bfloat16"`` casts the 2-D parameters to bf16 inside
+the differentiated loss (``ops.nn.cast_matmul_params``: fp32 products of
+bf16 operands, fp32 masters, BatchNorm, losses and optimizer);
+``cfg.moments_dtype = "bfloat16"`` stores the optimizer's moments in bf16;
+``cfg.optimizer = "adafactor"`` trains with ``ops.optim.adafactor_update``.
+The kernel paths refuse all three with a ``ValueError``, as the JAX engine
+refuses them on its Pallas paths: the CUDA kernels are fp32 AdamW programs.
+On resume the carry's optimizer state rules: a carry of the other optimizer
+raises, and moments stored in another dtype than ``cfg.moments_dtype`` are
+kept, with a note that the knob is ignored.
+
 Not ported, raising as the JAX engine does where it has no kernel:
-``masked_sizes``, ``mesh``, ``compute_dtype=bfloat16``, bf16 moments and
-Adafactor.
+``masked_sizes`` and ``mesh``.
 """
 
 from __future__ import annotations
@@ -51,9 +71,12 @@ import torch
 
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.device import resolve_device
-from vae_los_angeles_torch.ops import optim
+from vae_los_angeles_torch.models import directional_vae
+from vae_los_angeles_torch.ops import losses, optim
+from vae_los_angeles_torch.ops import nn as ops_nn
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
+from vae_los_angeles_torch.ops.kernels import fused_wide as fw
 from vae_los_angeles_torch.training.tasks import Batch, get_task
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
@@ -88,6 +111,19 @@ FUSED = {
 }
 
 
+# From this DecoderB width on, rna2dna's kernel paths train through the wide
+# head kernel (B8) rather than the step and epoch kernels (B1, B2): on an H100
+# the epoch kernel was the faster at 131,072 probes and the wide head at
+# 262,144 and 450,000 (``python3 chip_probes.py widths``, PERF.md).
+WIDE_HEAD_MIN_DIM_B = 262_144
+
+
+def uses_wide_head(task_name: str, cfg: Config) -> bool:
+    """Whether a kernel path of ``task_name`` at ``cfg``'s widths trains
+    through the wide head kernel (module docstring)."""
+    return task_name == "rna2dna" and cfg.input_dim_b >= WIDE_HEAD_MIN_DIM_B
+
+
 class FitResult(NamedTuple):
     params: dict  # best-validation snapshot (rolled back, like the reference)
     state: dict  # BatchNorm state at the best snapshot
@@ -104,15 +140,22 @@ class FitResult(NamedTuple):
     epochs_ran: int
 
 
+def _optimizer(name):
+    if name not in optim.OPTIMIZERS:
+        raise ValueError(f"unsupported optimizer {name!r}; valid: {sorted(optim.OPTIMIZERS)}")
+    return optim.OPTIMIZERS[name]
+
+
 def init_carry(params0, state0, lr, moments_dtype: str = "float32", optimizer: str = "adamw"):
-    """Fresh training carry for a model, on the parameters' device."""
-    if optimizer != "adamw":
-        raise ValueError(f"optimizer={optimizer!r}: the port trains with AdamW only")
+    """Fresh training carry for a model, on the parameters' device: the
+    optimizer's state from ``optim.OPTIMIZERS[optimizer]``, its moments
+    stored in ``moments_dtype``."""
+    opt_init, _ = _optimizer(optimizer)
     device = tree_leaves(params0)[0].device
     return {
         "params": params0,
         "state": state0,
-        "opt": optim.adamw_init(params0, moments_dtype),
+        "opt": opt_init(params0, ops_nn.resolve_compute_dtype(moments_dtype)),
         "plateau": optim.plateau_init(lr, device),
         "estop": optim.early_stop_init(device),
         "best": {"params": params0, "state": state0},
@@ -165,24 +208,89 @@ def _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh
         raise ValueError("masked_sizes is not ported: the port trains exact-shape runs")
     if mesh is not None:
         raise ValueError("mesh-sharded fit is not ported: the port trains on one card")
-    if cfg.compute_dtype not in ("float32", "fp32"):
-        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the port trains fp32 only")
-    if cfg.moments_dtype not in ("float32", "fp32"):
-        raise ValueError(f"moments_dtype={cfg.moments_dtype!r}: the port keeps fp32 moments")
-    if cfg.optimizer != "adamw":
-        raise ValueError(f"optimizer={cfg.optimizer!r}: the port trains with AdamW only")
+    compute = ops_nn.resolve_compute_dtype(cfg.compute_dtype)
+    moments = ops_nn.resolve_compute_dtype(cfg.moments_dtype)
+    _optimizer(cfg.optimizer)
     if fused_step and fused_epoch:
         raise ValueError("choose one of fused_step and fused_epoch")
     if (fused_step or fused_epoch) and task_name not in FUSED:
         raise ValueError(f"task {task_name!r} has no fused kernels; the kernel paths train "
                          f"{sorted(FUSED)}")
+    if fused_step or fused_epoch:
+        for name, value, reduced in (("compute_dtype", cfg.compute_dtype, compute),
+                                     ("moments_dtype", cfg.moments_dtype, moments),
+                                     ("optimizer", cfg.optimizer, cfg.optimizer)):
+            if reduced not in (torch.float32, "adamw"):
+                raise ValueError(f"{name}={value!r} applies to the plain path only: the CUDA "
+                                 "kernels are fp32 AdamW programs")
+
+
+def _resumed_carry(resume_carry, cfg, device):
+    """The resume carry on ``device``; its optimizer state rules (module
+    docstring)."""
+    carry = tree_from_numpy(resume_carry, device)
+    found = "adafactor" if "vr" in carry["opt"] else "adamw"
+    if found != cfg.optimizer:
+        raise ValueError(f"resume checkpoint holds {found!r} optimizer state but "
+                         f"Config.optimizer is {cfg.optimizer!r} — resume with the optimizer "
+                         "the run was started with")
+    want = ops_nn.resolve_compute_dtype(cfg.moments_dtype)
+    stored = {leaf.dtype for key in ("m", "v", "vr", "vc") if key in carry["opt"]
+              for leaf in tree_leaves(carry["opt"][key])}
+    if stored and stored != {want}:
+        names = "/".join(sorted(str(d).removeprefix("torch.") for d in stored))
+        print(f"Note: resume checkpoint stores optimizer moments as {names}; "
+              f"Config.moments_dtype={cfg.moments_dtype!r} is ignored for this run (the knob "
+              "applies to fresh runs)")
+    return carry
+
+
+def _split_head(tree):
+    """(the tree without ``decoder_dna/fc3``, that layer's subtree)."""
+    dec = dict(tree["decoder_dna"])
+    head = dec.pop("fc3")
+    return {**tree, "decoder_dna": dec}, head
+
+
+def _join_head(trunk, head, like):
+    """``trunk`` with ``head`` back at ``decoder_dna/fc3``, keys in ``like``'s order."""
+    dec = {k: head if k == "fc3" else trunk["decoder_dna"][k] for k in like["decoder_dna"]}
+    return {k: dec if k == "decoder_dna" else trunk[k] for k in like}
+
+
+def _wide_head_step(params, state, opt, batch, beta, generator, lr, weight_decay):
+    """One rna2dna step with DecoderB's output layer in the wide head kernel
+    (module docstring); returns (loss, params, state, opt)."""
+    trunk, head = _split_head(params)
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), trunk)
+    h, mu, logvar, state = directional_vae.rna2dna_vae_hidden(
+        _join_head(leaves, head, params), state, rna=batch.tpm, site=batch.site, train=True,
+        generator=generator)
+    (_, m_head), (_, v_head) = _split_head(opt["m"]), _split_head(opt["v"])
+    new_w, new_b, m_w, v_w, m_b, v_b, _, dh, bce = fw.fused_wide_output_step(
+        h.detach(), batch.beta, head["w"], head["b"], m_head["w"], v_head["w"], m_head["b"],
+        v_head["b"], opt["step"], lr, weight_decay)
+    kld_term = beta * losses.kl_divergence(mu, logvar)
+    flat = tree_leaves(leaves)
+    # dh back through the trunk as the gradient of the scalar Σ h·dh: the
+    # product's backward hands h exactly dh
+    grads_flat = iter(torch.autograd.grad(torch.sum(h * dh) + kld_term, flat))
+    grads = tree_map(lambda _: next(grads_flat), leaves)
+    trunk_opt = {"step": opt["step"], "m": _split_head(opt["m"])[0],
+                 "v": _split_head(opt["v"])[0]}
+    trunk, trunk_opt = optim.adamw_update(trunk, grads, trunk_opt, lr, weight_decay)
+    new_opt = {"step": trunk_opt["step"],
+               "m": _join_head(trunk_opt["m"], {"w": m_w, "b": m_b}, params),
+               "v": _join_head(trunk_opt["v"], {"w": v_w, "b": v_b}, params)}
+    params = _join_head(trunk, {"w": new_w, "b": new_b}, params)
+    return (bce + kld_term).detach(), params, tree_map(torch.Tensor.detach, state), new_opt
 
 
 def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_sites: int, *,
         num_epochs: Optional[int] = None, drop_last: bool = True, hp=None, init_params=None,
         init_state=None, resume_carry=None, start_epoch: int = 0, fused_step: bool = False,
-        fused_epoch: bool = False, device=None, masked_sizes: bool = False,
-        mesh=None, class_weights=None) -> FitResult:
+        fused_epoch: bool = False, device=None,
+        masked_sizes: bool = False, mesh=None, class_weights=None) -> FitResult:
     """Train a task end to end; returns the best-validation snapshot.
 
     ``train_arrays``/``val_arrays`` are (tpm, beta, site) arrays or tensors;
@@ -191,6 +299,9 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     ``class_weights`` (n_sites,) weighs the tri-modal cross-entropy term.
     Runs on the card unless ``device="cpu"`` or ``cfg.platform == "cpu"``."""
     _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh)
+    kernels = fused_step or fused_epoch
+    wide_head = kernels and uses_wide_head(task_name, cfg)
+    fused_step, fused_epoch = fused_step and not wide_head, fused_epoch and not wide_head
     task = get_task(task_name)
     device = resolve_device(device, cfg)
     if num_epochs is None:  # an explicit 0 means "no training epochs"
@@ -212,7 +323,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             "drop_last=True — lower batch_size or pass drop_last=False")
     if n_val == 0:
         raise ValueError("empty validation set: n_val=0")
-    if (fused_step or fused_epoch) and remainder:
+    if kernels and remainder:
         raise ValueError(
             f"the fused kernels need full batches: n_train={n_train} is not divisible by "
             f"batch_size={batch_size} — use drop_last=True or the plain path")
@@ -223,7 +334,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             f"input_dim_a/input_dim_b {cfg.input_dim_a}/{cfg.input_dim_b}")
 
     if resume_carry is not None:
-        carry = tree_from_numpy(resume_carry, device)
+        carry = _resumed_carry(resume_carry, cfg, device)
     else:
         if init_params is None:
             init_params, init_state = task.init(torch.Generator().manual_seed(int(seed)), cfg,
@@ -235,6 +346,14 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             init_params = tree_from_numpy(init_params, device)
             init_state = tree_from_numpy(init_state, device)
         carry = init_carry(init_params, init_state, hp["lr"], cfg.moments_dtype, cfg.optimizer)
+    if kernels and any(
+            leaf.dtype != torch.float32 for key in ("m", "v") if key in carry["opt"]
+            for leaf in tree_leaves(carry["opt"][key])):
+        raise ValueError("moments_dtype='bfloat16' applies to the plain path only: the CUDA "
+                         "kernels are fp32 AdamW programs (the resume carry stores reduced "
+                         "moments)")
+    compute_dtype = ops_nn.resolve_compute_dtype(cfg.compute_dtype)
+    _, opt_update = _optimizer(cfg.optimizer)
     step_host = int(carry["opt"]["step"])  # one read at the start of the run
 
     rows = {"train": [], "val": [], "beta": [], "lr": []}
@@ -262,24 +381,32 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             train_sum = torch.zeros((), device=device)
             for b in range(n_batches):
                 batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
+                if wide_head:
+                    loss, params, state, opt = _wide_head_step(
+                        params, state, opt, batch, beta, gen, lr, hp["weight_decay"])
+                    train_sum = train_sum + loss
+                    continue
                 if fused_step:
                     loss, grads, state = FUSED[task_name].step(
                         params, state, batch.tpm, batch.beta, batch.site, n_sites, seed=eseed,
                         step=b, beta=beta, **fused_kw)
                 else:
                     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-                    loss, state = task.loss(leaves, state, batch, beta, True, gen, **loss_kw)
+                    # cast inside the differentiated loss: the grads reach the fp32 masters
+                    loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype),
+                                            state, batch, beta, True, gen, **loss_kw)
                     flat = tree_leaves(leaves)
                     grads_flat = iter(torch.autograd.grad(loss, flat))
                     grads = tree_map(lambda _: next(grads_flat), leaves)
                     loss, state = loss.detach(), tree_map(torch.Tensor.detach, state)
-                params, opt = optim.adamw_update(params, grads, opt, lr, hp["weight_decay"])
+                params, opt = opt_update(params, grads, opt, lr, hp["weight_decay"])
                 train_sum = train_sum + loss
         step_host += n_batches
         train_loss = train_sum / n_batches
 
         with torch.no_grad():
-            val_sum, _ = task.loss(params, state, val, beta, False, gen, **loss_kw)
+            val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype), state, val,
+                                   beta, False, gen, **loss_kw)
         val_loss = val_sum / n_val_batches
         plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
                                      hp["sched_patience"])
@@ -319,5 +446,5 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
     return per_epoch * epochs
 
 
-__all__ = ["FUSED", "FitResult", "beta_schedule", "epoch_seed", "fit", "hyperparams",
-           "init_carry", "samples_trained"]
+__all__ = ["FUSED", "FitResult", "WIDE_HEAD_MIN_DIM_B", "beta_schedule", "epoch_seed", "fit",
+           "hyperparams", "init_carry", "samples_trained", "uses_wide_head"]

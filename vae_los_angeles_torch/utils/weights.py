@@ -14,9 +14,12 @@ The directional VAEs (``rna2dna``, ``dna2rna``) and the tri-modal VAE
 
 The trainer's own trees stay in the JAX layout, so moving them across is a
 copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
-each way with dtypes kept — parameters, BatchNorm state, the AdamW moments
-and the full training carry (params, state, opt {step, m, v}, plateau,
-estop, best).
+each way with dtypes kept — parameters, BatchNorm state, the optimizer's
+state and the full training carry (params, state, opt {step, m, v} or
+{step, vr, vc}, plateau, estop, best). numpy has no bfloat16: a bf16 tensor
+stays a CPU bf16 tensor in a numpy tree, and `tree_from_numpy` also takes a
+numpy array of ``ml_dtypes.bfloat16`` (what ``jax.device_get`` returns),
+bit for bit.
 """
 
 from __future__ import annotations
@@ -139,11 +142,13 @@ def jax_from_state_dict(sd: dict, model_type: str):
 
 def tree_to_numpy(tree):
     """Nested dict of tensors (or arrays) → the same tree of numpy arrays,
-    dtypes kept (a 0-d tensor becomes a 0-d array)."""
+    dtypes kept (a 0-d tensor becomes a 0-d array; a bf16 tensor becomes a
+    CPU bf16 tensor)."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        tree = tree.detach().cpu()
+        return tree if tree.dtype == torch.bfloat16 else tree.numpy()
     return np.asarray(tree)
 
 
@@ -154,4 +159,7 @@ def tree_from_numpy(tree, device=None):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device)
-    return torch.from_numpy(np.array(tree)).to(device)  # own copy
+    arr = np.array(tree)  # own copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
