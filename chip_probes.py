@@ -238,7 +238,7 @@ def probe_chain(dev, batch=32):
     check("g_w1", G["w1"], x.T @ w["da1"])
 
 
-def probe_widths(dev, widths=(1211, 65536, 131072, 262144, 450_000), samples=512):
+def probe_widths(dev, widths=(1211, 131072, 262144, 327680, 393216, 450_000), samples=512):
     from vae_los_angeles_torch.data.splits import train_val_indices
     from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
     from vae_los_angeles_torch.models.directional_vae import rna2dna_vae_init

@@ -70,8 +70,12 @@ Phases (any failure raises, and the script exits non-zero):
          losses rtol 1e-5, params atol 5e-5, m atol 5e-5 of each tensor's
          largest |m| (or 1), BN var atol 2e-4, the three fc biases and BN
          running means at 2·lr·steps; every tensor is checked before the
-         first failure is raised; its Philox noise as above, for its three
-         dropout masks;
+         first failure is raised; the epoch is a CUDA graph captured once for
+         its shapes, so a second epoch through the same graph, from the
+         first one's result with β, γ and lr halved, step0 11, another seed
+         and new rows, is held against the plain version from that state
+         with the same tolerances (nothing of the first epoch stays baked
+         in); its Philox noise as above, for its three dropout masks;
        * the wide head (``fused_wide_output_step``) at the whole-methylome
          width, D = 450,000 columns, d_in = 512, at batch 32 and 256, over 3
          chained steps with the state threaded through, from non-zero
@@ -96,14 +100,19 @@ Phases (any failure raises, and the script exits non-zero):
      and USE_PALLAS (routed to the plain path) for 2 epochs, then resumed
      for one; ``run_training`` with fp32 AdamW and USE_PALLAS for 2
      epochs, which at this width trains through the wide head kernel once
-     a step (``engine.uses_wide_head``, the ``wide`` path); then
+     a step (``engine.uses_wide_head``, the ``wide`` path), whose
+     checkpoint is then served through its loader with USE_PALLAS (the
+     serving kernel, one launch for the 103 validation rows: the posterior
+     and the reconstruction at z = mu within atol = rtol = 1e-4 of the plain
+     eval forward); then
      ``engine.fit`` for 2 epochs each with fp32 AdamW, bf16 compute, bf16
      moments and Adafactor on the plain path, and with fp32 AdamW on the
      kernel path (the wide head), each after an untimed warm-up epoch,
      from the same initial weights with the rows on the card; each with its
      ms an epoch, samples/s and peak device memory, finite losses and a
      falling train loss;
-  5. serve: ``compare_directional_imputation.main`` on the same cohort's
+  5. serve (USE_PALLAS, so the loaders serve through the kernels):
+     ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
      phase 4 (through their run-id files), the served posteriors held
      against the unfused modules, each model's MSE beside the mean
@@ -153,7 +162,8 @@ from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
 from vae_los_angeles_torch.evaluation import compare_directional_imputation, evaluate
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
-from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
+from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_init, rna2dna_vae_apply,
+                                                         rna2dna_vae_init)
 from vae_los_angeles_torch.models.vae import multimodal_vae_init
 from vae_los_angeles_torch.ops.kernels import _build
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
@@ -166,7 +176,8 @@ from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
 from vae_los_angeles_torch.utils.tree import tree_leaves
-from vae_los_angeles_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from vae_los_angeles_torch.utils.weights import (jax_from_state_dict, state_dict_from_jax,
+                                                 tree_from_numpy)
 
 CFG = Config()  # the live widths: RNA 1177, DNA 1211, latent 20, site embedding 32
 N_SITES = 24
@@ -708,19 +719,19 @@ def d2r_clear_kinks(flat, r):
 
 
 def away_from_kinks_masked(what, make_rows, clear, plain_step, dev, n, seed, flat, bn, steps=1,
-                           m0=None, v0=None):
+                           m0=None, v0=None, lr=LR, step0=7):
     """Rows (``make_rows(dev, n, seed)``, n = steps * batch for an epoch)
     from the first seed at or after ``seed`` whose decoder margin reaches
     D2R_MARGINS[1] at every step of the plain version's trajectory
     (``plain_step(p, bn, step_rows) -> (grads, bn)``) from (flat, bn, m0,
-    v0) with AdamW at step0 = 7, their near-kink BN cells dropped
+    v0) with AdamW at ``lr`` from ``step0``, their near-kink BN cells dropped
     (``clear(p, step_rows) -> (cells dropped, decoder margin)``); returns
     (rows, seed, cells dropped). A "cw" entry is shared by every step."""
     batch = n // steps
     for s in range(seed, seed + 400):
         r = make_rows(dev, n, s)
         p, b, dropped, ok = dict(flat), bn, 0, True
-        opt = {"step": torch.tensor(7, device=dev), "m": m0, "v": v0}
+        opt = {"step": torch.tensor(step0, device=dev), "m": m0, "v": v0}
         for i in range(steps):
             rows = slice(batch * i, batch * (i + 1))
             step_rows = {k: (v if k == "cw" else v[rows]) for k, v in r.items()}
@@ -731,7 +742,7 @@ def away_from_kinks_masked(what, make_rows, clear, plain_step, dev, n, seed, fla
                 break
             if steps > 1:
                 grads, b = plain_step(p, b, step_rows)
-                p, opt = optim.adamw_update(p, grads, opt, LR, WD)
+                p, opt = optim.adamw_update(p, grads, opt, lr, WD)
         if ok:
             return r, s, dropped
     raise AssertionError(f"no {what} rows with a decoder margin of {D2R_MARGINS[1]} in 400 "
@@ -901,16 +912,17 @@ def mm_clear_kinks(flat, r):
     return n1 + n2 + n3, min((u.abs().min() / u.abs().max()).item() for u in us)
 
 
-def mm_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
+def mm_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None, beta=BETA,
+                       gamma=GAMMA, lr=LR, step0=7):
     """`away_from_kinks_masked` for the tri-modal step (``mm_rows``,
     `mm_clear_kinks`)."""
     def plain_step(p, b, r):
         _, grads, b = ft.multimodal_train_step_reference(
-            p, b, r["a"], r["b"], r["site"], r["cw"], *(r[k] for k in MM_NOISE), BETA, GAMMA)
+            p, b, r["a"], r["b"], r["site"], r["cw"], *(r[k] for k in MM_NOISE), beta, gamma)
         return grads, b
 
     return away_from_kinks_masked("tri-modal", mm_rows, mm_clear_kinks, plain_step, dev, n, seed,
-                                  flat, bn, steps, m0, v0)
+                                  flat, bn, steps, m0, v0, lr, step0)
 
 
 def check_all(what, checks):
@@ -979,9 +991,13 @@ MM_SHORT_STEPS = 4
 
 
 def compare_mm_epoch(dev):
-    """The epoch kernel against its plain version over a short epoch (the
-    decoder seed search cannot clear 25 steps), then over 25 steps against
-    a chain of the step kernel and AdamW, which runs the same phase kernels."""
+    """The epoch kernel (a captured CUDA graph) against its plain version
+    over a short epoch (the decoder seed search cannot clear 25 steps), then
+    a second epoch through the same cached graph from the first one's
+    result, with another β, γ, lr, step0, seed and rows, against the plain
+    version from the same state (so nothing of the first epoch was baked
+    in), then over 25 steps against a chain of the step kernel and AdamW,
+    which runs the same phase kernels."""
     params, state = mm_params(dev, 22)
     flat, bn = ft.flatten_params(params, MM), ft.bn_mm(state)
     g = torch.Generator(device=dev).manual_seed(25)
@@ -1001,8 +1017,34 @@ def compare_mm_epoch(dev):
     worst = check_all(f"multimodal epoch ({MM_SHORT_STEPS} steps, plain)",
                       [("losses", got[0], want[0], 0.0, 1e-5)]
                       + mm_epoch_checks(got, want, MM_SHORT_STEPS))
+    graph = fe._mm_graph["graph"]
     say(f"[compare] multimodal_train_epoch vs plain: {MM_SHORT_STEPS} steps x 32, rows of seed "
-        f"{seed}, {dropped} near-kink BN cells dropped; max |kernel - plain| = {worst:.3e}")
+        f"{seed}, {dropped} near-kink BN cells dropped; max |kernel - plain| = {worst:.3e}; "
+        f"graph captured and instantiated in {graph.capture_seconds * 1e3:.1f} ms")
+
+    # a second epoch through the same graph: other scalars and rows
+    args2 = dict(beta=BETA / 2, gamma=GAMMA / 2, lr=LR / 2, weight_decay=WD, step0=11)
+    flat1, m1, v1 = (ft.flatten_params(t, MM) for t in got[1:4])
+    bn1 = ft.bn_mm(got[4])
+    r, seed2, dropped = mm_away_from_kinks(dev, MM_SHORT_STEPS * 32, 6400, flat1, bn1,
+                                           MM_SHORT_STEPS, m1, v1, beta=args2["beta"],
+                                           gamma=args2["gamma"], lr=args2["lr"], step0=11)
+    noise = {f"{k.replace('drop_', 'drop')}_ep": r[k] for k in MM_NOISE}
+    got2 = fe.multimodal_fused_epoch(*got[1:], r["a"], r["b"], r["site"], N_SITES, seed=99,
+                                     class_weights=r["cw"], n_batches=MM_SHORT_STEPS, **noise,
+                                     **args2)
+    if fe._mm_graph["graph"] is not graph:
+        raise AssertionError("the second epoch of one key captured a new graph")
+    want2 = fe.multimodal_epoch_reference(flat1, m1, v1, bn1, r["a"], r["b"], r["site"], r["cw"],
+                                          tuple(r[k] for k in MM_NOISE), seed=99,
+                                          n_batches=MM_SHORT_STEPS, **args2)
+    torch.cuda.synchronize()
+    worst = max(worst, check_all(f"multimodal epoch 2 ({MM_SHORT_STEPS} steps, plain)",
+                                 [("losses", got2[0], want2[0], 0.0, 1e-5)]
+                                 + mm_epoch_checks(got2, want2, MM_SHORT_STEPS)))
+    say(f"[compare] multimodal_train_epoch, a second epoch through the same graph (β, γ, lr "
+        f"halved, step0 11, seed 99, rows of seed {seed2}, {dropped} near-kink BN cells "
+        f"dropped) vs plain from the first epoch's result: max |kernel - plain| = {worst:.3e}")
 
     # 25 steps: the epoch kernel against the step kernel + AdamW, step by step
     r = mm_rows(dev, EPOCH_STEPS * 32, 6300)
@@ -1272,7 +1314,7 @@ def phase_train_wide(dev, workdir, card):
     # fp32 AdamW with USE_PALLAS: at this width the kernel path is the wide head
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    result, _, wall = run_training(
+    result, run_id, wall = run_training(
         "rna2dna", "rna2dna", cfg=cfg, argv=["--epochs", "2", "--seed", "0"],
         data=(tpm, beta, site), n_sites=N_SITES, device=dev, root=workdir)
     counts["wide"] = read_counts()
@@ -1285,6 +1327,7 @@ def phase_train_wide(dev, workdir, card):
     _wide_fit_line("run_training, fp32 AdamW (USE_PALLAS: the wide head kernel once a step; "
                    "the host-side initialisation included)", wall, 2, len(tr), result, card)
     del result
+    counts["serve_wide"] = serve_wide(dev, cfg, workdir, run_id, tpm[va], site[va], card)
     shutil.rmtree(cfg.checkpoint_dir)
 
     # the rows and the initial weights go to the card once, outside the timing
@@ -1321,19 +1364,64 @@ def phase_train_wide(dev, workdir, card):
         say(f"[train-wide] {what}: warm-up epoch {warm * 1e3:.1f} ms")
         _wide_fit_line(what, wall, 2, len(tr), res, card)
         del res
+        if kw:  # the wide path: how much of its epoch the card is busy
+            profile_epoch(lambda: fit(1), f"{what}, one epoch", card)
     del train_rows, val_rows, init
     torch.cuda.empty_cache()
     say(f"[train-wide] launches: run_training bf16 moments {counts['train_wide']}; "
-        f"run_training fp32 {counts['wide']}")
+        f"run_training fp32 {counts['wide']}; serving it {counts['serve_wide']}")
     return counts
+
+
+def serve_wide(dev, cfg, workdir, run_id, x, s, card):
+    """Serve the fp32 RNA→DNA checkpoint of the whole-methylome width
+    through its loader with USE_PALLAS (the serving kernel): the served
+    posterior against the plain eval forward's, and the kernel's
+    reconstruction at z = mu against the plain eval forward's at z = mu, at
+    the serving tolerance; returns the launch counts of the loader's call."""
+    zero_counts()
+    served = load_rna2dna(cfg=cfg, root=workdir, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recon, mu, logvar = served(rna=x, site=s)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    if launches["rna2dna_fused_forward"] != 1:
+        raise AssertionError(f"the wide loader's call launched the serving kernel "
+                             f"{launches['rna2dna_fused_forward']} times")
+    _, pmu, plv = load_rna2dna(cfg=cfg.replace(use_pallas=False), root=workdir, device=dev)(
+        rna=x, site=s)
+    params, state, _ = checkpoint.load_best("rna2dna", run_id, cfg.checkpoint_dir)
+    fused = fv.FusedRNA2DNA(params, state, dev)
+    x_t, s_t = torch.as_tensor(x).to(dev), torch.as_tensor(s).to(dev)
+    got = fused(x_t, s_t, use_noise=False)
+    with torch.no_grad():
+        want = rna2dna_vae_apply(tree_from_numpy(params, dev), tree_from_numpy(state, dev),
+                                 rna=x_t, site=s_t, train=False, eps=torch.zeros_like(got[1]))
+    checks = [("served mu", mu, pmu), ("served logvar", logvar, plv),
+              ("recon at z = mu", got[0].cpu().numpy(), want.recon.cpu().numpy()),
+              ("mu", got[1].cpu().numpy(), want.mu.cpu().numpy())]
+    for what, a, b in checks:
+        if a.shape != b.shape or not np.allclose(a, b, **TOL):
+            raise AssertionError(f"wide serving: {what} differs from the plain eval forward by "
+                                 f"{np.abs(a - b).max():.3g}")
+    say(f"[serve-wide] the fp32 {WIDE_D}-wide RNA2DNAVAE served through "
+        f"rna2dna_fused_forward: {len(x)} rows in {call_ms:.1f} ms (the loader's call, host "
+        f"clock), recon {recon.shape}; posterior and recon at z = mu within atol = rtol = 1e-4 "
+        f"of the plain eval forward (max {max(np.abs(a - b).max() for _, a, b in checks):.3g}); "
+        f"{card}")
+    del served, fused, got, want
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve(dev, workdir, tpm, beta, site, trained):
     """Serve the validation split with the RNA2DNAVAE and DNA2RNAVAE trained
-    in phase 4 ({model name: run id}, also in their run-id files); returns
-    the launch counts of that run."""
+    in phase 4 ({model name: run id}, also in their run-id files), with
+    USE_PALLAS (the loaders serve through the kernels only then, as the JAX
+    loaders do); returns the launch counts of that run."""
     cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
-                      plots_dir=os.path.join(workdir, "plots"))
+                      plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
     modules = {}
     for ckpt, model_cls in (("rna2dna", RNA2DNAVAE), ("dna2rna", DNA2RNAVAE)):
         if checkpoint.get_run_id(ckpt, workdir) != trained[ckpt]:
@@ -1620,6 +1708,10 @@ def time_mm(dev, card, a, b, s, n_steps):
                                               seed=2, beta=BETA, gamma=GAMMA, lr=LR,
                                               weight_decay=WD, step0=0, n_batches=n_steps),
         reps=2, warmup=1)
+    graph = fe._mm_graph["graph"]
+    say(f"[time] multimodal_train_epoch: the {n_steps}-step graph captured and instantiated in "
+        f"{graph.capture_seconds * 1e3:.1f} ms (host clock, once per key: engine.fit pays it in "
+        f"its first epoch); {card}")
     profile_epoch(kernel, f"multimodal_train_epoch ({n_steps} steps)", card)
     leaves = [v.clone() for v in flat.values()]
     for p in leaves:

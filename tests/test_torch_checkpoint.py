@@ -71,8 +71,13 @@ def test_jax_checkpoint_serves_in_the_port(model_type, tmp_path, monkeypatch):
     assert not np.array_equal(recon, other)
     with pytest.raises(ValueError):
         port_model(**{kw: x}, site=np.full(16, N_SITES))
+    # site-only imputation is served, as the JAX loader serves it
+    _, smu, slv = port_model(site=site)
+    _, jsmu, jslv = jax_model_(site=site)
+    np.testing.assert_allclose(smu, jsmu, **CHAIN)
+    np.testing.assert_allclose(slv, jslv, **CHAIN)
     with pytest.raises(ValueError):
-        port_model(site=site)
+        port_model()
 
 
 @pytest.mark.parametrize("model_type", sorted(FAMILIES))

@@ -134,7 +134,7 @@ def test_wrapper_refuses_tensors_the_kernel_does_not_take(cuda_device):
 def test_loader_serves_through_the_kernel(model_type, cuda_device, tmp_path):
     port_cls, _, kw, din, dout, load = FAMILIES[model_type]
     params, state = port_weights(model_type, seed=2)
-    cfg = Config().replace(checkpoint_dir=str(tmp_path / "checkpoints"))
+    cfg = Config().replace(checkpoint_dir=str(tmp_path / "checkpoints"), use_pallas=True)
     checkpoint.save_best(model_type, "20260101_000000", params, state, cfg.checkpoint_dir)
     checkpoint.write_run_id(model_type, "20260101_000000", str(tmp_path))
     served = load(cfg=cfg, root=str(tmp_path), device=cuda_device)
@@ -489,6 +489,71 @@ def test_mm_epoch_kernel_matches_plain_version(cuda_device):
         torch.testing.assert_close(a, b, atol=loose if i % 2 == 0 else 2e-4, rtol=0)
 
 
+def check_mm_epoch(got, want, lr, n_batches):
+    """An epoch's losses (rtol 1e-5), params (atol 5e-5), m (5e-5 of each
+    tensor's largest |m|, or 1) and BN stats (var 2e-4) against another's;
+    the fc biases feeding BN and the BN means at 2·lr per step."""
+    order, loose = ft.PARAM_ORDER_MM, 2 * lr * n_batches
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    for i, tree in ((1, "params"), (2, "m")):
+        flat = ft.flatten_params(got[i], order)
+        for name, _ in order:
+            ref = want[i][name]
+            scale = max(ref.abs().max().item(), 1.0) if tree == "m" else 1.0
+            atol = loose if name in MM_ZERO_GRAD else 5e-5 * scale
+            torch.testing.assert_close(flat[name], ref, atol=atol, rtol=0, msg=f"{tree} {name}")
+    for i, (a, b) in enumerate(zip(ft.bn_mm(got[4]), want[4])):
+        torch.testing.assert_close(a, b, atol=loose if i % 2 == 0 else 2e-4, rtol=0)
+
+
+def test_mm_epoch_graph_replays_new_scalars_rows_and_seeds(cuda_device):
+    """Two epochs through one cached graph, each with another β, γ, lr,
+    step0 and rows, both held against the plain version; then Philox noise,
+    a new key that captures the graph anew, for two seeds through one graph,
+    each epoch equal to the injected epoch given the draws the kernel
+    makes."""
+    n_batches, batch, sites = 2, 16, TRAIN_DIMS["sites"]
+    params, state, r, cw = mm_case(cuda_device, batch, n_batches, seed=3)
+    order = ft.PARAM_ORDER_MM
+    flat = ft.flatten_params(params, order)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    m0 = {k: torch.randn(t.shape, generator=g, device=cuda_device) * 1e-3 for k, t in flat.items()}
+    v0 = {k: torch.rand(t.shape, generator=g, device=cuda_device) * 1e-6 for k, t in flat.items()}
+    start = (params, ft.unflatten(m0, order), ft.unflatten(v0, order), state)
+    cur, graph = start, None
+    for beta, gamma, lr, step0, perm_seed in ((1e-3, 1.7, 5e-4, 7, 0), (4e-4, 0.6, 2e-4, 31, 1)):
+        perm = torch.randperm(batch * n_batches, generator=torch.Generator().manual_seed(perm_seed))
+        rows = {k: t[perm.to(cuda_device)] for k, t in r.items()}
+        noise = {f"{k.replace('drop_', 'drop')}_ep": rows[k] for k in MM_NOISE}
+        got = fe.multimodal_fused_epoch(*cur, rows["a"], rows["b"], rows["site"], sites,
+                                        beta=beta, gamma=gamma, class_weights=cw, lr=lr,
+                                        step0=step0, n_batches=n_batches, **noise)
+        graph = graph or fe._mm_graph["graph"]
+        assert fe._mm_graph["graph"] is graph
+        want = fe.multimodal_epoch_reference(
+            *(ft.flatten_params(t, order) for t in cur[:3]), ft.bn_mm(cur[3]), rows["a"],
+            rows["b"], rows["site"], cw, tuple(rows[k] for k in MM_NOISE), seed=0, beta=beta,
+            gamma=gamma, lr=lr, weight_decay=1e-5, step0=step0, n_batches=n_batches)
+        check_mm_epoch(got, want, lr, n_batches)
+        cur = got[1:]
+    rows = (r["a"], r["b"], r["site"], sites)
+    philox = [fe.multimodal_fused_epoch(*start, *rows, seed=s, class_weights=cw, step0=3,
+                                        n_batches=n_batches) for s in (11, 12)]
+    assert fe._mm_graph["graph"] is not graph
+    for s, got in zip((11, 12), philox):
+        draws = [ft.philox_noise_mm(s, i, batch, 128, 512, 256, TRAIN_DIMS["latent"],
+                                    cuda_device) for i in range(n_batches)]
+        noise = {name: torch.cat([d[j] for d in draws])
+                 for j, name in enumerate(("eps_ep", "dropa_ep", "dropb1_ep", "dropb2_ep"))}
+        inj = fe.multimodal_fused_epoch(*start, *rows, class_weights=cw, step0=3,
+                                        n_batches=n_batches, **noise)
+        assert torch.equal(got[0], inj[0])
+        for a, b in zip(ft.flatten_params(got[1], order).values(),
+                        ft.flatten_params(inj[1], order).values()):
+            assert torch.equal(a, b)
+    assert not torch.equal(philox[0][0], philox[1][0])
+
+
 @pytest.mark.parametrize("path", ["plain", "fused_step", "fused_epoch"])
 def test_mm_fit_paths_launch_their_kernels(path, cuda_device):
     d = TRAIN_DIMS
@@ -542,7 +607,12 @@ def check_wide(got, want, lr):
             assert err <= 2e-5 * float(e.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize("n,d_in,big", [(7, 40, 301), (70, 72, 1000), (130, 16, 257)])
+# one sweep up to 32 rows: B = 1; B = 32 at d_in 512 with 4 column tiles for
+# 132 persistent blocks; 141 tiles, the last one ragged; then three launches
+# from 33 rows on
+@pytest.mark.parametrize("n,d_in,big", [(7, 40, 301), (70, 72, 1000), (130, 16, 257),
+                                        (1, 36, 100), (32, 512, 100), (32, 40, 4501),
+                                        (33, 40, 301), (256, 24, 257)])
 def test_wide_kernel_matches_plain_version_over_three_steps(n, d_in, big, cuda_device):
     h, t, *state = wide_inputs(cuda_device, n, d_in, big)
     state = tuple(state) + (torch.zeros((), dtype=torch.int32, device=cuda_device),)

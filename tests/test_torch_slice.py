@@ -4,7 +4,8 @@
 
 Both are made deterministic here, in the test alone: the JAX side decodes
 z = mu by patching ``directional_vae.reparameterize`` (its jitted forward is
-rebuilt), the port side serves with ``use_noise=False``. The VAE and
+rebuilt), the port side serves through its fused route (``use_pallas``, the
+kernel's plain version on the CPU) with ``use_noise=False``. The VAE and
 mean-imputation records must agree to atol = rtol = 1e-4."""
 
 import json
@@ -65,7 +66,8 @@ def test_compare_directional_imputation_matches_jax(workdir, monkeypatch):
         lambda self, x, site=None, seed=0, use_noise=True, eps=None: call(
             self, x, site, seed, use_noise=False),
     )
-    got = port_compare.main(cfg_for(workdir, "plots_port"), root=str(workdir), device="cpu")
+    got = port_compare.main(cfg_for(workdir, "plots_port").replace(use_pallas=True),
+                            root=str(workdir), device="cpu")
 
     want = {(r["Modality"], r["Model"]): r for r in want if r["Model"] != "k-NN Imputation"}
     assert [(r["Modality"], r["Model"]) for r in got] == list(want)

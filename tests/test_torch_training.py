@@ -225,7 +225,8 @@ def check_cli(task, cohort, tmp_path, monkeypatch):
         port_fused._FusedForward, "__call__",
         lambda self, x, site=None, seed=0, use_noise=True, eps=None: call(
             self, x, site, seed, use_noise=False))
-    p_model = getattr(port_loading, f"load_{task}")(cfg=cfg, device="cpu")
+    p_model = getattr(port_loading, f"load_{task}")(cfg=cfg.replace(use_pallas=True),
+                                                    device="cpu")
     recon, mu, lv = p_model(**{kw: rows_in}, site=s_in)
     for got, want in ((recon, j_recon), (mu, j_mu), (lv, j_lv)):
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-4, rtol=1e-4)

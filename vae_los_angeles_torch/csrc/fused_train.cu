@@ -59,9 +59,10 @@
 //     seed, with the counter (row, column, step, stream): stream 0 for the
 //     (first) dropout layer, 2 for DNA->RNA's second (keep iff a 24-bit
 //     uniform < 0.9), 1 for eps (Box-Muller).
-//   * The epoch is one C entry: a host loop over the steps that enqueues each
-//     step's phases and the AdamW kernel on the caller's stream. Python crosses
-//     into C once an epoch.
+//   * The directional epochs are one C entry each: a host loop over the steps
+//     that enqueues each step's phases and the AdamW kernel on the caller's
+//     stream. Python crosses into C once an epoch. The tri-modal epoch is a
+//     captured CUDA graph (namespace mm below).
 //
 // Plain C interface, built with nvcc into a shared library and called through
 // ctypes (ops/kernels/_build.py, fused_train.py, fused_epoch.py). Every entry
@@ -87,6 +88,22 @@ constexpr int LOSS_BLOCKS = 64;
 constexpr int THREADS = 256;
 
 enum NoiseMode { NOISE_INJECTED = 0, NOISE_PHILOX = 1 };
+
+// What changes from one tri-modal epoch to the next, read on the card: the
+// captured epoch (a CUDA graph, which replays its launches with their
+// arguments as captured) takes these from this buffer rather than from
+// kernel arguments. The bias corrections (bc1, bc2) of step i follow the
+// struct at floats [2i, 2i + 1]. A null pointer means "use the kernel's own
+// arguments" (the step entries and the directional epochs).
+struct EpochArgs {
+    unsigned long long seed;
+    float beta, gamma, lr, wd;
+};
+static_assert(sizeof(EpochArgs) == 24, "EpochArgs is 6 floats: the wrapper packs it so");
+
+__device__ __forceinline__ const float* epoch_bc(const EpochArgs* ea) {
+    return reinterpret_cast<const float*>(ea + 1);
+}
 enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1, STREAM_DROPOUT2 = 2, STREAM_DROPOUT3 = 3 };
 enum Epilogue { EPI_BIAS_RELU = 0, EPI_RELU_MASK = 1 };
 
@@ -168,15 +185,18 @@ __device__ __forceinline__ float philox_normal(uint64_t seed, int row, int col, 
 // (ceil(N / 32), ceil(M / 32), splits); chunk z covers k in
 // [z * kchunk, min(K, (z + 1) * kchunk)). Loads run along whichever index is
 // contiguous, so global reads coalesce for either layout.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const float* __restrict__ a, int a0, int a1, const float* __restrict__ b, int b0,
-            int b1, float* __restrict__ c, int M, int N, int K, int kchunk) {
+// One output tile (bx, by) of chunk bz; with ``bias`` (a product that is not
+// split) the tile is written through bias + ReLU.
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ a, int a0, int a1,
+                                          const float* __restrict__ b, int b0, int b1,
+                                          float* __restrict__ c, int M, int N, int K, int kchunk,
+                                          const float* __restrict__ bias, int bx, int by, int bz) {
     __shared__ float As[TILE][TILE + 1];  // As[k][i]
     __shared__ float Bs[TILE][TILE + 1];  // Bs[k][j]
     const int tid = threadIdx.x;
     const int tx = tid & 15, ty = tid >> 4;
-    const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-    const int kbeg = blockIdx.z * kchunk;
+    const int i0 = by * TILE, j0 = bx * TILE;
+    const int kbeg = bz * kchunk;
     const int kend = min(K, kbeg + kchunk);
     float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
     for (int k0 = kbeg; k0 < kend; k0 += TILE) {
@@ -203,12 +223,29 @@ gemm_kernel(const float* __restrict__ a, int a0, int a1, const float* __restrict
         }
         __syncthreads();
     }
-    float* cz = c + (size_t)blockIdx.z * M * N;
+    float* cz = c + (size_t)bz * M * N;
     const int ia = i0 + ty, ib = i0 + ty + 16, ja = j0 + tx, jb = j0 + tx + 16;
+    if (bias) {  // as epilogue_kernel's EPI_BIAS_RELU over one partial
+        if (ja < N) {
+            acc00 = fmaxf((0.f + acc00) + bias[ja], 0.f);
+            acc10 = fmaxf((0.f + acc10) + bias[ja], 0.f);
+        }
+        if (jb < N) {
+            acc01 = fmaxf((0.f + acc01) + bias[jb], 0.f);
+            acc11 = fmaxf((0.f + acc11) + bias[jb], 0.f);
+        }
+    }
     if (ia < M && ja < N) cz[(size_t)ia * N + ja] = acc00;
     if (ia < M && jb < N) cz[(size_t)ia * N + jb] = acc01;
     if (ib < M && ja < N) cz[(size_t)ib * N + ja] = acc10;
     if (ib < M && jb < N) cz[(size_t)ib * N + jb] = acc11;
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const float* __restrict__ a, int a0, int a1, const float* __restrict__ b, int b0,
+            int b1, float* __restrict__ c, int M, int N, int K, int kchunk) {
+    gemm_tile(a, a0, a1, b, b0, b1, c, M, N, K, kchunk, nullptr, blockIdx.x, blockIdx.y,
+              blockIdx.z);
 }
 
 struct Split {
@@ -269,7 +306,8 @@ bn_forward_kernel(const float* __restrict__ part, int splits, int B, int H,
                   const float* __restrict__ b1, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const float* rm_in, const float* rv_in,
                   float* rm_out, float* rv_out, const float* __restrict__ drop_in, int noise,
-                  uint64_t seed, int step, int stream, float* __restrict__ xhat,
+                  uint64_t seed, const EpochArgs* ea, int step, int stream,
+                  float* __restrict__ xhat,
                   float* __restrict__ dcoef,
                   float* __restrict__ d, float* __restrict__ inv_std) {
     const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -291,11 +329,12 @@ bn_forward_kernel(const float* __restrict__ part, int splits, int B, int H,
     const float var = warp_sum(sq) / (float)B;
     const float inv = rsqrtf(var + BN_EPS);
     const float g = gamma[j], bb = beta[j];
+    const uint64_t sd = ea ? ea->seed : seed;
     for (int r = lane; r < B; r += 32) {
         const size_t i = (size_t)r * H + j;
         const float xh = (xhat[i] - mean) * inv;
         const float h = xh * g + bb;
-        const float keep = noise == NOISE_PHILOX ? philox_keep(seed, r, j, step, stream)
+        const float keep = noise == NOISE_PHILOX ? philox_keep(sd, r, j, step, stream)
                                                  : drop_in[i];
         const float coef = h > 0.f ? keep / KEEP : 0.f;
         xhat[i] = xh;
@@ -463,6 +502,96 @@ __global__ void colsum_kernel(const float* __restrict__ y, int M, int N, float* 
     out[j] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Independent products (and column sums) of one phase in one launch: each
+// block finds its problem from its index and runs the same tile code as
+// gemm_kernel (colsum_kernel's loop for a column-sum block), so a grouped
+// product gives the bits of the same product launched alone.
+constexpr int MAX_PRODS = 6;
+constexpr int MAX_COLSUMS = 3;
+
+struct GroupProd {
+    const float *a, *b, *bias;
+    float* c;
+    int a0, a1, b0, b1, M, N, K, kchunk, tiles_n, tiles, blocks;
+};
+
+struct GroupColsum {
+    const float* y;
+    float* out;
+    int M, N, blocks;
+};
+
+struct GemmGroup {
+    GroupProd p[MAX_PRODS];
+    GroupColsum cs[MAX_COLSUMS];
+    int n_prods, n_colsums;
+};
+
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_group_kernel(const GemmGroup g) {
+    int blk = blockIdx.x;
+#pragma unroll
+    for (int q = 0; q < MAX_PRODS; ++q) {
+        if (q >= g.n_prods) break;
+        const GroupProd& p = g.p[q];
+        if (blk < p.blocks) {
+            const int z = blk / p.tiles, rem = blk - z * p.tiles;
+            const int y = rem / p.tiles_n, x = rem - y * p.tiles_n;
+            gemm_tile(p.a, p.a0, p.a1, p.b, p.b0, p.b1, p.c, p.M, p.N, p.K, p.kchunk, p.bias, x,
+                      y, z);
+            return;
+        }
+        blk -= p.blocks;
+    }
+#pragma unroll
+    for (int q = 0; q < MAX_COLSUMS; ++q) {
+        if (q >= g.n_colsums) break;
+        const GroupColsum& c = g.cs[q];
+        if (blk < c.blocks) {
+            const int j = blk * GEMM_THREADS + threadIdx.x;
+            if (j >= c.N) return;
+            float s = 0.f;
+            for (int r = 0; r < c.M; ++r) s += c.y[(size_t)r * c.N + j];
+            c.out[j] = s;
+            return;
+        }
+        blk -= c.blocks;
+    }
+}
+
+// out = (sum of partials) where ref > 0, else 0 (epilogue_kernel's
+// EPI_RELU_MASK), for up to three independent layers in one launch.
+constexpr int MAX_EPIS = 3;
+
+struct EpiJob {
+    const float *part, *ref;
+    float* out;
+    int splits, M, N, blocks;
+};
+
+struct EpiGroup {
+    EpiJob j[MAX_EPIS];
+    int n;
+};
+
+__global__ void __launch_bounds__(THREADS) relu_mask_group_kernel(const EpiGroup g) {
+    int blk = blockIdx.x;
+#pragma unroll
+    for (int q = 0; q < MAX_EPIS; ++q) {
+        if (q >= g.n) break;
+        const EpiJob& e = g.j[q];
+        if (blk < e.blocks) {
+            const size_t idx = (size_t)blk * THREADS + threadIdx.x;
+            const size_t mn = (size_t)e.M * e.N;
+            if (idx >= mn) return;
+            const float acc = sum_splits(e.part, e.splits, mn, idx);
+            e.out[idx] = e.ref[idx] > 0.f ? acc : 0.f;
+            return;
+        }
+        blk -= e.blocks;
+    }
+}
+
 // dz = du1 . d1w^T, then the posterior's backward: dmu/2 and dlogvar/2
 // (each of the two fused posteriors takes half). One warp per (row, j), its
 // lanes over d1.
@@ -617,12 +746,19 @@ __global__ void noise_kernel(uint64_t seed, int step, int B, int H, int stream, 
 }
 
 // torch-order AdamW over one flat buffer: decay first, then the
-// bias-corrected Adam step.
+// bias-corrected Adam step; with ``ea``, lr, wd and step ``t``'s bias
+// corrections come from it.
 __global__ void adamw_kernel(float* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
                              const float* __restrict__ g, long long n, float lr, float wd,
-                             float bc1, float bc2) {
+                             float bc1, float bc2, const EpochArgs* ea, int t) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
+    if (ea) {
+        lr = ea->lr;
+        wd = ea->wd;
+        bc1 = epoch_bc(ea)[2 * t];
+        bc2 = epoch_bc(ea)[2 * t + 1];
+    }
     const float gi = g[i];
     const float nm = ADAM_B1 * m[i] + (1.0f - ADAM_B1) * gi;
     const float nv = ADAM_B2 * v[i] + (1.0f - ADAM_B2) * gi * gi;
@@ -675,6 +811,51 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 
 inline int blocks(size_t n, int t = THREADS) { return (int)((n + t - 1) / t); }
 
+// Host side of gemm_group_kernel: products and column sums added one by one,
+// then one launch. A product with a bias is not split (its tiles are written
+// through bias + ReLU); the others split as gemm() splits them.
+struct Group {
+    GemmGroup g{};
+    int total = 0;
+
+    void prod(Mat A, Mat B, float* C, int M, int N, int K, int max_splits, const float* bias,
+              int* splits_out) {
+        const Split s = split_for(M, N, K, bias ? 1 : max_splits);
+        GroupProd& p = g.p[g.n_prods++];
+        const int tiles_n = (N + TILE - 1) / TILE;
+        p = GroupProd{A.p, B.p, bias, C, A.s0, A.s1, B.s0, B.s1, M, N, K, s.kchunk, tiles_n,
+                      tiles_n * ((M + TILE - 1) / TILE), 0};
+        p.blocks = p.tiles * s.splits;
+        total += p.blocks;
+        if (splits_out) *splits_out = s.splits;
+    }
+
+    void colsum(const float* y, int M, int N, float* out) {
+        g.cs[g.n_colsums++] = GroupColsum{y, out, M, N, blocks(N, GEMM_THREADS)};
+        total += g.cs[g.n_colsums - 1].blocks;
+    }
+
+    int launch(cudaStream_t st) const {
+        gemm_group_kernel<<<total, GEMM_THREADS, 0, st>>>(g);
+        return (int)cudaGetLastError();
+    }
+};
+
+struct ReluMasks {
+    EpiGroup g{};
+    int total = 0;
+
+    void add(const float* part, int splits, int M, int N, const float* ref, float* out) {
+        g.j[g.n++] = EpiJob{part, ref, out, splits, M, N, blocks((size_t)M * N)};
+        total += g.j[g.n - 1].blocks;
+    }
+
+    int launch(cudaStream_t st) const {
+        relu_mask_group_kernel<<<total, THREADS, 0, st>>>(g);
+        return (int)cudaGetLastError();
+    }
+};
+
 #define CHECK(expr)                     \
     do {                                \
         const int _e = (int)(expr);     \
@@ -705,7 +886,7 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H, 1}, w.scratch, B, H, X, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H, P[B1], P[GAMMA], P[BNBETA], rm_in, rv_in, rm_out, rv_out, drop_in,
-        noise, seed, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
+        noise, seed, nullptr, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
     LAUNCHED();
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
@@ -883,14 +1064,15 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H1, 1}, w.scratch, B, H1, X, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H1, P[B1], P[G1], P[BT1], bn_in, bn_in + H1, bn_out, bn_out + H1,
-        drop1_in, noise, seed, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
+        drop1_in, noise, seed, nullptr, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
     LAUNCHED();
     CHECK(gemm(Mat{w.d1, H1, 1}, Mat{P[W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
     const float* bn2_in = bn_in + 2 * H1;
     float* bn2_out = bn_out + 2 * H1;
     bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H2, P[B2], P[G2], P[BT2], bn2_in, bn2_in + H2, bn2_out, bn2_out + H2,
-        drop2_in, noise, seed, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2, w.inv2);
+        drop2_in, noise, seed, nullptr, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2,
+        w.inv2);
     LAUNCHED();
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
@@ -959,6 +1141,24 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
 // class-weighted CE sum + beta * KLD. The same phase kernels as the
 // directional steps; new are the three-source posterior and its backward,
 // the cross-entropy head and the four-term loss finish.
+//
+// The epoch (multimodal_train_epoch, replacing the TPU kernel of
+// vae_los_angeles_tpu/ops/pallas/fused_epoch_multimodal.py, _mm_epoch_call):
+// a 200-step epoch at B = 32 is ~1 ms of fp32 FMA at 67 TFLOP/s, but as a
+// host loop it was ~11,200 dependent launches, each enqueued in ~5 us while
+// the card ran it in ~3.75 us, so the host set the pace and the card idled
+// ~29% of the epoch. The design: (1) the host leaves the step. The epoch's
+// launches are captured once into a CUDA graph (multimodal_epoch_graph_*),
+// cached by the wrapper with the buffers they address, and replayed with one
+// cudaGraphLaunch an epoch; what changes between epochs (seed, beta, gamma,
+// lr, wd and each step's bias corrections) is read from a small device
+// buffer (EpochArgs), while the Philox step index and the row offsets,
+// fixed within an epoch, stay baked. (2) Fewer launches a step, 29 with the
+// AdamW (from 56): independent products of a phase grouped in one launch
+// with the bias gradients' column sums, the decoders' first layers with their
+// bias and ReLU inside the product, the three ReLU-masked upstream gradients
+// in one launch. No atomics; each product keeps its tiles and split, so one
+// input gives one set of bits.
 namespace mm {
 
 // PARAM_ORDER_MM of ops/kernels/fused_train.py, JAX layout.
@@ -1027,7 +1227,8 @@ struct Heads3 {
 __global__ void __launch_bounds__(THREADS)
 posterior3_kernel(const float* __restrict__ da, int HA, const float* __restrict__ db, int HB,
                   const int64_t* __restrict__ site, Heads3 w, int B, int L, int S, int E,
-                  const float* __restrict__ eps_in, int noise, uint64_t seed, int step,
+                  const float* __restrict__ eps_in, int noise, uint64_t seed,
+                  const EpochArgs* ea, int step,
                   float* __restrict__ e, float* __restrict__ mu, float* __restrict__ lv,
                   float* __restrict__ epsv, float* __restrict__ sigma, float* __restrict__ z) {
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1068,7 +1269,8 @@ posterior3_kernel(const float* __restrict__ da, int HA, const float* __restrict_
     const float third = 1.0f / 3.0f;
     const float m = (ma + mb + mc) * third;
     const float v = (la + lb + lc) * third;
-    const float ep = noise == NOISE_PHILOX ? philox_normal(seed, r, j, step) : eps_in[idx];
+    const float ep = noise == NOISE_PHILOX ? philox_normal(ea ? ea->seed : seed, r, j, step)
+                                           : eps_in[idx];
     const float sg = expf(0.5f * v);
     mu[idx] = m;
     lv[idx] = v;
@@ -1091,8 +1293,8 @@ __device__ __forceinline__ float warp_max(float v) {
 __global__ void __launch_bounds__(THREADS)
 ce_kernel(const float* __restrict__ acc_part, int splits, int B, int S,
           const float* __restrict__ bias, const int64_t* __restrict__ site,
-          const float* __restrict__ cw, float gamma, float* __restrict__ dlogits,
-          float* __restrict__ ce_rows) {
+          const float* __restrict__ cw, float gamma, const EpochArgs* ea,
+          float* __restrict__ dlogits, float* __restrict__ ce_rows) {
     const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (r >= B) return;  // warp-uniform
@@ -1107,7 +1309,7 @@ ce_kernel(const float* __restrict__ acc_part, int splits, int B, int S,
     const float lse = logf(warp_sum(se));
     const int64_t y = site[r];
     const float wy = cw ? cw[y] : 1.f;
-    const float gw = gamma * wy;
+    const float gw = (ea ? ea->gamma : gamma) * wy;
     float nll = 0.f;
     for (int c = lane; c < S; c += 32) {
         const float lp = ((sum_splits(acc_part, splits, mn, (size_t)r * S + c) + bias[c]) - mx) - lse;
@@ -1125,7 +1327,7 @@ __global__ void __launch_bounds__(THREADS)
 loss_finish4_kernel(const float* __restrict__ part_mse, const float* __restrict__ part_bce,
                    int n_part, const float* __restrict__ ce_rows, int B,
                    const float* __restrict__ mu, const float* __restrict__ lv, int n_lat,
-                   float beta, float gamma, float* loss) {
+                   float beta, float gamma, const EpochArgs* ea, float* loss) {
     __shared__ float r0[THREADS], r1[THREADS], r2[THREADS], r3[THREADS];
     float a = 0.f, b = 0.f, c = 0.f, k = 0.f;
     for (int i = threadIdx.x; i < n_part; i += THREADS) {
@@ -1151,7 +1353,13 @@ loss_finish4_kernel(const float* __restrict__ part_mse, const float* __restrict_
         }
         __syncthreads();
     }
-    if (threadIdx.x == 0) *loss = r0[0] + r1[0] + gamma * r2[0] + beta * (-0.5f * r3[0]);
+    if (threadIdx.x == 0) {
+        if (ea) {
+            beta = ea->beta;
+            gamma = ea->gamma;
+        }
+        *loss = r0[0] + r1[0] + gamma * r2[0] + beta * (-0.5f * r3[0]);
+    }
 }
 
 // dz = dua . da_w1^T + dub1 . db_w1^T + duc . dc_w1^T (added in that order),
@@ -1164,12 +1372,13 @@ posterior3_backward_kernel(const float* __restrict__ dua, const float* __restric
                            const float* __restrict__ duc, const float* __restrict__ dc_w1,
                            int DC, int B, int L, const float* __restrict__ mu,
                            const float* __restrict__ lv, const float* __restrict__ epsv,
-                           const float* __restrict__ sigma, float beta,
+                           const float* __restrict__ sigma, float beta, const EpochArgs* ea,
                            float* __restrict__ dmh, float* __restrict__ dlh) {
     const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (idx >= B * L) return;  // warp-uniform
     const int r = idx / L, j = idx - r * L;
+    if (ea) beta = ea->beta;
     float za = 0.f, zb = 0.f, zc = 0.f;
     for (int k = lane; k < DA; k += 32) za = fmaf(dua[(size_t)r * DA + k], da_w1[(size_t)j * DA + k], za);
     for (int k = lane; k < DB1; k += 32)
@@ -1188,7 +1397,7 @@ struct Work {
     float *xa, *dca, *ad, *inva, *xb1, *dcb1, *bd1, *invb1, *xb2, *dcb2, *bd2, *invb2, *e, *mu,
         *lv, *epsv, *sigma, *z, *ra, *rb1, *rb2, *rc, *drecon, *dlogits_b, *dlogits_c, *ce_rows,
         *dua, *dub2, *dub1, *duc, *dmh, *dlh, *daa, *dba2, *dba1, *part_mse, *part_bce, *scratch,
-        *grads;
+        *scratch_b, *scratch_c, *grads;
     size_t total;
 };
 
@@ -1229,50 +1438,33 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
         const Split sp = split_for(s[0], s[1], s[2], 1 << 20);
         scratch = max_sz(scratch, (size_t)sp.splits * s[0] * s[1]);
     }
+    // one partial-sum scratch for each of up to three split products in flight
     w.scratch = take(scratch);
+    w.scratch_b = take(scratch);
+    w.scratch_c = take(scratch);
     long long off[N_PARAMS];
     w.grads = with_grads ? take((size_t)param_offsets(d, off)) : nullptr;
     w.total = o;
     return w;
 }
 
-// Two decoder layers' backward: the weight gradient act^T . dy (a product of
-// its own), the bias gradient (column sums) and, when dx is given, dx =
-// (dy . w^T) * (ref > 0) through a split-K product and the epilogue.
-int linear_backward(const float* act, int K, const float* dy, int N, const float* w, int B,
-                    float* gw, float* gb, const float* ref, float* dx, const Work& wk,
-                    cudaStream_t st) {
-    CHECK(gemm(Mat{act, 1, K}, Mat{dy, N, 1}, gw, K, N, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(N), THREADS, 0, st>>>(dy, B, N, gb);
-    LAUNCHED();
-    if (!dx) return 0;
-    int sp = 1;
-    CHECK(gemm(Mat{dy, N, 1}, Mat{w, 1, N}, wk.scratch, B, K, N, 1 << 20, st, &sp));
-    epilogue_kernel<<<blocks((size_t)B * K), THREADS, 0, st>>>(wk.scratch, sp, B, K, nullptr, ref,
-                                                               dx, EPI_RELU_MASK);
-    LAUNCHED();
-    return 0;
-}
-
-// x . W + b through ReLU into out: a split-K product and the epilogue.
-int linear_relu(const float* x, int K, const float* w, const float* b, int N, int B, float* out,
-                const Work& wk, cudaStream_t st) {
-    int sp = 1;
-    CHECK(gemm(Mat{x, K, 1}, Mat{w, N, 1}, wk.scratch, B, N, K, 1 << 20, st, &sp));
-    epilogue_kernel<<<blocks((size_t)B * N), THREADS, 0, st>>>(wk.scratch, sp, B, N, b, nullptr,
-                                                               out, EPI_BIAS_RELU);
-    LAUNCHED();
-    return 0;
-}
-
 // One step: forward, loss, every gradient, the new running stats of the
 // three BatchNorms (bn_in/bn_out as bn_floats). a (B, in_a) is the RNA input
-// and target, b (B, in_b) the DNA input and target.
+// and target, b (B, in_b) the DNA input and target. ``ea`` (or null) gives
+// the seed, beta and gamma in place of the arguments (EpochArgs).
+//
+// 28 launches: the products of one phase that do not depend on each other
+// (and the bias gradients' column sums) go out as one gemm_group_kernel, the
+// three decoders' ReLU-masked upstream gradients as one relu_mask_group_kernel,
+// and the decoders' first layers (K = latent, not split) with their bias and
+// ReLU inside the product. Each product keeps its own tiles and split, so the
+// arithmetic is that of one launch a product.
 int step_phases(const float* a, const float* b, const int64_t* site, const float* cw,
                 const float* p, const Dims& d, int B, const float* bn_in, float* bn_out,
                 const float* eps_in, const float* dropa_in, const float* dropb1_in,
                 const float* dropb2_in, int noise, uint64_t seed, int step, float beta,
-                float gamma, float* loss, float* g, const Work& w, cudaStream_t st) {
+                float gamma, const EpochArgs* ea, float* loss, float* g, const Work& w,
+                cudaStream_t st) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -1282,9 +1474,9 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
         G[i] = g + off[i];
     }
     const int A = d.a, Bd = d.b, HA = d.ha, H1 = d.hb1, H2 = d.hb2, L = d.latent, S = d.sites;
-    const int E = d.embed;
+    const int E = d.embed, DA = d.da, DB1 = d.db1, DB2 = d.db2, DC = d.dc;
     const int BIG = 1 << 20;
-    int sp = 1;
+    int sp = 1, sp_b = 1, sp_c = 1;
     const float* bn_a_in = bn_in;
     const float* bn_b1_in = bn_in + 2 * HA;
     const float* bn_b2_in = bn_b1_in + 2 * H1;
@@ -1293,72 +1485,120 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
     float* bn_b2_out = bn_b1_out + 2 * H1;
 
     // ---- forward: the three encoders ----
-    CHECK(gemm(Mat{a, A, 1}, Mat{P[A_W1], HA, 1}, w.scratch, B, HA, A, BIG, st, &sp));
+    {
+        Group enc;
+        enc.prod(Mat{a, A, 1}, Mat{P[A_W1], HA, 1}, w.scratch, B, HA, A, BIG, nullptr, &sp);
+        enc.prod(Mat{b, Bd, 1}, Mat{P[B_W1], H1, 1}, w.scratch_b, B, H1, Bd, BIG, nullptr, &sp_b);
+        CHECK(enc.launch(st));
+    }
     bn_forward_kernel<<<blocks(HA, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, HA, P[A_B1], P[A_G], P[A_BT], bn_a_in, bn_a_in + HA, bn_a_out,
-        bn_a_out + HA, dropa_in, noise, seed, step, STREAM_DROPOUT, w.xa, w.dca, w.ad, w.inva);
+        bn_a_out + HA, dropa_in, noise, seed, ea, step, STREAM_DROPOUT, w.xa, w.dca, w.ad,
+        w.inva);
     LAUNCHED();
-    CHECK(gemm(Mat{b, Bd, 1}, Mat{P[B_W1], H1, 1}, w.scratch, B, H1, Bd, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, H1, P[B_B1], P[B_G1], P[B_BT1], bn_b1_in, bn_b1_in + H1, bn_b1_out,
-        bn_b1_out + H1, dropb1_in, noise, seed, step, STREAM_DROPOUT2, w.xb1, w.dcb1, w.bd1,
-        w.invb1);
+        w.scratch_b, sp_b, B, H1, P[B_B1], P[B_G1], P[B_BT1], bn_b1_in, bn_b1_in + H1,
+        bn_b1_out, bn_b1_out + H1, dropb1_in, noise, seed, ea, step, STREAM_DROPOUT2, w.xb1,
+        w.dcb1, w.bd1, w.invb1);
     LAUNCHED();
     CHECK(gemm(Mat{w.bd1, H1, 1}, Mat{P[B_W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H2, P[B_B2], P[B_G2], P[B_BT2], bn_b2_in, bn_b2_in + H2, bn_b2_out,
-        bn_b2_out + H2, dropb2_in, noise, seed, step, STREAM_DROPOUT3, w.xb2, w.dcb2, w.bd2,
+        bn_b2_out + H2, dropb2_in, noise, seed, ea, step, STREAM_DROPOUT3, w.xb2, w.dcb2, w.bd2,
         w.invb2);
     LAUNCHED();
     const Heads3 heads = {P[A_WMU], P[A_BMU], P[A_WLV], P[A_BLV], P[B_WMU], P[B_BMU], P[B_WLV],
                           P[B_BLV], P[EMB],   P[C_WMU], P[C_BMU], P[C_WLV], P[C_BLV]};
     posterior3_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.ad, HA, w.bd2, H2, site, heads, B, L, S, E, eps_in, noise, seed, step, w.e, w.mu, w.lv,
-        w.epsv, w.sigma, w.z);
+        w.ad, HA, w.bd2, H2, site, heads, B, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu,
+        w.lv, w.epsv, w.sigma, w.z);
     LAUNCHED();
 
     // ---- forward: the three decoders and their heads ----
-    CHECK(linear_relu(w.z, L, P[DA_W1], P[DA_B1], d.da, B, w.ra, w, st));
-    CHECK(gemm(Mat{w.ra, d.da, 1}, Mat{P[DA_W2], A, 1}, w.scratch, B, A, d.da, BIG, st, &sp));
+    {
+        Group first;  // z . W + b through ReLU, for DecoderA, DecoderB and DecoderC
+        first.prod(Mat{w.z, L, 1}, Mat{P[DA_W1], DA, 1}, w.ra, B, DA, L, 1, P[DA_B1], nullptr);
+        first.prod(Mat{w.z, L, 1}, Mat{P[DB_W1], DB1, 1}, w.rb1, B, DB1, L, 1, P[DB_B1],
+                   nullptr);
+        first.prod(Mat{w.z, L, 1}, Mat{P[DC_W1], DC, 1}, w.rc, B, DC, L, 1, P[DC_B1], nullptr);
+        CHECK(first.launch(st));
+        Group second;
+        second.prod(Mat{w.ra, DA, 1}, Mat{P[DA_W2], A, 1}, w.scratch, B, A, DA, BIG, nullptr,
+                    &sp);
+        second.prod(Mat{w.rb1, DB1, 1}, Mat{P[DB_W2], DB2, 1}, w.scratch_b, B, DB2, DB1, BIG,
+                    nullptr, &sp_b);
+        second.prod(Mat{w.rc, DC, 1}, Mat{P[DC_W2], S, 1}, w.scratch_c, B, S, DC, BIG, nullptr,
+                    &sp_c);
+        CHECK(second.launch(st));
+    }
     mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, A, P[DA_B2], a, w.drecon,
                                                 w.part_mse);
     LAUNCHED();
-    CHECK(linear_relu(w.z, L, P[DB_W1], P[DB_B1], d.db1, B, w.rb1, w, st));
-    CHECK(linear_relu(w.rb1, d.db1, P[DB_W2], P[DB_B2], d.db2, B, w.rb2, w, st));
-    CHECK(gemm(Mat{w.rb2, d.db2, 1}, Mat{P[DB_W3], Bd, 1}, w.scratch, B, Bd, d.db2, BIG, st,
-               &sp));
+    epilogue_kernel<<<blocks((size_t)B * DB2), THREADS, 0, st>>>(w.scratch_b, sp_b, B, DB2,
+                                                                 P[DB_B2], nullptr, w.rb2,
+                                                                 EPI_BIAS_RELU);
+    LAUNCHED();
+    ce_kernel<<<blocks(B, WARPS), THREADS, 0, st>>>(w.scratch_c, sp_c, B, S, P[DC_B2], site, cw,
+                                                    gamma, ea, w.dlogits_c, w.ce_rows);
+    LAUNCHED();
+    CHECK(gemm(Mat{w.rb2, DB2, 1}, Mat{P[DB_W3], Bd, 1}, w.scratch, B, Bd, DB2, BIG, st, &sp));
     logits_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, Bd, P[DB_B3], b, w.dlogits_b,
                                                    w.part_bce);
     LAUNCHED();
-    CHECK(linear_relu(w.z, L, P[DC_W1], P[DC_B1], d.dc, B, w.rc, w, st));
-    CHECK(gemm(Mat{w.rc, d.dc, 1}, Mat{P[DC_W2], S, 1}, w.scratch, B, S, d.dc, BIG, st, &sp));
-    ce_kernel<<<blocks(B, WARPS), THREADS, 0, st>>>(w.scratch, sp, B, S, P[DC_B2], site, cw,
-                                                    gamma, w.dlogits_c, w.ce_rows);
-    LAUNCHED();
     loss_finish4_kernel<<<1, THREADS, 0, st>>>(w.part_mse, w.part_bce, LOSS_BLOCKS, w.ce_rows, B,
-                                              w.mu, w.lv, B * L, beta, gamma, loss);
+                                              w.mu, w.lv, B * L, beta, gamma, ea, loss);
     LAUNCHED();
 
-    // ---- backward: the decoders ----
-    CHECK(linear_backward(w.ra, d.da, w.drecon, A, P[DA_W2], B, G[DA_W2], G[DA_B2], w.ra, w.dua,
-                          w, st));
-    CHECK(linear_backward(w.z, L, w.dua, d.da, nullptr, B, G[DA_W1], G[DA_B1], nullptr, nullptr,
-                          w, st));
-    CHECK(linear_backward(w.rb2, d.db2, w.dlogits_b, Bd, P[DB_W3], B, G[DB_W3], G[DB_B3], w.rb2,
-                          w.dub2, w, st));
-    CHECK(linear_backward(w.rb1, d.db1, w.dub2, d.db2, P[DB_W2], B, G[DB_W2], G[DB_B2], w.rb1,
-                          w.dub1, w, st));
-    CHECK(linear_backward(w.z, L, w.dub1, d.db1, nullptr, B, G[DB_W1], G[DB_B1], nullptr,
-                          nullptr, w, st));
-    CHECK(linear_backward(w.rc, d.dc, w.dlogits_c, S, P[DC_W2], B, G[DC_W2], G[DC_B2], w.rc,
-                          w.duc, w, st));
-    CHECK(linear_backward(w.z, L, w.duc, d.dc, nullptr, B, G[DC_W1], G[DC_B1], nullptr, nullptr,
-                          w, st));
+    // ---- backward: the decoders' output layers, then DecoderB's middle one ----
+    {
+        Group out;  // dW = act^T . dy, db = column sums of dy, dx = dy . W^T (split)
+        out.prod(Mat{w.ra, 1, DA}, Mat{w.drecon, A, 1}, G[DA_W2], DA, A, B, 1, nullptr, nullptr);
+        out.prod(Mat{w.drecon, A, 1}, Mat{P[DA_W2], 1, A}, w.scratch, B, DA, A, BIG, nullptr,
+                 &sp);
+        out.prod(Mat{w.rb2, 1, DB2}, Mat{w.dlogits_b, Bd, 1}, G[DB_W3], DB2, Bd, B, 1, nullptr,
+                 nullptr);
+        out.prod(Mat{w.dlogits_b, Bd, 1}, Mat{P[DB_W3], 1, Bd}, w.scratch_b, B, DB2, Bd, BIG,
+                 nullptr, &sp_b);
+        out.prod(Mat{w.rc, 1, DC}, Mat{w.dlogits_c, S, 1}, G[DC_W2], DC, S, B, 1, nullptr,
+                 nullptr);
+        out.prod(Mat{w.dlogits_c, S, 1}, Mat{P[DC_W2], 1, S}, w.scratch_c, B, DC, S, BIG,
+                 nullptr, &sp_c);
+        out.colsum(w.drecon, B, A, G[DA_B2]);
+        out.colsum(w.dlogits_b, B, Bd, G[DB_B3]);
+        out.colsum(w.dlogits_c, B, S, G[DC_B2]);
+        CHECK(out.launch(st));
+        ReluMasks masks;
+        masks.add(w.scratch, sp, B, DA, w.ra, w.dua);
+        masks.add(w.scratch_b, sp_b, B, DB2, w.rb2, w.dub2);
+        masks.add(w.scratch_c, sp_c, B, DC, w.rc, w.duc);
+        CHECK(masks.launch(st));
+        Group mid;
+        mid.prod(Mat{w.rb1, 1, DB1}, Mat{w.dub2, DB2, 1}, G[DB_W2], DB1, DB2, B, 1, nullptr,
+                 nullptr);
+        mid.prod(Mat{w.dub2, DB2, 1}, Mat{P[DB_W2], 1, DB2}, w.scratch, B, DB1, DB2, BIG,
+                 nullptr, &sp);
+        mid.colsum(w.dub2, B, DB2, G[DB_B2]);
+        CHECK(mid.launch(st));
+    }
+    epilogue_kernel<<<blocks((size_t)B * DB1), THREADS, 0, st>>>(w.scratch, sp, B, DB1, nullptr,
+                                                                 w.rb1, w.dub1, EPI_RELU_MASK);
+    LAUNCHED();
+    {
+        Group first;  // the decoders' first layers: z^T . du and the column sums of du
+        first.prod(Mat{w.z, 1, L}, Mat{w.dua, DA, 1}, G[DA_W1], L, DA, B, 1, nullptr, nullptr);
+        first.prod(Mat{w.z, 1, L}, Mat{w.dub1, DB1, 1}, G[DB_W1], L, DB1, B, 1, nullptr,
+                   nullptr);
+        first.prod(Mat{w.z, 1, L}, Mat{w.duc, DC, 1}, G[DC_W1], L, DC, B, 1, nullptr, nullptr);
+        first.colsum(w.dua, B, DA, G[DA_B1]);
+        first.colsum(w.dub1, B, DB1, G[DB_B1]);
+        first.colsum(w.duc, B, DC, G[DC_B1]);
+        CHECK(first.launch(st));
+    }
 
     // ---- backward: posterior, the three heads, the site embedding ----
     posterior3_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.dua, P[DA_W1], d.da, w.dub1, P[DB_W1], d.db1, w.duc, P[DC_W1], d.dc, B, L, w.mu, w.lv,
-        w.epsv, w.sigma, beta, w.dmh, w.dlh);
+        w.dua, P[DA_W1], DA, w.dub1, P[DB_W1], DB1, w.duc, P[DC_W1], DC, B, L, w.mu, w.lv,
+        w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
     LAUNCHED();
     const HeadGrads ac = {G[A_WMU], G[A_BMU], G[A_WLV], G[A_BLV],
                           G[C_WMU], G[C_BMU], G[C_WLV], G[C_BLV]};
@@ -1380,19 +1620,67 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
         w.dmh, w.dlh, P[A_WMU], P[A_WLV], nullptr, 0, w.dca, w.xa, w.inva, P[A_G], B, HA, L,
         w.daa, G[A_G], G[A_BT], G[A_B1]);
     LAUNCHED();
-    CHECK(gemm(Mat{a, 1, A}, Mat{w.daa, HA, 1}, G[A_W1], A, HA, B, 1, st, nullptr));
     bn_backward_kernel<true><<<blocks(H2, WARPS), THREADS, 0, st>>>(
         w.dmh, w.dlh, P[B_WMU], P[B_WLV], nullptr, 0, w.dcb2, w.xb2, w.invb2, P[B_G2], B, H2, L,
         w.dba2, G[B_G2], G[B_BT2], G[B_B2]);
     LAUNCHED();
-    CHECK(gemm(Mat{w.bd1, 1, H1}, Mat{w.dba2, H2, 1}, G[B_W2], H1, H2, B, 1, st, nullptr));
-    CHECK(gemm(Mat{w.dba2, H2, 1}, Mat{P[B_W2], 1, H2}, w.scratch, B, H1, H2, BIG, st, &sp));
+    {
+        Group enc;
+        enc.prod(Mat{a, 1, A}, Mat{w.daa, HA, 1}, G[A_W1], A, HA, B, 1, nullptr, nullptr);
+        enc.prod(Mat{w.bd1, 1, H1}, Mat{w.dba2, H2, 1}, G[B_W2], H1, H2, B, 1, nullptr, nullptr);
+        enc.prod(Mat{w.dba2, H2, 1}, Mat{P[B_W2], 1, H2}, w.scratch, B, H1, H2, BIG, nullptr,
+                 &sp);
+        CHECK(enc.launch(st));
+    }
     bn_backward_kernel<false><<<blocks(H1, WARPS), THREADS, 0, st>>>(
         nullptr, nullptr, nullptr, nullptr, w.scratch, sp, w.dcb1, w.xb1, w.invb1, P[B_G1], B,
         H1, 0, w.dba1, G[B_G1], G[B_BT1], G[B_B1]);
     LAUNCHED();
     CHECK(gemm(Mat{b, 1, Bd}, Mat{w.dba1, H1, 1}, G[B_W1], Bd, H1, B, 1, st, nullptr));
     return 0;
+}
+
+// The epoch's launches on ``st``: for each step i, step_phases on rows
+// [i * B, (i + 1) * B) with Philox step index i, then AdamW with step i's
+// bias corrections; seed, beta, gamma, lr and wd come from ``ea``.
+int epoch_phases(const float* a_ep, const float* b_ep, const int64_t* site_ep, const float* cw,
+                 float* params, float* m, float* v, const Dims& d, int batch, int n_batches,
+                 float* bn, const float* eps_ep, const float* dropa_ep, const float* dropb1_ep,
+                 const float* dropb2_ep, int noise, const EpochArgs* ea, float* losses,
+                 const Work& w, cudaStream_t st) {
+    long long off[N_PARAMS];
+    const long long n_params = param_offsets(d, off);
+    const bool inj = noise == NOISE_INJECTED;
+    for (int i = 0; i < n_batches; ++i) {
+        const size_t r0 = (size_t)i * batch;
+        CHECK(step_phases(a_ep + r0 * d.a, b_ep + r0 * d.b, site_ep + r0, cw, params, d, batch, bn,
+                          bn, inj ? eps_ep + r0 * d.latent : nullptr,
+                          inj ? dropa_ep + r0 * d.ha : nullptr,
+                          inj ? dropb1_ep + r0 * d.hb1 : nullptr,
+                          inj ? dropb2_ep + r0 * d.hb2 : nullptr, noise, 0, i, 0.f, 0.f, ea,
+                          losses + i, w.grads, w, st));
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
+            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
+        LAUNCHED();
+    }
+    return 0;
+}
+
+// A captured epoch: its graph, the stream it replays on and the two events
+// that order it after the caller's stream and the caller after it.
+struct EpochGraph {
+    cudaStream_t stream = nullptr;
+    cudaEvent_t ready = nullptr, done = nullptr;
+    cudaGraphExec_t exec = nullptr;
+};
+
+void free_graph(EpochGraph* g) {
+    if (g->stream) cudaStreamSynchronize(g->stream);
+    if (g->exec) cudaGraphExecDestroy(g->exec);
+    if (g->ready) cudaEventDestroy(g->ready);
+    if (g->done) cudaEventDestroy(g->done);
+    if (g->stream) cudaStreamDestroy(g->stream);
+    delete g;
 }
 
 bool noise_ok(int noise, const float* eps, const float* da, const float* db1, const float* db2) {
@@ -1469,8 +1757,8 @@ int rna2dna_train_epoch(const float* x_ep, const float* t_ep, const int64_t* sit
         const double t_step = (double)(step0 + i + 1);
         const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
         const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(params, m, v, w.grads,
-                                                                    n_params, lr, wd, bc1, bc2);
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
+            params, m, v, w.grads, n_params, lr, wd, bc1, bc2, nullptr, 0);
         LAUNCHED();
     }
     return 0;
@@ -1557,8 +1845,8 @@ int dna2rna_train_epoch(const float* x_ep, const float* t_ep, const int64_t* sit
         const double t_step = (double)(step0 + i + 1);
         const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
         const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(params, m, v, w.grads,
-                                                                    n_params, lr, wd, bc1, bc2);
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
+            params, m, v, w.grads, n_params, lr, wd, bc1, bc2, nullptr, 0);
         LAUNCHED();
     }
     return 0;
@@ -1614,47 +1902,83 @@ int multimodal_train_step(const float* a, const float* b, const int64_t* site, c
     }
     const mm::Work w = mm::plan(work, d, batch, false);
     return mm::step_phases(a, b, site, cw, params, d, batch, bn_in, bn_out, eps_in, dropa_in,
-                           dropb1_in, dropb2_in, noise, (uint64_t)seed, step, beta, gamma, loss,
-                           grads, w, (cudaStream_t)stream);
+                           dropb1_in, dropb2_in, noise, (uint64_t)seed, step, beta, gamma,
+                           nullptr, loss, grads, w, (cudaStream_t)stream);
 }
 
-// One tri-modal epoch of n_batches steps on a_ep (n_batches * B, in_a),
-// b_ep, site_ep, the injected noise (eps_ep, dropa_ep, dropb1_ep, dropb2_ep)
-// when noise == 0, updating params, m, v (flat buffers) and bn (as the
-// step's) in place; losses (n_batches,). Step i draws its noise with step
-// index i and applies AdamW with bias correction at step0 + i + 1.
-int multimodal_train_epoch(const float* a_ep, const float* b_ep, const int64_t* site_ep,
-                           const float* cw, float* params, float* m, float* v, const int* dims,
-                           int batch, int n_batches, float* bn, const float* eps_ep,
-                           const float* dropa_ep, const float* dropb1_ep, const float* dropb2_ep,
-                           int noise, unsigned long long seed, float beta, float gamma, float lr,
-                           float wd, long long step0, float* losses, float* work, void* stream) {
+// Floats of the epoch-args buffer of an epoch of n_batches steps: struct
+// EpochArgs (seed as two floats' worth of bytes, beta, gamma, lr, wd), then
+// (bc1, bc2) of each step.
+int multimodal_epoch_args_floats(int n_batches) {
+    return (int)(sizeof(EpochArgs) / sizeof(float)) + 2 * n_batches;
+}
+
+// Capture one tri-modal epoch of n_batches steps into a CUDA graph and
+// instantiate it: the rows a_ep (n_batches * B, in_a), b_ep, site_ep, the
+// injected noise (eps_ep, dropa_ep, dropb1_ep, dropb2_ep) when noise == 0,
+// cw (or null), params, m, v (flat buffers), bn (as the step's), losses
+// (n_batches,), work (multimodal_train_workspace_floats(dims, B, 1)) and
+// args (multimodal_epoch_args_floats(n_batches) floats: the seed, beta,
+// gamma, lr, wd and each step's bias corrections, read when the graph runs)
+// are baked in by address: each launch of the graph runs the epoch on what
+// these buffers hold then, updating params, m, v and bn in place. Step i
+// draws its noise with step index i. The capture runs on a non-blocking
+// stream of its own, so the caller's stream may be the legacy default one.
+// Returns a handle for multimodal_epoch_graph_launch, or null with *err set.
+void* multimodal_epoch_graph_create(const float* a_ep, const float* b_ep, const int64_t* site_ep,
+                                    const float* cw, float* params, float* m, float* v,
+                                    const int* dims, int batch, int n_batches, float* bn,
+                                    const float* eps_ep, const float* dropa_ep,
+                                    const float* dropb1_ep, const float* dropb2_ep, int noise,
+                                    const float* args, float* losses, float* work, int* err) {
     const mm::Dims d = mm::from(dims);
-    if (!mm::valid(d, batch) || n_batches < 1 ||
+    *err = 0;
+    if (!mm::valid(d, batch) || n_batches < 1 || !args ||
         !mm::noise_ok(noise, eps_ep, dropa_ep, dropb1_ep, dropb2_ep)) {
-        return (int)cudaErrorInvalidValue;
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
     }
-    cudaStream_t st = (cudaStream_t)stream;
+    auto* g = new mm::EpochGraph;
+    auto fail = [&](int e) -> void* {
+        *err = e;
+        mm::free_graph(g);
+        return nullptr;
+    };
+    int e = (int)cudaStreamCreateWithFlags(&g->stream, cudaStreamNonBlocking);
+    if (!e) e = (int)cudaEventCreateWithFlags(&g->ready, cudaEventDisableTiming);
+    if (!e) e = (int)cudaEventCreateWithFlags(&g->done, cudaEventDisableTiming);
+    if (!e) e = (int)cudaStreamBeginCapture(g->stream, cudaStreamCaptureModeThreadLocal);
+    if (e) return fail(e);
     const mm::Work w = mm::plan(work, d, batch, true);
-    long long off[mm::N_PARAMS];
-    const long long n_params = mm::param_offsets(d, off);
-    const bool inj = noise == NOISE_INJECTED;
-    for (int i = 0; i < n_batches; ++i) {
-        const size_t r0 = (size_t)i * batch;
-        CHECK(mm::step_phases(a_ep + r0 * d.a, b_ep + r0 * d.b, site_ep + r0, cw, params, d,
-                              batch, bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
-                              inj ? dropa_ep + r0 * d.ha : nullptr,
-                              inj ? dropb1_ep + r0 * d.hb1 : nullptr,
-                              inj ? dropb2_ep + r0 * d.hb2 : nullptr, noise, (uint64_t)seed, i,
-                              beta, gamma, losses + i, w.grads, w, st));
-        const double t_step = (double)(step0 + i + 1);
-        const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
-        const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(params, m, v, w.grads,
-                                                                    n_params, lr, wd, bc1, bc2);
-        LAUNCHED();
-    }
+    const int enq = mm::epoch_phases(a_ep, b_ep, site_ep, cw, params, m, v, d, batch, n_batches,
+                                     bn, eps_ep, dropa_ep, dropb1_ep, dropb2_ep, noise,
+                                     reinterpret_cast<const EpochArgs*>(args), losses, w,
+                                     g->stream);
+    cudaGraph_t graph = nullptr;
+    const int ended = (int)cudaStreamEndCapture(g->stream, &graph);
+    e = enq ? enq : ended;
+    if (!e) e = (int)cudaGraphInstantiate(&g->exec, graph, 0);
+    if (graph) cudaGraphDestroy(graph);
+    if (e) return fail(e);
+    return g;
+}
+
+// Replay a captured epoch: after what the caller's stream has queued, and
+// before what it queues next.
+int multimodal_epoch_graph_launch(void* handle, void* stream) {
+    auto* g = static_cast<mm::EpochGraph*>(handle);
+    cudaStream_t caller = (cudaStream_t)stream;
+    CHECK(cudaEventRecord(g->ready, caller));
+    CHECK(cudaStreamWaitEvent(g->stream, g->ready, 0));
+    CHECK(cudaGraphLaunch(g->exec, g->stream));
+    CHECK(cudaEventRecord(g->done, g->stream));
+    CHECK(cudaStreamWaitEvent(caller, g->done, 0));
     return 0;
+}
+
+// Free a captured epoch, after its last launch has run.
+void multimodal_epoch_graph_destroy(void* handle) {
+    if (handle) mm::free_graph(static_cast<mm::EpochGraph*>(handle));
 }
 
 // The dropout masks (B, ha), (B, hb1), (B, hb2) and eps (B, latent) that a

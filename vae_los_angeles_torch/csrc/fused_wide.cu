@@ -17,8 +17,27 @@
 // rate of 67 TFLOP/s (the products are this kernel's own FMA loops, not the
 // tensor cores).
 //
-// Design: three launches on the caller's stream, no atomics, so the same
-// inputs give the same bits.
+// Two designs, by the batch; neither uses atomics, so the same inputs give
+// the same bits.
+//
+// One sweep (n <= 32 rows and d_in <= 512, the training batch of the wide
+// path): W is read from device memory once. The three-launch design below
+// reads it three times (twice in its sweep, once more for dh) and writes and
+// re-reads an n x D dy scratch, ~7.5 GB a step at B = 32. wide_one_sweep_kernel runs one
+// persistent block of 512 threads on each of up to 132 SMs, each with a fixed
+// range of 32-column tiles (so the order of every sum is fixed). h stays in
+// shared memory for the whole sweep; each tile's W slice (d_in x 32) and
+// target slice are copied into shared memory with cp.async, two buffers
+// deep, the next tile's copy in flight while the current one computes. From
+// that one copy of the pre-update W the block forms the logits, dy and the
+// BCE partial, db and its AdamW, dW = h^T dy and the AdamW of W with m and v
+// streamed once, and its share of dh = dy W^T, accumulated over its tiles in
+// registers (32 x 512 fp32 over 512 threads: 32 a thread). Each block then
+// writes its dh partial and wide_reduce_kernel adds the partials and the
+// loss partials in a fixed order: two launches. The logits, dy, db and dW are
+// summed in the three-launch design's order, so they give its bits.
+//
+// Three launches (more rows, where dh does not fit in registers):
 //   1. wide_sweep_kernel: one block per 64-column tile. Phase 1 computes the
 //      tile's logits for all rows (h and W staged through shared memory in
 //      chunks of 32 along d_in, a 4 x 4 register tile per thread), the BCE
@@ -44,6 +63,13 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int SWEEP_THREADS = 512;   // the one-sweep kernel: 16 warps
+constexpr int SWEEP_BLOCKS = 132;    // one a SM of an H100 (fixed: the same bits on any card)
+constexpr int SWEEP_ROWS = 32;       // rows the one-sweep kernel takes (h and dh padded to them)
+constexpr int SWEEP_MAX_K = 512;     // d_in it takes: a warp holds dh of one 32-wide chunk
+constexpr int CT = 32;               // columns of a one-sweep tile
+constexpr int WLD = CT + 1;          // row stride of a W tile in shared memory (no bank conflicts)
+constexpr int DYT_LD = SWEEP_ROWS + 4;  // row stride of dy^T (16-byte rows, 4-way stores)
 constexpr int TC = 64;        // columns of W a sweep block owns
 constexpr int RB = 64;        // rows of the logits tile
 constexpr int KC = 32;        // d_in chunk of the logits product
@@ -279,6 +305,235 @@ wide_reduce_kernel(const float* __restrict__ partial, int P, long long nk,
     dh[idx] = s;
 }
 
+// cp.async of one float into shared memory; zeros where !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+    return v;
+}
+
+// Shared memory of the one-sweep kernel, in floats: h [32][K4] | W tiles
+// [2][K4][WLD] | target tiles [2][32][32] | dy [32 rows][32 cols] | dy^T
+// [32 cols][DYT_LD] | the warps' loss sums [16].
+__host__ __device__ inline size_t one_sweep_floats(int K4) {
+    return (size_t)SWEEP_ROWS * K4 + 2 * (size_t)K4 * WLD + 3 * SWEEP_ROWS * CT +
+           CT * DYT_LD + SWEEP_THREADS / 32;
+}
+
+// Copy tile ``c0`` (W rows 0..K4, columns c0..c0+31, and the target rows)
+// into one buffer.
+__device__ __forceinline__ void copy_tile(const float* __restrict__ w,
+                                          const float* __restrict__ t, int n, int K, int K4,
+                                          long long D, long long c0, float* ws, float* ts) {
+    for (int e = threadIdx.x; e < K4 * CT; e += SWEEP_THREADS) {
+        const int k = e / CT, c = e % CT;
+        const bool ok = k < K && c0 + c < D;
+        cp_async4(ws + k * WLD + c, ok ? w + (size_t)k * D + c0 + c : w, ok);
+    }
+    for (int e = threadIdx.x; e < SWEEP_ROWS * CT; e += SWEEP_THREADS) {
+        const int r = e / CT, c = e % CT;
+        const bool ok = r < n && c0 + c < D;
+        cp_async4(ts + e, ok ? t + (size_t)r * D + c0 + c : t, ok);
+    }
+    cp_async_commit();
+}
+
+// The one-sweep step (file note). Block g owns tiles [g T / G, (g + 1) T / G)
+// of the T = ceil(D / 32) column tiles; it writes partial[g] (n x K), its
+// share of dh, and loss_part[g], the BCE sum of its tiles.
+__global__ void __launch_bounds__(SWEEP_THREADS, 1)
+wide_one_sweep_kernel(const float* __restrict__ h, const float* __restrict__ t,
+                      const float* __restrict__ w, const float* __restrict__ b,
+                      const float* __restrict__ mw, const float* __restrict__ vw,
+                      const float* __restrict__ mb, const float* __restrict__ vb,
+                      const float* __restrict__ scal, int n, int K, long long D,
+                      float* __restrict__ nw, float* __restrict__ nb, float* __restrict__ nmw,
+                      float* __restrict__ nvw, float* __restrict__ nmb, float* __restrict__ nvb,
+                      float* __restrict__ partial, float* __restrict__ loss_part) {
+    extern __shared__ __align__(16) float smem[];
+    const int K4 = (K + 3) & ~3;
+    float* hs = smem;                              // [32][K4]
+    float* wbuf = hs + SWEEP_ROWS * K4;            // [2][K4][WLD]
+    float* tbuf = wbuf + 2 * (size_t)K4 * WLD;     // [2][32][32]
+    float* dys = tbuf + 2 * SWEEP_ROWS * CT;       // [r][c]
+    float* dyt = dys + SWEEP_ROWS * CT;            // [c][DYT_LD]
+    float* red = dyt + CT * DYT_LD;                // [16]
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const long long T = (D + CT - 1) / CT;
+    const long long lo = (long long)blockIdx.x * T / gridDim.x;
+    const long long hi = (long long)(blockIdx.x + 1) * T / gridDim.x;
+    const float bc1 = scal[0], bc2 = scal[1], lr = scal[2], decay = scal[3];
+    const int kc = warp * 32;  // the 32-wide chunk of d_in this warp's dW and dh cover
+    const bool has_chunk = kc < K4;
+
+    for (int e = tid; e < SWEEP_ROWS * K4; e += SWEEP_THREADS) {
+        const int r = e / K4, k = e % K4;
+        hs[e] = (r < n && k < K) ? h[(size_t)r * K + k] : 0.f;
+    }
+    copy_tile(w, t, n, K, K4, D, lo * CT, wbuf, tbuf);
+
+    float dh[SWEEP_ROWS];
+#pragma unroll
+    for (int r = 0; r < SWEEP_ROWS; ++r) dh[r] = 0.f;
+    float loss = 0.f;
+
+    for (long long tile = lo; tile < hi; ++tile) {
+        const int buf = (int)((tile - lo) & 1);
+        const float* ws = wbuf + (size_t)buf * K4 * WLD;
+        const float* ts = tbuf + buf * SWEEP_ROWS * CT;
+        const long long c0 = tile * CT;
+        cp_async_wait_all();
+        __syncthreads();  // this tile is in; every thread is done with the other buffer
+        if (tile + 1 < hi)
+            copy_tile(w, t, n, K, K4, D, c0 + CT, wbuf + (size_t)(buf ^ 1) * K4 * WLD,
+                      tbuf + (buf ^ 1) * SWEEP_ROWS * CT);
+
+        // logits of rows 2 warp, 2 warp + 1 at column c0 + lane, k in order
+        {
+            const int r0 = 2 * warp;
+            float acc0 = 0.f, acc1 = 0.f;
+            for (int k = 0; k < K4; k += 4) {
+                const float4 h0 = *reinterpret_cast<const float4*>(hs + r0 * K4 + k);
+                const float4 h1 = *reinterpret_cast<const float4*>(hs + (r0 + 1) * K4 + k);
+                const float w0 = ws[k * WLD + lane], w1 = ws[(k + 1) * WLD + lane];
+                const float w2 = ws[(k + 2) * WLD + lane], w3 = ws[(k + 3) * WLD + lane];
+                acc0 = fmaf(h0.x, w0, acc0);
+                acc1 = fmaf(h1.x, w0, acc1);
+                acc0 = fmaf(h0.y, w1, acc0);
+                acc1 = fmaf(h1.y, w1, acc1);
+                acc0 = fmaf(h0.z, w2, acc0);
+                acc1 = fmaf(h1.z, w2, acc1);
+                acc0 = fmaf(h0.w, w3, acc0);
+                acc1 = fmaf(h1.w, w3, acc1);
+            }
+            const long long gc = c0 + lane;
+            const float accs[2] = {acc0, acc1};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const int r = r0 + i;
+                float d = 0.f;
+                if (r < n && gc < D) {
+                    const float l = accs[i] + b[gc];
+                    const float tv = ts[r * CT + lane];
+                    loss += bce_term(l, tv);
+                    d = 1.f / (1.f + expf(-l)) - tv;
+                }
+                dys[r * CT + lane] = d;
+                dyt[lane * DYT_LD + r] = d;
+            }
+        }
+        __syncthreads();
+
+        // db and its AdamW: warp 0, a lane a column, rows in order
+        if (warp == 0 && c0 + lane < D) {
+            const long long gc = c0 + lane;
+            float g = 0.f;
+            for (int r = 0; r < n; ++r) g += dys[r * CT + lane];
+            float p = b[gc], m = mb[gc], v = vb[gc];
+            adamw(p, m, v, g, bc1, bc2, lr, decay);
+            nb[gc] = p;
+            nmb[gc] = m;
+            nvb[gc] = v;
+        }
+        if (!has_chunk) continue;
+
+        // dW of rows kc..kc+31 of d_in at column c0 + lane (rows of the batch
+        // in order), then their AdamW from the pre-update W in shared memory
+        if (c0 + lane < D) {
+            float acc[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+            for (int r = 0; r < SWEEP_ROWS; ++r) {
+                const float dv = dys[r * CT + lane];
+                const float* hrow = hs + r * K4 + kc;
+#pragma unroll
+                for (int q = 0; q < 8; ++q) {
+                    const float4 hv = *reinterpret_cast<const float4*>(hrow + 4 * q);
+                    acc[4 * q] = fmaf(hv.x, dv, acc[4 * q]);
+                    acc[4 * q + 1] = fmaf(hv.y, dv, acc[4 * q + 1]);
+                    acc[4 * q + 2] = fmaf(hv.z, dv, acc[4 * q + 2]);
+                    acc[4 * q + 3] = fmaf(hv.w, dv, acc[4 * q + 3]);
+                }
+            }
+            const long long gc = c0 + lane;
+#pragma unroll
+            for (int q = 0; q < 32; q += 8) {
+                float m[8], v[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {  // eight loads in flight before their use
+                    const int k = kc + q + i;
+                    const size_t idx = (size_t)(k < K ? k : 0) * D + gc;
+                    m[i] = mw[idx];
+                    v[i] = vw[idx];
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int k = kc + q + i;
+                    if (k < K) {
+                        const size_t idx = (size_t)k * D + gc;
+                        float p = ws[k * WLD + lane];
+                        adamw(p, m[i], v[i], acc[q + i], bc1, bc2, lr, decay);
+                        nw[idx] = p;
+                        nmw[idx] = m[i];
+                        nvw[idx] = v[i];
+                    }
+                }
+            }
+        }
+
+        // dh[r][kc + lane] += the tile's columns c of dy[r][c] W[kc + lane][c]
+        const float* wrow = ws + (kc + lane) * WLD;
+        for (int c = 0; c < CT; ++c) {
+            const float wv = wrow[c];
+            const float* dcol = dyt + c * DYT_LD;
+#pragma unroll
+            for (int q = 0; q < SWEEP_ROWS / 4; ++q) {
+                const float4 dv = *reinterpret_cast<const float4*>(dcol + 4 * q);
+                dh[4 * q] = fmaf(dv.x, wv, dh[4 * q]);
+                dh[4 * q + 1] = fmaf(dv.y, wv, dh[4 * q + 1]);
+                dh[4 * q + 2] = fmaf(dv.z, wv, dh[4 * q + 2]);
+                dh[4 * q + 3] = fmaf(dv.w, wv, dh[4 * q + 3]);
+            }
+        }
+    }
+
+    // the block's dh partial and its loss: warp sums, then the 16 in order
+    if (has_chunk && kc + lane < K) {
+        float* out = partial + (size_t)blockIdx.x * n * K + kc + lane;
+#pragma unroll
+        for (int r = 0; r < SWEEP_ROWS; ++r)
+            if (r < n) out[(size_t)r * K] = dh[r];
+    }
+    loss = warp_sum(loss);
+    if (lane == 0) red[warp] = loss;
+    __syncthreads();
+    if (tid == 0) {
+        float s = 0.f;
+        for (int i = 0; i < SWEEP_THREADS / 32; ++i) s += red[i];
+        loss_part[blockIdx.x] = s;
+    }
+}
+
+bool one_sweep(int n, int K) { return n <= SWEEP_ROWS && K <= SWEEP_MAX_K; }
+
+int one_sweep_blocks(long long D) {
+    const long long tiles = (D + CT - 1) / CT;
+    return (int)(tiles < SWEEP_BLOCKS ? tiles : SWEEP_BLOCKS);
+}
+
 struct Plan {
     int sweep_blocks, k_tiles, r_tiles, P;
     long long chunk, dy_floats, partial_floats;
@@ -318,12 +573,17 @@ int fused_wide_max_rows() {
     return (int)((232448 - rest) / (sizeof(float) * TC)) / RB * RB;
 }
 
-// Floats of device workspace one call needs: dy (n x D), the dh partials,
+// Floats of device workspace one call needs: in one sweep, a dh partial
+// (n x K) and a loss partial per block; else dy (n x D), the dh partials,
 // and one loss partial per sweep block.
 long long fused_wide_workspace_floats(int n, int K, long long D) {
+    if (one_sweep(n, K)) return (long long)one_sweep_blocks(D) * ((long long)n * K + 1);
     const Plan p = plan(n, K, D);
     return p.dy_floats + p.partial_floats + p.sweep_blocks;
 }
+
+// Launches one call makes: 2 in one sweep, else 3.
+int fused_wide_launches(int n, int K) { return one_sweep(n, K) ? 2 : 3; }
 
 // h: n x K; t: n x D; w, mw, vw: K x D; b, mb, vb: D; scal: 4 floats on the
 // device (bc1, bc2, lr, 1 - lr * wd). Outputs: nw, nmw, nvw (K x D), nb,
@@ -335,8 +595,27 @@ int fused_wide_output_step(const float* h, const float* t, const float* w, const
                            float* nmw, float* nvw, float* nmb, float* nvb, float* dh, float* loss,
                            float* work, void* stream) {
     if (n < 1 || K < 1 || D < 1 || n > fused_wide_max_rows()) return (int)cudaErrorInvalidValue;
-    const Plan p = plan(n, K, D);
     cudaStream_t st = (cudaStream_t)stream;
+    const long long nk = (long long)n * K;
+    if (one_sweep(n, K)) {
+        const int G = one_sweep_blocks(D);
+        const size_t bytes = sizeof(float) * one_sweep_floats((K + 3) & ~3);
+        float* partial = work;
+        float* loss_part = partial + (size_t)G * nk;
+        cudaError_t err = cudaFuncSetAttribute(wide_one_sweep_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)bytes);
+        if (err != cudaSuccess) return (int)err;
+        wide_one_sweep_kernel<<<G, SWEEP_THREADS, bytes, st>>>(
+            h, t, w, b, mw, vw, mb, vb, scal, n, K, D, nw, nb, nmw, nvw, nmb, nvb, partial,
+            loss_part);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        wide_reduce_kernel<<<(int)((nk + THREADS - 1) / THREADS) + 1, THREADS, 0, st>>>(
+            partial, G, nk, loss_part, G, dh, loss);
+        return (int)cudaGetLastError();
+    }
+    const Plan p = plan(n, K, D);
     float* dy = work;
     float* partial = dy + p.dy_floats;
     float* loss_part = partial + p.partial_floats;
@@ -352,7 +631,6 @@ int fused_wide_output_step(const float* h, const float* t, const float* w, const
         dy, w, n, K, D, p.chunk, partial);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const long long nk = (long long)n * K;
     const int reduce_blocks = (int)((nk + THREADS - 1) / THREADS) + 1;
     wide_reduce_kernel<<<reduce_blocks, THREADS, 0, st>>>(partial, p.P, nk, loss_part,
                                                           p.sweep_blocks, dh, loss);

@@ -9,14 +9,19 @@ callable with the reference's forward signature:
     model = load_multimodal()       # via latest_multivae_run_id.txt
     out_a, out_b, out_c, mu, logvar = model(a=x)   # any subset of a, b, site
 
-At load a directional checkpoint's weights are BN-folded and staged on the
-device once; each call is one launch of the fused kernel
-(``ops.kernels.fused_vae``). The tri-modal model serves through its plain
-eval-mode forward (``models.vae.multimodal_vae_apply``, BatchNorm on its
-running statistics): the JAX loader runs no Pallas kernel there either. The
-loaders run on the card and raise without one, unless the caller asks for
-the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the kernels' plain
-versions serve.
+A directional model routes as the JAX loader does. With ``USE_PALLAS``
+(``cfg.use_pallas``) and fp32 compute its weights are also BN-folded and
+staged on the device once, and a call with an input row is one launch of
+the fused kernel (``ops.kernels.fused_vae``); every other call (no
+``USE_PALLAS``, or site-only imputation, ``rna=None``/``dna=None``) serves
+through the plain eval forward (``models.directional_vae``). A call the
+fused kernel refuses (a DNA width it cannot stage in shared memory) raises;
+it never falls back to the plain forward. The tri-modal model serves through
+its plain eval-mode forward (``models.vae.multimodal_vae_apply``, BatchNorm
+on its running statistics): the JAX loader runs no Pallas kernel there
+either. The loaders run on the card and raise without one, unless the
+caller asks for the CPU (``device="cpu"`` or ``DEVICE=cpu``), where the
+kernels' plain versions serve.
 
 With ``COMPUTE_DTYPE=bfloat16`` (``cfg.compute_dtype``) every model serves
 through its plain eval forward with its 2-D weights cast to bf16 once at
@@ -70,8 +75,10 @@ _PLAIN_APPLY = {"rna": rna2dna_vae_apply, "dna": dna2rna_vae_apply}
 
 class LoadedDirectionalVAE:
     """Callable over one directional VAE's weights: returns (recon, mu,
-    logvar) as numpy arrays, like the reference's forward. One launch of the
-    fused kernel a call, or the plain eval forward with bf16 weights when
+    logvar) as numpy arrays, like the reference's forward. With
+    ``cfg.use_pallas`` and fp32 compute, a call with an input row is one
+    launch of the fused kernel; otherwise (site-only imputation included)
+    the plain eval forward serves, with bf16 weights when
     ``cfg.compute_dtype`` is bfloat16."""
 
     def __init__(self, fused_cls, input_kw: str, params, state, run_id=None, device=None,
@@ -79,30 +86,30 @@ class LoadedDirectionalVAE:
         self._kw = input_kw  # "rna" or "dna"
         self.device = resolve_device(device, cfg)
         self.run_id = run_id
-        self._fused = self._plain = None
-        if cfg is None or resolve_compute_dtype(cfg.compute_dtype) == torch.float32:
-            self._fused = fused_cls(params, state, self.device)
-            self.n_sites = self._fused.n_sites
-            return
-        if cfg.use_pallas:
+        self._fused = None
+        use_pallas = cfg is not None and cfg.use_pallas
+        fp32 = cfg is None or resolve_compute_dtype(cfg.compute_dtype) == torch.float32
+        if use_pallas and not fp32:
             print(f"COMPUTE_DTYPE={cfg.compute_dtype}: serving via the plain path (the CUDA "
                   "kernels are fp32 programs)")
+        elif use_pallas:
+            self._fused = fused_cls(params, state, self.device)
         self._plain = _place(params, state, self.device, cfg)
         self.n_sites = self._plain[0]["encoder_site"]["embedding"]["table"].shape[0]
 
     def __call__(self, site=None, generator: Optional[torch.Generator] = None, **kwargs):
         """``generator`` gives the seed of the sampled z; without one every
-        call uses the same fixed seed, as the JAX loader's fixed key does."""
+        call uses the same fixed seed, as the JAX loader's fixed key does.
+        Without an input row the posterior is the site's alone."""
         x = kwargs.get(self._kw)
-        if x is None:
-            raise ValueError(
-                f"{self._kw}= is required: site-only imputation is not served by the port yet"
-            )
-        x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+        if x is None and site is None:
+            raise ValueError(f"at least one of {self._kw}/site must be provided")
+        if x is not None:
+            x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
         site_t = None
         if site is not None:
             site_t = torch.as_tensor(_check_sites(site, self.n_sites)).to(self.device)
-        if self._fused is not None:
+        if self._fused is not None and x is not None:
             recon, mu, logvar = self._fused(x, site_t, seed=_seed_of(generator))
         else:
             gen = torch.Generator(device=self.device).manual_seed(_seed_of(generator))

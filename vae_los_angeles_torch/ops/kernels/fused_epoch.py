@@ -37,17 +37,29 @@ weight_decay=..., step0=..., n_batches=..., eps_ep=..., dropa_ep=...,
 dropb1_ep=..., dropb2_ep=...)`` does it for a MultiModalVAE: ``a_ep`` the
 epoch's RNA rows and ``b_ep`` its DNA rows (each an input and a target), the
 three dropout masks injected as (n·B, 128), (n·B, 512) and (n·B, 256);
-``multimodal_train_epoch`` on CUDA tensors (39 tensors in each of p, m and
-v, the three BatchNorms' statistics in one buffer),
-`multimodal_epoch_reference` on CPU tensors.
+`multimodal_epoch_reference` on CPU tensors. On CUDA tensors the epoch is a
+CUDA graph (``multimodal_epoch_graph_*`` in the same source): captured once
+for a key (device, widths, batch, n_batches, noise mode, class weights or
+not) with the buffers its launches address (39 tensors in each of p, m and
+v, the three BatchNorms' statistics, the rows, the noise, the class
+weights, the losses, the workspace), cached, and replayed with one graph
+launch an epoch. Each call copies its inputs into those buffers and its
+results out of them, on the card, and the values that change between
+epochs (seed, β, γ, lr, weight decay and each step's bias corrections,
+`epoch_args`) from pinned memory into a small device buffer the graph
+reads. A new key rebuilds the cache; a capture that fails raises, and
+nothing falls back.
 
-``launches`` counts calls of the epoch entries, one an epoch.
+``launches`` counts calls of the epoch entries (a graph launch for the
+tri-modal model), one an epoch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
+import numpy as np
 import torch
 
 from vae_los_angeles_torch.ops import optim
@@ -283,6 +295,76 @@ def multimodal_fused_epoch(params, opt_m, opt_v, bn_state, a_ep, b_ep, site_ep, 
             ft.bn_mm_tree(bn))
 
 
+ADAM_B1, ADAM_B2 = float(np.float32(optim.ADAM_B1)), float(np.float32(optim.ADAM_B2))
+
+
+def epoch_args(seed, beta, gamma, lr, weight_decay, step0, n_batches):
+    """The tri-modal graph's epoch-args buffer, float32 (struct EpochArgs of
+    ``csrc/fused_train.cu``): the seed's 64 bits, β, γ, lr, weight decay,
+    then (bc1, bc2) of steps ``step0 + 1 .. step0 + n_batches``, each
+    ``(float)(1 - pow((double)β_k, t))`` as the directional epochs compute
+    them on the host (Python's float power is the C library's pow)."""
+    out = np.empty(6 + 2 * n_batches, np.float32)
+    out[:2].view(np.int64)[0] = seed
+    out[2:6] = (beta, gamma, lr, weight_decay)
+    steps = range(int(step0) + 1, int(step0) + n_batches + 1)
+    out[6::2] = [1.0 - ADAM_B1 ** float(t) for t in steps]
+    out[7::2] = [1.0 - ADAM_B2 ** float(t) for t in steps]
+    return out
+
+
+class _MMGraph:
+    """A captured tri-modal epoch and the buffers its launches address."""
+
+    def __init__(self, lib, dev, dims_t, batch, n_batches, injected, with_cw):
+        f32 = dict(device=dev, dtype=torch.float32)
+        dims = (ctypes.c_int * 12)(*dims_t)
+        a, b, ha, hb1, hb2, latent, sites = dims_t[:7]
+        rows = batch * n_batches
+        n_params = lib.multimodal_param_count(dims)
+        self.lib, self.n_batches = lib, n_batches
+        self.p, self.m, self.v = (torch.empty(n_params, **f32) for _ in range(3))
+        self.bn = torch.empty(2 * (ha + hb1 + hb2), **f32)
+        self.a, self.b = torch.empty((rows, a), **f32), torch.empty((rows, b), **f32)
+        self.site = torch.empty(rows, device=dev, dtype=torch.int64)
+        self.noise = ([torch.empty((rows, w), **f32) for w in (latent, ha, hb1, hb2)]
+                      if injected else None)
+        self.cw = torch.empty(sites, **f32) if with_cw else None
+        self.losses = torch.empty(n_batches, **f32)
+        self.work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 1), **f32)
+        n_args = lib.multimodal_epoch_args_floats(n_batches)
+        self.args = torch.empty(n_args, **f32)
+        self.host_args = torch.empty(n_args, dtype=torch.float32, pin_memory=True)
+        self.args_copied = torch.cuda.Event()  # the last copy out of host_args
+        self.args_copied.record(torch.cuda.current_stream(dev))
+        noise = tuple(t.data_ptr() for t in self.noise) if injected else (None,) * 4
+        err = ctypes.c_int(0)
+        t0 = time.perf_counter()
+        self.handle = lib.multimodal_epoch_graph_create(
+            self.a.data_ptr(), self.b.data_ptr(), self.site.data_ptr(), ft._ptr(self.cw),
+            self.p.data_ptr(), self.m.data_ptr(), self.v.data_ptr(), dims, batch, n_batches,
+            self.bn.data_ptr(), *noise, ft.NOISE_INJECTED if injected else ft.NOISE_PHILOX,
+            self.args.data_ptr(), self.losses.data_ptr(), self.work.data_ptr(),
+            ctypes.byref(err))
+        self.capture_seconds = time.perf_counter() - t0
+        ft.raise_on(lib, err.value, "multimodal_epoch_graph_create")
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self.lib.multimodal_epoch_graph_destroy(self.handle)
+
+
+_mm_graph = {}  # the one cached graph: {"key": ..., "graph": _MMGraph}
+
+
+def mm_graph(lib, key, *build_args):
+    """The cached graph of ``key``, captured anew when the key changed."""
+    if _mm_graph.get("key") != key:
+        _mm_graph.clear()  # the old graph first: its buffers go with it
+        _mm_graph.update(key=key, graph=_MMGraph(lib, *build_args))
+    return _mm_graph["graph"]
+
+
 def _launch_epoch_mm(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise, use_prng, seed,
                      beta, gamma, lr, wd, step0, n_batches):
     lib = ft.library()
@@ -290,21 +372,30 @@ def _launch_epoch_mm(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise,
     dev = a_ep.device
     batch = a_ep.shape[0] // n_batches
     dims_t = ft.dims_of_mm(flat_p)
-    dims = (ctypes.c_int * 12)(*dims_t)
-    p, m, v = (ft.pack(t, order) for t in (flat_p, flat_m, flat_v))
-    bn_buf = torch.cat(bn)
-    losses = torch.empty(n_batches, device=dev, dtype=torch.float32)
-    work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 1), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    noise_ptrs = (None,) * 4 if use_prng else tuple(t.data_ptr() for t in noise)
     with torch.cuda.device(dev):
-        err = lib.multimodal_train_epoch(
-            a_ep.data_ptr(), b_ep.data_ptr(), site_ep.data_ptr(), ft._ptr(cw), p.data_ptr(),
-            m.data_ptr(), v.data_ptr(), dims, batch, n_batches, bn_buf.data_ptr(), *noise_ptrs,
-            ft.NOISE_PHILOX if use_prng else ft.NOISE_INJECTED, seed, beta, gamma, lr, wd, step0,
-            losses.data_ptr(), work.data_ptr(), stream)
-    ft.raise_on(lib, err, "multimodal_train_epoch")
-    launches["multimodal_train_epoch"] += 1
+        key = (dev, dims_t, batch, n_batches, not use_prng, cw is not None)
+        g = mm_graph(lib, key, dev, dims_t, batch, n_batches, not use_prng, cw is not None)
+        for buf, tree in ((g.p, flat_p), (g.m, flat_m), (g.v, flat_v)):
+            torch.cat([tree[name].reshape(-1) for name, _ in order], out=buf)
+        torch.cat(bn, out=g.bn)
+        g.a.copy_(a_ep)
+        g.b.copy_(b_ep)
+        g.site.copy_(site_ep)
+        if not use_prng:
+            for buf, t in zip(g.noise, noise):
+                buf.copy_(t)
+        if cw is not None:
+            g.cw.copy_(cw)
+        g.args_copied.synchronize()  # the previous epoch's args have left the pinned buffer
+        g.host_args.numpy()[:] = epoch_args(seed, beta, gamma, lr, wd, step0, n_batches)
+        stream = torch.cuda.current_stream(dev)
+        g.args.copy_(g.host_args, non_blocking=True)
+        g.args_copied.record(stream)
+        err = lib.multimodal_epoch_graph_launch(g.handle, stream.cuda_stream)
+        ft.raise_on(lib, err, "multimodal_epoch_graph_launch")
+        launches["multimodal_train_epoch"] += 1
+        # the results leave the graph's buffers: the next epoch overwrites them
+        p, m, v, bn_out = (t.clone() for t in (g.p, g.m, g.v, g.bn))
+        losses = g.losses.clone()
     return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
-            ft.unpack(v, flat_p, order), ft.split_bn_mm(bn_buf, *dims_t[2:5]))
+            ft.unpack(v, flat_p, order), ft.split_bn_mm(bn_out, *dims_t[2:5]))

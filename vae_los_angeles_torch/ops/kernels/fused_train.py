@@ -526,9 +526,15 @@ def library():
     lib.multimodal_train_step.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, f,
                                           p, p, p, p]
     lib.multimodal_train_step.restype = i
-    lib.multimodal_train_epoch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i, u64, f,
-                                           f, f, f, ll, p, p, p]
-    lib.multimodal_train_epoch.restype = i
+    lib.multimodal_epoch_args_floats.argtypes = [i]
+    lib.multimodal_epoch_args_floats.restype = i
+    lib.multimodal_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i,
+                                                  p, p, p, ctypes.POINTER(ctypes.c_int)]
+    lib.multimodal_epoch_graph_create.restype = p
+    lib.multimodal_epoch_graph_launch.argtypes = [p, p]
+    lib.multimodal_epoch_graph_launch.restype = i
+    lib.multimodal_epoch_graph_destroy.argtypes = [p]
+    lib.multimodal_epoch_graph_destroy.restype = None
     lib.multimodal_train_noise.argtypes = [u64, i, i, i, i, i, i, p, p, p, p, p]
     lib.multimodal_train_noise.restype = i
     lib.fused_train_error_string.argtypes = [i]

@@ -12,13 +12,18 @@ new_step, dh, loss_sum)`` with the JAX function's semantics:
   * AdamW in torch order (decay first, bias correction at step + 1), as
     ``ops.optim.adamw_update``; ``new_step`` = step + 1.
 
-  * CUDA tensors: three launches of ``csrc/fused_wide.cu`` (built at first
-    use): the column sweep, the split-over-D dh partials and their
-    fixed-order sum. The new W, m and v are written into tensors the wrapper
-    allocates (as JAX returns new arrays); the inputs are neither copied nor
-    changed, so at 512 x 450,000 a call holds three new 0.92 GB tensors
-    beside the old ones, plus an n x D scratch for dy. A tensor the kernel
-    does not take raises; nothing falls back.
+  * CUDA tensors: ``csrc/fused_wide.cu`` (built at first use). Up to 32
+    rows and d_in up to 512 (the wide path's batch): two launches, one
+    persistent sweep that reads W once and forms dh in it, and the
+    fixed-order sum of the blocks' dh and loss partials. More rows: three
+    launches, the column sweep, the split-over-D dh partials and their sum,
+    with an n x D scratch for dy. The new W, m and v are written into
+    tensors the wrapper allocates (as JAX returns new arrays), not in place:
+    the three-launch design reads the pre-update W after its sweep has
+    written the update, so in place is not safe for every batch the wrapper
+    takes. The inputs are neither copied nor changed, so at 512 x 450,000 a
+    call holds three new 0.92 GB tensors beside the old ones. A tensor the
+    kernel does not take raises; nothing falls back.
   * CPU tensors: `fused_wide_output_step_reference`, autograd of the same
     loss plus ``ops.optim.adamw_update``.
 

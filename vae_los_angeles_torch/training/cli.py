@@ -19,7 +19,8 @@ train with β-warmup + AdamW + the plateau scheduler + early stopping
 and ``resume_<model>_<run_id>.npz``, write ``latest_<model>_run_id.txt`` and
 report the wall clock and samples/s. ``--resume`` continues the latest run
 from its carry, and says so instead of training when that run had already
-stopped early.
+stopped early. ``DEBUG_NANS=1`` prints a ``DEBUG_NANS:`` line and makes
+``engine.fit`` raise at the first non-finite value.
 
 It runs on the card unless asked for the CPU (``device="cpu"`` or
 ``DEVICE=cpu``). With ``use_pallas`` (``USE_PALLAS=1``) on the card, every
@@ -215,6 +216,13 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     if fused_epoch:
         path = "wide head kernel" if engine.uses_wide_head(task_name, cfg) else "epoch kernel"
     print(f"Device: {device}; path: {path}")
+    if cfg.debug_nans:
+        # as the JAX CLI's jax_debug_nans: stop at the first NaN instead of
+        # training to a silent NaN loss, at the cost of a sync a step
+        check = ("the loss and the updated parameters checked after every kernel call"
+                 if fused_epoch else
+                 "torch.autograd anomaly detection and every step's loss checked")
+        print(f"DEBUG_NANS: {check}; the first non-finite value raises")
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)

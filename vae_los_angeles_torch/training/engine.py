@@ -58,12 +58,21 @@ On resume the carry's optimizer state rules: a carry of the other optimizer
 raises, and moments stored in another dtype than ``cfg.moments_dtype`` are
 kept, with a note that the knob is ignored.
 
+``cfg.debug_nans`` (``DEBUG_NANS=1``) raises ``FloatingPointError`` at the
+first non-finite value, naming the epoch and, where known, the step: the
+plain path runs under ``torch.autograd.set_detect_anomaly`` and checks each
+step's loss before its backward; the kernel paths check the loss and the
+updated parameters after each kernel call (the epoch kernel's per-step
+losses name the step). Each check reads one flag back from the card.
+Without it nothing is checked and no sync is added.
+
 Not ported, raising as the JAX engine does where it has no kernel:
 ``masked_sizes`` and ``mesh``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -113,9 +122,9 @@ FUSED = {
 
 # From this DecoderB width on, rna2dna's kernel paths train through the wide
 # head kernel (B8) rather than the step and epoch kernels (B1, B2): on an H100
-# the epoch kernel was the faster at 131,072 probes and the wide head at
-# 262,144 and 450,000 (``python3 chip_probes.py widths``, PERF.md).
-WIDE_HEAD_MIN_DIM_B = 262_144
+# the epoch kernel was the faster at 262,144 probes and below, the wide head
+# at 327,680 and up (``python3 chip_probes.py widths``, PERF.md).
+WIDE_HEAD_MIN_DIM_B = 327_680
 
 
 def uses_wide_head(task_name: str, cfg: Config) -> bool:
@@ -245,6 +254,31 @@ def _resumed_carry(resume_carry, cfg, device):
     return carry
 
 
+def _nan_check(epoch, step, losses, params=None):
+    """DEBUG_NANS: raise at the first non-finite loss (``losses``: a step's
+    loss or an epoch's per-step losses) or updated parameter."""
+    named = [] if params is None else _named_leaves(params)
+    flags = torch.stack([torch.isfinite(losses).all()]
+                        + [torch.isfinite(t).all() for _, t in named])
+    if bool(flags.all()):
+        return
+    bad = torch.nonzero(~torch.isfinite(losses.reshape(-1))).reshape(-1)
+    if bad.numel():
+        what = "loss"
+        step = int(bad[0]) if step is None else step
+    else:
+        what = "updated parameter " + ", ".join(
+            name for (name, _), ok in zip(named, flags[1:].tolist()) if not ok)
+    where = f"epoch {epoch + 1}" + ("" if step is None else f", step {step + 1}")
+    raise FloatingPointError(f"DEBUG_NANS: non-finite {what} at {where}")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
 def _split_head(tree):
     """(the tree without ``decoder_dna/fc3``, that layer's subtree)."""
     dec = dict(tree["decoder_dna"])
@@ -356,70 +390,83 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     _, opt_update = _optimizer(cfg.optimizer)
     step_host = int(carry["opt"]["step"])  # one read at the start of the run
 
-    rows = {"train": [], "val": [], "beta": [], "lr": []}
-    epochs_ran = 0
-    for epoch in range(start_epoch, start_epoch + num_epochs):
-        # the epoch's one host sync: the stop latch and the plateau's rate
-        stopped, lr = torch.stack([carry["estop"]["stopped"].to(torch.float32),
-                                   carry["plateau"]["lr"]]).tolist()
-        if stopped:
-            break
-        beta = beta_schedule(epoch, hp) if task.uses_kl_warmup else 0.0
-        eseed = epoch_seed(seed, epoch)
-        gen = torch.Generator(device=device).manual_seed(eseed)
-        perm = torch.randperm(n_train, generator=gen, device=device)
-        params, state, opt = carry["params"], carry["state"], carry["opt"]
-        if fused_epoch:
-            ep = train.take(perm[: n_full * batch_size])
-            losses, params, m, v, state = FUSED[task_name].epoch(
-                params, opt["m"], opt["v"], state, *FUSED[task_name].epoch_rows(ep), ep.site,
-                n_sites, seed=eseed, beta=beta, lr=lr, weight_decay=hp["weight_decay"],
-                step0=step_host, n_batches=n_full, **fused_kw)
-            opt = {"step": opt["step"] + n_full, "m": m, "v": v}
-            train_sum = losses.sum()
-        else:
-            train_sum = torch.zeros((), device=device)
-            for b in range(n_batches):
-                batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
-                if wide_head:
-                    loss, params, state, opt = _wide_head_step(
-                        params, state, opt, batch, beta, gen, lr, hp["weight_decay"])
+    debug = bool(cfg.debug_nans)
+    anomaly = (torch.autograd.set_detect_anomaly(True) if debug and not kernels
+               else contextlib.nullcontext())
+    with anomaly:
+        rows = {"train": [], "val": [], "beta": [], "lr": []}
+        epochs_ran = 0
+        for epoch in range(start_epoch, start_epoch + num_epochs):
+            # the epoch's one host sync: the stop latch and the plateau's rate
+            stopped, lr = torch.stack([carry["estop"]["stopped"].to(torch.float32),
+                                       carry["plateau"]["lr"]]).tolist()
+            if stopped:
+                break
+            beta = beta_schedule(epoch, hp) if task.uses_kl_warmup else 0.0
+            eseed = epoch_seed(seed, epoch)
+            gen = torch.Generator(device=device).manual_seed(eseed)
+            perm = torch.randperm(n_train, generator=gen, device=device)
+            params, state, opt = carry["params"], carry["state"], carry["opt"]
+            if fused_epoch:
+                ep = train.take(perm[: n_full * batch_size])
+                losses, params, m, v, state = FUSED[task_name].epoch(
+                    params, opt["m"], opt["v"], state, *FUSED[task_name].epoch_rows(ep),
+                    ep.site, n_sites, seed=eseed, beta=beta, lr=lr,
+                    weight_decay=hp["weight_decay"], step0=step_host, n_batches=n_full,
+                    **fused_kw)
+                if debug:
+                    _nan_check(epoch, None, losses, params)
+                opt = {"step": opt["step"] + n_full, "m": m, "v": v}
+                train_sum = losses.sum()
+            else:
+                train_sum = torch.zeros((), device=device)
+                for b in range(n_batches):
+                    batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
+                    if wide_head:
+                        loss, params, state, opt = _wide_head_step(
+                            params, state, opt, batch, beta, gen, lr, hp["weight_decay"])
+                        if debug:
+                            _nan_check(epoch, b, loss, params)
+                        train_sum = train_sum + loss
+                        continue
+                    if fused_step:
+                        loss, grads, state = FUSED[task_name].step(
+                            params, state, batch.tpm, batch.beta, batch.site, n_sites,
+                            seed=eseed, step=b, beta=beta, **fused_kw)
+                    else:
+                        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+                        # cast inside the differentiated loss: the grads reach the fp32 masters
+                        loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype),
+                                                state, batch, beta, True, gen, **loss_kw)
+                        if debug:
+                            _nan_check(epoch, b, loss.detach())
+                        flat = tree_leaves(leaves)
+                        grads_flat = iter(torch.autograd.grad(loss, flat))
+                        grads = tree_map(lambda _: next(grads_flat), leaves)
+                        loss, state = loss.detach(), tree_map(torch.Tensor.detach, state)
+                    params, opt = opt_update(params, grads, opt, lr, hp["weight_decay"])
+                    if debug and fused_step:
+                        _nan_check(epoch, b, loss, params)
                     train_sum = train_sum + loss
-                    continue
-                if fused_step:
-                    loss, grads, state = FUSED[task_name].step(
-                        params, state, batch.tpm, batch.beta, batch.site, n_sites, seed=eseed,
-                        step=b, beta=beta, **fused_kw)
-                else:
-                    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-                    # cast inside the differentiated loss: the grads reach the fp32 masters
-                    loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype),
-                                            state, batch, beta, True, gen, **loss_kw)
-                    flat = tree_leaves(leaves)
-                    grads_flat = iter(torch.autograd.grad(loss, flat))
-                    grads = tree_map(lambda _: next(grads_flat), leaves)
-                    loss, state = loss.detach(), tree_map(torch.Tensor.detach, state)
-                params, opt = opt_update(params, grads, opt, lr, hp["weight_decay"])
-                train_sum = train_sum + loss
-        step_host += n_batches
-        train_loss = train_sum / n_batches
+            step_host += n_batches
+            train_loss = train_sum / n_batches
 
-        with torch.no_grad():
-            val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype), state, val,
-                                   beta, False, gen, **loss_kw)
-        val_loss = val_sum / n_val_batches
-        plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
-                                     hp["sched_patience"])
-        estop, snap = optim.early_stop_step(carry["estop"], val_loss, epoch, hp["patience"])
-        best = tree_map(lambda b_, c_: torch.where(snap, c_, b_), carry["best"],
-                        {"params": params, "state": state})
-        carry = {"params": params, "state": state, "opt": opt, "plateau": plateau,
-                 "estop": estop, "best": best}
-        rows["train"].append(train_loss)
-        rows["val"].append(val_loss)
-        rows["beta"].append(beta)
-        rows["lr"].append(lr)
-        epochs_ran += 1
+            with torch.no_grad():
+                val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype), state,
+                                       val, beta, False, gen, **loss_kw)
+            val_loss = val_sum / n_val_batches
+            plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
+                                         hp["sched_patience"])
+            estop, snap = optim.early_stop_step(carry["estop"], val_loss, epoch, hp["patience"])
+            best = tree_map(lambda b_, c_: torch.where(snap, c_, b_), carry["best"],
+                            {"params": params, "state": state})
+            carry = {"params": params, "state": state, "opt": opt, "plateau": plateau,
+                     "estop": estop, "best": best}
+            rows["train"].append(train_loss)
+            rows["val"].append(val_loss)
+            rows["beta"].append(beta)
+            rows["lr"].append(lr)
+            epochs_ran += 1
 
     def padded(values):
         out = np.full(num_epochs, np.nan, np.float32)
