@@ -1,6 +1,6 @@
 """Diagnostic probes of the training kernels on one NVIDIA GPU.
 
-    python3 chip_probes.py first|grads|race|chain|widths
+    python3 chip_probes.py first|grads|race|chain|widths|directional|epoch64
 
 ``chip_smoke.py`` is the check; these are the measurements that shaped it,
 kept so that the numbers quoted from them in ``PERF.md`` and ``ROADMAP.md``
@@ -21,8 +21,16 @@ can be made again:
   * ``widths``: ``engine.fit``'s ms an epoch for rna2dna on 512 synthetic
     samples at DecoderB widths from the cohort's (1211) to the whole
     methylome's (450,000), on the plain path and on the kernel path through
-    the epoch kernel and through the wide head kernel: where
-    ``engine.WIDE_HEAD_MIN_DIM_B`` lies.
+    the epoch kernel (its captured graph) and through the wide head kernel,
+    each with its peak device memory (the epoch graph's cached copies of p,
+    m and v included): where ``engine.WIDE_HEAD_MIN_DIM_B`` lies;
+  * ``directional``: the directional epoch and step kernels, ``engine.fit``
+    of both directional tasks at 8000 samples and the RNA→DNA epoch-kernel
+    path's peak memory at DecoderB 262,144, as one JSON line
+    (`probe_directional`, which also times an older tree);
+  * ``epoch64``: ``chip_smoke.compare_wide_epochs`` with the plain version
+    also in float64, tensor by tensor: how far each fp32 version is from
+    float64 at those widths.
 """
 
 from __future__ import annotations
@@ -263,6 +271,7 @@ def probe_widths(dev, widths=(1211, 131072, 262144, 327680, 393216, 450_000), sa
                 def fit(n):
                     return engine.fit("rna2dna", cfg, *rows, 0, N_SITES, num_epochs=n,
                                       device=dev, init_params=init[0], init_state=init[1], **kw)
+                torch.cuda.reset_peak_memory_stats()
                 fit(1)  # warm-up
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -271,15 +280,84 @@ def probe_widths(dev, widths=(1211, 131072, 262144, 327680, 393216, 450_000), sa
                 ms = (time.perf_counter() - t0) * 1e3 / 3
             finally:
                 engine.WIDE_HEAD_MIN_DIM_B = threshold
-            line.append(f"{path} {ms:.3f} ms (train loss {res.train_losses.tolist()})")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            line.append(f"{path} {ms:.3f} ms, peak {peak:.3f} GiB (train loss "
+                        f"{res.train_losses.tolist()})")
+            fe.graphs.clear()  # each path's peak without an earlier path's cached graph
             del res
         print(f"[widths] dim_b {width}: " + "; ".join(line), flush=True)
         del rows, init
         torch.cuda.empty_cache()
 
 
+def probe_directional(dev):
+    """The directional epoch kernels (B2, B5) at 200 steps x 32, the step
+    kernels (B1, B4) at B = 32, ``engine.fit`` of each directional task at
+    8000 samples through its epoch kernel, and the peak device memory of
+    RNA→DNA's epoch-kernel path at DecoderB 262,144 (512 samples, 3 epochs,
+    rows and weights on the card first), as one JSON line. It uses only what
+    ``chip_smoke.py`` has had since the directional epochs were host loops,
+    so a copy of this file beside an older tree's ``chip_smoke.py`` times
+    that tree: run both trees in one call, alternating."""
+    import json
+
+    from vae_los_angeles_torch.data.splits import train_val_indices
+    from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
+    from vae_los_angeles_torch.models.directional_vae import rna2dna_vae_init
+    from vae_los_angeles_torch.training import engine
+
+    _build.build_all(cs.SOURCES)
+    card = cs.card_line()
+    out = {}
+    tpm, beta, site = generate_synthetic_arrays(n_samples=8000, seed=1)
+    tr, _ = train_val_indices(8000, cs.CFG.train_test_split, cs.CFG.random_seed)
+    n = len(tr) // 32
+    x, t, s = (torch.as_tensor(a[tr[: n * 32]]).to(dev) for a in (tpm, beta, site))
+    params, state = cs.train_params(dev, 4)
+    zt = ft.unflatten({k: torch.zeros_like(v) for k, v in ft.flatten_params(params).items()})
+    dp, ds = cs.d2r_params(dev, 14)
+    zd = ft.unflatten({k: torch.zeros_like(v) for k, v in ft.flatten_params(dp, cs.D2R).items()},
+                      cs.D2R)
+    kw = dict(seed=2, beta=cs.BETA, lr=cs.LR, weight_decay=cs.WD, n_batches=n)
+    out["b2_epoch_ms"] = cs.time_call(lambda: fe.rna2dna_fused_epoch(
+        params, zt, zt, state, x, t, s, N_SITES, **kw), reps=10, warmup=2)
+    out["b5_epoch_ms"] = cs.time_call(lambda: fe.dna2rna_fused_epoch(
+        dp, zd, zd, ds, t, x, s, N_SITES, **kw), reps=10, warmup=2)
+    r, rd = cs.train_rows(dev, 32, 10), cs.d2r_rows(dev, 32, 20)
+    out["b1_step_ms"] = cs.time_call(lambda: ft.rna2dna_fused_train_step(
+        params, state, r["x"], r["t"], r["site"], N_SITES, seed=1, step=0, beta=cs.BETA))
+    out["b4_step_ms"] = cs.time_call(lambda: ft.dna2rna_fused_train_step(
+        dp, ds, rd["t"], rd["x"], rd["site"], N_SITES, seed=1, step=0, beta=cs.BETA))
+    for task in ("rna2dna", "dna2rna"):
+        out[f"fit_8000_{task}_ms"] = cs.time_fit(dev, card, 8000, 3, task)[0]
+    del x, t, s
+    width = 262_144
+    tpm, beta, site = generate_synthetic_arrays(n_samples=512, dim_b=width, seed=5)
+    tr, va = train_val_indices(512, cs.CFG.train_test_split, cs.CFG.random_seed)
+    rows = [[torch.as_tensor(a[idx]).to(dev) for a in (tpm, beta, site)] for idx in (tr, va)]
+    cfg = cs.CFG.replace(input_dim_b=width)
+    init = rna2dna_vae_init(torch.Generator().manual_seed(0), cfg.input_dim_a, width, N_SITES,
+                            cfg.latent_dim, cfg.embed_dim, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["b2_path_262144_before_gib"] = torch.cuda.memory_allocated() / 2**30
+    engine.fit("rna2dna", cfg, *rows, 0, N_SITES, num_epochs=3, device=dev,
+               init_params=init[0], init_state=init[1], fused_epoch=True)
+    torch.cuda.synchronize()
+    out["b2_path_262144_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("[directional] " + json.dumps(out) + f"; {card}", flush=True)
+
+
+def probe_epoch64(dev):
+    """`chip_smoke.compare_wide_epochs` with the plain version also run in
+    float64: how far each fp32 version is from float64 at those widths."""
+    _build.build_all(cs.SOURCES)
+    print(cs.card_line())
+    cs.compare_wide_epochs(dev, float64=True)
+
+
 PROBES = {"first": probe_first, "grads": probe_grads, "race": probe_race, "chain": probe_chain,
-          "widths": probe_widths}
+          "widths": probe_widths, "directional": probe_directional, "epoch64": probe_epoch64}
 
 
 def main(argv):

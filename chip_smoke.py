@@ -57,6 +57,18 @@ Phases (any failure raises, and the script exits non-zero):
          and gradient on either side, and the decoder layer (no dropout)
          keeps the seed search at 3e-6. Both are ~7x the largest fp32
          error of those layers against float64 at B = 7;
+       * both directional epochs (captured CUDA graphs, one cached a task;
+         each graph's capture time and launches a step printed) also at the
+         widths ``run_training`` trains them beyond the cohort's
+         (`compare_wide_epochs`): RNA→DNA at DecoderB widths of 65,536,
+         262,144 and 393,216 (below ``engine.WIDE_HEAD_MIN_DIM_B``), DNA→RNA at a DNA
+         input of 65,536, 4 steps of 32 each, with the tolerances above,
+         except that RNA→DNA's m is held within 2e-5 of each tensor's
+         largest |m| (or 1) there: m is in the gradient's units, the BCE sum
+         over that many columns makes |m| grow with the width (to ~10^2 at
+         262,144), and its dX product sums those columns, so both fp32
+         versions sit further from a float64 run in absolute terms
+         (``python3 chip_probes.py epoch64``, PERF.md);
        * the tri-modal train step at B in {32, 7, 256} with injected noise
          and class weights in [0.5, 2), γ = 1.7: loss rtol 1e-5, the 39
          gradients atol 1e-3 + rtol 1e-4 (2e-3 for the three encoder fc
@@ -472,17 +484,17 @@ def check_close(what, got, want, atol, rtol):
     return err
 
 
-def train_params(dev, seed):
-    return rna2dna_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a,
-                            CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim, dev)
+def train_params(dev, seed, dna=CFG.input_dim_b):
+    return rna2dna_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a, dna, N_SITES,
+                            CFG.latent_dim, CFG.embed_dim, dev)
 
 
-def train_rows(dev, n, seed):
-    """Rows shaped like the cohort: log-expression in, β-values out."""
+def train_rows(dev, n, seed, dna=CFG.input_dim_b):
+    """Rows shaped like the cohort: log-expression in, ``dna`` β-values out."""
     g = torch.Generator(device=dev).manual_seed(seed)
     return dict(
         x=torch.log1p(torch.rand((n, CFG.input_dim_a), generator=g, device=dev) * 50.0),
-        t=torch.rand((n, CFG.input_dim_b), generator=g, device=dev) * 0.98 + 0.01,
+        t=torch.rand((n, dna), generator=g, device=dev) * 0.98 + 0.01,
         site=torch.randint(0, N_SITES, (n,), generator=g, device=dev),
         eps=torch.randn((n, CFG.latent_dim), generator=g, device=dev),
         drop=(torch.rand((n, 128), generator=g, device=dev) < 0.9).float(),
@@ -514,11 +526,12 @@ def relu_margins(flat, x, site, eps, drop):
 MARGINS = (5e-6, 5e-7, 5e-7)  # encoder BN/ReLU, decoder layer 1, decoder layer 2
 
 
-def away_from_kinks(dev, n, seed, margins_of):
-    """Rows (``train_rows``) from the first seed at or after ``seed`` whose
-    ReLU margins (``margins_of(rows)``) all reach MARGINS; (rows, seed)."""
+def away_from_kinks(dev, n, seed, margins_of, dna=CFG.input_dim_b):
+    """Rows (``train_rows``, ``dna`` wide) from the first seed at or after
+    ``seed`` whose ReLU margins (``margins_of(rows)``) all reach MARGINS;
+    (rows, seed)."""
     for s in range(seed, seed + 400):
-        r = train_rows(dev, n, s)
+        r = train_rows(dev, n, s, dna)
         if all(m >= t for m, t in zip(margins_of(r), MARGINS)):
             return r, s
     raise AssertionError(f"no rows with ReLU margins of {MARGINS} in 400 seeds from {seed}")
@@ -551,8 +564,47 @@ def compare_train_step(dev):
     return worst
 
 
-def compare_epoch(dev):
-    params, state = train_params(dev, 2)
+def graph_line(task):
+    """The capture time and launches a step of ``task``'s cached epoch graph."""
+    graph = fe.graphs[task][1]
+    return (f"graph captured and instantiated in {graph.capture_seconds * 1e3:.1f} ms, "
+            f"{graph.launches_per_step:g} launches a step")
+
+
+def float64_report(task, dna, got, want, want64, order):
+    """Print, for each tensor of an epoch's params and m, its largest
+    |plain|, |kernel - plain|, |plain - float64| and |kernel - float64|; then
+    the largest of each relative to its tensor's largest (the fc biases
+    feeding train-mode BN left out: their true gradient is zero)."""
+    worst = {}
+    for i, tree in ((1, "params"), (2, "m")):
+        flat_got = ft.flatten_params(got[i], order)
+        for name, _ in order:
+            a, w, z = flat_got[name].double(), want[i][name].double(), want64[i][name]
+            top = w.abs().max().item()
+            errs = [(a - w).abs().max().item(), (w - z).abs().max().item(),
+                    (a - z).abs().max().item()]
+            say(f"[epoch64] {task} {dna} {tree} {name}: largest {top:.4g}, kernel-plain "
+                f"{errs[0]:.3g}, plain-float64 {errs[1]:.3g}, kernel-float64 {errs[2]:.3g}")
+            if name not in ("b1", "b2"):
+                for j, what in enumerate(("kernel-plain", "plain-float64", "kernel-float64")):
+                    worst[(tree, what)] = max(worst.get((tree, what), 0.0),
+                                              errs[j] / max(top, 1e-30))
+    say(f"[epoch64] {task} {dna}: largest error relative to the tensor's largest, "
+        + "; ".join(f"{t} {w} {v:.3g}" for (t, w), v in worst.items()))
+
+
+def f64(tree):
+    return {k: v.double() for k, v in tree.items()}
+
+
+def compare_epoch(dev, dna=CFG.input_dim_b, steps=EPOCH_STEPS, seed0=6000, float64=False):
+    """The RNA→DNA epoch (a captured graph) against its plain version over
+    ``steps`` steps of 32 at DecoderB width ``dna``, from non-zero moments;
+    returns the largest |kernel - plain|. With ``float64``, also prints both
+    fp32 versions' distance from the plain version run in float64
+    (`float64_report`)."""
+    params, state = train_params(dev, 2, dna)
     flat, bn = ft.flatten_params(params), state["encoder_rna"]["bn"]
     g = torch.Generator(device=dev).manual_seed(5)
     m0 = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-3 for k, v in flat.items()}
@@ -564,7 +616,7 @@ def compare_epoch(dev):
         p, opt, rm, rv = dict(flat), {"step": torch.tensor(7, device=dev), "m": m0, "v": v0}, \
             bn["mean"], bn["var"]
         worst = (1.0, 1.0, 1.0)
-        for i in range(EPOCH_STEPS):
+        for i in range(steps):
             rows = slice(32 * i, 32 * (i + 1))
             step = relu_margins(p, r["x"][rows], r["site"][rows], r["eps"][rows],
                                    r["drop"][rows])
@@ -577,33 +629,47 @@ def compare_epoch(dev):
             p, opt = optim.adamw_update(p, grads, opt, LR, WD)
         return worst
 
-    r, seed = away_from_kinks(dev, EPOCH_STEPS * 32, 6000, epoch_margins)
-    say(f"[compare] rna2dna_train_epoch: rows of seed {seed}")
+    r, seed = away_from_kinks(dev, steps * 32, seed0, epoch_margins, dna)
+    say(f"[compare] rna2dna_train_epoch, DecoderB {dna} wide: rows of seed {seed}")
     got = fe.rna2dna_fused_epoch(params, ft.unflatten(m0), ft.unflatten(v0), state, r["x"], r["t"],
                                  r["site"], N_SITES, beta=BETA, lr=LR, weight_decay=WD, step0=7,
-                                 n_batches=EPOCH_STEPS, eps_ep=r["eps"], drop_ep=r["drop"])
+                                 n_batches=steps, eps_ep=r["eps"], drop_ep=r["drop"])
+    kw = dict(seed=0, beta=BETA, lr=LR, weight_decay=WD, step0=7, n_batches=steps)
     want = fe.rna2dna_epoch_reference(flat, m0, v0, bn["mean"], bn["var"], r["x"], r["t"],
-                                      r["site"], r["eps"], r["drop"], seed=0, beta=BETA, lr=LR,
-                                      weight_decay=WD, step0=7, n_batches=EPOCH_STEPS)
+                                      r["site"], r["eps"], r["drop"], **kw)
+    if float64:
+        want64 = fe.rna2dna_epoch_reference(
+            f64(flat), f64(m0), f64(v0), *(t.double() for t in (bn["mean"], bn["var"], r["x"],
+                                                                r["t"])),
+            r["site"], r["eps"].double(), r["drop"].double(), **kw)
+        float64_report("rna2dna", dna, got, want, want64, ft.PARAM_ORDER)
+        del want64
     torch.cuda.synchronize()
-    loose = 2 * LR * EPOCH_STEPS
-    check_close("epoch losses", got[0], want[0], 0.0, 1e-5)
+    loose = 2 * LR * steps
+    check_close(f"epoch ({dna} wide) losses", got[0], want[0], 0.0, 1e-5)
     worst, worst_loose = 0.0, 0.0
+    m_relative = dna != CFG.input_dim_b  # at a wider DecoderB (module docstring)
     for i, tree in ((1, "params"), (2, "m")):
         flat_got = ft.flatten_params(got[i])
         for name, _ in ft.PARAM_ORDER:
-            err = check_close(f"epoch {tree} {name}", flat_got[name], want[i][name],
-                              loose if name == "b1" else 2e-5, 0.0)
+            w = want[i][name]
+            scale = max(1.0, w.abs().max().item()) if tree == "m" and m_relative else 1.0
+            err = check_close(f"epoch ({dna} wide) {tree} {name}", flat_got[name], w,
+                              loose if name == "b1" else 2e-5 * scale, 0.0)
             if name == "b1":
                 worst_loose = max(worst_loose, err)
             else:
-                worst = max(worst, err)
+                worst = max(worst, err / scale)
     new_bn = got[4]["encoder_rna"]["bn"]
-    worst_loose = max(worst_loose, check_close("epoch BN mean", new_bn["mean"], want[4], loose, 0))
-    worst = max(worst, check_close("epoch BN var", new_bn["var"], want[5], 2e-4, 0.0))
-    say(f"[compare] rna2dna_train_epoch: {EPOCH_STEPS} steps; max |kernel - plain| = {worst:.3e} "
-        f"over params, m and BN var (atol 2e-5/2e-4), {worst_loose:.3e} over the fc bias and BN "
-        f"mean (atol {loose}); losses rtol 1e-5")
+    worst_loose = max(worst_loose, check_close(f"epoch ({dna} wide) BN mean", new_bn["mean"],
+                                               want[4], loose, 0))
+    worst = max(worst, check_close(f"epoch ({dna} wide) BN var", new_bn["var"], want[5], 2e-4,
+                                   0.0))
+    say(f"[compare] rna2dna_train_epoch, DecoderB {dna} wide: {steps} steps; max |kernel - plain| "
+        f"= {worst:.3e} over params, m and BN var (atol 2e-5/2e-4; m "
+        f"{'of each tensor`s largest |m| (or 1)' if m_relative else 'absolute'}), "
+        f"{worst_loose:.3e} over the fc bias and BN mean (atol {loose}); losses rtol 1e-5; "
+        f"{graph_line('rna2dna')}")
     return max(worst, worst_loose)
 
 
@@ -670,16 +736,17 @@ def check_philox(dev):
 
 # ---- DNA→RNA ---------------------------------------------------------------
 
-def d2r_params(dev, seed):
-    return dna2rna_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a,
-                            CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim, dev)
+def d2r_params(dev, seed, dna=CFG.input_dim_b):
+    return dna2rna_vae_init(torch.Generator().manual_seed(seed), CFG.input_dim_a, dna, N_SITES,
+                            CFG.latent_dim, CFG.embed_dim, dev)
 
 
-def d2r_rows(dev, n, seed):
-    """Rows shaped like the cohort: β-values in (x), log-expression out (t)."""
+def d2r_rows(dev, n, seed, dna=CFG.input_dim_b):
+    """Rows shaped like the cohort: ``dna`` β-values in (x), log-expression
+    out (t)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     return dict(
-        x=torch.rand((n, CFG.input_dim_b), generator=g, device=dev) * 0.98 + 0.01,
+        x=torch.rand((n, dna), generator=g, device=dev) * 0.98 + 0.01,
         t=torch.log1p(torch.rand((n, CFG.input_dim_a), generator=g, device=dev) * 50.0),
         site=torch.randint(0, N_SITES, (n,), generator=g, device=dev),
         eps=torch.randn((n, CFG.latent_dim), generator=g, device=dev),
@@ -749,14 +816,18 @@ def away_from_kinks_masked(what, make_rows, clear, plain_step, dev, n, seed, fla
                          f"seeds from {seed}")
 
 
-def d2r_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None):
+def d2r_away_from_kinks(dev, n, seed, flat, bn, steps=1, m0=None, v0=None,
+                        dna=CFG.input_dim_b):
     """`away_from_kinks_masked` for DNA→RNA (``d2r_rows``, `d2r_clear_kinks`)."""
     def plain_step(p, b, r):
         _, grads, b = ft.dna2rna_train_step_reference(p, b, r["x"], r["t"], r["site"], r["eps"],
                                                       r["drop1"], r["drop2"], BETA)
         return grads, b
 
-    return away_from_kinks_masked("DNA→RNA", d2r_rows, d2r_clear_kinks, plain_step, dev, n, seed,
+    def make_rows(dev, n, s):
+        return d2r_rows(dev, n, s, dna)
+
+    return away_from_kinks_masked("DNA→RNA", make_rows, d2r_clear_kinks, plain_step, dev, n, seed,
                                   flat, bn, steps, m0, v0)
 
 
@@ -786,26 +857,35 @@ def compare_d2r_step(dev):
     return worst
 
 
-def compare_d2r_epoch(dev):
-    params, state = d2r_params(dev, 12)
+def compare_d2r_epoch(dev, dna=CFG.input_dim_b, steps=EPOCH_STEPS, seed0=6100, float64=False):
+    """The DNA→RNA epoch (a captured graph) against its plain version over
+    ``steps`` steps of 32 with a DNA input ``dna`` wide, from non-zero
+    moments; returns the largest |kernel - plain| (m relative to each
+    tensor's largest). ``float64`` as in `compare_epoch`."""
+    params, state = d2r_params(dev, 12, dna)
     flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
     g = torch.Generator(device=dev).manual_seed(15)
     m0 = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-3 for k, v in flat.items()}
     v0 = {k: torch.rand(v.shape, generator=g, device=dev) * 1e-6 for k, v in flat.items()}
-    r, seed, dropped = d2r_away_from_kinks(dev, EPOCH_STEPS * 32, 6100, flat, bn, EPOCH_STEPS,
-                                           m0, v0)
-    say(f"[compare] dna2rna_train_epoch: rows of seed {seed}, {dropped} near-kink BN cells "
-        "dropped")
+    r, seed, dropped = d2r_away_from_kinks(dev, steps * 32, seed0, flat, bn, steps, m0, v0, dna)
+    say(f"[compare] dna2rna_train_epoch, DNA input {dna} wide: rows of seed {seed}, {dropped} "
+        "near-kink BN cells dropped")
     got = fe.dna2rna_fused_epoch(params, ft.unflatten(m0, D2R), ft.unflatten(v0, D2R), state,
                                  r["x"], r["t"], r["site"], N_SITES, beta=BETA, lr=LR,
-                                 weight_decay=WD, step0=7, n_batches=EPOCH_STEPS, eps_ep=r["eps"],
+                                 weight_decay=WD, step0=7, n_batches=steps, eps_ep=r["eps"],
                                  drop1_ep=r["drop1"], drop2_ep=r["drop2"])
+    kw = dict(seed=0, beta=BETA, lr=LR, weight_decay=WD, step0=7, n_batches=steps)
     want = fe.dna2rna_epoch_reference(flat, m0, v0, bn, r["x"], r["t"], r["site"], r["eps"],
-                                      r["drop1"], r["drop2"], seed=0, beta=BETA, lr=LR,
-                                      weight_decay=WD, step0=7, n_batches=EPOCH_STEPS)
+                                      r["drop1"], r["drop2"], **kw)
+    if float64:
+        want64 = fe.dna2rna_epoch_reference(
+            f64(flat), f64(m0), f64(v0), tuple(b.double() for b in bn), r["x"].double(),
+            r["t"].double(), r["site"], *(r[k].double() for k in ("eps", "drop1", "drop2")), **kw)
+        float64_report("dna2rna", dna, got, want, want64, D2R)
+        del want64
     torch.cuda.synchronize()
-    loose = 2 * LR * EPOCH_STEPS
-    check_close("d2r epoch losses", got[0], want[0], 0.0, 1e-5)
+    loose = 2 * LR * steps
+    check_close(f"d2r epoch ({dna} wide) losses", got[0], want[0], 0.0, 1e-5)
     checks = []  # (what, kernel, plain, atol or None for `loose`, scale of the tensor)
     for i, tree in ((1, "params"), (2, "m")):
         flat_got = ft.flatten_params(got[i], D2R)
@@ -826,12 +906,47 @@ def compare_d2r_epoch(dev):
         else:
             worst = max(worst, err / scale)
     if failed:
-        raise AssertionError("d2r epoch differs from the plain version: " + "; ".join(failed))
-    say(f"[compare] dna2rna_train_epoch: {EPOCH_STEPS} steps; max |kernel - plain| = {worst:.3e} "
-        f"over params and BN var (atol 5e-5/2e-4) and m relative to each tensor's largest "
-        f"(5e-5), {worst_loose:.3e} over both fc biases and BN means (atol {loose}); losses "
-        f"rtol 1e-5")
+        raise AssertionError(f"d2r epoch ({dna} wide) differs from the plain version: "
+                             + "; ".join(failed))
+    say(f"[compare] dna2rna_train_epoch, DNA input {dna} wide: {steps} steps; max |kernel - plain| "
+        f"= {worst:.3e} over params and BN var (atol 5e-5/2e-4) and m relative to each tensor's "
+        f"largest (5e-5), {worst_loose:.3e} over both fc biases and BN means (atol {loose}); "
+        f"losses rtol 1e-5; {graph_line('dna2rna')}")
     return max(worst, worst_loose)
+
+
+WIDE_HOLDS = (65_536, 262_144, 393_216)  # DecoderB widths below engine.WIDE_HEAD_MIN_DIM_B
+WIDE_HOLD_STEPS = 4
+
+
+def compare_wide_epochs(dev, float64=False):
+    """The directional epoch graphs at the widths the CLI trains them on the
+    kernel path, beyond the cohort's: B2 (RNA→DNA) at DecoderB widths of
+    65,536, 262,144 and 393,216 (``run_training`` with USE_PALLAS takes B2
+    below ``engine.WIDE_HEAD_MIN_DIM_B``, 450,000), B5 (DNA→RNA, any DNA width)
+    at a DNA input of 65,536, each over 4 steps of 32 with injected noise,
+    rows away from the ReLU kinks, at `compare_epoch`'s and
+    `compare_d2r_epoch`'s tolerances.
+
+    Memory at 262,144: DecoderB's output layer is 512 x 262,144 = 134.2 M
+    floats (537 MB), so p, m and v and the gradients are ~2.15 GB on each
+    side; the kernel adds its graph's copies of p, m and v (1.6 GB) and the
+    results cloned out of them (1.6 GB), the plain version a float64 copy of
+    p for the margins (1.07 GB) and each step's new p, m and v; ~10 GB in
+    all; at 393,216 half as much again. Both sides and the graph are freed
+    before the next width. ``float64`` as in `compare_epoch` (~1.5x the
+    memory)."""
+    for dna in WIDE_HOLDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        compare_epoch(dev, dna, WIDE_HOLD_STEPS, seed0=6500, float64=float64)
+        fe.graphs.pop("rna2dna", None)
+        say(f"[compare] rna2dna_train_epoch, DecoderB {dna} wide: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (kernel and plain version)")
+    torch.cuda.empty_cache()
+    compare_d2r_epoch(dev, WIDE_HOLDS[0], WIDE_HOLD_STEPS, seed0=6600, float64=float64)
+    fe.graphs.pop("dna2rna", None)
+    torch.cuda.empty_cache()
 
 
 def check_philox_d2r(dev):
@@ -1017,10 +1132,10 @@ def compare_mm_epoch(dev):
     worst = check_all(f"multimodal epoch ({MM_SHORT_STEPS} steps, plain)",
                       [("losses", got[0], want[0], 0.0, 1e-5)]
                       + mm_epoch_checks(got, want, MM_SHORT_STEPS))
-    graph = fe._mm_graph["graph"]
+    graph = fe.graphs["multimodal"][1]
     say(f"[compare] multimodal_train_epoch vs plain: {MM_SHORT_STEPS} steps x 32, rows of seed "
         f"{seed}, {dropped} near-kink BN cells dropped; max |kernel - plain| = {worst:.3e}; "
-        f"graph captured and instantiated in {graph.capture_seconds * 1e3:.1f} ms")
+        f"{graph_line('multimodal')}")
 
     # a second epoch through the same graph: other scalars and rows
     args2 = dict(beta=BETA / 2, gamma=GAMMA / 2, lr=LR / 2, weight_decay=WD, step0=11)
@@ -1033,7 +1148,7 @@ def compare_mm_epoch(dev):
     got2 = fe.multimodal_fused_epoch(*got[1:], r["a"], r["b"], r["site"], N_SITES, seed=99,
                                      class_weights=r["cw"], n_batches=MM_SHORT_STEPS, **noise,
                                      **args2)
-    if fe._mm_graph["graph"] is not graph:
+    if fe.graphs["multimodal"][1] is not graph:
         raise AssertionError("the second epoch of one key captured a new graph")
     want2 = fe.multimodal_epoch_reference(flat1, m1, v1, bn1, r["a"], r["b"], r["site"], r["cw"],
                                           tuple(r[k] for k in MM_NOISE), seed=99,
@@ -1552,7 +1667,7 @@ def time_fit(dev, card, n_samples, epochs, task="rna2dna"):
     say(f"[time] engine.fit {task}, epoch kernel, {n_samples}-sample cohort "
         f"({len(tr) // CFG.batch_size} "
         f"steps, {len(va)} validation rows): {ms:.3f} ms per epoch over {res.epochs_ran} epochs, "
-        f"{rate:,.0f} samples/s; {card}")
+        f"{rate:,.0f} samples/s; its {graph_line(task)} (in the warm-up run); {card}")
     return ms, rate
 
 
@@ -1596,6 +1711,8 @@ def phase_timing(dev, card):
                                            None, None, seed=2, beta=BETA, lr=LR, weight_decay=WD,
                                            step0=0, n_batches=n_steps),
         reps=2, warmup=1)
+    say(f"[time] rna2dna_train_epoch: the {n_steps}-step {graph_line('rna2dna')} (host clock, "
+        f"once per key); {card}")
     profile_epoch(lambda: fe.rna2dna_fused_epoch(
         params, zt, zt, state, x, t, s, N_SITES, seed=2, beta=BETA, lr=LR, weight_decay=WD,
         n_batches=n_steps), f"rna2dna_train_epoch ({n_steps} steps)", card)
@@ -1665,6 +1782,8 @@ def time_d2r(dev, card, x, t, s, n_steps):
                                            seed=2, beta=BETA, lr=LR, weight_decay=WD, step0=0,
                                            n_batches=n_steps),
         reps=2, warmup=1)
+    say(f"[time] dna2rna_train_epoch: the {n_steps}-step {graph_line('dna2rna')} (host clock, "
+        f"once per key); {card}")
     profile_epoch(kernel, f"dna2rna_train_epoch ({n_steps} steps)", card)
     leaves = [v.clone() for v in flat.values()]
     for p in leaves:
@@ -1708,10 +1827,8 @@ def time_mm(dev, card, a, b, s, n_steps):
                                               seed=2, beta=BETA, gamma=GAMMA, lr=LR,
                                               weight_decay=WD, step0=0, n_batches=n_steps),
         reps=2, warmup=1)
-    graph = fe._mm_graph["graph"]
-    say(f"[time] multimodal_train_epoch: the {n_steps}-step graph captured and instantiated in "
-        f"{graph.capture_seconds * 1e3:.1f} ms (host clock, once per key: engine.fit pays it in "
-        f"its first epoch); {card}")
+    say(f"[time] multimodal_train_epoch: the {n_steps}-step {graph_line('multimodal')} (host "
+        f"clock, once per key: engine.fit pays it in its first epoch); {card}")
     profile_epoch(kernel, f"multimodal_train_epoch ({n_steps} steps)", card)
     leaves = [v.clone() for v in flat.values()]
     for p in leaves:
@@ -1794,6 +1911,7 @@ def main():
     errs["dna2rna_train_step"] = compare_d2r_step(dev)
     errs["dna2rna_train_epoch"] = compare_d2r_epoch(dev)
     check_philox_d2r(dev)
+    compare_wide_epochs(dev)
     errs["multimodal_train_step"] = compare_mm_step(dev)
     errs["multimodal_train_epoch"] = compare_mm_epoch(dev)
     check_philox_mm(dev)

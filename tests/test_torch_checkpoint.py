@@ -16,6 +16,10 @@ from vae_los_angeles_tpu.evaluation import loading as jax_loading
 from vae_los_angeles_tpu.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
 from vae_los_angeles_tpu.training import checkpoint as jax_ckpt
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT = 40, 56, 5, 8
 CHAIN = dict(atol=1e-4, rtol=1e-4)
 FAMILIES = {

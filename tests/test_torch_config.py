@@ -12,6 +12,10 @@ from vae_los_angeles_torch.config import Config as PortConfig
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_tpu.config import Config as JaxConfig
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 FIELDS = [f.name for f in dataclasses.fields(JaxConfig)]
 ENV = {
     "INPUT_DIM_A": "40", "INPUT_DIM_B": "56", "LATENT_DIM": "8", "BATCH_SIZE": "16",

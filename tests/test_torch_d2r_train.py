@@ -36,6 +36,10 @@ from vae_los_angeles_tpu.models.directional_vae import dna2rna_vae_init
 from vae_los_angeles_tpu.ops.pallas import fused_epoch as jfe
 from vae_los_angeles_tpu.ops.pallas import fused_train as jft
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, B = 40, 56, 5, 8, 16
 H1, H2 = 512, 256
 GRAD = dict(atol=1e-3, rtol=1e-4)

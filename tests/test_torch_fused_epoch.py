@@ -8,7 +8,14 @@ Tolerances are the JAX test's: per-step losses rtol 1e-5; params and m
 atol 2e-5, except the encoder fc bias (and the BN running mean, which moves
 1:1 with it) at 5e-3: its true gradient through train-mode BatchNorm is
 zero, so what is computed is fp32 cancellation noise that Adam's
-normalisation turns into implementation-dependent steps; BN var atol 2e-4."""
+normalisation turns into implementation-dependent steps; BN var atol 2e-4.
+
+On the card every epoch is a CUDA graph, one cached a task; here the epoch
+args it reads (the directional host loops' bias-correction bits) and the
+cache's key logic, with a stand-in library in place of the built one."""
+
+import ctypes
+import ctypes.util
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +30,10 @@ from vae_los_angeles_torch.utils.tree import tree_map
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
 from vae_los_angeles_tpu.models.directional_vae import rna2dna_vae_init
 from vae_los_angeles_tpu.ops.pallas import fused_epoch as jfe
+
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 DIM_A, DIM_B, N_SITES, LATENT = 40, 56, 5, 8
 BATCH, N_BATCHES = 8, 20
@@ -144,3 +155,76 @@ def test_epoch_rejects_rows_that_do_not_divide(case):
         jfe.rna2dna_fused_epoch(params, m0, v0, state, jnp.asarray(tt["x"][:-1].numpy()),
                                 jnp.asarray(tt["t"][:-1].numpy()), tt["site"][:-1].numpy(),
                                 N_SITES, n_batches=N_BATCHES)
+
+
+def test_directional_epoch_args_hold_the_host_loops_bias_corrections():
+    """The directional graphs' epoch args (γ unused: 0) hold, for t = 1..300,
+    the bits the host loops they replace computed on the host,
+    ``(float)(1 - pow((double)β, t))`` with the C library's pow; an epoch
+    from step0 holds the same bits as the same steps of a longer epoch."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.pow.argtypes, libm.pow.restype = [ctypes.c_double] * 2, ctypes.c_double
+    args = fe.epoch_args(2**40 + 3, 1e-3, 0.0, 5e-4, 1e-5, 0, 300)
+    np.testing.assert_array_equal(args[2:6], np.float32([1e-3, 0.0, 5e-4, 1e-5]))
+    for k, beta in enumerate((0.9, 0.999)):
+        host = np.float32([1.0 - libm.pow(float(np.float32(beta)), float(t))
+                           for t in range(1, 301)])
+        np.testing.assert_array_equal(args[6 + k::2], host)
+    later = fe.epoch_args(5, 2e-3, 0.0, 1e-4, 0.0, 100, 200)
+    np.testing.assert_array_equal(later[6:], args[6 + 200:])
+
+
+class _StandInLibrary:
+    """What the graph cache calls of the built library: the destroy entry."""
+
+    def __init__(self):
+        self.freed = []
+
+    def epoch_graph_destroy(self, handle):
+        self.freed.append(handle)
+
+
+def _stand_in_graph(lib, handle, log):
+    """A build function of `fe.epoch_graph`: an `_EpochGraph` holding only
+    its handle; it logs (handle, graphs freed before it was captured)."""
+    def build():
+        log.append((handle, list(lib.freed)))
+        g = fe._EpochGraph.__new__(fe._EpochGraph)
+        g.lib, g.handle = lib, handle
+        return g
+    return build
+
+
+def test_epoch_graph_cache_keeps_one_graph_a_task(monkeypatch):
+    monkeypatch.setattr(fe, "graphs", {})
+    lib, log = _StandInLibrary(), []
+    key = ("cuda:0", (40, 56), 16, 5, True, False)
+    first = {task: fe.epoch_graph(task, key, _stand_in_graph(lib, h, log))
+             for h, task in enumerate(("rna2dna", "dna2rna", "multimodal"), 1)}
+    for _ in range(2):  # the tasks alternate, epoch by epoch: nothing is captured again
+        for task in first:
+            assert fe.epoch_graph(task, key, _stand_in_graph(lib, 99, log)) is first[task]
+    assert [h for h, _ in log] == [1, 2, 3] and lib.freed == []
+    del first
+    other = ("cuda:0", (40, 56), 16, 6, True, False)  # another n_batches
+    fe.epoch_graph("dna2rna", other, _stand_in_graph(lib, 4, log))
+    assert log[-1] == (4, [2])  # the task's old graph was freed before the capture
+    assert lib.freed == [2]  # and no other task's
+    assert {t: g.handle for t, (_, g) in fe.graphs.items()} == {
+        "rna2dna": 1, "dna2rna": 4, "multimodal": 3}
+
+
+def test_a_capture_that_raises_leaves_no_graph_of_its_task(monkeypatch):
+    monkeypatch.setattr(fe, "graphs", {})
+    lib, log = _StandInLibrary(), []
+    key = ("cuda:0", (40, 56), 16, 5, False, False)
+    kept = fe.epoch_graph("rna2dna", key, _stand_in_graph(lib, 1, log))
+    fe.epoch_graph("dna2rna", key, _stand_in_graph(lib, 2, log))
+
+    def failing():
+        raise RuntimeError("dna2rna_epoch_graph_create failed to launch: CUDA error 1")
+
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fe.epoch_graph("dna2rna", key[:3] + (6,) + key[4:], failing)
+    assert "dna2rna" not in fe.graphs and lib.freed == [2]
+    assert fe.graphs["rna2dna"][1] is kept

@@ -13,6 +13,10 @@ from vae_los_angeles_torch.ops import losses as port_losses
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_tpu.ops.pallas.fused_loss import rna2dna_loss_fused as j_fused
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 GRAD = dict(rtol=1e-5, atol=1e-7)
 
 

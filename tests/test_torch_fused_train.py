@@ -20,6 +20,10 @@ from vae_los_angeles_torch.utils.weights import tree_from_numpy, tree_to_numpy
 from vae_los_angeles_tpu.models.directional_vae import rna2dna_vae_init
 from vae_los_angeles_tpu.ops.pallas import fused_train as jft
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, B = 40, 56, 5, 8, 16
 GRAD = dict(atol=5e-4, rtol=1e-4)
 

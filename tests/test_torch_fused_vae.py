@@ -22,6 +22,10 @@ from vae_los_angeles_torch.utils.weights import state_dict_from_jax
 from vae_los_angeles_tpu.models import directional_vae as jdv
 from vae_los_angeles_tpu.ops.pallas import fused_vae as jfv
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT = 40, 56, 5, 8
 LAYER = dict(atol=1e-5, rtol=1e-5)
 CHAIN = dict(atol=1e-4, rtol=1e-4)

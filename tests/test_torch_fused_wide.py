@@ -28,6 +28,10 @@ from vae_los_angeles_torch.training import engine
 from vae_los_angeles_tpu.ops.losses import bce_with_logits_sum
 from vae_los_angeles_tpu.ops.pallas.fused_wide import fused_wide_output_step as jax_step
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 NAMES = ["w", "b", "m_w", "v_w", "m_b", "v_b", "step", "dh", "loss"]
 TOL = dict(rtol=2e-5, atol=2e-6)
 

@@ -23,6 +23,10 @@ from vae_los_angeles_tpu.utils.torch_import import (
     load_torch_state_dict,
 )
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 23, 31, 5, 7, 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 

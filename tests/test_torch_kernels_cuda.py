@@ -528,8 +528,9 @@ def test_mm_epoch_graph_replays_new_scalars_rows_and_seeds(cuda_device):
         got = fe.multimodal_fused_epoch(*cur, rows["a"], rows["b"], rows["site"], sites,
                                         beta=beta, gamma=gamma, class_weights=cw, lr=lr,
                                         step0=step0, n_batches=n_batches, **noise)
-        graph = graph or fe._mm_graph["graph"]
-        assert fe._mm_graph["graph"] is graph
+        graph = graph or fe.graphs["multimodal"][1]
+        assert fe.graphs["multimodal"][1] is graph
+        assert graph.launches_per_step <= 26
         want = fe.multimodal_epoch_reference(
             *(ft.flatten_params(t, order) for t in cur[:3]), ft.bn_mm(cur[3]), rows["a"],
             rows["b"], rows["site"], cw, tuple(rows[k] for k in MM_NOISE), seed=0, beta=beta,
@@ -539,7 +540,7 @@ def test_mm_epoch_graph_replays_new_scalars_rows_and_seeds(cuda_device):
     rows = (r["a"], r["b"], r["site"], sites)
     philox = [fe.multimodal_fused_epoch(*start, *rows, seed=s, class_weights=cw, step0=3,
                                         n_batches=n_batches) for s in (11, 12)]
-    assert fe._mm_graph["graph"] is not graph
+    assert fe.graphs["multimodal"][1] is not graph
     for s, got in zip((11, 12), philox):
         draws = [ft.philox_noise_mm(s, i, batch, 128, 512, 256, TRAIN_DIMS["latent"],
                                     cuda_device) for i in range(n_batches)]
@@ -574,6 +575,201 @@ def test_mm_fit_paths_launch_their_kernels(path, cuda_device):
     assert delta["multimodal_train_epoch"] == (2 if path == "fused_epoch" else 0)
     assert delta["multimodal_train_step"] == (12 if path == "fused_step" else 0)
     assert not any(v for k, v in delta.items() if not k.startswith("multimodal"))
+
+
+# ---- the directional epochs as captured graphs (B2, B5), one cached a task ----
+def train_case_at(dev, batch, n_batches, seed, dna):
+    """`train_case` with the DNA output ``dna`` wide."""
+    from vae_los_angeles_torch.models.directional_vae import rna2dna_vae_init
+
+    d = TRAIN_DIMS
+    params, state = rna2dna_vae_init(torch.Generator().manual_seed(seed), d["din"], dna,
+                                     d["sites"], d["latent"], d["embed"], dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = batch * n_batches
+    rows = dict(x=torch.randn((n, d["din"]), generator=g, device=dev),
+                t=torch.rand((n, dna), generator=g, device=dev),
+                site=torch.randint(0, d["sites"], (n,), generator=g, device=dev),
+                eps=torch.randn((n, d["latent"]), generator=g, device=dev),
+                drop=(torch.rand((n, 128), generator=g, device=dev) < 0.9).float())
+    return params, state, rows
+
+
+def d2r_case_at(dev, batch, n_batches, seed, dna):
+    """`d2r_case` with the DNA input ``dna`` wide."""
+    from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_init
+
+    d = TRAIN_DIMS
+    params, state = dna2rna_vae_init(torch.Generator().manual_seed(seed), d["dout"], dna,
+                                     d["sites"], d["latent"], d["embed"], dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = batch * n_batches
+    rows = dict(x=torch.rand((n, dna), generator=g, device=dev),
+                t=torch.randn((n, d["dout"]), generator=g, device=dev),
+                site=torch.randint(0, d["sites"], (n,), generator=g, device=dev),
+                eps=torch.randn((n, d["latent"]), generator=g, device=dev),
+                drop1=(torch.rand((n, 512), generator=g, device=dev) < 0.9).float(),
+                drop2=(torch.rand((n, 256), generator=g, device=dev) < 0.9).float())
+    return params, state, rows
+
+
+# task: (case at a DNA width, wrapper, plain version, order, its BN state as a tuple,
+#        the injected noise's names, the fc biases whose gradient is fp32 noise, params/m atol)
+DIRECTIONAL = {
+    "rna2dna": (train_case_at, fe.rna2dna_fused_epoch, fe.rna2dna_epoch_reference,
+                ft.PARAM_ORDER, lambda s: tuple(s["encoder_rna"]["bn"][k] for k in ("mean", "var")),
+                ("eps", "drop"), ("b1",), 2e-5),
+    "dna2rna": (d2r_case_at, fe.dna2rna_fused_epoch, fe.dna2rna_epoch_reference,
+                ft.PARAM_ORDER_D2R, ft.bn_d2r, ("eps", "drop1", "drop2"), ("b1", "b2"), 5e-5),
+}
+
+
+def directional_epoch(task, cur, rows, **kw):
+    """One epoch of ``task`` through its wrapper from ``cur`` = (params, m,
+    v, state) trees, with the rows' injected noise unless ``seed`` is given."""
+    _, wrapper, _, _, _, noise, _, _ = DIRECTIONAL[task]
+    inj = {} if "seed" in kw else {f"{k}_ep": rows[k] for k in noise}
+    return wrapper(*cur, rows["x"], rows["t"], rows["site"], TRAIN_DIMS["sites"], **inj, **kw)
+
+
+def check_directional_epoch(task, got, cur, rows, *, beta, lr, step0, n_batches):
+    """``got`` against the plain version from ``cur`` on the same rows and
+    injected noise: losses rtol 1e-5, params and m at the task's atol (the fc
+    biases feeding train-mode BN at 2·lr per step), BN var atol 2e-4, BN
+    means at 2·lr per step."""
+    _, _, reference, order, bn_of, noise, loose_names, atol = DIRECTIONAL[task]
+    flat = [ft.flatten_params(t, order) for t in cur[:3]]
+    bn = bn_of(cur[3])
+    want = reference(*flat, *(bn if task == "rna2dna" else (bn,)), rows["x"], rows["t"],
+                     rows["site"], *(rows[k] for k in noise), seed=0, beta=beta, lr=lr,
+                     weight_decay=1e-5, step0=step0, n_batches=n_batches)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    loose = 2 * lr * n_batches
+    for tree, ref in ((got[1], want[1]), (got[2], want[2])):
+        flat_got = ft.flatten_params(tree, order)
+        for name, _ in order:
+            torch.testing.assert_close(flat_got[name], ref[name], rtol=0,
+                                       atol=loose if name in loose_names else atol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+    want_bn = want[4:] if task == "rna2dna" else want[4]
+    for i, (a, b) in enumerate(zip(bn_of(got[4]), want_bn)):
+        torch.testing.assert_close(a, b, atol=loose if i % 2 == 0 else 2e-4, rtol=0)
+
+
+def nonzero_moments(dev, flat, order, seed):
+    """m and v trees away from zero: from zero moments Adam's first step is
+    ±lr, and a gradient within rounding of 0 can take either sign in two fp32
+    implementations."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m0 = {k: torch.randn(t.shape, generator=g, device=dev) * 1e-3 for k, t in flat.items()}
+    v0 = {k: torch.rand(t.shape, generator=g, device=dev) * 1e-6 for k, t in flat.items()}
+    return ft.unflatten(m0, order), ft.unflatten(v0, order)
+
+
+@pytest.mark.parametrize("task", sorted(DIRECTIONAL))
+def test_directional_epoch_graph_replays_new_scalars_rows_and_seeds(task, cuda_device):
+    """Two epochs through one cached graph, each with another β, lr, weight
+    decay, step0 and rows, both held against the plain version; then Philox
+    noise, a new key that captures the graph anew, for two seeds through one
+    graph, each epoch equal to the injected epoch given the draws the kernel
+    makes."""
+    n_batches, batch = 2, 16
+    case, _, _, order, _, noise, _, _ = DIRECTIONAL[task]
+    params, state, r = case(cuda_device, batch, n_batches, 3, TRAIN_DIMS["dout"])
+    start = (params, *nonzero_moments(cuda_device, ft.flatten_params(params, order), order, 6),
+             state)
+    cur, graph = start, None
+    for beta, lr, step0, perm_seed in ((1e-3, 5e-4, 7, 0), (4e-4, 2e-4, 31, 1)):
+        perm = torch.randperm(batch * n_batches, generator=torch.Generator().manual_seed(perm_seed))
+        rows = {k: t[perm.to(cuda_device)] for k, t in r.items()}
+        before = fe.launches[f"{task}_train_epoch"]
+        got = directional_epoch(task, cur, rows, beta=beta, lr=lr, step0=step0,
+                                n_batches=n_batches)
+        assert fe.launches[f"{task}_train_epoch"] == before + 1
+        graph = graph or fe.graphs[task][1]
+        assert fe.graphs[task][1] is graph
+        assert graph.launches_per_step <= 18
+        check_directional_epoch(task, got, cur, rows, beta=beta, lr=lr, step0=step0,
+                                n_batches=n_batches)
+        cur = got[1:]
+    philox = [directional_epoch(task, start, r, seed=s, step0=3, n_batches=n_batches)
+              for s in (11, 12)]
+    assert fe.graphs[task][1] is not graph
+    for s, got in zip((11, 12), philox):
+        if task == "rna2dna":
+            draws = [ft.philox_noise(s, i, batch, 128, TRAIN_DIMS["latent"], cuda_device)
+                     for i in range(n_batches)]
+        else:
+            draws = [ft.philox_noise_d2r(s, i, batch, 512, 256, TRAIN_DIMS["latent"],
+                                         cuda_device) for i in range(n_batches)]
+        rows = dict(r, **{name: torch.cat([d[j] for d in draws]) for j, name in enumerate(noise)})
+        inj = directional_epoch(task, start, rows, step0=3, n_batches=n_batches)
+        assert torch.equal(got[0], inj[0])
+        for a, b in zip(ft.flatten_params(got[1], order).values(),
+                        ft.flatten_params(inj[1], order).values()):
+            assert torch.equal(a, b)
+    assert not torch.equal(philox[0][0], philox[1][0])
+
+
+@pytest.mark.parametrize("task", sorted(DIRECTIONAL))
+def test_directional_epoch_graph_at_a_dna_width_of_several_tiles(task, cuda_device):
+    """The graph at a DNA width of 4,099 (129 column tiles, the last one
+    ragged), 4 steps of 16 from non-zero moments, against the plain
+    version."""
+    n_batches, batch, lr = 4, 16, 5e-4
+    case, _, _, order, _, _, _, _ = DIRECTIONAL[task]
+    params, state, rows = case(cuda_device, batch, n_batches, 5, 4099)
+    start = (params, *nonzero_moments(cuda_device, ft.flatten_params(params, order), order, 8),
+             state)
+    got = directional_epoch(task, start, rows, lr=lr, step0=2, n_batches=n_batches)
+    check_directional_epoch(task, got, start, rows, beta=1e-3, lr=lr, step0=2,
+                            n_batches=n_batches)
+
+
+def test_an_epoch_graph_the_library_refuses_raises(cuda_device):
+    """A capture that fails raises with the CUDA error, and nothing is
+    cached or falls back: here the library refuses an epoch of no steps."""
+    params, _, _ = train_case(cuda_device, 16)
+    dims_t = ft.dims_of(ft.flatten_params(params))
+    with pytest.raises(RuntimeError, match="rna2dna_epoch_graph_create failed.*CUDA error"):
+        fe.epoch_graph("rna2dna", ("refused",), lambda: fe._EpochGraph(
+            ft.library(), "rna2dna", cuda_device, dims_t, 16, 0, True, False))
+    assert "rna2dna" not in fe.graphs
+
+
+def test_epoch_graphs_of_the_three_tasks_alternate_without_capture(cuda_device):
+    """Epochs of RNA→DNA, DNA→RNA and the tri-modal model, one after another
+    twice: each task's second epoch runs through the graph its first one
+    captured."""
+    n_batches, batch, sites = 2, 16, TRAIN_DIMS["sites"]
+    r2d = train_case(cuda_device, batch, n_batches, seed=7)
+    d2r = d2r_case(cuda_device, batch, n_batches, seed=8)
+    mm = mm_case(cuda_device, batch, n_batches, seed=9)
+
+    def zeros(params, order):
+        return ft.unflatten({k: torch.zeros_like(v)
+                             for k, v in ft.flatten_params(params, order).items()}, order)
+
+    runs = {
+        "rna2dna": lambda: fe.rna2dna_fused_epoch(
+            r2d[0], zeros(r2d[0], ft.PARAM_ORDER), zeros(r2d[0], ft.PARAM_ORDER), r2d[1],
+            r2d[2]["x"], r2d[2]["t"], r2d[2]["site"], sites, seed=1, n_batches=n_batches),
+        "dna2rna": lambda: fe.dna2rna_fused_epoch(
+            d2r[0], zeros(d2r[0], ft.PARAM_ORDER_D2R), zeros(d2r[0], ft.PARAM_ORDER_D2R), d2r[1],
+            d2r[2]["x"], d2r[2]["t"], d2r[2]["site"], sites, seed=1, n_batches=n_batches),
+        "multimodal": lambda: fe.multimodal_fused_epoch(
+            mm[0], zeros(mm[0], ft.PARAM_ORDER_MM), zeros(mm[0], ft.PARAM_ORDER_MM), mm[1],
+            mm[2]["a"], mm[2]["b"], mm[2]["site"], sites, seed=1, class_weights=mm[3],
+            n_batches=n_batches),
+    }
+    first, losses = {}, {}
+    for task, run in runs.items():
+        losses[task] = run()[0]
+        first[task] = fe.graphs[task][1]
+    for task, run in runs.items():
+        again = run()[0]
+        assert all(fe.graphs[t][1] is first[t] for t in runs)
+        assert torch.equal(again, losses[task])  # the same epoch from the same inputs
 
 
 # ---- the wide head (B8): odd widths, a ragged last column tile, two row tiles ----

@@ -59,6 +59,10 @@ from vae_los_angeles_tpu.ops.pallas import fused_epoch_multimodal as jfe
 from vae_los_angeles_tpu.ops.pallas import fused_train_multimodal as jft
 from vae_los_angeles_tpu.training import engine as jax_engine
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, EMBED, B = 36, 52, 5, 8, 16, 16
 HA, HB1, HB2 = 128, 512, 256
 GAMMA, BETA, LR, WD = 1.7, 1e-3, 5e-4, 1e-5

@@ -24,6 +24,10 @@ from vae_los_angeles_tpu.models import decoders as jdec
 from vae_los_angeles_tpu.models import directional_vae as jdv
 from vae_los_angeles_tpu.models import encoders as jenc
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 40, 56, 5, 8, 6
 LAYER = dict(atol=1e-5, rtol=1e-5)
 CHAIN = dict(atol=1e-4, rtol=1e-4)

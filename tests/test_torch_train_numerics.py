@@ -22,6 +22,10 @@ from vae_los_angeles_tpu.ops import losses as jax_losses
 from vae_los_angeles_tpu.ops import nn as jax_nn
 from vae_los_angeles_tpu.ops import optim as jax_optim
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 RED = dict(rtol=1e-5, atol=1e-6)
 T = torch.from_numpy
 

@@ -39,6 +39,10 @@ from vae_los_angeles_tpu.models import directional_vae as jdv
 from vae_los_angeles_tpu.training import checkpoint as jax_ckpt
 from vae_los_angeles_tpu.training import engine as jax_engine
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, BATCH = 40, 56, 5, 8, 16
 DIMS = dict(input_dim_a=DIM_A, input_dim_b=DIM_B, latent_dim=LATENT, batch_size=BATCH)
 

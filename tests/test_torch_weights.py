@@ -12,6 +12,10 @@ from vae_los_angeles_tpu.models.directional_vae import dna2rna_vae_init, rna2dna
 from vae_los_angeles_tpu.models.vae import multimodal_vae_init
 from vae_los_angeles_tpu.utils.torch_import import export_state_dict
 
+# Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
+# which spin at each barrier, do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 40, 56, 5, 8, 6
 FAMILIES = {
     "rna2dna": (rna2dna_vae_init, RNA2DNAVAE),

@@ -3,11 +3,13 @@
 // Replaces the TPU kernels
 //   * rna2dna_train_step  <- vae_los_angeles_tpu/ops/pallas/fused_train.py
 //                            _train_kernel / _train_step_call (rna2dna_fused_train_step)
-//   * rna2dna_train_epoch <- vae_los_angeles_tpu/ops/pallas/fused_epoch.py
+//   * rna2dna_epoch_graph_create (the epoch rna2dna_train_epoch, a CUDA graph)
+//                         <- vae_los_angeles_tpu/ops/pallas/fused_epoch.py
 //                            _epoch_kernel / _epoch_call (rna2dna_fused_epoch)
 //   * dna2rna_train_step  <- fused_train.py _d2r_train_kernel / _d2r_train_step_call
 //                            (dna2rna_fused_train_step)
-//   * dna2rna_train_epoch <- fused_epoch.py _d2r_epoch_kernel / _d2r_epoch_call
+//   * dna2rna_epoch_graph_create (dna2rna_train_epoch)
+//                         <- fused_epoch.py _d2r_epoch_kernel / _d2r_epoch_call
 //                            (dna2rna_fused_epoch)
 //
 // One RNA->DNA step computes what the TPU kernel computes: the train-mode
@@ -28,10 +30,9 @@
 // What bounds it on an H100: a step at B = 32 is ~166 MFLOP (RNA->DNA) or
 // ~136 MFLOP (DNA->RNA) of fp32 against ~7.6 MB of parameters in and
 // gradients out, so ~2-2.5 us of FMA at 67 TFLOP/s and ~2.3 us of memory at
-// 3.35 TB/s. What the simple design below actually pays is latency: ~25
-// dependent launches a step, enqueued by the host one after another, with the
-// parameters and moments (11 MB) resident in the 50 MB L2 (times on the card
-// in PERF.md).
+// 3.35 TB/s. What the simple design below actually pays is latency: 18
+// dependent launches a step, AdamW included, with the parameters and
+// moments (11 MB) resident in the 50 MB L2 (times on the card in PERF.md).
 //
 // The design (simple and deterministic first):
 //   * Every product is one strided tile kernel (`gemm_kernel`, 32 x 32 output
@@ -47,7 +48,7 @@
 //     thread (bias gradients), so no reduction crosses blocks. The posterior
 //     and its backward give each (row, latent) output a warp the same way.
 //     DNA->RNA's first BN block takes its upstream gradient da2 . W2^T from
-//     a split-K product's partials (bn_backward_kernel<false>).
+//     a split-K product's partials (bn_backward_kernel).
 //   * The loss is summed per block in a fixed tree, then by one block over
 //     the block sums.
 //   * The embedding gradient (the TPU computes one_hot^T . de) gives one
@@ -59,10 +60,17 @@
 //     seed, with the counter (row, column, step, stream): stream 0 for the
 //     (first) dropout layer, 2 for DNA->RNA's second (keep iff a 24-bit
 //     uniform < 0.9), 1 for eps (Box-Muller).
-//   * The directional epochs are one C entry each: a host loop over the steps
-//     that enqueues each step's phases and the AdamW kernel on the caller's
-//     stream. Python crosses into C once an epoch. The tri-modal epoch is a
-//     captured CUDA graph (namespace mm below).
+//   * Every epoch (RNA->DNA, DNA->RNA, tri-modal) is a CUDA graph: each
+//     step's phases and the AdamW kernel are captured once
+//     (*_epoch_graph_create, capture_epoch), the wrapper caches the graph with
+//     the buffers it addresses, and an epoch is one graph launch
+//     (epoch_graph_launch). What changes between epochs (seed, beta, gamma,
+//     lr, wd, each step's bias corrections) is read on the card from an
+//     EpochArgs buffer; the Philox step index and the row offsets stay baked.
+//     A directional step is 17 launches (from 24 as host-loop launches; the
+//     tri-modal one 28): a phase's independent products and column sums go
+//     out as one gemm_group_kernel, and the BatchNorm backward that reads
+//     only dmh and dlh shares one launch with the heads' gradients.
 //
 // Plain C interface, built with nvcc into a shared library and called through
 // ctypes (ops/kernels/_build.py, fused_train.py, fused_epoch.py). Every entry
@@ -84,6 +92,8 @@ constexpr float ADAM_EPS = 1e-8f;
 constexpr int TILE = 32;           // gemm output tile and reduction step
 constexpr int GEMM_THREADS = 256;
 constexpr int SPLIT_TARGET = 128;  // blocks a split-K product aims for (fixed: same bits on any card)
+constexpr int MAX_CHUNK_TILES = 32;  // longest split-K chunk of a wide reduction (1,024 of K)
+constexpr int WIDE_K_TILES = 64;     // a reduction longer than 2,048 is a wide layer's
 constexpr int LOSS_BLOCKS = 64;
 constexpr int THREADS = 256;
 
@@ -253,11 +263,19 @@ struct Split {
 };
 
 // Fixed split of the reduction index: enough blocks for the card, chunks of
-// whole 32-wide steps. Depends on the shapes only.
+// whole 32-wide steps, and, for a reduction longer than WIDE_K_TILES steps,
+// no chunk longer than MAX_CHUNK_TILES steps (a chunk is summed in one
+// thread's registers: a reduction over a wide layer, K = 65,536 or 262,144,
+// in 8 chunks ran 128 blocks of up to 32,768 sequential FMAs each, slow and
+// further from a float64 sum than cuBLAS). Depends on the shapes only. No K
+// at the cohort's widths (at most 1,211, or the batch) is that long, so there
+// the split is SPLIT_TARGET's alone.
 Split split_for(int M, int N, int K, int max_splits) {
     const int tiles = ((M + TILE - 1) / TILE) * ((N + TILE - 1) / TILE);
     const int ktiles = (K + TILE - 1) / TILE;
     int want = (SPLIT_TARGET + tiles - 1) / tiles;
+    const int by_length = (ktiles + MAX_CHUNK_TILES - 1) / MAX_CHUNK_TILES;
+    if (ktiles > WIDE_K_TILES && want < by_length) want = by_length;
     if (want > ktiles) want = ktiles;
     if (want > max_splits) want = max_splits;
     if (want < 1) want = 1;
@@ -359,7 +377,8 @@ struct Heads {
 __global__ void __launch_bounds__(THREADS)
 posterior_kernel(const float* __restrict__ d, const int64_t* __restrict__ site, Heads w,
                  int B, int H, int L, int S, int E, const float* __restrict__ eps_in, int noise,
-                 uint64_t seed, int step, float* __restrict__ e, float* __restrict__ mu,
+                 uint64_t seed, const EpochArgs* ea, int step, float* __restrict__ e,
+                 float* __restrict__ mu,
                  float* __restrict__ lv, float* __restrict__ epsv, float* __restrict__ sigma,
                  float* __restrict__ z) {
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -393,7 +412,8 @@ posterior_kernel(const float* __restrict__ d, const int64_t* __restrict__ site, 
     if (lane != 0) return;
     const float m = 0.5f * (mr + ms);
     const float v = 0.5f * (lr + ls);
-    const float ep = noise == NOISE_PHILOX ? philox_normal(seed, r, j, step) : eps_in[idx];
+    const float ep = noise == NOISE_PHILOX ? philox_normal(ea ? ea->seed : seed, r, j, step)
+                                           : eps_in[idx];
     const float sg = expf(0.5f * v);
     mu[idx] = m;
     lv[idx] = v;
@@ -471,7 +491,8 @@ mse_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
 // loss = sum of the block sums + beta * KLD, one block.
 __global__ void __launch_bounds__(THREADS)
 loss_finish_kernel(const float* __restrict__ part, int n_part, const float* __restrict__ mu,
-                   const float* __restrict__ lv, int n_lat, float beta, float* loss) {
+                   const float* __restrict__ lv, int n_lat, float beta, const EpochArgs* ea,
+                   float* loss) {
     __shared__ float rb[THREADS];
     __shared__ float rk[THREADS];
     float b = 0.f, k = 0.f;
@@ -490,23 +511,15 @@ loss_finish_kernel(const float* __restrict__ part, int n_part, const float* __re
         }
         __syncthreads();
     }
-    if (threadIdx.x == 0) *loss = rb[0] + beta * (-0.5f * rk[0]);
-}
-
-// out[j] = sum over rows of y[r][j]: one thread per column.
-__global__ void colsum_kernel(const float* __restrict__ y, int M, int N, float* __restrict__ out) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= N) return;
-    float s = 0.f;
-    for (int r = 0; r < M; ++r) s += y[(size_t)r * N + j];
-    out[j] = s;
+    if (threadIdx.x == 0) *loss = rb[0] + (ea ? ea->beta : beta) * (-0.5f * rk[0]);
 }
 
 // ---------------------------------------------------------------------------
 // Independent products (and column sums) of one phase in one launch: each
 // block finds its problem from its index and runs the same tile code as
-// gemm_kernel (colsum_kernel's loop for a column-sum block), so a grouped
-// product gives the bits of the same product launched alone.
+// gemm_kernel (for a column-sum block, a thread a column summing its rows in
+// order), so a grouped product gives the bits of the same product launched
+// alone.
 constexpr int MAX_PRODS = 6;
 constexpr int MAX_COLSUMS = 3;
 
@@ -599,12 +612,13 @@ __global__ void __launch_bounds__(THREADS)
 posterior_backward_kernel(const float* __restrict__ du1, const float* __restrict__ d1w, int B,
                           int D1, int L, const float* __restrict__ mu,
                           const float* __restrict__ lv, const float* __restrict__ epsv,
-                          const float* __restrict__ sigma, float beta, float* __restrict__ dmh,
-                          float* __restrict__ dlh) {
+                          const float* __restrict__ sigma, float beta, const EpochArgs* ea,
+                          float* __restrict__ dmh, float* __restrict__ dlh) {
     const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (idx >= B * L) return;  // warp-uniform
     const int r = idx / L, j = idx - r * L;
+    if (ea) beta = ea->beta;
     float dz = 0.f;
     for (int k = lane; k < D1; k += 32) dz = fmaf(du1[(size_t)r * D1 + k], d1w[(size_t)j * D1 + k], dz);
     dz = warp_sum(dz);
@@ -619,12 +633,14 @@ struct HeadGrads {
     float *wmu, *bmu, *wlv, *blv, *smu_w, *smu_b, *slv_w, *slv_b;
 };
 
-// Gradients of the four posterior heads: one thread per output element,
-// each summing its B rows in order.
-__global__ void head_grads_kernel(const float* __restrict__ d, const float* __restrict__ e,
-                                  const float* __restrict__ dmh, const float* __restrict__ dlh,
-                                  int B, int H, int E, int L, HeadGrads g) {
-    int idx = blockIdx.x * blockDim.x + threadIdx.x;
+// Gradients of the four posterior heads: one thread per output element
+// (thread ``idx`` of heads_backward_kernel's head part), each summing its B
+// rows in order.
+__device__ __forceinline__ void head_grad_at(int idx, const float* __restrict__ d,
+                                             const float* __restrict__ e,
+                                             const float* __restrict__ dmh,
+                                             const float* __restrict__ dlh, int B, int H, int E,
+                                             int L, const HeadGrads& g) {
     const int HL = H * L, EL = E * L;
     const float* act;
     const float* dy;
@@ -659,12 +675,14 @@ __global__ void head_grads_kernel(const float* __restrict__ d, const float* __re
 }
 
 // g_emb[s][c] = sum over rows r with site[r] == s of de[r][c], with
-// de = dmh . smu_w^T + dlh . slv_w^T computed for the matching rows only.
-__global__ void emb_grad_kernel(const int64_t* __restrict__ site, const float* __restrict__ dmh,
-                                const float* __restrict__ dlh, const float* __restrict__ smu_w,
-                                const float* __restrict__ slv_w, int B, int S, int E, int L,
-                                float* __restrict__ g_emb) {
-    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+// de = dmh . smu_w^T + dlh . slv_w^T computed for the matching rows only;
+// one thread (``idx``) a cell.
+__device__ __forceinline__ void emb_grad_at(int idx, const int64_t* __restrict__ site,
+                                            const float* __restrict__ dmh,
+                                            const float* __restrict__ dlh,
+                                            const float* __restrict__ smu_w,
+                                            const float* __restrict__ slv_w, int B, int S, int E,
+                                            int L, float* __restrict__ g_emb) {
     if (idx >= S * E) return;
     const int s = idx / E, c = idx - s * E;
     float acc = 0.f;
@@ -682,20 +700,18 @@ __global__ void emb_grad_kernel(const int64_t* __restrict__ site, const float* _
 
 // dd = dmh . wmu^T + dlh . wlv^T (FROM_HEADS; else dd is the sum of the
 // split-K partials dd_part of a product), dh = dd * relu mask * dropout /
-// keep, and train-mode BatchNorm's backward, one warp per column, its lanes
-// over the rows: dgamma, dbeta, da1 = inv_std * (dxhat - mean(dxhat) - xhat *
-// mean(dxhat * xhat)) and the encoder bias gradient sum(da1).
+// keep, and train-mode BatchNorm's backward, one warp per column (column
+// ``k``, lane ``lane``), its lanes over the rows: dgamma, dbeta, da1 =
+// inv_std * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) and the
+// encoder bias gradient sum(da1).
 template <bool FROM_HEADS>
-__global__ void __launch_bounds__(THREADS)
-bn_backward_kernel(const float* __restrict__ dmh, const float* __restrict__ dlh,
-                   const float* __restrict__ wmu, const float* __restrict__ wlv,
-                   const float* __restrict__ dd_part, int splits,
-                   const float* __restrict__ dcoef, const float* __restrict__ xhat,
-                   const float* __restrict__ inv_std, const float* __restrict__ gamma, int B,
-                   int H, int L, float* __restrict__ da1, float* __restrict__ g_gamma,
-                   float* __restrict__ g_beta, float* __restrict__ g_b1) {
-    const int k = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void bn_backward_col(
+    int k, int lane, const float* __restrict__ dmh, const float* __restrict__ dlh,
+    const float* __restrict__ wmu, const float* __restrict__ wlv,
+    const float* __restrict__ dd_part, int splits, const float* __restrict__ dcoef,
+    const float* __restrict__ xhat, const float* __restrict__ inv_std,
+    const float* __restrict__ gamma, int B, int H, int L, float* __restrict__ da1,
+    float* __restrict__ g_gamma, float* __restrict__ g_beta, float* __restrict__ g_b1) {
     if (k >= H) return;  // warp-uniform
     float sdh = 0.f, sdhx = 0.f;
     for (int r = lane; r < B; r += 32) {
@@ -733,6 +749,51 @@ bn_backward_kernel(const float* __restrict__ dmh, const float* __restrict__ dlh,
         g_beta[k] = sdh;
         g_b1[k] = sb;
     }
+}
+
+// bn_backward_col's split-K form: dd from a product's partials.
+__global__ void __launch_bounds__(THREADS)
+bn_backward_kernel(const float* __restrict__ dd_part, int splits,
+                   const float* __restrict__ dcoef, const float* __restrict__ xhat,
+                   const float* __restrict__ inv_std, const float* __restrict__ gamma, int B,
+                   int H, float* __restrict__ da1, float* __restrict__ g_gamma,
+                   float* __restrict__ g_beta, float* __restrict__ g_b1) {
+    bn_backward_col<false>(blockIdx.x * WARPS + (threadIdx.x >> 5), threadIdx.x & 31, nullptr,
+                           nullptr, nullptr, nullptr, dd_part, splits, dcoef, xhat, inv_std,
+                           gamma, B, H, 0, da1, g_gamma, g_beta, g_b1);
+}
+
+// An encoder's work after the posterior's backward that reads only dmh and
+// dlh, in one launch: its last block's BatchNorm backward (a warp a column,
+// blocks [0, bn_blocks)), its heads' gradients (a thread an output, the next
+// head_blocks blocks) and the site embedding's (a thread a cell, the rest;
+// none with S = 0). The parts are independent and each output is computed by
+// one thread or warp in a fixed order, so the bits do not depend on the
+// grouping.
+struct HeadsBackward {
+    const float *dmh, *dlh, *wmu, *wlv, *dcoef, *xhat, *inv_std, *gamma, *d, *e, *smu_w, *slv_w;
+    const int64_t* site;
+    float *da, *g_gamma, *g_beta, *g_b, *g_emb;
+    HeadGrads hg;
+    int B, H, L, S, E, bn_blocks, head_blocks;
+};
+
+__global__ void __launch_bounds__(THREADS) heads_backward_kernel(const HeadsBackward a) {
+    int blk = blockIdx.x;
+    if (blk < a.bn_blocks) {
+        bn_backward_col<true>(blk * WARPS + (threadIdx.x >> 5), threadIdx.x & 31, a.dmh, a.dlh,
+                              a.wmu, a.wlv, nullptr, 0, a.dcoef, a.xhat, a.inv_std, a.gamma, a.B,
+                              a.H, a.L, a.da, a.g_gamma, a.g_beta, a.g_b);
+        return;
+    }
+    blk -= a.bn_blocks;
+    if (blk < a.head_blocks) {
+        head_grad_at(blk * THREADS + threadIdx.x, a.d, a.e, a.dmh, a.dlh, a.B, a.H, a.E, a.L, a.hg);
+        return;
+    }
+    blk -= a.head_blocks;
+    emb_grad_at(blk * THREADS + threadIdx.x, a.site, a.dmh, a.dlh, a.smu_w, a.slv_w, a.B, a.S,
+                a.E, a.L, a.g_emb);
 }
 
 // The noise NOISE_PHILOX draws at (seed, step): dropout keep flags
@@ -863,12 +924,30 @@ struct ReluMasks {
     } while (0)
 #define LAUNCHED() CHECK(cudaGetLastError())
 
-// One step: forward, loss, every gradient, new BN running stats.
+// Host side of heads_backward_kernel: the block ranges of its three parts.
+int heads_backward(HeadsBackward a, cudaStream_t st) {
+    a.bn_blocks = blocks(a.H, WARPS);
+    a.head_blocks = blocks((size_t)2 * a.H * a.L + 2 * a.E * a.L + 2 * a.L);
+    const int total = a.bn_blocks + a.head_blocks + blocks((size_t)a.S * a.E);
+    heads_backward_kernel<<<total, THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// One step: forward, loss, every gradient, new BN running stats. ``ea`` (or
+// null) gives the seed and beta in place of the arguments (EpochArgs).
+//
+// 17 launches: a backward phase's independent products (dW and the split
+// dX) go out with the bias gradient's column sum as one gemm_group_kernel;
+// the decoder's first layer (K = latent, not split) takes its bias and ReLU
+// inside the product; the BatchNorm backward and the heads' and site
+// embedding's gradients, which read only dmh and dlh, are one launch. Each
+// product keeps its own tiles and split, so the arithmetic is that of one
+// launch a product.
 int step_phases(const float* x, const float* t, const int64_t* site, const float* p,
                 const Dims& d, int B, const float* rm_in, const float* rv_in, float* rm_out,
                 float* rv_out, const float* eps_in, const float* drop_in, int noise,
-                uint64_t seed, int step, float beta, float* loss, float* g, const Work& w,
-                cudaStream_t st) {
+                uint64_t seed, int step, float beta, const EpochArgs* ea, float* loss, float* g,
+                const Work& w, cudaStream_t st) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -886,18 +965,19 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H, 1}, w.scratch, B, H, X, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H, P[B1], P[GAMMA], P[BNBETA], rm_in, rv_in, rm_out, rv_out, drop_in,
-        noise, seed, nullptr, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
+        noise, seed, ea, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
     LAUNCHED();
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
-    posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(w.d, site, heads, B, H, L, S, E, eps_in,
-                                                         noise, seed, step, w.e, w.mu, w.lv,
-                                                         w.epsv, w.sigma, w.z);
+    posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
+        w.d, site, heads, B, H, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu, w.lv, w.epsv,
+        w.sigma, w.z);
     LAUNCHED();
-    CHECK(gemm(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.scratch, B, D1, L, BIG, st, &sp));
-    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, P[D1B],
-                                                                nullptr, w.r1, EPI_BIAS_RELU);
-    LAUNCHED();
+    {
+        Group first;  // z . W + b through ReLU
+        first.prod(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.r1, B, D1, L, 1, P[D1B], nullptr);
+        CHECK(first.launch(st));
+    }
     CHECK(gemm(Mat{w.r1, D1, 1}, Mat{P[D2W], D2, 1}, w.scratch, B, D2, D1, BIG, st, &sp));
     epilogue_kernel<<<blocks((size_t)B * D2), THREADS, 0, st>>>(w.scratch, sp, B, D2, P[D2B],
                                                                 nullptr, w.r2, EPI_BIAS_RELU);
@@ -906,44 +986,77 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     logits_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, O, P[D3B], t, w.dlogits,
                                                    w.part);
     LAUNCHED();
-    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, loss);
+    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, ea,
+                                              loss);
     LAUNCHED();
 
-    // ---- backward: decoder ----
-    CHECK(gemm(Mat{w.r2, 1, D2}, Mat{w.dlogits, O, 1}, G[D3W], D2, O, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(O), THREADS, 0, st>>>(w.dlogits, B, O, G[D3B]);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.dlogits, O, 1}, Mat{P[D3W], 1, O}, w.scratch, B, D2, O, BIG, st, &sp));
+    // ---- backward: decoder (dW = act^T . dy, db = column sums of dy, dx = dy . W^T) ----
+    {
+        Group out;
+        out.prod(Mat{w.r2, 1, D2}, Mat{w.dlogits, O, 1}, G[D3W], D2, O, B, 1, nullptr, nullptr);
+        out.prod(Mat{w.dlogits, O, 1}, Mat{P[D3W], 1, O}, w.scratch, B, D2, O, BIG, nullptr, &sp);
+        out.colsum(w.dlogits, B, O, G[D3B]);
+        CHECK(out.launch(st));
+    }
     epilogue_kernel<<<blocks((size_t)B * D2), THREADS, 0, st>>>(w.scratch, sp, B, D2, nullptr,
                                                                 w.r2, w.du2, EPI_RELU_MASK);
     LAUNCHED();
-    CHECK(gemm(Mat{w.r1, 1, D1}, Mat{w.du2, D2, 1}, G[D2W], D1, D2, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(D2), THREADS, 0, st>>>(w.du2, B, D2, G[D2B]);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.du2, D2, 1}, Mat{P[D2W], 1, D2}, w.scratch, B, D1, D2, BIG, st, &sp));
+    {
+        Group mid;
+        mid.prod(Mat{w.r1, 1, D1}, Mat{w.du2, D2, 1}, G[D2W], D1, D2, B, 1, nullptr, nullptr);
+        mid.prod(Mat{w.du2, D2, 1}, Mat{P[D2W], 1, D2}, w.scratch, B, D1, D2, BIG, nullptr, &sp);
+        mid.colsum(w.du2, B, D2, G[D2B]);
+        CHECK(mid.launch(st));
+    }
     epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, nullptr,
                                                                 w.r1, w.du1, EPI_RELU_MASK);
     LAUNCHED();
-    CHECK(gemm(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(D1), THREADS, 0, st>>>(w.du1, B, D1, G[D1B]);
-    LAUNCHED();
+    {
+        Group first;
+        first.prod(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, nullptr, nullptr);
+        first.colsum(w.du1, B, D1, G[D1B]);
+        CHECK(first.launch(st));
+    }
 
-    // ---- backward: posterior, heads, site embedding, encoder ----
+    // ---- backward: posterior, then heads, site embedding and encoder BN in one launch ----
     posterior_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, w.dmh, w.dlh);
+        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
     LAUNCHED();
-    const HeadGrads hg = {G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
-    head_grads_kernel<<<blocks((size_t)2 * H * L + 2 * E * L + 2 * L), THREADS, 0, st>>>(
-        w.d, w.e, w.dmh, w.dlh, B, H, E, L, hg);
-    LAUNCHED();
-    emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[SMU_W],
-                                                               P[SLV_W], B, S, E, L, G[EMB]);
-    LAUNCHED();
-    bn_backward_kernel<true><<<blocks(H, WARPS), THREADS, 0, st>>>(
-        w.dmh, w.dlh, P[WMU], P[WLV], nullptr, 0, w.dcoef, w.xhat, w.inv_std, P[GAMMA], B, H, L,
-        w.da1, G[GAMMA], G[BNBETA], G[B1]);
-    LAUNCHED();
+    HeadsBackward hb{};
+    hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[WMU]; hb.wlv = P[WLV];
+    hb.dcoef = w.dcoef; hb.xhat = w.xhat; hb.inv_std = w.inv_std; hb.gamma = P[GAMMA];
+    hb.d = w.d; hb.e = w.e; hb.smu_w = P[SMU_W]; hb.slv_w = P[SLV_W]; hb.site = site;
+    hb.da = w.da1; hb.g_gamma = G[GAMMA]; hb.g_beta = G[BNBETA]; hb.g_b = G[B1];
+    hb.g_emb = G[EMB];
+    hb.hg = HeadGrads{G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
+    hb.B = B; hb.H = H; hb.L = L; hb.S = S; hb.E = E;
+    CHECK(heads_backward(hb, st));
     CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H, 1}, G[W1], X, H, B, 1, st, nullptr));
+    return 0;
+}
+
+// The epoch's launches on ``st``: for each step i, step_phases on rows
+// [i * B, (i + 1) * B) with Philox step index i, then AdamW with step i's
+// bias corrections; seed, beta, lr and wd come from ``ea``. bn: rm then rv.
+int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, float* params,
+                 float* m, float* v, const Dims& d, int batch, int n_batches, float* bn,
+                 const float* eps_ep, const float* drop_ep, int noise, const EpochArgs* ea,
+                 float* losses, const Work& w, cudaStream_t st) {
+    long long off[N_PARAMS];
+    const long long n_params = param_offsets(d, off);
+    const bool inj = noise == NOISE_INJECTED;
+    float* rm = bn;
+    float* rv = bn + d.hid;
+    for (int i = 0; i < n_batches; ++i) {
+        const size_t r0 = (size_t)i * batch;
+        CHECK(step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d, batch, rm,
+                          rv, rm, rv, inj ? eps_ep + r0 * d.latent : nullptr,
+                          inj ? drop_ep + r0 * d.hid : nullptr, noise, 0, i, 0.f, ea, losses + i,
+                          w.grads, w, st));
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
+            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
+        LAUNCHED();
+    }
     return 0;
 }
 
@@ -1042,11 +1155,18 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 }
 
 // One step: forward, loss, every gradient, the new running stats of both
-// BatchNorms. bn_in/bn_out: rm1 (h1), rv1 (h1), rm2 (h2), rv2 (h2).
+// BatchNorms. bn_in/bn_out: rm1 (h1), rv1 (h1), rm2 (h2), rv2 (h2). ``ea``
+// (or null) gives the seed and beta in place of the arguments.
+//
+// 17 launches, grouped as RNA->DNA's are: the decoder's backward products
+// with their column sums, dW2 with the split dd1 = da2 . W2^T, the first
+// decoder layer with its bias and ReLU, and block 2's BatchNorm backward
+// with the heads' and the embedding's gradients.
 int step_phases(const float* x, const float* t, const int64_t* site, const float* p,
                 const Dims& d, int B, const float* bn_in, float* bn_out, const float* eps_in,
                 const float* drop1_in, const float* drop2_in, int noise, uint64_t seed, int step,
-                float beta, float* loss, float* g, const Work& w, cudaStream_t st) {
+                float beta, const EpochArgs* ea, float* loss, float* g, const Work& w,
+                cudaStream_t st) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -1064,69 +1184,99 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H1, 1}, w.scratch, B, H1, X, BIG, st, &sp));
     bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H1, P[B1], P[G1], P[BT1], bn_in, bn_in + H1, bn_out, bn_out + H1,
-        drop1_in, noise, seed, nullptr, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
+        drop1_in, noise, seed, ea, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
     LAUNCHED();
     CHECK(gemm(Mat{w.d1, H1, 1}, Mat{P[W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
     const float* bn2_in = bn_in + 2 * H1;
     float* bn2_out = bn_out + 2 * H1;
     bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
         w.scratch, sp, B, H2, P[B2], P[G2], P[BT2], bn2_in, bn2_in + H2, bn2_out, bn2_out + H2,
-        drop2_in, noise, seed, nullptr, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2,
-        w.inv2);
+        drop2_in, noise, seed, ea, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2, w.inv2);
     LAUNCHED();
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
     posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.d2, site, heads, B, H2, L, S, E, eps_in, noise, seed, step, w.e, w.mu, w.lv, w.epsv,
-        w.sigma, w.z);
+        w.d2, site, heads, B, H2, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu, w.lv,
+        w.epsv, w.sigma, w.z);
     LAUNCHED();
-    CHECK(gemm(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.scratch, B, D1, L, BIG, st, &sp));
-    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, P[D1B],
-                                                                nullptr, w.rd1, EPI_BIAS_RELU);
-    LAUNCHED();
+    {
+        Group first;  // z . W + b through ReLU
+        first.prod(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.rd1, B, D1, L, 1, P[D1B], nullptr);
+        CHECK(first.launch(st));
+    }
     CHECK(gemm(Mat{w.rd1, D1, 1}, Mat{P[D2W], O, 1}, w.scratch, B, O, D1, BIG, st, &sp));
     mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, O, P[D2B], t, w.drecon,
                                                 w.part);
     LAUNCHED();
-    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, loss);
+    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, ea,
+                                              loss);
     LAUNCHED();
 
-    // ---- backward: decoder ----
-    CHECK(gemm(Mat{w.rd1, 1, D1}, Mat{w.drecon, O, 1}, G[D2W], D1, O, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(O), THREADS, 0, st>>>(w.drecon, B, O, G[D2B]);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.drecon, O, 1}, Mat{P[D2W], 1, O}, w.scratch, B, D1, O, BIG, st, &sp));
+    // ---- backward: decoder (dW = act^T . dy, db = column sums of dy, dx = dy . W^T) ----
+    {
+        Group out;
+        out.prod(Mat{w.rd1, 1, D1}, Mat{w.drecon, O, 1}, G[D2W], D1, O, B, 1, nullptr, nullptr);
+        out.prod(Mat{w.drecon, O, 1}, Mat{P[D2W], 1, O}, w.scratch, B, D1, O, BIG, nullptr, &sp);
+        out.colsum(w.drecon, B, O, G[D2B]);
+        CHECK(out.launch(st));
+    }
     epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, nullptr,
                                                                 w.rd1, w.du1, EPI_RELU_MASK);
     LAUNCHED();
-    CHECK(gemm(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, st, nullptr));
-    colsum_kernel<<<blocks(D1), THREADS, 0, st>>>(w.du1, B, D1, G[D1B]);
-    LAUNCHED();
+    {
+        Group first;
+        first.prod(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, nullptr, nullptr);
+        first.colsum(w.du1, B, D1, G[D1B]);
+        CHECK(first.launch(st));
+    }
 
-    // ---- backward: posterior, heads, site embedding ----
+    // ---- backward: posterior, then heads, site embedding and block 2's BN in one launch ----
     posterior_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, w.dmh, w.dlh);
+        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
     LAUNCHED();
-    const HeadGrads hg = {G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
-    head_grads_kernel<<<blocks((size_t)2 * H2 * L + 2 * E * L + 2 * L), THREADS, 0, st>>>(
-        w.d2, w.e, w.dmh, w.dlh, B, H2, E, L, hg);
-    LAUNCHED();
-    emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[SMU_W],
-                                                               P[SLV_W], B, S, E, L, G[EMB]);
-    LAUNCHED();
+    HeadsBackward hb{};
+    hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[WMU]; hb.wlv = P[WLV];
+    hb.dcoef = w.dcoef2; hb.xhat = w.xhat2; hb.inv_std = w.inv2; hb.gamma = P[G2];
+    hb.d = w.d2; hb.e = w.e; hb.smu_w = P[SMU_W]; hb.slv_w = P[SLV_W]; hb.site = site;
+    hb.da = w.da2; hb.g_gamma = G[G2]; hb.g_beta = G[BT2]; hb.g_b = G[B2];
+    hb.g_emb = G[EMB];
+    hb.hg = HeadGrads{G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
+    hb.B = B; hb.H = H2; hb.L = L; hb.S = S; hb.E = E;
+    CHECK(heads_backward(hb, st));
 
-    // ---- backward: encoder block 2, then block 1 through dd1 = da2 . W2^T ----
-    bn_backward_kernel<true><<<blocks(H2, WARPS), THREADS, 0, st>>>(
-        w.dmh, w.dlh, P[WMU], P[WLV], nullptr, 0, w.dcoef2, w.xhat2, w.inv2, P[G2], B, H2, L,
-        w.da2, G[G2], G[BT2], G[B2]);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.d1, 1, H1}, Mat{w.da2, H2, 1}, G[W2], H1, H2, B, 1, st, nullptr));
-    CHECK(gemm(Mat{w.da2, H2, 1}, Mat{P[W2], 1, H2}, w.scratch, B, H1, H2, BIG, st, &sp));
-    bn_backward_kernel<false><<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        nullptr, nullptr, nullptr, nullptr, w.scratch, sp, w.dcoef1, w.xhat1, w.inv1, P[G1], B,
-        H1, 0, w.da1, G[G1], G[BT1], G[B1]);
+    // ---- backward: block 1 through dd1 = da2 . W2^T ----
+    {
+        Group enc;
+        enc.prod(Mat{w.d1, 1, H1}, Mat{w.da2, H2, 1}, G[W2], H1, H2, B, 1, nullptr, nullptr);
+        enc.prod(Mat{w.da2, H2, 1}, Mat{P[W2], 1, H2}, w.scratch, B, H1, H2, BIG, nullptr, &sp);
+        CHECK(enc.launch(st));
+    }
+    bn_backward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, w.dcoef1, w.xhat1, w.inv1, P[G1], B, H1, w.da1, G[G1], G[BT1], G[B1]);
     LAUNCHED();
     CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H1, 1}, G[W1], X, H1, B, 1, st, nullptr));
+    return 0;
+}
+
+// The epoch's launches on ``st``, as RNA->DNA's (bn: rm1, rv1, rm2, rv2).
+int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, float* params,
+                 float* m, float* v, const Dims& d, int batch, int n_batches, float* bn,
+                 const float* eps_ep, const float* drop1_ep, const float* drop2_ep, int noise,
+                 const EpochArgs* ea, float* losses, const Work& w, cudaStream_t st) {
+    long long off[N_PARAMS];
+    const long long n_params = param_offsets(d, off);
+    const bool inj = noise == NOISE_INJECTED;
+    for (int i = 0; i < n_batches; ++i) {
+        const size_t r0 = (size_t)i * batch;
+        CHECK(step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d, batch,
+                          bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
+                          inj ? drop1_ep + r0 * d.h1 : nullptr,
+                          inj ? drop2_ep + r0 * d.h2 : nullptr, noise, 0, i, 0.f, ea, losses + i,
+                          w.grads, w, st));
+        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
+            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
+        LAUNCHED();
+    }
     return 0;
 }
 
@@ -1148,16 +1298,17 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
 // host loop it was ~11,200 dependent launches, each enqueued in ~5 us while
 // the card ran it in ~3.75 us, so the host set the pace and the card idled
 // ~29% of the epoch. The design: (1) the host leaves the step. The epoch's
-// launches are captured once into a CUDA graph (multimodal_epoch_graph_*),
+// launches are captured once into a CUDA graph (multimodal_epoch_graph_create),
 // cached by the wrapper with the buffers they address, and replayed with one
 // cudaGraphLaunch an epoch; what changes between epochs (seed, beta, gamma,
 // lr, wd and each step's bias corrections) is read from a small device
 // buffer (EpochArgs), while the Philox step index and the row offsets,
-// fixed within an epoch, stay baked. (2) Fewer launches a step, 29 with the
+// fixed within an epoch, stay baked. (2) Fewer launches a step, 26 with the
 // AdamW (from 56): independent products of a phase grouped in one launch
 // with the bias gradients' column sums, the decoders' first layers with their
 // bias and ReLU inside the product, the three ReLU-masked upstream gradients
-// in one launch. No atomics; each product keeps its tiles and split, so one
+// in one launch, an encoder's BN backward with its heads' gradients in one.
+// No atomics; each product keeps its tiles and split, so one
 // input gives one set of bits.
 namespace mm {
 
@@ -1453,11 +1604,12 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 // and target, b (B, in_b) the DNA input and target. ``ea`` (or null) gives
 // the seed, beta and gamma in place of the arguments (EpochArgs).
 //
-// 28 launches: the products of one phase that do not depend on each other
+// 25 launches: the products of one phase that do not depend on each other
 // (and the bias gradients' column sums) go out as one gemm_group_kernel, the
 // three decoders' ReLU-masked upstream gradients as one relu_mask_group_kernel,
-// and the decoders' first layers (K = latent, not split) with their bias and
-// ReLU inside the product. Each product keeps its own tiles and split, so the
+// the decoders' first layers (K = latent, not split) with their bias and
+// ReLU inside the product, and each encoder's last BN backward with its heads'
+// (and the site embedding's) gradients as one heads_backward_kernel. Each product keeps its own tiles and split, so the
 // arithmetic is that of one launch a product.
 int step_phases(const float* a, const float* b, const int64_t* site, const float* cw,
                 const float* p, const Dims& d, int B, const float* bn_in, float* bn_out,
@@ -1595,35 +1747,33 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
         CHECK(first.launch(st));
     }
 
-    // ---- backward: posterior, the three heads, the site embedding ----
+    // ---- backward: posterior, then EncoderA's block with its heads and the
+    // site head and embedding in one launch, EncoderB's block 2 with its
+    // heads (no site part: E = 0, S = 0, the bias written once a thread) in
+    // another ----
     posterior3_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
         w.dua, P[DA_W1], DA, w.dub1, P[DB_W1], DB1, w.duc, P[DC_W1], DC, B, L, w.mu, w.lv,
         w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
     LAUNCHED();
-    const HeadGrads ac = {G[A_WMU], G[A_BMU], G[A_WLV], G[A_BLV],
-                          G[C_WMU], G[C_BMU], G[C_WLV], G[C_BLV]};
-    head_grads_kernel<<<blocks((size_t)2 * HA * L + 2 * E * L + 2 * L), THREADS, 0, st>>>(
-        w.ad, w.e, w.dmh, w.dlh, B, HA, E, L, ac);
-    LAUNCHED();
-    // EncoderB's heads: no site part (E = 0), the bias written once a thread
-    const HeadGrads bh = {G[B_WMU], G[B_BMU], G[B_WLV], G[B_BLV],
-                          nullptr,  G[B_BMU], nullptr,  G[B_BLV]};
-    head_grads_kernel<<<blocks((size_t)2 * H2 * L + 2 * L), THREADS, 0, st>>>(
-        w.bd2, nullptr, w.dmh, w.dlh, B, H2, 0, L, bh);
-    LAUNCHED();
-    emb_grad_kernel<<<blocks((size_t)S * E), THREADS, 0, st>>>(site, w.dmh, w.dlh, P[C_WMU],
-                                                               P[C_WLV], B, S, E, L, G[EMB]);
-    LAUNCHED();
+    HeadsBackward ha{};
+    ha.dmh = w.dmh; ha.dlh = w.dlh; ha.wmu = P[A_WMU]; ha.wlv = P[A_WLV];
+    ha.dcoef = w.dca; ha.xhat = w.xa; ha.inv_std = w.inva; ha.gamma = P[A_G];
+    ha.d = w.ad; ha.e = w.e; ha.smu_w = P[C_WMU]; ha.slv_w = P[C_WLV]; ha.site = site;
+    ha.da = w.daa; ha.g_gamma = G[A_G]; ha.g_beta = G[A_BT]; ha.g_b = G[A_B1]; ha.g_emb = G[EMB];
+    ha.hg = HeadGrads{G[A_WMU], G[A_BMU], G[A_WLV], G[A_BLV],
+                      G[C_WMU], G[C_BMU], G[C_WLV], G[C_BLV]};
+    ha.B = B; ha.H = HA; ha.L = L; ha.S = S; ha.E = E;
+    CHECK(heads_backward(ha, st));
+    HeadsBackward hb{};
+    hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[B_WMU]; hb.wlv = P[B_WLV];
+    hb.dcoef = w.dcb2; hb.xhat = w.xb2; hb.inv_std = w.invb2; hb.gamma = P[B_G2];
+    hb.d = w.bd2; hb.da = w.dba2; hb.g_gamma = G[B_G2]; hb.g_beta = G[B_BT2]; hb.g_b = G[B_B2];
+    hb.hg = HeadGrads{G[B_WMU], G[B_BMU], G[B_WLV], G[B_BLV],
+                      nullptr,  G[B_BMU], nullptr,  G[B_BLV]};
+    hb.B = B; hb.H = H2; hb.L = L;
+    CHECK(heads_backward(hb, st));
 
-    // ---- backward: EncoderA's block, EncoderB's block 2 then block 1 ----
-    bn_backward_kernel<true><<<blocks(HA, WARPS), THREADS, 0, st>>>(
-        w.dmh, w.dlh, P[A_WMU], P[A_WLV], nullptr, 0, w.dca, w.xa, w.inva, P[A_G], B, HA, L,
-        w.daa, G[A_G], G[A_BT], G[A_B1]);
-    LAUNCHED();
-    bn_backward_kernel<true><<<blocks(H2, WARPS), THREADS, 0, st>>>(
-        w.dmh, w.dlh, P[B_WMU], P[B_WLV], nullptr, 0, w.dcb2, w.xb2, w.invb2, P[B_G2], B, H2, L,
-        w.dba2, G[B_G2], G[B_BT2], G[B_B2]);
-    LAUNCHED();
+    // ---- backward: EncoderA's and EncoderB's block 2 weights, EncoderB's block 1 ----
     {
         Group enc;
         enc.prod(Mat{a, 1, A}, Mat{w.daa, HA, 1}, G[A_W1], A, HA, B, 1, nullptr, nullptr);
@@ -1632,9 +1782,9 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
                  &sp);
         CHECK(enc.launch(st));
     }
-    bn_backward_kernel<false><<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        nullptr, nullptr, nullptr, nullptr, w.scratch, sp, w.dcb1, w.xb1, w.invb1, P[B_G1], B,
-        H1, 0, w.dba1, G[B_G1], G[B_BT1], G[B_B1]);
+    bn_backward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
+        w.scratch, sp, w.dcb1, w.xb1, w.invb1, P[B_G1], B, H1, w.dba1, G[B_G1], G[B_BT1],
+        G[B_B1]);
     LAUNCHED();
     CHECK(gemm(Mat{b, 1, Bd}, Mat{w.dba1, H1, 1}, G[B_W1], Bd, H1, B, 1, st, nullptr));
     return 0;
@@ -1666,12 +1816,21 @@ int epoch_phases(const float* a_ep, const float* b_ep, const int64_t* site_ep, c
     return 0;
 }
 
-// A captured epoch: its graph, the stream it replays on and the two events
-// that order it after the caller's stream and the caller after it.
+bool noise_ok(int noise, const float* eps, const float* da, const float* db1, const float* db2) {
+    if (noise == NOISE_PHILOX) return true;
+    return noise == NOISE_INJECTED && eps && da && db1 && db2;
+}
+
+}  // namespace mm
+
+// A captured epoch (any of the three tasks): its graph, the stream it
+// replays on, the two events that order it after the caller's stream and the
+// caller after it, and the number of kernel launches it holds.
 struct EpochGraph {
     cudaStream_t stream = nullptr;
     cudaEvent_t ready = nullptr, done = nullptr;
     cudaGraphExec_t exec = nullptr;
+    size_t nodes = 0;
 };
 
 void free_graph(EpochGraph* g) {
@@ -1683,12 +1842,33 @@ void free_graph(EpochGraph* g) {
     delete g;
 }
 
-bool noise_ok(int noise, const float* eps, const float* da, const float* db1, const float* db2) {
-    if (noise == NOISE_PHILOX) return true;
-    return noise == NOISE_INJECTED && eps && da && db1 && db2;
+// Capture what ``enqueue(stream)`` launches into a CUDA graph, on a
+// non-blocking stream of its own (so the caller's stream may be the legacy
+// default one), and instantiate it. Returns the graph, or null with *err set
+// to the first CUDA error of the capture, the enqueue or the instantiation.
+template <class Enqueue>
+void* capture_epoch(Enqueue enqueue, int* err) {
+    auto* g = new EpochGraph;
+    auto fail = [&](int e) -> void* {
+        *err = e;
+        free_graph(g);
+        return nullptr;
+    };
+    int e = (int)cudaStreamCreateWithFlags(&g->stream, cudaStreamNonBlocking);
+    if (!e) e = (int)cudaEventCreateWithFlags(&g->ready, cudaEventDisableTiming);
+    if (!e) e = (int)cudaEventCreateWithFlags(&g->done, cudaEventDisableTiming);
+    if (!e) e = (int)cudaStreamBeginCapture(g->stream, cudaStreamCaptureModeThreadLocal);
+    if (e) return fail(e);
+    const int enq = enqueue(g->stream);
+    cudaGraph_t graph = nullptr;
+    const int ended = (int)cudaStreamEndCapture(g->stream, &graph);
+    e = enq ? enq : ended;
+    if (!e) e = (int)cudaGraphGetNodes(graph, nullptr, &g->nodes);
+    if (!e) e = (int)cudaGraphInstantiate(&g->exec, graph, 0);
+    if (graph) cudaGraphDestroy(graph);
+    if (e) return fail(e);
+    return g;
 }
-
-}  // namespace mm
 
 }  // namespace
 
@@ -1724,44 +1904,47 @@ int rna2dna_train_step(const float* x, const float* t, const int64_t* site, cons
     }
     const Work w = plan(work, d, batch, false);
     return step_phases(x, t, site, params, d, batch, rm_in, rv_in, rm_out, rv_out, eps_in,
-                       drop_in, noise, (uint64_t)seed, step, beta, loss, grads, w,
+                       drop_in, noise, (uint64_t)seed, step, beta, nullptr, loss, grads, w,
                        (cudaStream_t)stream);
 }
 
-// One epoch of n_batches steps on the rows x_ep (n_batches * B, in), t_ep,
-// site_ep, eps_ep/drop_ep (injected mode), updating params, m, v (flat
-// buffers) and rm/rv in place; losses (n_batches,). Step i draws its noise
-// with step index i and applies AdamW with bias correction at step0 + i + 1.
-int rna2dna_train_epoch(const float* x_ep, const float* t_ep, const int64_t* site_ep,
-                        float* params, float* m, float* v, const int* dims, int batch,
-                        int n_batches, float* rm, float* rv, const float* eps_ep,
-                        const float* drop_ep, int noise, unsigned long long seed, float beta,
-                        float lr, float wd, long long step0, float* losses, float* work,
-                        void* stream) {
+// Floats of the epoch-args buffer of an epoch of n_batches steps (any task):
+// struct EpochArgs (seed as two floats' worth of bytes, beta, gamma, lr, wd),
+// then (bc1, bc2) of each step.
+int epoch_args_floats(int n_batches) {
+    return (int)(sizeof(EpochArgs) / sizeof(float)) + 2 * n_batches;
+}
+
+// Capture one RNA->DNA epoch of n_batches steps into a CUDA graph and
+// instantiate it: the rows x_ep (n_batches * B, in), t_ep (n_batches * B,
+// out), site_ep, the injected noise (eps_ep, drop_ep) when noise == 0,
+// params, m, v (flat buffers), bn (rm then rv, 2 * hidden), losses
+// (n_batches,), work (rna2dna_train_workspace_floats(dims, B, 1)) and args
+// (epoch_args_floats(n_batches) floats: the seed, beta, lr, wd and each
+// step's bias corrections, read when the graph runs; gamma unused) are baked
+// in by address: each launch of the graph (epoch_graph_launch) runs the
+// epoch on what these buffers hold then, updating params, m, v and bn in
+// place. Step i draws its noise with step index i. Returns a handle, or null
+// with *err set.
+void* rna2dna_epoch_graph_create(const float* x_ep, const float* t_ep, const int64_t* site_ep,
+                                 float* params, float* m, float* v, const int* dims, int batch,
+                                 int n_batches, float* bn, const float* eps_ep,
+                                 const float* drop_ep, int noise, const float* args,
+                                 float* losses, float* work, int* err) {
     const Dims d = dims_from(dims);
-    if (!valid(d, batch) || n_batches < 1 ||
+    *err = 0;
+    if (!valid(d, batch) || n_batches < 1 || !args ||
         (noise == NOISE_INJECTED && (!eps_ep || !drop_ep)) ||
         (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
-        return (int)cudaErrorInvalidValue;
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
     }
-    cudaStream_t st = (cudaStream_t)stream;
     const Work w = plan(work, d, batch, true);
-    long long off[N_PARAMS];
-    const long long n_params = param_offsets(d, off);
-    for (int i = 0; i < n_batches; ++i) {
-        const size_t r0 = (size_t)i * batch;
-        CHECK(step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d, batch, rm,
-                          rv, rm, rv, noise == NOISE_INJECTED ? eps_ep + r0 * d.latent : nullptr,
-                          noise == NOISE_INJECTED ? drop_ep + r0 * d.hid : nullptr, noise,
-                          (uint64_t)seed, i, beta, losses + i, w.grads, w, st));
-        const double t_step = (double)(step0 + i + 1);
-        const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
-        const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
-            params, m, v, w.grads, n_params, lr, wd, bc1, bc2, nullptr, 0);
-        LAUNCHED();
-    }
-    return 0;
+    const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
+    return capture_epoch([&](cudaStream_t st) {
+        return epoch_phases(x_ep, t_ep, site_ep, params, m, v, d, batch, n_batches, bn, eps_ep,
+                            drop_ep, noise, ea, losses, w, st);
+    }, err);
 }
 
 // The dropout mask (B, hidden) and eps (B, latent) that a step at (seed,
@@ -1809,47 +1992,33 @@ int dna2rna_train_step(const float* x, const float* t, const int64_t* site, cons
     }
     const d2r::Work w = d2r::plan(work, d, batch, false);
     return d2r::step_phases(x, t, site, params, d, batch, bn_in, bn_out, eps_in, drop1_in,
-                            drop2_in, noise, (uint64_t)seed, step, beta, loss, grads, w,
+                            drop2_in, noise, (uint64_t)seed, step, beta, nullptr, loss, grads, w,
                             (cudaStream_t)stream);
 }
 
-// One DNA->RNA epoch of n_batches steps on x_ep (n_batches * B, in), t_ep,
-// site_ep, eps_ep/drop1_ep/drop2_ep (injected mode), updating params, m, v
-// (flat buffers) and bn (rm1, rv1, rm2, rv2) in place; losses (n_batches,).
-// Step i draws its noise with step index i and applies AdamW with bias
-// correction at step0 + i + 1.
-int dna2rna_train_epoch(const float* x_ep, const float* t_ep, const int64_t* site_ep,
-                        float* params, float* m, float* v, const int* dims, int batch,
-                        int n_batches, float* bn, const float* eps_ep, const float* drop1_ep,
-                        const float* drop2_ep, int noise, unsigned long long seed, float beta,
-                        float lr, float wd, long long step0, float* losses, float* work,
-                        void* stream) {
+// Capture one DNA->RNA epoch into a CUDA graph, as rna2dna_epoch_graph_create:
+// x_ep (n_batches * B, in) the DNA input, t_ep the RNA target, the injected
+// noise (eps_ep, drop1_ep, drop2_ep) when noise == 0, bn (rm1, rv1, rm2,
+// rv2) and work (dna2rna_train_workspace_floats(dims, B, 1)).
+void* dna2rna_epoch_graph_create(const float* x_ep, const float* t_ep, const int64_t* site_ep,
+                                 float* params, float* m, float* v, const int* dims, int batch,
+                                 int n_batches, float* bn, const float* eps_ep,
+                                 const float* drop1_ep, const float* drop2_ep, int noise,
+                                 const float* args, float* losses, float* work, int* err) {
     const d2r::Dims d = d2r::from(dims);
-    if (!d2r::valid(d, batch) || n_batches < 1 ||
+    *err = 0;
+    if (!d2r::valid(d, batch) || n_batches < 1 || !args ||
         (noise == NOISE_INJECTED && (!eps_ep || !drop1_ep || !drop2_ep)) ||
         (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
-        return (int)cudaErrorInvalidValue;
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
     }
-    cudaStream_t st = (cudaStream_t)stream;
     const d2r::Work w = d2r::plan(work, d, batch, true);
-    long long off[d2r::N_PARAMS];
-    const long long n_params = d2r::param_offsets(d, off);
-    const bool inj = noise == NOISE_INJECTED;
-    for (int i = 0; i < n_batches; ++i) {
-        const size_t r0 = (size_t)i * batch;
-        CHECK(d2r::step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d,
-                               batch, bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
-                               inj ? drop1_ep + r0 * d.h1 : nullptr,
-                               inj ? drop2_ep + r0 * d.h2 : nullptr, noise, (uint64_t)seed, i,
-                               beta, losses + i, w.grads, w, st));
-        const double t_step = (double)(step0 + i + 1);
-        const float bc1 = (float)(1.0 - pow((double)ADAM_B1, t_step));
-        const float bc2 = (float)(1.0 - pow((double)ADAM_B2, t_step));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
-            params, m, v, w.grads, n_params, lr, wd, bc1, bc2, nullptr, 0);
-        LAUNCHED();
-    }
-    return 0;
+    const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
+    return capture_epoch([&](cudaStream_t st) {
+        return d2r::epoch_phases(x_ep, t_ep, site_ep, params, m, v, d, batch, n_batches, bn,
+                                 eps_ep, drop1_ep, drop2_ep, noise, ea, losses, w, st);
+    }, err);
 }
 
 // The dropout masks (B, h1), (B, h2) and eps (B, latent) that a DNA->RNA
@@ -1906,25 +2075,17 @@ int multimodal_train_step(const float* a, const float* b, const int64_t* site, c
                            nullptr, loss, grads, w, (cudaStream_t)stream);
 }
 
-// Floats of the epoch-args buffer of an epoch of n_batches steps: struct
-// EpochArgs (seed as two floats' worth of bytes, beta, gamma, lr, wd), then
-// (bc1, bc2) of each step.
-int multimodal_epoch_args_floats(int n_batches) {
-    return (int)(sizeof(EpochArgs) / sizeof(float)) + 2 * n_batches;
-}
-
 // Capture one tri-modal epoch of n_batches steps into a CUDA graph and
 // instantiate it: the rows a_ep (n_batches * B, in_a), b_ep, site_ep, the
 // injected noise (eps_ep, dropa_ep, dropb1_ep, dropb2_ep) when noise == 0,
 // cw (or null), params, m, v (flat buffers), bn (as the step's), losses
 // (n_batches,), work (multimodal_train_workspace_floats(dims, B, 1)) and
-// args (multimodal_epoch_args_floats(n_batches) floats: the seed, beta,
+// args (epoch_args_floats(n_batches) floats: the seed, beta,
 // gamma, lr, wd and each step's bias corrections, read when the graph runs)
 // are baked in by address: each launch of the graph runs the epoch on what
 // these buffers hold then, updating params, m, v and bn in place. Step i
-// draws its noise with step index i. The capture runs on a non-blocking
-// stream of its own, so the caller's stream may be the legacy default one.
-// Returns a handle for multimodal_epoch_graph_launch, or null with *err set.
+// draws its noise with step index i (capture_epoch). Returns a handle for
+// epoch_graph_launch, or null with *err set.
 void* multimodal_epoch_graph_create(const float* a_ep, const float* b_ep, const int64_t* site_ep,
                                     const float* cw, float* params, float* m, float* v,
                                     const int* dims, int batch, int n_batches, float* bn,
@@ -1938,35 +2099,18 @@ void* multimodal_epoch_graph_create(const float* a_ep, const float* b_ep, const 
         *err = (int)cudaErrorInvalidValue;
         return nullptr;
     }
-    auto* g = new mm::EpochGraph;
-    auto fail = [&](int e) -> void* {
-        *err = e;
-        mm::free_graph(g);
-        return nullptr;
-    };
-    int e = (int)cudaStreamCreateWithFlags(&g->stream, cudaStreamNonBlocking);
-    if (!e) e = (int)cudaEventCreateWithFlags(&g->ready, cudaEventDisableTiming);
-    if (!e) e = (int)cudaEventCreateWithFlags(&g->done, cudaEventDisableTiming);
-    if (!e) e = (int)cudaStreamBeginCapture(g->stream, cudaStreamCaptureModeThreadLocal);
-    if (e) return fail(e);
     const mm::Work w = mm::plan(work, d, batch, true);
-    const int enq = mm::epoch_phases(a_ep, b_ep, site_ep, cw, params, m, v, d, batch, n_batches,
-                                     bn, eps_ep, dropa_ep, dropb1_ep, dropb2_ep, noise,
-                                     reinterpret_cast<const EpochArgs*>(args), losses, w,
-                                     g->stream);
-    cudaGraph_t graph = nullptr;
-    const int ended = (int)cudaStreamEndCapture(g->stream, &graph);
-    e = enq ? enq : ended;
-    if (!e) e = (int)cudaGraphInstantiate(&g->exec, graph, 0);
-    if (graph) cudaGraphDestroy(graph);
-    if (e) return fail(e);
-    return g;
+    const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
+    return capture_epoch([&](cudaStream_t st) {
+        return mm::epoch_phases(a_ep, b_ep, site_ep, cw, params, m, v, d, batch, n_batches, bn,
+                                eps_ep, dropa_ep, dropb1_ep, dropb2_ep, noise, ea, losses, w, st);
+    }, err);
 }
 
-// Replay a captured epoch: after what the caller's stream has queued, and
-// before what it queues next.
-int multimodal_epoch_graph_launch(void* handle, void* stream) {
-    auto* g = static_cast<mm::EpochGraph*>(handle);
+// Replay a captured epoch (of any task): after what the caller's stream has
+// queued, and before what it queues next.
+int epoch_graph_launch(void* handle, void* stream) {
+    auto* g = static_cast<EpochGraph*>(handle);
     cudaStream_t caller = (cudaStream_t)stream;
     CHECK(cudaEventRecord(g->ready, caller));
     CHECK(cudaStreamWaitEvent(g->stream, g->ready, 0));
@@ -1976,9 +2120,14 @@ int multimodal_epoch_graph_launch(void* handle, void* stream) {
     return 0;
 }
 
+// Kernel launches in a captured epoch.
+long long epoch_graph_nodes(void* handle) {
+    return (long long)static_cast<EpochGraph*>(handle)->nodes;
+}
+
 // Free a captured epoch, after its last launch has run.
-void multimodal_epoch_graph_destroy(void* handle) {
-    if (handle) mm::free_graph(static_cast<mm::EpochGraph*>(handle));
+void epoch_graph_destroy(void* handle) {
+    if (handle) free_graph(static_cast<EpochGraph*>(handle));
 }
 
 // The dropout masks (B, ha), (B, hb1), (B, hb2) and eps (B, latent) that a

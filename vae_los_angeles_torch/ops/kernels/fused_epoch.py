@@ -12,10 +12,10 @@ concatenated (n_batches * B rows): step i is the train step of
 (decay first, bias correction at the global step ``step0 + i + 1``) and the
 BatchNorm running statistics.
 
-  * CUDA tensors: one call of ``rna2dna_train_epoch`` in
-    ``csrc/fused_train.cu``, which loops over the steps in C++ and keeps p, m
-    and v in three flat buffers (the 19 tensors of ``PARAM_ORDER`` each) for
-    the whole epoch. Python crosses into C once an epoch.
+  * CUDA tensors: one launch of a CUDA graph of ``csrc/fused_train.cu``
+    (``rna2dna_epoch_graph_create``) that holds every step's phases and its
+    AdamW update over p, m and v in three flat buffers (the 19 tensors of
+    ``PARAM_ORDER`` each); see "The graphs" below.
   * CPU tensors: `rna2dna_epoch_reference`, a loop of the train step's plain
     version and ``ops.optim.adamw_update``.
 
@@ -26,10 +26,10 @@ generator for (seed, i).
 
 ``dna2rna_fused_epoch`` takes the same arguments for a DNA2RNAVAE, with
 ``x_ep`` the DNA input, ``t_ep`` the RNA target and the two dropout masks
-``drop1_ep`` (n·B, 512) and ``drop2_ep`` (n·B, 256): ``dna2rna_train_epoch``
-in the same source on CUDA tensors (21 tensors in each of p, m and v, both
-BatchNorms' running statistics in one buffer), `dna2rna_epoch_reference`
-on CPU tensors.
+``drop1_ep`` (n·B, 512) and ``drop2_ep`` (n·B, 256): a graph of
+``dna2rna_epoch_graph_create`` on CUDA tensors (21 tensors in each of p, m
+and v, both BatchNorms' running statistics in one buffer),
+`dna2rna_epoch_reference` on CPU tensors.
 
 ``multimodal_fused_epoch(params, opt_m, opt_v, bn_state, a_ep, b_ep, site_ep,
 n_sites, seed=..., beta=..., gamma=..., class_weights=..., lr=...,
@@ -37,21 +37,24 @@ weight_decay=..., step0=..., n_batches=..., eps_ep=..., dropa_ep=...,
 dropb1_ep=..., dropb2_ep=...)`` does it for a MultiModalVAE: ``a_ep`` the
 epoch's RNA rows and ``b_ep`` its DNA rows (each an input and a target), the
 three dropout masks injected as (n·B, 128), (n·B, 512) and (n·B, 256);
-`multimodal_epoch_reference` on CPU tensors. On CUDA tensors the epoch is a
-CUDA graph (``multimodal_epoch_graph_*`` in the same source): captured once
-for a key (device, widths, batch, n_batches, noise mode, class weights or
-not) with the buffers its launches address (39 tensors in each of p, m and
-v, the three BatchNorms' statistics, the rows, the noise, the class
-weights, the losses, the workspace), cached, and replayed with one graph
-launch an epoch. Each call copies its inputs into those buffers and its
-results out of them, on the card, and the values that change between
-epochs (seed, β, γ, lr, weight decay and each step's bias corrections,
-`epoch_args`) from pinned memory into a small device buffer the graph
-reads. A new key rebuilds the cache; a capture that fails raises, and
-nothing falls back.
+`multimodal_epoch_reference` on CPU tensors, a graph of
+``multimodal_epoch_graph_create`` (39 tensors in each of p, m and v, the
+three BatchNorms' statistics, the class weights) on CUDA tensors.
 
-``launches`` counts calls of the epoch entries (a graph launch for the
-tri-modal model), one an epoch.
+The graphs: each task's epoch is captured once for a key (device, widths,
+batch, n_batches, noise mode, class weights or not) with the buffers its
+launches address (p, m, v, the BatchNorm statistics, the rows, the noise,
+the class weights, the losses, the workspace), cached, one graph a task
+(`epoch_graph`), and replayed with one graph launch an epoch. Each call
+copies its inputs into those buffers and its results out of them, on the
+card, and the values that change between epochs (seed, β, γ, lr, weight
+decay and each step's bias corrections, `epoch_args`) from pinned memory
+into a small device buffer the graph reads. A new key for a task frees that
+task's graph and captures anew; the other tasks' graphs stay, so runs that
+alternate the tasks capture nothing more. A capture or launch that fails
+raises with the CUDA error, and nothing falls back.
+
+``launches`` counts the epochs' graph launches, one an epoch.
 """
 
 from __future__ import annotations
@@ -141,26 +144,15 @@ def rna2dna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_s
 
 def _launch_epoch(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, eps_ep, drop_ep, use_prng,
                   seed, beta, lr, wd, step0, n_batches):
-    lib = ft.library()
-    dev = x_ep.device
-    batch = x_ep.shape[0] // n_batches
-    dims = (ctypes.c_int * 8)(*ft.dims_of(flat_p))
-    p, m, v = ft.pack(flat_p), ft.pack(flat_m), ft.pack(flat_v)
-    rm, rv = bn["mean"].clone(), bn["var"].clone()
-    losses = torch.empty(n_batches, device=dev, dtype=torch.float32)
-    work = torch.empty(lib.rna2dna_train_workspace_floats(dims, batch, 1), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.rna2dna_train_epoch(
-            x_ep.data_ptr(), t_ep.data_ptr(), site_ep.data_ptr(), p.data_ptr(), m.data_ptr(),
-            v.data_ptr(), dims, batch, n_batches, rm.data_ptr(), rv.data_ptr(),
-            None if use_prng else eps_ep.data_ptr(), None if use_prng else drop_ep.data_ptr(),
-            ft.NOISE_PHILOX if use_prng else ft.NOISE_INJECTED, seed, beta, lr, wd, step0,
-            losses.data_ptr(), work.data_ptr(), stream)
-    ft.raise_on(lib, err, "rna2dna_train_epoch")
-    launches["rna2dna_train_epoch"] += 1
-    return (losses, ft.unpack(p, flat_p), ft.unpack(m, flat_p), ft.unpack(v, flat_p), rm, rv)
+    order = ft.PARAM_ORDER
+    dims_t = ft.dims_of(flat_p)
+    noise = () if use_prng else (eps_ep, drop_ep)
+    losses, p, m, v, bn_out = _run_graph(
+        "rna2dna", dims_t, (flat_p, flat_m, flat_v), order, (bn["mean"], bn["var"]),
+        (x_ep, t_ep), site_ep, noise, None, (seed, beta, 0.0, lr, wd, step0, n_batches))
+    rm, rv = bn_out.split(dims_t[1])
+    return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
+            ft.unpack(v, flat_p, order), rm, rv)
 
 
 def dna2rna_epoch_reference(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, eps_ep, drop1_ep,
@@ -216,29 +208,13 @@ def dna2rna_fused_epoch(params, opt_m, opt_v, bn_state, x_ep, t_ep, site_ep, n_s
 
 def _launch_epoch_d2r(flat_p, flat_m, flat_v, bn, x_ep, t_ep, site_ep, noise, use_prng, seed,
                       beta, lr, wd, step0, n_batches):
-    lib = ft.library()
     order = ft.PARAM_ORDER_D2R
-    dev = x_ep.device
-    batch = x_ep.shape[0] // n_batches
     dims_t = ft.dims_of_d2r(flat_p)
-    dims = (ctypes.c_int * 8)(*dims_t)
-    p, m, v = (ft.pack(t, order) for t in (flat_p, flat_m, flat_v))
-    bn_buf = torch.cat(bn)
-    losses = torch.empty(n_batches, device=dev, dtype=torch.float32)
-    work = torch.empty(lib.dna2rna_train_workspace_floats(dims, batch, 1), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    noise_ptrs = (None, None, None) if use_prng else tuple(t.data_ptr() for t in noise)
-    with torch.cuda.device(dev):
-        err = lib.dna2rna_train_epoch(
-            x_ep.data_ptr(), t_ep.data_ptr(), site_ep.data_ptr(), p.data_ptr(), m.data_ptr(),
-            v.data_ptr(), dims, batch, n_batches, bn_buf.data_ptr(), *noise_ptrs,
-            ft.NOISE_PHILOX if use_prng else ft.NOISE_INJECTED, seed, beta, lr, wd, step0,
-            losses.data_ptr(), work.data_ptr(), stream)
-    ft.raise_on(lib, err, "dna2rna_train_epoch")
-    launches["dna2rna_train_epoch"] += 1
+    losses, p, m, v, bn_out = _run_graph(
+        "dna2rna", dims_t, (flat_p, flat_m, flat_v), order, bn, (x_ep, t_ep), site_ep,
+        () if use_prng else noise, None, (seed, beta, 0.0, lr, wd, step0, n_batches))
     return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
-            ft.unpack(v, flat_p, order), ft.split_bn(bn_buf, dims_t[1], dims_t[2]))
+            ft.unpack(v, flat_p, order), ft.split_bn(bn_out, dims_t[1], dims_t[2]))
 
 
 def multimodal_epoch_reference(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise, *,
@@ -299,11 +275,12 @@ ADAM_B1, ADAM_B2 = float(np.float32(optim.ADAM_B1)), float(np.float32(optim.ADAM
 
 
 def epoch_args(seed, beta, gamma, lr, weight_decay, step0, n_batches):
-    """The tri-modal graph's epoch-args buffer, float32 (struct EpochArgs of
-    ``csrc/fused_train.cu``): the seed's 64 bits, β, γ, lr, weight decay,
-    then (bc1, bc2) of steps ``step0 + 1 .. step0 + n_batches``, each
-    ``(float)(1 - pow((double)β_k, t))`` as the directional epochs compute
-    them on the host (Python's float power is the C library's pow)."""
+    """An epoch graph's epoch-args buffer, float32 (struct EpochArgs of
+    ``csrc/fused_train.cu``): the seed's 64 bits, β, γ (0 for the
+    directional tasks, which have none), lr, weight decay, then (bc1, bc2)
+    of steps ``step0 + 1 .. step0 + n_batches``, each ``(float)(1 -
+    pow((double)β_k, t))``, the bits the directional epochs' host loops
+    computed (Python's float power is the C library's pow)."""
     out = np.empty(6 + 2 * n_batches, np.float32)
     out[:2].view(np.int64)[0] = seed
     out[2:6] = (beta, gamma, lr, weight_decay)
@@ -313,89 +290,122 @@ def epoch_args(seed, beta, gamma, lr, weight_decay, step0, n_batches):
     return out
 
 
-class _MMGraph:
-    """A captured tri-modal epoch and the buffers its launches address."""
+# task: (the C entry that captures its epoch, its parameter count, its workspace)
+GRAPH_ENTRIES = {
+    "rna2dna": ("rna2dna_epoch_graph_create", "rna2dna_param_count",
+                "rna2dna_train_workspace_floats"),
+    "dna2rna": ("dna2rna_epoch_graph_create", "dna2rna_param_count",
+                "dna2rna_train_workspace_floats"),
+    "multimodal": ("multimodal_epoch_graph_create", "multimodal_param_count",
+                   "multimodal_train_workspace_floats"),
+}
 
-    def __init__(self, lib, dev, dims_t, batch, n_batches, injected, with_cw):
+
+def _graph_widths(task, dims_t):
+    """(BatchNorm statistics' floats, the row blocks' widths, the injected
+    noise's widths) of a task's epoch, from its dims."""
+    if task == "rna2dna":  # in, hidden, latent, sites, embed, d1, d2, out
+        return 2 * dims_t[1], (dims_t[0], dims_t[7]), (dims_t[2], dims_t[1])
+    if task == "dna2rna":  # in, h1, h2, latent, sites, embed, d1, out
+        return 2 * (dims_t[1] + dims_t[2]), (dims_t[0], dims_t[7]), (dims_t[3], *dims_t[1:3])
+    a, b, ha, hb1, hb2, latent = dims_t[:6]  # then sites, embed, da, db1, db2, dc
+    return 2 * (ha + hb1 + hb2), (a, b), (latent, ha, hb1, hb2)
+
+
+class _EpochGraph:
+    """A captured epoch of one task and the buffers its launches address."""
+
+    def __init__(self, lib, task, dev, dims_t, batch, n_batches, injected, with_cw):
         f32 = dict(device=dev, dtype=torch.float32)
-        dims = (ctypes.c_int * 12)(*dims_t)
-        a, b, ha, hb1, hb2, latent, sites = dims_t[:7]
+        create, count, workspace = GRAPH_ENTRIES[task]
+        dims = (ctypes.c_int * len(dims_t))(*dims_t)
         rows = batch * n_batches
-        n_params = lib.multimodal_param_count(dims)
+        bn_floats, row_widths, noise_widths = _graph_widths(task, dims_t)
+        n_params = getattr(lib, count)(dims)
         self.lib, self.n_batches = lib, n_batches
         self.p, self.m, self.v = (torch.empty(n_params, **f32) for _ in range(3))
-        self.bn = torch.empty(2 * (ha + hb1 + hb2), **f32)
-        self.a, self.b = torch.empty((rows, a), **f32), torch.empty((rows, b), **f32)
+        self.bn = torch.empty(bn_floats, **f32)
+        self.rows = [torch.empty((rows, w), **f32) for w in row_widths]
         self.site = torch.empty(rows, device=dev, dtype=torch.int64)
-        self.noise = ([torch.empty((rows, w), **f32) for w in (latent, ha, hb1, hb2)]
-                      if injected else None)
-        self.cw = torch.empty(sites, **f32) if with_cw else None
+        self.noise = [torch.empty((rows, w), **f32) for w in noise_widths] if injected else []
+        self.cw = torch.empty(dims_t[6], **f32) if with_cw else None
         self.losses = torch.empty(n_batches, **f32)
-        self.work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 1), **f32)
-        n_args = lib.multimodal_epoch_args_floats(n_batches)
+        self.work = torch.empty(getattr(lib, workspace)(dims, batch, 1), **f32)
+        n_args = lib.epoch_args_floats(n_batches)
         self.args = torch.empty(n_args, **f32)
         self.host_args = torch.empty(n_args, dtype=torch.float32, pin_memory=True)
         self.args_copied = torch.cuda.Event()  # the last copy out of host_args
         self.args_copied.record(torch.cuda.current_stream(dev))
-        noise = tuple(t.data_ptr() for t in self.noise) if injected else (None,) * 4
+        noise = ([t.data_ptr() for t in self.noise] if injected
+                 else [None] * len(noise_widths))
+        cw = (ft._ptr(self.cw),) if task == "multimodal" else ()
         err = ctypes.c_int(0)
         t0 = time.perf_counter()
-        self.handle = lib.multimodal_epoch_graph_create(
-            self.a.data_ptr(), self.b.data_ptr(), self.site.data_ptr(), ft._ptr(self.cw),
-            self.p.data_ptr(), self.m.data_ptr(), self.v.data_ptr(), dims, batch, n_batches,
-            self.bn.data_ptr(), *noise, ft.NOISE_INJECTED if injected else ft.NOISE_PHILOX,
-            self.args.data_ptr(), self.losses.data_ptr(), self.work.data_ptr(),
-            ctypes.byref(err))
+        self.handle = getattr(lib, create)(
+            *(t.data_ptr() for t in self.rows), self.site.data_ptr(), *cw, self.p.data_ptr(),
+            self.m.data_ptr(), self.v.data_ptr(), dims, batch, n_batches, self.bn.data_ptr(),
+            *noise, ft.NOISE_INJECTED if injected else ft.NOISE_PHILOX, self.args.data_ptr(),
+            self.losses.data_ptr(), self.work.data_ptr(), ctypes.byref(err))
         self.capture_seconds = time.perf_counter() - t0
-        ft.raise_on(lib, err.value, "multimodal_epoch_graph_create")
+        ft.raise_on(lib, err.value, create)
+        self.launches_per_step = lib.epoch_graph_nodes(self.handle) / n_batches
 
     def __del__(self):
         if getattr(self, "handle", None):
-            self.lib.multimodal_epoch_graph_destroy(self.handle)
+            self.lib.epoch_graph_destroy(self.handle)
 
 
-_mm_graph = {}  # the one cached graph: {"key": ..., "graph": _MMGraph}
+graphs = {}  # task: (key, _EpochGraph), one cached graph a task
 
 
-def mm_graph(lib, key, *build_args):
-    """The cached graph of ``key``, captured anew when the key changed."""
-    if _mm_graph.get("key") != key:
-        _mm_graph.clear()  # the old graph first: its buffers go with it
-        _mm_graph.update(key=key, graph=_MMGraph(lib, *build_args))
-    return _mm_graph["graph"]
+def epoch_graph(task, key, build):
+    """The cached graph of ``task`` for ``key``; when the key changed, the
+    task's old graph is freed first (its buffers go with it) and
+    ``build()`` captures the new one. The other tasks' graphs stay."""
+    if graphs.get(task, (None,))[0] != key:
+        graphs.pop(task, None)  # no reference to it is left here: it is freed now
+        graphs[task] = (key, build())
+    return graphs[task][1]
+
+
+def _run_graph(task, dims_t, trees, order, bn, rows, site, noise, cw, args):
+    """One epoch of ``task`` through its cached graph: the inputs copied into
+    the graph's buffers (``noise`` empty in Philox mode, ``cw`` the class
+    weights or None), one graph launch with the epoch args ``args`` (seed, β,
+    γ, lr, weight decay, step0, n_batches), and the results (losses, p, m, v,
+    bn) cloned out of the buffers, which the next epoch overwrites."""
+    lib = ft.library()
+    dev = rows[0].device
+    n_batches = args[-1]
+    batch = rows[0].shape[0] // n_batches
+    with torch.cuda.device(dev):
+        key = (dev, dims_t, batch, n_batches, bool(noise), cw is not None)
+        g = epoch_graph(task, key, lambda: _EpochGraph(lib, task, *key))
+        for buf, tree in zip((g.p, g.m, g.v), trees):
+            torch.cat([tree[name].reshape(-1) for name, _ in order], out=buf)
+        torch.cat(bn, out=g.bn)
+        for buf, t in zip(g.rows + g.noise, rows + tuple(noise)):
+            buf.copy_(t)
+        g.site.copy_(site)
+        if cw is not None:
+            g.cw.copy_(cw)
+        g.args_copied.synchronize()  # the previous epoch's args have left the pinned buffer
+        g.host_args.numpy()[:] = epoch_args(*args)
+        stream = torch.cuda.current_stream(dev)
+        g.args.copy_(g.host_args, non_blocking=True)
+        g.args_copied.record(stream)
+        err = lib.epoch_graph_launch(g.handle, stream.cuda_stream)
+        ft.raise_on(lib, err, "epoch_graph_launch")
+        launches[f"{task}_train_epoch"] += 1
+        return tuple(t.clone() for t in (g.losses, g.p, g.m, g.v, g.bn))
 
 
 def _launch_epoch_mm(flat_p, flat_m, flat_v, bn, a_ep, b_ep, site_ep, cw, noise, use_prng, seed,
                      beta, gamma, lr, wd, step0, n_batches):
-    lib = ft.library()
     order = ft.PARAM_ORDER_MM
-    dev = a_ep.device
-    batch = a_ep.shape[0] // n_batches
     dims_t = ft.dims_of_mm(flat_p)
-    with torch.cuda.device(dev):
-        key = (dev, dims_t, batch, n_batches, not use_prng, cw is not None)
-        g = mm_graph(lib, key, dev, dims_t, batch, n_batches, not use_prng, cw is not None)
-        for buf, tree in ((g.p, flat_p), (g.m, flat_m), (g.v, flat_v)):
-            torch.cat([tree[name].reshape(-1) for name, _ in order], out=buf)
-        torch.cat(bn, out=g.bn)
-        g.a.copy_(a_ep)
-        g.b.copy_(b_ep)
-        g.site.copy_(site_ep)
-        if not use_prng:
-            for buf, t in zip(g.noise, noise):
-                buf.copy_(t)
-        if cw is not None:
-            g.cw.copy_(cw)
-        g.args_copied.synchronize()  # the previous epoch's args have left the pinned buffer
-        g.host_args.numpy()[:] = epoch_args(seed, beta, gamma, lr, wd, step0, n_batches)
-        stream = torch.cuda.current_stream(dev)
-        g.args.copy_(g.host_args, non_blocking=True)
-        g.args_copied.record(stream)
-        err = lib.multimodal_epoch_graph_launch(g.handle, stream.cuda_stream)
-        ft.raise_on(lib, err, "multimodal_epoch_graph_launch")
-        launches["multimodal_train_epoch"] += 1
-        # the results leave the graph's buffers: the next epoch overwrites them
-        p, m, v, bn_out = (t.clone() for t in (g.p, g.m, g.v, g.bn))
-        losses = g.losses.clone()
+    losses, p, m, v, bn_out = _run_graph(
+        "multimodal", dims_t, (flat_p, flat_m, flat_v), order, bn, (a_ep, b_ep), site_ep,
+        () if use_prng else noise, cw, (seed, beta, gamma, lr, wd, step0, n_batches))
     return (losses, ft.unpack(p, flat_p, order), ft.unpack(m, flat_p, order),
             ft.unpack(v, flat_p, order), ft.split_bn_mm(bn_out, *dims_t[2:5]))

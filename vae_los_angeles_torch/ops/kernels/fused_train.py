@@ -503,9 +503,9 @@ def library():
     lib.rna2dna_train_workspace_floats.restype = ll
     lib.rna2dna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, p, p, p, p]
     lib.rna2dna_train_step.restype = i
-    lib.rna2dna_train_epoch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, u64, f, f, f, ll,
-                                        p, p, p]
-    lib.rna2dna_train_epoch.restype = i
+    lib.rna2dna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.rna2dna_epoch_graph_create.restype = p
     lib.rna2dna_train_noise.argtypes = [u64, i, i, i, i, p, p, p]
     lib.rna2dna_train_noise.restype = i
     lib.dna2rna_param_count.argtypes = [p]
@@ -514,9 +514,9 @@ def library():
     lib.dna2rna_train_workspace_floats.restype = ll
     lib.dna2rna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, u64, i, f, p, p, p, p]
     lib.dna2rna_train_step.restype = i
-    lib.dna2rna_train_epoch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, u64, f, f, f, ll,
-                                        p, p, p]
-    lib.dna2rna_train_epoch.restype = i
+    lib.dna2rna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, p, p, p,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.dna2rna_epoch_graph_create.restype = p
     lib.dna2rna_train_noise.argtypes = [u64, i, i, i, i, i, p, p, p, p]
     lib.dna2rna_train_noise.restype = i
     lib.multimodal_param_count.argtypes = [p]
@@ -526,15 +526,17 @@ def library():
     lib.multimodal_train_step.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, f,
                                           p, p, p, p]
     lib.multimodal_train_step.restype = i
-    lib.multimodal_epoch_args_floats.argtypes = [i]
-    lib.multimodal_epoch_args_floats.restype = i
     lib.multimodal_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i,
                                                   p, p, p, ctypes.POINTER(ctypes.c_int)]
     lib.multimodal_epoch_graph_create.restype = p
-    lib.multimodal_epoch_graph_launch.argtypes = [p, p]
-    lib.multimodal_epoch_graph_launch.restype = i
-    lib.multimodal_epoch_graph_destroy.argtypes = [p]
-    lib.multimodal_epoch_graph_destroy.restype = None
+    lib.epoch_args_floats.argtypes = [i]
+    lib.epoch_args_floats.restype = i
+    lib.epoch_graph_launch.argtypes = [p, p]
+    lib.epoch_graph_launch.restype = i
+    lib.epoch_graph_nodes.argtypes = [p]
+    lib.epoch_graph_nodes.restype = ll
+    lib.epoch_graph_destroy.argtypes = [p]
+    lib.epoch_graph_destroy.restype = None
     lib.multimodal_train_noise.argtypes = [u64, i, i, i, i, i, i, p, p, p, p, p]
     lib.multimodal_train_noise.restype = i
     lib.fused_train_error_string.argtypes = [i]

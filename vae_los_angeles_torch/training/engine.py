@@ -122,9 +122,9 @@ FUSED = {
 
 # From this DecoderB width on, rna2dna's kernel paths train through the wide
 # head kernel (B8) rather than the step and epoch kernels (B1, B2): on an H100
-# the epoch kernel was the faster at 262,144 probes and below, the wide head
-# at 327,680 and up (``python3 chip_probes.py widths``, PERF.md).
-WIDE_HEAD_MIN_DIM_B = 327_680
+# the epoch kernel (a captured graph) was the faster at 393,216 probes and
+# below, the wide head at 450,000 (``python3 chip_probes.py widths``, PERF.md).
+WIDE_HEAD_MIN_DIM_B = 450_000
 
 
 def uses_wide_head(task_name: str, cfg: Config) -> bool:
