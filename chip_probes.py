@@ -1,6 +1,7 @@
-"""Diagnostic probes of the training kernels on one NVIDIA GPU.
+"""Diagnostic probes of the kernels on one NVIDIA GPU.
 
-    python3 chip_probes.py first|grads|race|chain|widths|directional|epoch64
+    python3 chip_probes.py serving|serving_calls|first|grads|race|chain|widths|directional|
+                           epoch64
 
 ``chip_smoke.py`` is the check; these are the measurements that shaped it,
 kept so that the numbers quoted from them in ``PERF.md`` and ``ROADMAP.md``
@@ -30,7 +31,20 @@ can be made again:
     (`probe_directional`, which also times an older tree);
   * ``epoch64``: ``chip_smoke.compare_wide_epochs`` with the plain version
     also in float64, tensor by tensor: how far each fp32 version is from
-    float64 at those widths.
+    float64 at those widths;
+  * ``serving``: the serving call's device time (back-to-back calls between
+    CUDA events) by width, with the wide layer in the cluster trunk and in
+    its sweep: DNA→RNA by DNA input width, RNA→DNA by DecoderB output width,
+    each at B = 37, 103 and 205: where ``fused_vae.SWEEP_MIN_IN`` and
+    ``SWEEP_MIN_OUT`` lie;
+  * ``serving_calls``: the serving call (CUDA events, median of 30) at B in
+    {1, 205, 1600, 4096}, its device time by kernel at B = 205 and 1
+    (``torch.profiler``), DNA→RNA at a DNA input of 65,536 and RNA→DNA at a
+    DecoderB output of 450,000 (B = 103), as one JSON line. It uses only the
+    wrappers' call API and what every ``chip_smoke.py`` of the port has, so a
+    copy of this file beside an older tree's ``chip_smoke.py`` times that
+    tree (a call that raises is recorded as such): run both trees in one
+    call, alternating.
 """
 
 from __future__ import annotations
@@ -356,8 +370,120 @@ def probe_epoch64(dev):
     cs.compare_wide_epochs(dev, float64=True)
 
 
-PROBES = {"first": probe_first, "grads": probe_grads, "race": probe_race, "chain": probe_chain,
-          "widths": probe_widths, "directional": probe_directional, "epoch64": probe_epoch64}
+def serving_model(dev, direction, width, seed=0):
+    """A seeded serving wrapper at the cohort's widths but for DNA→RNA's DNA
+    input or RNA→DNA's DecoderB output, which is ``width`` wide; weights
+    drawn as the port initialises them, BN statistics moved off their
+    defaults."""
+    import numpy as np
+
+    from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
+    from vae_los_angeles_torch.ops.kernels import fused_vae as fv
+    from vae_los_angeles_torch.utils.weights import jax_from_state_dict
+
+    model_cls, fused_cls = ((RNA2DNAVAE, fv.FusedRNA2DNA) if direction == "rna2dna"
+                            else (DNA2RNAVAE, fv.FusedDNA2RNA))
+    g = torch.Generator().manual_seed(seed)
+    model = model_cls(cs.CFG.input_dim_a, width, N_SITES, cs.CFG.latent_dim, cs.CFG.embed_dim)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 2:
+                bound = 1.0 / np.sqrt(p.shape[1])
+                p.uniform_(-bound, bound, generator=g)
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.uniform_(-0.5, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    params, state = jax_from_state_dict(model.eval().state_dict(), direction)
+    return fused_cls(params, state, dev)
+
+
+def serving_rows(dev, fused, batch, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand((batch, fused.in_dim), generator=g, device=dev),
+            torch.randint(0, N_SITES, (batch,), generator=g, device=dev))
+
+
+def probe_serving(dev):
+    from vae_los_angeles_torch.ops.kernels import fused_vae as fv
+
+    _build.build_all(["fused_vae"])
+    card = cs.card_line()
+    print(card, flush=True)
+    sweep_min_default = fv.SWEEP_MIN_IN, fv.SWEEP_MIN_OUT
+    for direction, widths in (("dna2rna", (1211, 2048, 4096, 8192, 16384, 32768, 65536)),
+                              ("rna2dna", (1211, 2048, 4096, 8192, 16384, 32768, 65536, 131072))):
+        for width in widths:
+            fused = serving_model(dev, direction, width)
+            for batch in (37, 103, 205):
+                x, site = serving_rows(dev, fused, batch)
+                times = {}
+                wide = (width, 1 << 30) if direction == "dna2rna" else (1 << 30, width)
+                for route, sweep_min in (("trunk", (1 << 30, 1 << 30)), ("sweep", wide)):
+                    fv.SWEEP_MIN_IN, fv.SWEEP_MIN_OUT = sweep_min
+                    fused._calls.clear()  # plans are laid out with the thresholds of their time
+                    times[route] = time_ms(lambda: fused(x, site, seed=3))
+                    times[route + "_kernels"] = fused.plan(batch).plan.kernels
+                fv.SWEEP_MIN_IN, fv.SWEEP_MIN_OUT = sweep_min_default
+                fused._calls.clear()
+                print(f"[serving] {direction} width {width} B={batch}: trunk "
+                      f"{times['trunk']:.4f} ms ({times['trunk_kernels']} kernels), sweep "
+                      f"{times['sweep']:.4f} ms ({times['sweep_kernels']} kernels); {card}",
+                      flush=True)
+            del fused
+            torch.cuda.empty_cache()
+
+
+def probe_serving_calls(dev):
+    import json
+
+    _build.build_all(["fused_vae"])
+    card = cs.card_line()
+    out = {}
+
+    def device_us(fn):
+        from torch.profiler import DeviceType, ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                rows[ev.key.split("(")[0][-40:]] = (us if us is not None
+                                                    else ev.self_cuda_time_total, ev.count)
+        return rows
+
+    for direction in ("rna2dna", "dna2rna"):
+        fused = serving_model(dev, direction, cs.CFG.input_dim_b)
+        for batch in (1, 205, 1600, 4096):
+            x, site = serving_rows(dev, fused, batch)
+            out[f"{direction}_B{batch}_call_ms"] = cs.time_call(lambda: fused(x, site, seed=3))
+            out[f"{direction}_B{batch}_loop_ms"] = time_ms(lambda: fused(x, site, seed=3), 50)
+            if batch in (1, 205):
+                prof = device_us(lambda: fused(x, site, seed=3))
+                out[f"{direction}_B{batch}_device_us"] = sum(us for us, _ in prof.values())
+                out[f"{direction}_B{batch}_kernels"] = sum(n for _, n in prof.values())
+                out[f"{direction}_B{batch}_by_kernel"] = prof
+    for direction, width, batch in (("dna2rna", 65536, 205), ("rna2dna", 450_000, 103)):
+        key = f"{direction}_{width}_B{batch}"
+        try:
+            fused = serving_model(dev, direction, width)
+            x, site = serving_rows(dev, fused, batch)
+            out[key + "_call_ms"] = cs.time_call(lambda: fused(x, site, use_noise=False), 10, 2)
+        except (RuntimeError, ValueError) as e:
+            out[key + "_call_ms"] = f"raises: {str(e)[:120]}"
+        fused = x = site = None
+        torch.cuda.empty_cache()
+    print("[serving_calls] " + json.dumps(out) + f"; {card}", flush=True)
+
+
+PROBES = {"serving": probe_serving, "serving_calls": probe_serving_calls, "first": probe_first,
+          "grads": probe_grads, "race": probe_race, "chain": probe_chain, "widths": probe_widths,
+          "directional": probe_directional, "epoch64": probe_epoch64}
 
 
 def main(argv):

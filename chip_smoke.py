@@ -10,9 +10,14 @@ Phases (any failure raises, and the script exits non-zero):
      build time and ptxas's registers and spills;
   3. hold each kernel against its plain PyTorch version on the card at the
      full model width (RNA 1177, DNA 1211, latent 20, 24 sites, embedding 32):
-       * the serving forwards at B in {1, 37, 205, 4096}, with and without a
-         site, z = mu and injected eps, atol = rtol = 1e-4, then their Philox
-         mode statistically;
+       * the serving forwards at B in {1, 37, 205, 1600, 4096}, with and
+         without a site, z = mu and injected eps, atol = rtol = 1e-4, two
+         calls giving the same bits; the same at B in {37, 205} for DNA→RNA
+         at DNA inputs of 6,623 and 65,536 (the input sweep) and RNA→DNA at
+         a DecoderB output of 65,536 (the output sweep), with each side's
+         distance from a float64 run of the plain version printed at 65,536;
+         then their Philox mode: statistically, and bit for bit against the
+         injected-eps call given `fused_vae.philox_normal_reference`'s draws;
        * the train step at B in {32, 7, 256} with injected noise: loss rtol
          1e-5, the 19 gradients atol 5e-4 + rtol 1e-4, BN stats atol 1e-5;
        * the epoch over 25 steps of 32 rows with injected noise: per-step
@@ -114,9 +119,10 @@ Phases (any failure raises, and the script exits non-zero):
      epochs, which at this width trains through the wide head kernel once
      a step (``engine.uses_wide_head``, the ``wide`` path), whose
      checkpoint is then served through its loader with USE_PALLAS (the
-     serving kernel, one launch for the 103 validation rows: the posterior
+     serving kernels, one call for the 103 validation rows: the posterior
      and the reconstruction at z = mu within atol = rtol = 1e-4 of the plain
-     eval forward); then
+     eval forward; the loader's call split into the rows' copy to the card,
+     the kernel call and the results' copy to the host); then
      ``engine.fit`` for 2 epochs each with fp32 AdamW, bf16 compute, bf16
      moments and Adafactor on the plain path, and with fp32 AdamW on the
      kernel path (the wide head), each after an untimed warm-up epoch,
@@ -132,11 +138,17 @@ Phases (any failure raises, and the script exits non-zero):
      MultiModalVAE trained in phase 4 writes ``evaluation_results.json``
      with two records of finite metrics, each printed beside the mean
      baseline's MSE;
-  6. time with CUDA events, alternating plain, kernel, kernel, plain: the
-     serving call at B = 205, the train steps at B = 32, one 200-step epoch
-     of each model on the 8000-sample cohort, the loss pair, and
-     ``torch.optim.AdamW`` (fused) over the same 19, 21 or 39 tensors as
-     the yardstick of each epoch's AdamW; one profiled epoch of each model
+  6. time with CUDA events, alternating plain, kernel, kernel, plain (the
+     serving calls right after phase 3, before any other profiler session:
+     at B in {205, 1600, 4096} beside their bounds, DNA→RNA's at a DNA input
+     of 65,536, one call at B = 205 and at B = 1 profiled, device time by
+     kernel and kernels a call, and the host cost of a call, its CUDA-event
+     time at B = 1 less its device time): the train steps at B = 32, one
+     200-step epoch of each model on the 8000-sample cohort, the loss pair
+     (at B = 205 and 32, and at the wide paths' 103 x 450,000 and 32 x
+     450,000, beside their bounds), and ``torch.optim.AdamW`` (fused) over
+     the same 19, 21 or 39 tensors as the yardstick of each epoch's AdamW;
+     one profiled epoch of each model
      (``torch.profiler``): device time by kernel, the device's busy and
      idle shares; and ``engine.fit``'s epoch time and samples/s through
      each epoch kernel at the 1024- and 8000-sample cohorts, validation
@@ -195,7 +207,10 @@ CFG = Config()  # the live widths: RNA 1177, DNA 1211, latent 20, site embedding
 N_SITES = 24
 TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 on both sides, different summation order
 GRAD = dict(atol=5e-4, rtol=1e-4)
-BATCHES = (1, 37, 205, 4096)
+BATCHES = (1, 37, 205, 1600, 4096)
+WIDE_SERVING = (("dna2rna_fused_forward", 6_623), ("dna2rna_fused_forward", 65_536),
+                ("rna2dna_fused_forward", 65_536))  # (kernel, DNA width) held at B = 37, 205
+SERVE_TIMED = (205, 1600, 4096)
 STEP_BATCHES = (32, 7, 256)
 LOSS_BATCHES = (32, 205)
 EPOCH_STEPS = 25
@@ -274,12 +289,13 @@ def read_counts():
     return out
 
 
-def port_model(model_cls, seed, perturb_bn):
-    """A seeded port-initialised model (CPU, eval); ``perturb_bn`` moves the
-    BN running stats off their defaults so the folding is exercised."""
+def port_model(model_cls, seed, perturb_bn, dna=CFG.input_dim_b):
+    """A seeded port-initialised model (CPU, eval) at DNA width ``dna``;
+    ``perturb_bn`` moves the BN running stats off their defaults so the
+    folding is exercised."""
     g = torch.Generator().manual_seed(seed)
     model = reset_parameters(
-        model_cls(CFG.input_dim_a, CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim), g
+        model_cls(CFG.input_dim_a, dna, N_SITES, CFG.latent_dim, CFG.embed_dim), g
     ).eval()
     if perturb_bn:
         with torch.no_grad():
@@ -297,13 +313,15 @@ def port_model(model_cls, seed, perturb_bn):
 # shapes (fp32 FMA = 2 operations, every other elementwise operation 1; each
 # input read once, each output written once)
 
-def serving_work(name, batch):
+def serving_work(name, batch, dna=CFG.input_dim_b):
+    """The serving call's work at the model's widths, DNA ``dna`` wide (the
+    RNA→DNA output, the DNA→RNA input)."""
     l, e, s = CFG.latent_dim, CFG.embed_dim, N_SITES
     if name == "rna2dna_fused_forward":
-        din, dout = CFG.input_dim_a, CFG.input_dim_b
+        din, dout = CFG.input_dim_a, dna
         macs = din * 128 + 2 * 128 * l + 2 * e * l + l * 256 + 256 * 512 + 512 * dout
     else:
-        din, dout = CFG.input_dim_b, CFG.input_dim_a
+        din, dout = dna, CFG.input_dim_a
         macs = din * 512 + 512 * 256 + 2 * 256 * l + 2 * e * l + l * 128 + 128 * dout
     weights = macs + s * e  # every weight read once, biases are rounding
     return 2 * macs * batch, 4 * (weights + batch * (din + dout + 2 * l + 1))
@@ -400,8 +418,8 @@ def epoch_work_mm(n_steps, batch):
             4 * (6 * p + rows + N_SITES + 4 * (128 + H1 + H2) + n_steps))
 
 
-def loss_work(batch, backward):
-    n, nl = batch * CFG.input_dim_b, batch * CFG.latent_dim
+def loss_work(batch, backward, width=CFG.input_dim_b):
+    n, nl = batch * width, batch * CFG.latent_dim
     if backward:
         return 5 * n + 6 * nl, 4 * (3 * n + 4 * nl + 2)
     return 6 * n + 6 * nl, 4 * (2 * n + 2 * nl + 3)
@@ -425,6 +443,47 @@ def bound(work):
 # ---------------------------------------------------------------------------
 # phase 3: compare
 
+def hold_serving(name, fused, batches, g, dev, float64=False):
+    """The kernel against its plain version at each batch, with and without
+    a site, z = mu and injected eps, at TOL, and a second call's bits equal
+    the first's; with ``float64``, each side's largest distance from a
+    float64 run of the plain version. Returns the largest |kernel - plain|."""
+    cls, worst, far = type(fused), 0.0, [0.0, 0.0]
+    f64 = {k: v.double() for k, v in fused.folded.items()} if float64 else None
+    for batch in batches:
+        x = torch.rand((batch, fused.in_dim), generator=g, device=dev) * 4.0
+        site = torch.randint(0, N_SITES, (batch,), generator=g, device=dev)
+        eps = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
+        for s in (None, site):
+            for noise, e in ((fv.NOISE_NONE, None), (fv.NOISE_EPS, eps)):
+                got = fused(x, s, use_noise=e is not None, eps=e)
+                again = fused(x, s, use_noise=e is not None, eps=e)
+                want = cls._reference(fused.folded, x, s, noise, e, 0)
+                torch.cuda.synchronize()
+                for out_name, a, b, a2 in zip(("recon", "mu", "logvar"), got, want, again):
+                    if a.shape != b.shape or not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} B={batch}: bad {out_name}")
+                    err = (a - b).abs().max().item()
+                    worst = max(worst, err)
+                    if not torch.allclose(a, b, **TOL):
+                        raise AssertionError(
+                            f"{name} in={fused.in_dim} B={batch} site={s is not None} "
+                            f"noise={noise}: {out_name} differs from the plain version by "
+                            f"{err:.3g}")
+                    if not torch.equal(a, a2):
+                        raise AssertionError(f"{name} B={batch}: two calls gave other bits")
+                if f64 is not None:
+                    w64 = cls._reference(f64, x.double(), s, noise,
+                                         None if e is None else e.double(), 0)
+                    for i, side in enumerate((got, want)):
+                        far[i] = max(far[i], max((u.double() - v).abs().max().item()
+                                                 for u, v in zip(side, w64)))
+    if float64:
+        say(f"[compare] {name} in={fused.in_dim} out={fused._dims()[-1]}: largest distance "
+            f"from float64, kernel {far[0]:.3e}, plain {far[1]:.3e}")
+    return worst
+
+
 def compare_serving(dev):
     """Serving kernels vs plain versions; returns {name: max_abs_err}."""
     errs = {}
@@ -432,26 +491,7 @@ def compare_serving(dev):
         params, state = jax_from_state_dict(port_model(model_cls, 100 + k, True).state_dict(), ckpt)
         fused = cls(params, state, dev)
         g = torch.Generator(device=dev).manual_seed(200 + k)
-        worst = 0.0
-        for batch in BATCHES:
-            x = torch.rand((batch, din), generator=g, device=dev) * 4.0
-            site = torch.randint(0, N_SITES, (batch,), generator=g, device=dev)
-            eps = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
-            for s in (None, site):
-                for noise, e in ((fv.NOISE_NONE, None), (fv.NOISE_EPS, eps)):
-                    got = fused(x, s, use_noise=e is not None, eps=e)
-                    want = cls._reference(fused.folded, x, s, noise, e, 0)
-                    torch.cuda.synchronize()
-                    for out_name, a, b in zip(("recon", "mu", "logvar"), got, want):
-                        if a.shape != b.shape or not torch.isfinite(a).all():
-                            raise AssertionError(f"{name} B={batch}: bad {out_name}")
-                        err = (a - b).abs().max().item()
-                        worst = max(worst, err)
-                        if not torch.allclose(a, b, **TOL):
-                            raise AssertionError(
-                                f"{name} B={batch} site={s is not None} noise={noise}: "
-                                f"{out_name} differs from the plain version by {err:.3g}"
-                            )
+        worst = hold_serving(name, fused, BATCHES, g, dev)
         # Philox: reproducible per seed, distinct across seeds, centred on z = mu
         x = torch.rand((256, din), generator=g, device=dev) * 4.0
         site = torch.randint(0, N_SITES, (256,), generator=g, device=dev)
@@ -469,10 +509,34 @@ def compare_serving(dev):
             raise AssertionError(f"{name}: mean over seeds is not nearer z = mu ({err_mean} >= {err_one})")
         if cls is fv.FusedRNA2DNA and not bool(((draws >= 0) & (draws <= 1)).all()):
             raise AssertionError(f"{name}: recon outside [0, 1]")
+        # ... and the very draws of the plain emulation of its Philox4x32-10
+        for seed in (0, 7, 2**40 + 3):
+            drawn = fused(x, site, seed=seed)
+            injected = fused(x, site, eps=fv.philox_normal_reference(seed, 256, CFG.latent_dim,
+                                                                     dev))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(drawn, injected)):
+                raise AssertionError(f"{name} seed {seed}: the Philox call differs from the "
+                                     "injected call given philox_normal_reference's draws")
         errs[name] = worst
         say(f"[compare] {name}: max |kernel - plain| = {worst:.3e} over B={BATCHES}, "
-            f"site on/off, noise none/eps (atol=rtol=1e-4); Philox: reproducible, "
-            f"seed-dependent, mean-over-8-seeds error {err_mean:.4f} < one draw {err_one:.4f}")
+            f"site on/off, noise none/eps (atol=rtol=1e-4), same bits twice; Philox: "
+            f"reproducible, seed-dependent, mean-over-8-seeds error {err_mean:.4f} < one draw "
+            f"{err_one:.4f}, bit-equal to the injected call given the plain emulation's draws")
+    for k, (name, dna) in enumerate(WIDE_SERVING):
+        cls, model_cls, ckpt = KERNELS[name][:3]
+        params, state = jax_from_state_dict(
+            port_model(model_cls, 110 + k, True, dna=dna).state_dict(), ckpt)
+        fused = cls(params, state, dev)
+        g = torch.Generator(device=dev).manual_seed(210 + k)
+        worst = hold_serving(name, fused, (37, 205), g, dev, float64=dna == 65_536)
+        errs[name] = max(errs[name], worst)
+        plan = fused.plan(205).plan
+        say(f"[compare] {name} at DNA {dna}: max |kernel - plain| = {worst:.3e} over B=(37, "
+            f"205), site on/off, noise none/eps (atol=rtol=1e-4); {plan.kernels} kernels a call "
+            f"(input sweep {plan.in_sweep}, output sweep {plan.out_sweep})")
+        del fused
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1525,7 +1589,28 @@ def serve_wide(dev, cfg, workdir, run_id, x, s, card):
         f"clock), recon {recon.shape}; posterior and recon at z = mu within atol = rtol = 1e-4 "
         f"of the plain eval forward (max {max(np.abs(a - b).max() for _, a, b in checks):.3g}); "
         f"{card}")
-    del served, fused, got, want
+    # the loader's call, split: its rows to the card, the kernels, the results to the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_t = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    s_t = torch.as_tensor(np.asarray(s)).to(dev)
+    torch.cuda.synchronize()
+    to_device_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = time_call(lambda: fused(x_t, s_t, seed=3), reps=10, warmup=2)
+    out = fused(x_t, s_t, seed=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    [t.cpu().numpy() for t in out]
+    to_host_ms = (time.perf_counter() - t0) * 1e3
+    _, rows = profile_call(lambda: fused(x_t, s_t, seed=3))
+    bound_ms, bound_by = bound(serving_work("rna2dna_fused_forward", len(x), dna=WIDE_D))
+    device = (", ".join(f"{short_name(key)} {t:.4f} ms" for t, _, key in rows)
+              or "its split not measured: the profiler caught no kernel")
+    say(f"[serve-wide] the loader's call split: rows to the card {to_device_ms:.3f} ms (host "
+        f"clock), the kernel call {kernel_ms:.4f} ms (CUDA events, median of 10; bound "
+        f"{bound_ms:.4f} ms, {bound_by}; device {device}), results to the host "
+        f"{to_host_ms:.3f} ms (host clock); {card}")
+    del served, fused, got, want, out, x_t
     torch.cuda.empty_cache()
     return launches
 
@@ -1620,32 +1705,110 @@ def alternate(kernel, plain, reps=30, warmup=5):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def profile_epoch(fn, what, card):
-    """Device time by kernel over one call (torch.profiler), against its
-    wall time: the device's busy and idle shares."""
+def profile_call(fn):
+    """(wall ms, [(device ms, launches, kernel name)]) of one call of ``fn``
+    under torch.profiler, after a warm-up call. A window that caught no
+    device event is profiled again (up to three times): such windows were
+    seen on the card after an earlier profiler session in the process."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            rows.append((us / 1e3, ev.count, ev.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                rows.append((us / 1e3, ev.count, ev.key))
+        if rows:
+            break
+    return wall_ms, rows
+
+
+def short_name(key):
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1][:48]
+
+
+def profile_epoch(fn, what, card):
+    """Device time by kernel over one call (torch.profiler), against its
+    wall time: the device's busy and idle shares."""
+    wall_ms, rows = profile_call(fn)
     busy_ms = sum(r[0] for r in rows)
     say(f"[profile] {what}: wall {wall_ms:.3f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%; "
         f"{sum(r[1] for r in rows)} kernels; {card}")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
-        short = key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1][:48]
-        say(f"[profile]   {short:48s} {ms:9.3f} ms  {count:6d} launches  {1e3 * ms / count:8.2f} us each")
+        say(f"[profile]   {short_name(key):48s} {ms:9.3f} ms  {count:6d} launches  "
+            f"{1e3 * ms / count:8.2f} us each")
+
+
+def time_serving(dev, card):
+    """Each serving kernel at B in SERVE_TIMED against its plain version
+    (CUDA events, alternated) beside its bound; one call at B = 205 and at
+    B = 1 profiled (device time by kernel, kernels a call) and the host cost
+    of a call (the CUDA-event time of one call at B = 1 less its device
+    time); DNA→RNA at a DNA input of 65,536, B = 205. Returns {name: (ms,
+    plain_ms, None, bound work)} at B = 205."""
+    out = {}
+    for k, (name, (cls, model_cls, ckpt, din, _)) in enumerate(KERNELS.items()):
+        params, state = jax_from_state_dict(port_model(model_cls, k, False).state_dict(), ckpt)
+        fused = cls(params, state, dev)
+        g = torch.Generator(device=dev).manual_seed(300 + k)
+        for batch in (1,) + SERVE_TIMED:
+            x = torch.rand((batch, din), generator=g, device=dev)
+            site = torch.randint(0, N_SITES, (batch,), generator=g, device=dev)
+            call = lambda: fused(x, site, seed=7)  # noqa: E731
+            if batch in SERVE_TIMED:
+                ms, plain_ms = alternate(call, lambda: cls._reference(
+                    fused.folded, x, site, fv.NOISE_PHILOX, None, 7))
+                work = serving_work(name, batch)
+                bound_ms, bound_by = bound(work)
+                say(f"[time] {name} B={batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.5f} ms ({bound_by}); "
+                    f"{fused.plan(batch).plan.kernels} kernel(s) a call; {card}")
+                if batch == 205:
+                    out[name] = (ms, plain_ms, None, work)
+            if batch in (1, 205):
+                _, rows = profile_call(call)
+                if not rows:
+                    say(f"[profile] {name} B={batch}: device time not measured (the profiler "
+                        f"caught no kernel in three windows), nor the host cost; {card}")
+                    continue
+                device_us = 1e3 * sum(r[0] for r in rows)
+                by_kernel = ", ".join(f"{short_name(key)} {1e3 * ms:.2f} us x{n}"
+                                      for ms, n, key in sorted(rows, reverse=True))
+                line = (f"[profile] {name} B={batch}: {sum(r[1] for r in rows)} kernel(s) a "
+                        f"call, device {device_us:.2f} us ({by_kernel})")
+                if batch == 1:
+                    call_us = 1e3 * time_call(call)
+                    line += (f"; the call {call_us:.2f} us (CUDA events, median of 30), so the "
+                             f"host costs {call_us - device_us:.2f} us a call")
+                say(f"{line}; {card}")
+    name = "dna2rna_fused_forward"
+    params, state = jax_from_state_dict(
+        port_model(DNA2RNAVAE, 5, False, dna=65_536).state_dict(), "dna2rna")
+    fused = fv.FusedDNA2RNA(params, state, dev)
+    g = torch.Generator(device=dev).manual_seed(305)
+    x = torch.rand((205, 65_536), generator=g, device=dev)
+    site = torch.randint(0, N_SITES, (205,), generator=g, device=dev)
+    ms, plain_ms = alternate(lambda: fused(x, site, seed=7), lambda: fv.dna2rna_fused_reference(
+        fused.folded, x, site, fv.NOISE_PHILOX, None, 7), reps=10, warmup=2)
+    bound_ms, bound_by = bound(serving_work(name, 205, dna=65_536))
+    _, rows = profile_call(lambda: fused(x, site, seed=7))
+    device = (", ".join(f"{short_name(key)} {1e3 * t:.2f} us" for t, _, key in rows)
+              or "not measured (the profiler caught no kernel)")
+    say(f"[time] {name} at DNA 65536, B=205: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}); device {device}; {card}")
+    del fused, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_fit(dev, card, n_samples, epochs, task="rna2dna"):
@@ -1674,16 +1837,6 @@ def time_fit(dev, card, n_samples, epochs, task="rna2dna"):
 def phase_timing(dev, card):
     """Returns {name: (ms, plain_ms, library_ms, bound work)}."""
     out = {}
-    for k, (name, (cls, model_cls, ckpt, din, _)) in enumerate(KERNELS.items()):
-        params, state = jax_from_state_dict(port_model(model_cls, k, False).state_dict(), ckpt)
-        fused = cls(params, state, dev)
-        g = torch.Generator(device=dev).manual_seed(300 + k)
-        x = torch.rand((205, din), generator=g, device=dev)
-        site = torch.randint(0, N_SITES, (205,), generator=g, device=dev)
-        ms, plain_ms = alternate(lambda: fused(x, site, seed=7),
-                                 lambda: cls._reference(fused.folded, x, site, fv.NOISE_PHILOX, None, 7))
-        out[name] = (ms, plain_ms, None, serving_work(name, 205))
-        say(f"[time] {name} B=205: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
 
     params, state = train_params(dev, 4)
     flat, bn = ft.flatten_params(params), state["encoder_rna"]["bn"]
@@ -1726,11 +1879,15 @@ def phase_timing(dev, card):
         f"({len(rows) / ms * 1e3:,.0f} samples/s), plain {plain_ms:.4f} ms; torch.optim.AdamW "
         f"(fused) step over the same 19 tensors {library_ms:.4f} ms (x{n_steps} per epoch); {card}")
 
-    for batch, name, backward in ((205, "rna2dna_loss_forward", False),
-                                  (32, "rna2dna_loss_backward", True)):
+    # the cohort's shapes (the kernels' JSON record), then the wide paths':
+    # a training batch's backward and the validation split's forward at 450,000
+    for batch, name, backward, width in ((205, "rna2dna_loss_forward", False, CFG.input_dim_b),
+                                         (32, "rna2dna_loss_backward", True, CFG.input_dim_b),
+                                         (103, "rna2dna_loss_forward", False, WIDE_D),
+                                         (32, "rna2dna_loss_backward", True, WIDE_D)):
         g = torch.Generator(device=dev).manual_seed(batch)
-        logits = torch.randn((batch, CFG.input_dim_b), generator=g, device=dev)
-        tt = torch.rand((batch, CFG.input_dim_b), generator=g, device=dev)
+        logits = torch.randn((batch, width), generator=g, device=dev)
+        tt = torch.rand((batch, width), generator=g, device=dev)
         mu = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
         lv = torch.randn((batch, CFG.latent_dim), generator=g, device=dev) * 0.5
         b = torch.tensor(BETA, device=dev)
@@ -1742,8 +1899,12 @@ def phase_timing(dev, card):
             kernel = lambda: fl._forward(logits, tt, mu, lv, b)  # noqa: E731
             plain = lambda: fl.loss_forward_reference(logits, tt, mu, lv, b)  # noqa: E731
         ms, plain_ms = alternate(kernel, plain)
-        out[name] = (ms, plain_ms, None, loss_work(batch, backward))
-        say(f"[time] {name} B={batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+        work = loss_work(batch, backward, width)
+        if width == CFG.input_dim_b:
+            out[name] = (ms, plain_ms, None, work)
+        bound_ms, bound_by = bound(work)
+        say(f"[time] {name} {batch}x{width}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}); {card}")
     time_fit(dev, card, 1024, 10)
     time_fit(dev, card, 8000, 3)
     out.update(time_d2r(dev, card, t, x, s, n_steps))
@@ -1916,6 +2077,8 @@ def main():
     errs["multimodal_train_epoch"] = compare_mm_epoch(dev)
     check_philox_mm(dev)
     errs["fused_wide_output_step"] = compare_wide(dev)
+    # timed here, before any other profiler session in the process
+    serving_timings = time_serving(dev, card)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -1934,6 +2097,7 @@ def main():
         finally:
             os.chdir(cwd)
     timings = phase_timing(dev, card)
+    timings.update(serving_timings)
     timings.update(time_wide(dev, card))
 
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",

@@ -89,6 +89,25 @@ def test_plain_version_matches_pallas_kernel_and_unfused_apply(model_type, with_
         np.testing.assert_allclose(g.numpy(), np.asarray(u), **CHAIN)
 
 
+@pytest.mark.parametrize("model_type,dim_b", [("dna2rna", 7001), ("rna2dna", 8191)])
+def test_plain_version_matches_pallas_kernel_at_a_wide_dna_width(model_type, dim_b):
+    """The wide regime's widths (a DNA input past what one tile of the first
+    kernel design staged, a wide DecoderB output): the plain version the
+    card's kernels are held against equals the Pallas kernel there too."""
+    init, apply, jax_cls, port_cls, _, kw, _ = FAMILIES[model_type]
+    params, state = init(jax.random.PRNGKey(3), DIM_A, dim_b, N_SITES, LATENT)
+    state = jax.tree.map(
+        lambda x: x + 0.3 * jax.random.uniform(jax.random.PRNGKey(4), x.shape), state)
+    params, state = jax.tree.map(np.asarray, (params, state))
+    din = dim_b if model_type == "dna2rna" else DIM_A
+    x, site, _ = inputs(din, n=8, seed=5)
+    want = pallas_forward(jax_cls(params, state), jnp.asarray(x), jnp.asarray(site))
+    got = port_cls(params, state)(torch.from_numpy(x), torch.from_numpy(site), use_noise=False)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **CHAIN)
+
+
 @pytest.mark.parametrize("model_type", sorted(FAMILIES))
 def test_injected_eps_equals_unfused_module(model_type):
     _, apply, _, port_cls, model_cls, kw, din = FAMILIES[model_type]

@@ -11,7 +11,9 @@ jax, since the card's machine has none, and runs there on its own
 
 ``chip_smoke.py`` runs the same comparison at the full model width. Here the
 widths are small and no multiple of four, so the zero padding of every
-dimension is exercised, and B = 2100 reaches the 16-row tiles. Tolerance:
+dimension is exercised, and B = 1600 and 2100 reach the 32-row trunk tiles;
+the serving kernels are also held at a DNA input of 6,623 and a DecoderB
+output of 8,191, each through the cluster trunk and through its sweep. Tolerance:
 atol = rtol = 1e-4 (fp32 on both sides, summed in different orders). The
 training kernels use the JAX tests' tolerances (``tests/test_pallas_train.py``,
 ``tests/test_pallas_epoch.py``; the DNA→RNA gradients atol 1e-3 + rtol 1e-4,
@@ -44,7 +46,7 @@ from vae_los_angeles_torch.utils.weights import jax_from_state_dict
 
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 37, 53, 5, 7, 6
 CHAIN = dict(atol=1e-4, rtol=1e-4)
-BATCHES = (1, 17, 40, 2100)
+BATCHES = (1, 17, 40, 1600, 2100)
 FAMILIES = {
     "rna2dna": (fv.FusedRNA2DNA, RNA2DNAVAE, "rna", DIM_A, DIM_B, loading.load_rna2dna),
     "dna2rna": (fv.FusedDNA2RNA, DNA2RNAVAE, "dna", DIM_B, DIM_A, loading.load_dna2rna),
@@ -60,12 +62,13 @@ def cuda_device():
     return port_device.require_cuda()
 
 
-def port_weights(model_type, seed=0):
-    """(params, state) of a seeded port-initialised model with BN running
-    stats moved off their defaults, so the folding is exercised."""
+def port_weights(model_type, seed=0, dim_b=DIM_B):
+    """(params, state) of a seeded port-initialised model with DNA width
+    ``dim_b`` and BN running stats moved off their defaults, so the folding
+    is exercised."""
     model_cls = FAMILIES[model_type][1]
     g = torch.Generator().manual_seed(seed)
-    model = reset_parameters(model_cls(DIM_A, DIM_B, N_SITES, LATENT, EMBED), g).eval()
+    model = reset_parameters(model_cls(DIM_A, dim_b, N_SITES, LATENT, EMBED), g).eval()
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm1d):
@@ -113,6 +116,93 @@ def test_philox_noise_on_the_card(model_type, cuda_device):
                                **CHAIN)
     if port_cls is fv.FusedRNA2DNA:
         assert ((draws >= 0) & (draws <= 1)).all()
+
+
+# (model, DNA width, route): the wide layer in the cluster trunk or in its sweep
+WIDE_CASES = [("dna2rna", 6623, "trunk"), ("dna2rna", 6623, "sweep"),
+              ("rna2dna", 8191, "trunk"), ("rna2dna", 8191, "sweep")]
+
+
+@pytest.mark.parametrize("model_type,dim_b,route", WIDE_CASES)
+def test_kernel_matches_plain_version_at_a_wide_dna_width(model_type, dim_b, route, cuda_device,
+                                                          monkeypatch):
+    port_cls = FAMILIES[model_type][0]
+    fused = port_cls(*port_weights(model_type, seed=3, dim_b=dim_b), cuda_device)
+    swept = "SWEEP_MIN_IN" if model_type == "dna2rna" else "SWEEP_MIN_OUT"
+    monkeypatch.setattr(fv, "SWEEP_MIN_IN", 1 << 30)
+    monkeypatch.setattr(fv, "SWEEP_MIN_OUT", 1 << 30)
+    if route == "sweep":
+        monkeypatch.setattr(fv, swept, dim_b)
+    for n in (3, 37, 205):
+        x, site, eps = inputs(fused.in_dim, n, cuda_device, seed=n)
+        assert fused.plan(n).plan.kernels == (2 if route == "sweep" else 1)
+        for s in (None, site):
+            for e, use_noise in ((None, False), (eps, True)):
+                got = fused(x, s, use_noise=use_noise, eps=e)
+                want = port_cls._reference(fused.folded, x, s,
+                                           fv.NOISE_EPS if e is not None else fv.NOISE_NONE, e, 0)
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, **CHAIN)
+
+
+@pytest.mark.parametrize("model_type", sorted(FAMILIES))
+def test_philox_draws_equal_the_plain_emulation(model_type, cuda_device):
+    """The kernel's Philox4x32-10 draw at (seed, global row, j) is the
+    emulation's bit for bit: the Philox call equals the injected call."""
+    port_cls, din = FAMILIES[model_type][0], FAMILIES[model_type][3]
+    fused = port_cls(*port_weights(model_type, seed=4), cuda_device)
+    for n in (1, 40, 2100):
+        x, site, _ = inputs(din, n, cuda_device, seed=n + 1)
+        for seed in (0, 11, 2**40 + 7):
+            drawn = fused(x, site, seed=seed)
+            injected = fused(x, site, eps=fv.philox_normal_reference(seed, n, LATENT, cuda_device))
+            for a, b in zip(drawn, injected):
+                assert torch.equal(a, b)
+
+
+def test_loader_serves_a_wide_dna2rna_checkpoint_in_one_call(cuda_device, tmp_path):
+    """A DNA→RNA checkpoint 6,623 probes wide, served through its loader
+    with USE_PALLAS in one call of the C entry, within tolerance of the plain
+    route."""
+    params, state = port_weights("dna2rna", seed=5, dim_b=6623)
+    cfg = Config().replace(checkpoint_dir=str(tmp_path / "checkpoints"), use_pallas=True)
+    checkpoint.save_best("dna2rna", "20260101_000000", params, state, cfg.checkpoint_dir)
+    checkpoint.write_run_id("dna2rna", "20260101_000000", str(tmp_path))
+    served = loading.load_dna2rna(cfg=cfg, root=str(tmp_path), device=cuda_device)
+    plain = loading.load_dna2rna(cfg=cfg.replace(use_pallas=False), root=str(tmp_path),
+                                 device=cuda_device)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(70, 6623)).astype(np.float32)
+    site = rng.integers(0, N_SITES, size=(70,))
+    before = fv.FusedDNA2RNA.launches
+    recon, mu, logvar = served(dna=x, site=site)
+    assert fv.FusedDNA2RNA.launches == before + 1
+    assert recon.shape == (70, DIM_A) and np.isfinite(recon).all()
+    _, pmu, plv = plain(dna=x, site=site)
+    np.testing.assert_allclose(mu, pmu, **CHAIN)
+    np.testing.assert_allclose(logvar, plv, **CHAIN)
+    fused = fv.FusedDNA2RNA(params, state, cuda_device)
+    xt, st = torch.as_tensor(x).to(cuda_device), torch.as_tensor(site).to(cuda_device)
+    got = fused(xt, st, use_noise=False)
+    want = fv.dna2rna_fused_reference(fused.folded, xt, st)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **CHAIN)
+
+
+@pytest.mark.parametrize("model_type", sorted(FAMILIES))
+def test_the_batches_of_a_bucket_share_one_plan_on_the_card(model_type, cuda_device):
+    """Batches of 129, 200 and 256 rows run on the 256-row bucket's plan,
+    each launching the clusters its own rows need, within tolerance of the
+    plain version."""
+    port_cls, din = FAMILIES[model_type][0], FAMILIES[model_type][3]
+    fused = port_cls(*port_weights(model_type, seed=6), cuda_device)
+    for n in (129, 200, 256):
+        x, site, eps = inputs(din, n, cuda_device, seed=n)
+        got = fused(x, site, eps=eps)
+        want = port_cls._reference(fused.folded, x, site, fv.NOISE_EPS, eps, 0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **CHAIN)
+    assert list(fused._calls) == [256]
 
 
 def test_wrapper_refuses_tensors_the_kernel_does_not_take(cuda_device):
