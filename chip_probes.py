@@ -1,7 +1,7 @@
 """Diagnostic probes of the kernels on one NVIDIA GPU.
 
     python3 chip_probes.py serving|serving_calls|first|grads|race|chain|widths|directional|
-                           epoch64
+                           epoch64|loss [OLDER_TREE]
 
 ``chip_smoke.py`` is the check; these are the measurements that shaped it,
 kept so that the numbers quoted from them in ``PERF.md`` and ``ROADMAP.md``
@@ -44,14 +44,26 @@ can be made again:
     wrappers' call API and what every ``chip_smoke.py`` of the port has, so a
     copy of this file beside an older tree's ``chip_smoke.py`` times that
     tree (a call that raises is recorded as such): run both trees in one
-    call, alternating.
+    call, alternating;
+  * ``loss [OLDER_TREE]``: the loss pair (B3, ``fused_loss.cu``) at 32 and
+    205 x 1211 and 32 and 103 x 450,000, forward and backward, through its C
+    entries and its Python wrappers: ms a call back to back and alone (CUDA
+    events), device µs and kernels a call, beside the byte bound; with an
+    older tree's root (its ``vae_los_angeles_torch/`` unpacked with ``git
+    archive`` into a gitignored directory), that tree's library is built
+    from its ``fused_loss.cu``, its wrapper module loaded beside this one,
+    and both timed in turns with this tree's (older, this, this, older), as
+    one JSON line.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -121,6 +133,20 @@ def probe_first(dev):
     print("epoch25 ms", time_ms(lambda: fe._launch_epoch(
         flat, zeros, zeros, {"mean": rm, "var": rv}, xe, te, se, None, None, True, 0, 1e-3, 5e-4,
         1e-5, 0, n), 5))
+
+
+def host_ms(fn, reps=30):
+    """Median host milliseconds of one call of ``fn`` (what it takes to
+    enqueue its work), each call made after the card has drained."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e3
 
 
 def time_ms(fn, reps=20):
@@ -434,29 +460,34 @@ def probe_serving(dev):
             torch.cuda.empty_cache()
 
 
+def device_us(fn):
+    """{kernel: (device µs, launches)} of one call of ``fn`` (torch.profiler),
+    after a warm-up call."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            us = us if us is not None else ev.self_cuda_time_total
+            # kernels in an anonymous namespace: the key starts with "(anonymous namespace)::"
+            name = cs.short_name(ev.key)
+            total, count = rows.get(name, (0.0, 0))
+            rows[name] = (total + us, count + ev.count)
+    return rows
+
+
 def probe_serving_calls(dev):
     import json
 
     _build.build_all(["fused_vae"])
     card = cs.card_line()
     out = {}
-
-    def device_us(fn):
-        from torch.profiler import DeviceType, ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                us = getattr(ev, "self_device_time_total", None)
-                rows[ev.key.split("(")[0][-40:]] = (us if us is not None
-                                                    else ev.self_cuda_time_total, ev.count)
-        return rows
-
     for direction in ("rna2dna", "dna2rna"):
         fused = serving_model(dev, direction, cs.CFG.input_dim_b)
         for batch in (1, 205, 1600, 4096):
@@ -481,15 +512,113 @@ def probe_serving_calls(dev):
     print("[serving_calls] " + json.dumps(out) + f"; {card}", flush=True)
 
 
+LOSS_SHAPES = ((32, 1211), (205, 1211), (32, 450_000), (103, 450_000))
+
+
+def loss_library(path):
+    """The loss pair's library built from the ``fused_loss.cu`` at ``path``
+    (an older tree's), its entries bound as its wrapper binds them."""
+    so = _build.BUILD_DIR / "other" / "libfused_loss.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(path)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    p, n = ctypes.c_void_p, ctypes.c_longlong
+    lib.rna2dna_loss_forward.argtypes = [p, p, n, p, p, n, p, p, p, p]
+    lib.rna2dna_loss_backward.argtypes = [p, p, n, p, p, n, p, p, p, p, p, p]
+    lib.rna2dna_loss_workspace_floats.argtypes = []
+    lib.fused_loss_error_string.argtypes = [ctypes.c_int]
+    lib.fused_loss_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def loss_wrappers(parent=None):
+    """{"change": this tree's ``ops/kernels/fused_loss`` module} and, with an
+    older tree's root, {"parent": that tree's module bound to its library}."""
+    import importlib.util
+
+    from vae_los_angeles_torch.ops.kernels import fused_loss
+
+    mods = {"change": fused_loss}
+    if parent is not None:
+        spec = importlib.util.spec_from_file_location(
+            "older_fused_loss", Path(parent) / "vae_los_angeles_torch/ops/kernels/fused_loss.py")
+        mods["parent"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods["parent"])
+        lib = loss_library(Path(parent) / "vae_los_angeles_torch/csrc/fused_loss.cu")
+        mods["parent"]._library = lambda: lib
+    return mods
+
+
+def probe_loss(dev, parent=None):
+    """The loss pair at the cohort's and the wide paths' shapes, through its
+    C entries and through its Python wrappers (``_forward``, ``_backward``),
+    this tree's against an older tree's (``parent``: that tree's root, whose
+    wrapper module is loaded beside this one and bound to its own library),
+    alternated older, this, this, older: ms a call back to back (CUDA events
+    over 50 calls), the median of 30 single calls and of their host time
+    (the enqueue), and the device µs and kernels of one C call
+    (torch.profiler); one JSON line."""
+    import json
+
+    card = cs.card_line()
+    mods = loss_wrappers(parent)
+    libs = {who: mod._library() for who, mod in mods.items()}
+    order = ["parent", "change", "change", "parent"] if parent is not None else ["change"] * 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for batch, width in LOSS_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(batch)
+        logits = torch.randn((batch, width), generator=g, device=dev)
+        t = torch.rand((batch, width), generator=g, device=dev)
+        mu = torch.randn((batch, cs.CFG.latent_dim), generator=g, device=dev)
+        lv = torch.randn((batch, cs.CFG.latent_dim), generator=g, device=dev) * 0.5
+        beta, one = torch.tensor(1e-3, device=dev), torch.tensor(1.0, device=dev)
+        res = torch.empty(2, device=dev)
+        grads = [torch.empty_like(a) for a in (logits, mu, lv)]
+        calls = {}
+        for who, lib in libs.items():
+            work = torch.zeros(lib.rna2dna_loss_workspace_floats(), device=dev)
+            args = (logits.data_ptr(), t.data_ptr(), logits.numel(), mu.data_ptr(),
+                    lv.data_ptr(), mu.numel(), beta.data_ptr())
+            calls[who, "forward"] = functools.partial(
+                lib.rna2dna_loss_forward, *args, res.data_ptr(), work.data_ptr(), stream)
+            calls[who, "backward"] = functools.partial(
+                lib.rna2dna_loss_backward, *args, one.data_ptr(), *(x.data_ptr() for x in grads),
+                stream)
+            mod = mods[who]
+            calls[who, "forward_wrapper"] = functools.partial(mod._forward, logits, t, mu, lv,
+                                                              beta)
+            calls[who, "backward_wrapper"] = functools.partial(mod._backward, logits, t, mu, lv,
+                                                               beta, one)
+        for kernel in ("forward", "backward"):
+            key = f"{kernel}_{batch}x{width}"
+            for who in order:
+                for what, fn in (("", calls[who, kernel]),
+                                 ("wrapper_", calls[who, kernel + "_wrapper"])):
+                    out.setdefault(f"{key}_{who}_{what}loop_ms", []).append(time_ms(fn, 50))
+                    out.setdefault(f"{key}_{who}_{what}call_ms", []).append(cs.time_call(fn))
+                    out.setdefault(f"{key}_{who}_{what}host_ms", []).append(host_ms(fn))
+            for who in libs:
+                prof = device_us(calls[who, kernel])
+                out[f"{key}_{who}_device_us"] = sum(us for us, _ in prof.values())
+                out[f"{key}_{who}_kernels"] = sum(k for _, k in prof.values())
+            nbytes = cs.loss_work(batch, kernel == "backward", width)[1]
+            out[f"{key}_bound_ms"] = nbytes / cs.PEAK_BYTES * 1e3
+        del logits, t, grads, calls
+        torch.cuda.empty_cache()
+    print("[loss] " + json.dumps(out) + f"; {card}", flush=True)
+
+
 PROBES = {"serving": probe_serving, "serving_calls": probe_serving_calls, "first": probe_first,
           "grads": probe_grads, "race": probe_race, "chain": probe_chain, "widths": probe_widths,
-          "directional": probe_directional, "epoch64": probe_epoch64}
+          "directional": probe_directional, "epoch64": probe_epoch64, "loss": probe_loss}
 
 
 def main(argv):
-    if len(argv) != 1 or argv[0] not in PROBES:
-        raise SystemExit(f"usage: python3 chip_probes.py {'|'.join(PROBES)}")
-    PROBES[argv[0]](cs.device_policy.require_cuda())
+    if not argv or argv[0] not in PROBES or (len(argv) > 1 and argv[0] != "loss") or len(argv) > 2:
+        raise SystemExit(f"usage: python3 chip_probes.py {'|'.join(PROBES)} (loss [OLDER_TREE])")
+    PROBES[argv[0]](cs.device_policy.require_cuda(), *argv[1:])
 
 
 if __name__ == "__main__":

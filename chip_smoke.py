@@ -36,8 +36,13 @@ Phases (any failure raises, and the script exits non-zero):
          by a whole term (seen at B = 32: one flipped unit moved d2w by 0.17);
        * the loss pair at B in {32, 205} and, as the wide paths run it, at
          32 x 450,000 (a training batch) and 103 x 450,000 (the validation
-         split of 512 samples): value rtol 1e-5, gradients rtol 1e-5 +
-         atol 1e-7;
+         split of 512 samples), and at 41 x 120,011 with logits and target
+         4 bytes past a 16-byte boundary (an odd n, a scalar head and tail,
+         more than one pass of the persistent grid): value rtol 1e-5,
+         gradients rtol 1e-5 + atol 1e-7; three more forwards of each shape
+         give the first call's bits; after the serving timings, one forward
+         and one backward at 32 x 450,000 under torch.profiler run one
+         device kernel each;
        * the training kernels' Philox noise: the same seed gives the same
          draws, another seed others, the dropout keep rate is 0.9 ± 0.005
          over 2.6e5 draws, eps has mean 0 ± 0.01 and variance 1 ± 0.02, and
@@ -128,7 +133,9 @@ Phases (any failure raises, and the script exits non-zero):
      kernel path (the wide head), each after an untimed warm-up epoch,
      from the same initial weights with the rows on the card; each with its
      ms an epoch, samples/s and peak device memory, finite losses and a
-     falling train loss;
+     falling train loss, and the loss pair's launches an epoch (the plain
+     path: a forward and a backward a step and the validation forward; the
+     wide head's path: the validation forward);
   5. serve (USE_PALLAS, so the loaders serve through the kernels):
      ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
@@ -145,8 +152,12 @@ Phases (any failure raises, and the script exits non-zero):
      kernel and kernels a call, and the host cost of a call, its CUDA-event
      time at B = 1 less its device time): the train steps at B = 32, one
      200-step epoch of each model on the 8000-sample cohort, the loss pair
-     (at B = 205 and 32, and at the wide paths' 103 x 450,000 and 32 x
-     450,000, beside their bounds), and ``torch.optim.AdamW`` (fused) over
+     (the forward at 205 x 1211, 103 x 450,000 and 32 x 450,000, the
+     backward at 32 x 1211 and 32 x 450,000, beside their bounds and a
+     library composite the port never calls: the forward
+     ``F.binary_cross_entropy_with_logits(reduction="sum")`` plus the KLD
+     expression, the backward ``sigmoid(l).sub_(t).mul_(g)`` plus the two
+     latent terms), and ``torch.optim.AdamW`` (fused) over
      the same 19, 21 or 39 tensors as the yardstick of each epoch's AdamW;
      one profiled epoch of each model
      (``torch.profiler``): device time by kernel, the device's busy and
@@ -178,6 +189,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
@@ -744,33 +756,81 @@ def wide_loss_shapes():
     return [(CFG.batch_size, WIDE_D), (len(va), WIDE_D)]
 
 
+LOSS_ODD = (41, 120_011, 1)  # batch, width, offset from a 16-byte boundary (floats)
+LOSS_REPEATS = 3
+
+
+def loss_inputs(dev, batch, width, offset=0, scale=3.0):
+    """(logits, target, mu, logvar), seeded by the batch; logits and target
+    start ``offset`` floats past a 16-byte boundary (views ``buf[offset:]``)."""
+    g = torch.Generator(device=dev).manual_seed(batch)
+    n = batch * width
+    logits = (torch.randn(n + offset, generator=g, device=dev) * scale)[offset:]
+    t = torch.rand(n + offset, generator=g, device=dev)[offset:]
+    mu = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
+    lv = torch.randn((batch, CFG.latent_dim), generator=g, device=dev) * 0.5
+    return logits.view(batch, width), t.view(batch, width), mu, lv
+
+
 def compare_loss(dev):
+    """The loss pair through its autograd Function against the plain
+    versions at every shape (module docstring), and LOSS_REPEATS more
+    forwards giving the autograd call's bits."""
     worst = {"rna2dna_loss_forward": 0.0, "rna2dna_loss_backward": 0.0}
-    shapes = [(batch, CFG.input_dim_b) for batch in LOSS_BATCHES] + wide_loss_shapes()
-    for batch, width in shapes:
-        g = torch.Generator(device=dev).manual_seed(batch)
-        logits = (torch.randn((batch, width), generator=g, device=dev) * 3)
-        t = torch.rand((batch, width), generator=g, device=dev)
-        mu = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
-        lv = torch.randn((batch, CFG.latent_dim), generator=g, device=dev) * 0.5
+    shapes = ([(batch, CFG.input_dim_b, 0) for batch in LOSS_BATCHES]
+              + [(batch, width, 0) for batch, width in wide_loss_shapes()] + [LOSS_ODD])
+    for batch, width, offset in shapes:
+        logits, t, mu, lv = loss_inputs(dev, batch, width, offset)
         leaves = [a.clone().requires_grad_(True) for a in (logits, mu, lv)]
+        if offset:
+            leaves[0] = logits.requires_grad_(True)  # the view itself, off the boundary
         beta = torch.tensor(2e-3, device=dev, requires_grad=True)
         val = fl.rna2dna_loss_fused(leaves[0], t, leaves[1], leaves[2], beta)
         grads = torch.autograd.grad(val * 1.3, (*leaves, beta))
-        ref, kld = fl.loss_forward_reference(logits, t, mu, lv, beta.detach())
+        ref, kld = fl.loss_forward_reference(logits.detach(), t, mu, lv, beta.detach())
         g13 = torch.tensor(1.3, device=dev)
-        ref_grads = (*fl.loss_backward_reference(logits, t, mu, lv, beta.detach(), g13),
+        ref_grads = (*fl.loss_backward_reference(logits.detach(), t, mu, lv, beta.detach(), g13),
                      kld * g13)
+        again = [torch.stack(fl._forward(logits.detach(), t, mu, lv, beta.detach()))
+                 for _ in range(LOSS_REPEATS)]
         torch.cuda.synchronize()
+        if not all(torch.equal(a[0], val.detach()) and torch.equal(a, again[0]) for a in again):
+            raise AssertionError(f"loss {batch}x{width}: {LOSS_REPEATS} forwards differ from "
+                                 f"the first call's bits: {val.item()!r}, "
+                                 f"{[a.tolist() for a in again]}")
         worst["rna2dna_loss_forward"] = max(worst["rna2dna_loss_forward"], check_close(
             f"loss {batch}x{width}", val, ref, 0.0, 1e-5))
         for i, (a, b) in enumerate(zip(grads, ref_grads)):
             worst["rna2dna_loss_backward"] = max(worst["rna2dna_loss_backward"], check_close(
                 f"loss {batch}x{width} grad {i}", a, b, 1e-7, 1e-5))
+        del logits, t, leaves, grads, ref_grads, again
+    torch.cuda.empty_cache()
+    where = [f"{b}x{w}" + (f" ({4 * o} bytes past a 16-byte boundary)" if o else "")
+             for b, w, o in shapes]
     say(f"[compare] loss pair: max |kernel - plain| = {worst['rna2dna_loss_forward']:.3e} "
-        f"(forward), {worst['rna2dna_loss_backward']:.3e} (backward) over "
-        f"{', '.join(f'{b}x{w}' for b, w in shapes)}")
+        f"(forward), {worst['rna2dna_loss_backward']:.3e} (backward) over {', '.join(where)}; "
+        f"{1 + LOSS_REPEATS} forwards of each shape bit-equal")
     return worst
+
+
+def loss_kernels_a_call(dev, card):
+    """One forward and one backward at 32 x 450,000 under torch.profiler:
+    one device kernel each."""
+    logits, t, mu, lv = loss_inputs(dev, CFG.batch_size, WIDE_D)
+    b, one = torch.tensor(BETA, device=dev), torch.tensor(1.0, device=dev)
+    for name, fn in (("rna2dna_loss_forward", lambda: fl._forward(logits, t, mu, lv, b)),
+                     ("rna2dna_loss_backward",
+                      lambda: fl._backward(logits, t, mu, lv, b, one))):
+        _, rows = profile_call(fn)
+        if not rows:
+            say(f"[profile] {name}: the profiler caught no device event (kernels a call not "
+                f"measured)")
+            continue
+        kernels = sum(r[1] for r in rows)
+        say(f"[profile] {name} {CFG.batch_size}x{WIDE_D}: {kernels} device kernel(s) a call, "
+            + ", ".join(f"{short_name(k)} {ms * 1e3:.2f} us" for ms, _, k in rows) + f"; {card}")
+        if kernels != 1:
+            raise AssertionError(f"{name} ran {kernels} device kernels in one call")
 
 
 def check_philox(dev):
@@ -1536,12 +1596,21 @@ def phase_train_wide(dev, workdir, card):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         t0 = time.perf_counter()
         res = fit(2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         say(f"[train-wide] {what}: warm-up epoch {warm * 1e3:.1f} ms")
         _wide_fit_line(what, wall, 2, len(tr), res, card)
+        # the loss pair: each plain step's forward and backward, and every
+        # path's validation forward
+        want = (1, 0) if kw else (steps + 1, steps)
+        got = (fl.launches["rna2dna_loss_forward"] / 2, fl.launches["rna2dna_loss_backward"] / 2)
+        say(f"[train-wide] {what}: loss launches an epoch {got[0]:g} forward, {got[1]:g} "
+            f"backward")
+        if got != want:
+            raise AssertionError(f"wide {what}: the loss pair launched {got} an epoch, not {want}")
         del res
         if kw:  # the wide path: how much of its epoch the card is busy
             profile_epoch(lambda: fit(1), f"{what}, one epoch", card)
@@ -1879,32 +1948,41 @@ def phase_timing(dev, card):
         f"({len(rows) / ms * 1e3:,.0f} samples/s), plain {plain_ms:.4f} ms; torch.optim.AdamW "
         f"(fused) step over the same 19 tensors {library_ms:.4f} ms (x{n_steps} per epoch); {card}")
 
-    # the cohort's shapes (the kernels' JSON record), then the wide paths':
-    # a training batch's backward and the validation split's forward at 450,000
+    # the cohort's shapes (the kernels' JSON record), then the wide paths': a
+    # training batch's forward and backward, the validation split's forward
     for batch, name, backward, width in ((205, "rna2dna_loss_forward", False, CFG.input_dim_b),
                                          (32, "rna2dna_loss_backward", True, CFG.input_dim_b),
                                          (103, "rna2dna_loss_forward", False, WIDE_D),
+                                         (32, "rna2dna_loss_forward", False, WIDE_D),
                                          (32, "rna2dna_loss_backward", True, WIDE_D)):
-        g = torch.Generator(device=dev).manual_seed(batch)
-        logits = torch.randn((batch, width), generator=g, device=dev)
-        tt = torch.rand((batch, width), generator=g, device=dev)
-        mu = torch.randn((batch, CFG.latent_dim), generator=g, device=dev)
-        lv = torch.randn((batch, CFG.latent_dim), generator=g, device=dev) * 0.5
+        logits, tt, mu, lv = loss_inputs(dev, batch, width, scale=1.0)
         b = torch.tensor(BETA, device=dev)
         one = torch.tensor(1.0, device=dev)
         if backward:
             kernel = lambda: fl._backward(logits, tt, mu, lv, b, one)  # noqa: E731
             plain = lambda: fl.loss_backward_reference(logits, tt, mu, lv, b, one)  # noqa: E731
+
+            def library():  # a yardstick the port never calls
+                return (torch.sigmoid(logits).sub_(tt).mul_(one), b * mu * one,
+                        -0.5 * b * (1.0 - torch.exp(lv)) * one)
         else:
             kernel = lambda: fl._forward(logits, tt, mu, lv, b)  # noqa: E731
             plain = lambda: fl.loss_forward_reference(logits, tt, mu, lv, b)  # noqa: E731
+
+            def library():
+                kld = -0.5 * torch.sum(1.0 + lv - mu * mu - torch.exp(lv))
+                return F.binary_cross_entropy_with_logits(logits, tt, reduction="sum") + b * kld
         ms, plain_ms = alternate(kernel, plain)
+        library_ms = time_call(library)
         work = loss_work(batch, backward, width)
         if width == CFG.input_dim_b:
-            out[name] = (ms, plain_ms, None, work)
+            out[name] = (ms, plain_ms, library_ms, work)
         bound_ms, bound_by = bound(work)
-        say(f"[time] {name} {batch}x{width}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}); {card}")
+        say(f"[time] {name} {batch}x{width}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library composite {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{100 * bound_ms / ms:.1f}% of it); {card}")
+        del logits, tt
+    torch.cuda.empty_cache()
     time_fit(dev, card, 1024, 10)
     time_fit(dev, card, 8000, 3)
     out.update(time_d2r(dev, card, t, x, s, n_steps))
@@ -2007,8 +2085,6 @@ def time_wide(dev, card):
     """The wide head at batch 32 and 256 against its plain version and the
     library composite, profiled once at each; returns {name: (ms, plain_ms,
     library_ms, bound work)} at batch 32, the training batch."""
-    import torch.nn.functional as F
-
     out = {}
     for batch in WIDE_BATCHES:
         h, t, w, b, mw, vw, mb, vb, step = wide_inputs(dev, batch, 100 + batch)
@@ -2079,6 +2155,7 @@ def main():
     errs["fused_wide_output_step"] = compare_wide(dev)
     # timed here, before any other profiler session in the process
     serving_timings = time_serving(dev, card)
+    loss_kernels_a_call(dev, card)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:

@@ -63,6 +63,44 @@ def test_plain_forward_is_the_loss_module_and_dna_gets_no_gradient():
     assert fl.launches == before  # CPU tensors: the plain version, no launch
 
 
+def test_backward_gives_dna_no_tensor_unless_it_requires_grad():
+    """The Function's backward returns None for ``dna`` when autograd needs no
+    gradient for it (no dna-sized zeros are made), and zeros when it does."""
+    from types import SimpleNamespace
+
+    logits, dna, mu, lv = (torch.from_numpy(a) for a in _inputs(5, seed=2))
+    beta = torch.tensor(1e-3)
+    _, kld = fl.loss_forward_reference(logits, dna, mu, lv, beta)
+    for dna_needs_grad in (False, True):
+        ctx = SimpleNamespace(saved_tensors=(logits, dna, mu, lv, beta, kld),
+                              needs_input_grad=(True, dna_needs_grad, True, True, False))
+        grads = fl.RNA2DNALoss.backward(ctx, torch.tensor(1.0))
+        want = fl.loss_backward_reference(logits, dna, mu, lv, beta, torch.tensor(1.0))
+        for got, w in zip((grads[0], grads[2], grads[3]), want):
+            torch.testing.assert_close(got, w, rtol=0, atol=0)
+        assert grads[4] is None
+        if dna_needs_grad:
+            assert torch.equal(grads[1], torch.zeros_like(dna))
+        else:
+            assert grads[1] is None
+    logits.requires_grad_(True)
+    loss = fl.rna2dna_loss_fused(logits, dna, mu, lv, 1e-3)
+    (g_logits,) = torch.autograd.grad(loss, (logits,))  # autograd takes the None
+    torch.testing.assert_close(g_logits, torch.sigmoid(logits.detach()) - dna)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gradient_buffer_sits_at_its_input_offset(offset):
+    """The backward's dlogits buffer starts as far past a 16-byte boundary
+    as logits does, so that the kernel's float4 route takes both."""
+    buf = torch.zeros(4 * 53 + 4)
+    x = buf[offset:offset + 4 * 53].view(4, 53)
+    assert x.data_ptr() % 16 == 4 * offset
+    d = fl._empty_like_aligned(x)
+    assert d.data_ptr() % 16 == x.data_ptr() % 16
+    assert d.shape == x.shape and d.dtype == x.dtype and d.is_contiguous()
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     logits, dna, mu, lv = (torch.from_numpy(a) for a in _inputs(4))
     with pytest.raises(TypeError):

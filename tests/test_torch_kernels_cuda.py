@@ -325,13 +325,36 @@ def test_epoch_kernel_matches_plain_version(cuda_device):
     torch.testing.assert_close(bn["var"], want[5], atol=2e-4, rtol=0)
 
 
-@pytest.mark.parametrize("batch", [3, 205])
-def test_loss_kernels_match_plain_versions(batch, cuda_device):
-    g = torch.Generator(device=cuda_device).manual_seed(batch)
-    logits = (torch.randn((batch, 53), generator=g, device=cuda_device) * 3).requires_grad_(True)
-    t = torch.rand((batch, 53), generator=g, device=cuda_device)
-    mu = torch.randn((batch, 7), generator=g, device=cuda_device).requires_grad_(True)
-    lv = (torch.randn((batch, 7), generator=g, device=cuda_device) * 0.5).requires_grad_(True)
+def loss_inputs(dev, batch, width, offsets=(0, 0), seed=0):
+    """Loss inputs with logits and target starting ``offsets`` floats past a
+    16-byte boundary (contiguous views ``buf[off:]`` of fresh buffers)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = batch * width
+    logits = (torch.randn(n + 4, generator=g, device=dev) * 3)[offsets[0]:offsets[0] + n]
+    t = torch.rand(n + 4, generator=g, device=dev)[offsets[1]:offsets[1] + n]
+    for x, off in zip((logits, t), offsets):
+        assert x.data_ptr() % 16 == 4 * off
+    mu = torch.randn((batch, 7), generator=g, device=dev)
+    lv = torch.randn((batch, 7), generator=g, device=dev) * 0.5
+    return logits.view(batch, width), t.view(batch, width), mu, lv
+
+
+# (batch, width, offsets of logits and target from a 16-byte boundary)
+LOSS_CASES = [
+    pytest.param(3, 53, (0, 0), id="3"),
+    pytest.param(205, 53, (0, 0), id="205"),
+    pytest.param(7, 53, (1, 1), id="7x53-misaligned"),  # n = 371: a head of 3, a tail of 2
+    pytest.param(7, 53, (1, 0), id="7x53-offsets-differ"),  # the scalar route
+    # n = 6,700,201 > one pass of the persistent grid (SMs x blocks x 256 threads x 4 float4s)
+    pytest.param(67, 100_003, (3, 3), id="67x100003-misaligned"),
+]
+
+
+@pytest.mark.parametrize("batch, width, offsets", LOSS_CASES)
+def test_loss_kernels_match_plain_versions(batch, width, offsets, cuda_device):
+    logits, t, mu, lv = loss_inputs(cuda_device, batch, width, offsets, seed=batch)
+    for x in (logits, mu, lv):
+        x.requires_grad_(True)
     beta = torch.tensor(2e-3, device=cuda_device, requires_grad=True)
     before = dict(fl.launches)
     val = fl.rna2dna_loss_fused(logits, t, mu, lv, beta)
@@ -345,6 +368,35 @@ def test_loss_kernels_match_plain_versions(batch, cuda_device):
     torch.testing.assert_close(val, want, rtol=1e-5, atol=0)
     for a, b in zip(grads, want_g):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_loss_forward_gives_the_same_bits_every_call(cuda_device):
+    logits, t, mu, lv = loss_inputs(cuda_device, 67, 100_003, (1, 1), seed=4)
+    beta = torch.tensor(2e-3, device=cuda_device)
+    want, want_kld = fl.loss_forward_reference(logits, t, mu, lv, beta)
+    calls = [torch.stack(fl._forward(logits, t, mu, lv, beta)) for _ in range(3)]
+    for got in calls:
+        assert torch.equal(got, calls[0])
+    torch.testing.assert_close(calls[0][0], want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(calls[0][1], want_kld, rtol=1e-5, atol=0)
+
+
+def test_loss_forward_on_two_streams(cuda_device):
+    """Each stream has its own workspace and ticket; calls alternate
+    between two streams, each finishing before the next starts."""
+    logits, t, mu, lv = loss_inputs(cuda_device, 41, 2_441, (2, 2), seed=5)
+    beta = torch.tensor(2e-3, device=cuda_device)
+    want, want_kld = fl.loss_forward_reference(logits, t, mu, lv, beta)
+    streams = [torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device)]
+    for s in streams * 2:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(s):
+            loss, kld = fl._forward(logits, t, mu, lv, beta)
+        s.synchronize()
+        torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+        torch.testing.assert_close(kld, want_kld, rtol=1e-5, atol=0)
+    for s in streams:
+        assert (cuda_device.index, s.cuda_stream) in fl._workspaces
 
 
 @pytest.mark.parametrize("path", ["plain", "fused_step", "fused_epoch"])
@@ -367,6 +419,46 @@ def test_fit_paths_launch_their_kernels(path, cuda_device):
     assert delta["rna2dna_train_epoch"] == (2 if path == "fused_epoch" else 0)
     assert delta["rna2dna_train_step"] == (12 if path == "fused_step" else 0)
     assert delta["rna2dna_loss_backward"] == (12 if path == "plain" else 0)
+
+
+def test_plain_fit_launches_the_loss_pair_every_step(cuda_device, monkeypatch):
+    """The plain path: the forward and the backward once a training step, the
+    forward once more for each epoch's validation loss; every call's result
+    held against the plain version on its own inputs. 15 x 53 and 41 x 53 are
+    no multiples of 4 (tails of 3 and 1)."""
+    calls = {"forward": [], "backward": []}
+    for name in calls:
+        kernel = getattr(fl, "_" + name)
+
+        def spy(*args, kernel=kernel, name=name):
+            out = kernel(*args)
+            calls[name].append((args, out))
+            return out
+
+        monkeypatch.setattr(fl, "_" + name, spy)
+    d = TRAIN_DIMS
+    cfg = Config(input_dim_a=d["din"], input_dim_b=d["dout"], latent_dim=d["latent"],
+                 embed_dim=d["embed"], batch_size=15)
+    rng = np.random.default_rng(1)
+    data = (rng.normal(size=(137, d["din"])).astype(np.float32),
+            rng.uniform(size=(137, d["dout"])).astype(np.float32),
+            rng.integers(0, d["sites"], size=137))
+    before = dict(fl.launches)
+    res = engine.fit("rna2dna", cfg, tuple(a[:96] for a in data), tuple(a[96:] for a in data), 0,
+                     d["sites"], num_epochs=2, device=cuda_device)
+    steps = 96 // 15
+    assert res.epochs_ran == 2 and np.isfinite(res.val_losses).all()
+    assert fl.launches["rna2dna_loss_forward"] - before["rna2dna_loss_forward"] == 2 * (steps + 1)
+    assert fl.launches["rna2dna_loss_backward"] - before["rna2dna_loss_backward"] == 2 * steps
+    assert [a[0].shape[0] for a, _ in calls["forward"]] == ([15] * steps + [41]) * 2
+    with torch.no_grad():
+        for args, (loss, kld) in calls["forward"]:
+            want, want_kld = fl.loss_forward_reference(*args)
+            torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+            torch.testing.assert_close(kld, want_kld, rtol=1e-5, atol=1e-7)
+        for args, got in calls["backward"]:
+            for a, b in zip(got, fl.loss_backward_reference(*args)):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
 # ---- DNA→RNA: the input is DNA (TRAIN_DIMS["din"] wide), the target RNA ----

@@ -7,13 +7,15 @@
     dlogits = (sigmoid(logits) - dna) * g,   dmu = beta * mu * g,
     dlogvar = -beta/2 * (1 - e^logvar) * g,  dbeta = KLD * g,
 
-and, as in the JAX ``custom_vjp``, no gradient for ``dna`` (zeros). beta may
-be a float or a 0-d tensor (a tensor that requires grad gets dbeta).
+and no gradient for ``dna``: zeros where ``dna`` requires grad, as the JAX
+``custom_vjp`` returns, else None (no ``dna``-sized tensor is made). beta
+may be a float or a 0-d tensor (a tensor that requires grad gets dbeta).
 
   * CUDA tensors: the forward is one launch of ``rna2dna_loss_forward`` and
     the backward one of ``rna2dna_loss_backward`` (``csrc/fused_loss.cu``,
-    built at first use). A tensor the kernels do not take raises; nothing
-    falls back.
+    built at first use). The forward's workspace (its partial sums and the
+    ticket of its last block) is made once a (device, stream), zeroed, and
+    kept. A tensor the kernels do not take raises; nothing falls back.
   * CPU tensors: the plain versions beside them, `loss_forward_reference`
     (``ops.losses.rna2dna_loss``) and `loss_backward_reference`.
 
@@ -32,6 +34,7 @@ from vae_los_angeles_torch.ops import losses
 from vae_los_angeles_torch.ops.kernels._build import build
 
 launches = {"rna2dna_loss_forward": 0, "rna2dna_loss_backward": 0}
+_workspaces = {}  # (device index, stream) -> the forward's workspace
 
 
 def loss_forward_reference(logits, dna, mu, logvar, beta):
@@ -54,7 +57,7 @@ def _library():
     lib.rna2dna_loss_forward.restype = ctypes.c_int
     lib.rna2dna_loss_backward.argtypes = [p, p, n, p, p, n, p, p, p, p, p, p]
     lib.rna2dna_loss_backward.restype = ctypes.c_int
-    lib.rna2dna_loss_workspace_floats.argtypes = []
+    lib.rna2dna_loss_workspace_floats.argtypes = []  # for the current device
     lib.rna2dna_loss_workspace_floats.restype = ctypes.c_int
     lib.fused_loss_error_string.argtypes = [ctypes.c_int]
     lib.fused_loss_error_string.restype = ctypes.c_char_p
@@ -88,15 +91,38 @@ def _check(logits, dna, mu, logvar, beta):
         raise ValueError(f"no kernel for device {logits.device}")
 
 
+def _workspace(lib, device, stream):
+    """The forward's workspace on ``stream``: made and zeroed at its first
+    use, then kept; each launch leaves its ticket at 0 again. One a stream,
+    so that two streams never share a ticket. Call with ``device`` current."""
+    work = _workspaces.get((device.index, stream))
+    if work is None:
+        floats = lib.rna2dna_loss_workspace_floats()
+        if floats <= 0:
+            _raise_on(lib, -floats, "rna2dna_loss_workspace_floats")
+        work = torch.zeros(floats, device=device, dtype=torch.float32)
+        _workspaces[(device.index, stream)] = work
+    return work
+
+
+def _empty_like_aligned(x):
+    """An empty tensor like ``x`` at the same offset from a 16-byte boundary
+    (the allocator's blocks start on one), so that the backward's float4 route
+    takes ``x`` and its gradient together."""
+    off = x.data_ptr() % 16 // x.element_size()
+    if off == 0:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + off, device=x.device, dtype=x.dtype)[off:].view(x.shape)
+
+
 def _forward(logits, dna, mu, logvar, beta):
     if logits.device.type == "cpu":
         return loss_forward_reference(logits, dna, mu, logvar, beta.reshape(()))
     lib = _library()
     out = torch.empty(2, device=logits.device, dtype=torch.float32)
-    work = torch.empty(lib.rna2dna_loss_workspace_floats(), device=logits.device,
-                       dtype=torch.float32)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
+        work = _workspace(lib, logits.device, stream)
         err = lib.rna2dna_loss_forward(logits.data_ptr(), dna.data_ptr(), logits.numel(),
                                        mu.data_ptr(), logvar.data_ptr(), mu.numel(),
                                        beta.data_ptr(), out.data_ptr(), work.data_ptr(), stream)
@@ -110,7 +136,8 @@ def _backward(logits, dna, mu, logvar, beta, g):
         return loss_backward_reference(logits, dna, mu, logvar, beta.reshape(()), g)
     lib = _library()
     g = g.detach().to(torch.float32).contiguous()
-    dlogits, dmu, dlv = torch.empty_like(logits), torch.empty_like(mu), torch.empty_like(logvar)
+    dlogits = _empty_like_aligned(logits)
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
         err = lib.rna2dna_loss_backward(logits.data_ptr(), dna.data_ptr(), logits.numel(),
@@ -135,8 +162,9 @@ class RNA2DNALoss(torch.autograd.Function):
     def backward(ctx, g):
         logits, dna, mu, logvar, beta, kld = ctx.saved_tensors
         dlogits, dmu, dlv = _backward(logits, dna, mu, logvar, beta, g)
+        ddna = torch.zeros_like(dna) if ctx.needs_input_grad[1] else None
         dbeta = (kld * g).reshape(beta.shape) if ctx.needs_input_grad[4] else None
-        return dlogits, torch.zeros_like(dna), dmu, dlv, dbeta
+        return dlogits, ddna, dmu, dlv, dbeta
 
 
 def rna2dna_loss_fused(logits, dna, mu, logvar, beta=1e-3):
