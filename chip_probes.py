@@ -1,7 +1,7 @@
 """Diagnostic probes of the kernels on one NVIDIA GPU.
 
     python3 chip_probes.py serving|serving_calls|first|grads|race|chain|widths|directional|
-                           epoch64|loss [OLDER_TREE]
+                           epoch64|loss|steps [OLDER_TREE]
 
 ``chip_smoke.py`` is the check; these are the measurements that shaped it,
 kept so that the numbers quoted from them in ``PERF.md`` and ``ROADMAP.md``
@@ -53,7 +53,17 @@ can be made again:
     archive`` into a gitignored directory), that tree's library is built
     from its ``fused_loss.cu``, its wrapper module loaded beside this one,
     and both timed in turns with this tree's (older, this, this, older), as
-    one JSON line.
+    one JSON line;
+  * ``steps [OLDER_TREE]``: the train-step kernels (B6, B4 and B1) at B =
+    32, each wrapper call and its C entry alone (a cached step graph's
+    launch, or an older tree's host-loop entry): ms back to back, one call at
+    a time and host ms, device µs by kernel and launches a call; the 200-step
+    epochs (B2, B5, B7); ``engine.fit(fused_step=True)`` at 1024 samples;
+    with an older tree's root, that tree's package (its ``fused_train`` and
+    ``fused_epoch`` loaded beside this tree's, its library built from its
+    ``fused_train.cu``) in turns with this tree's (older, this, this,
+    older), every step's and epoch's results compared bit for bit, as one
+    JSON line.
 """
 
 from __future__ import annotations
@@ -135,30 +145,7 @@ def probe_first(dev):
         1e-5, 0, n), 5))
 
 
-def host_ms(fn, reps=30):
-    """Median host milliseconds of one call of ``fn`` (what it takes to
-    enqueue its work), each call made after the card has drained."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    return sorted(times)[reps // 2] * 1e3
-
-
-def time_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+host_ms, time_ms = cs.host_ms, cs.time_loop
 
 
 def probe_grads(dev):
@@ -610,14 +597,256 @@ def probe_loss(dev, parent=None):
     print("[loss] " + json.dumps(out) + f"; {card}", flush=True)
 
 
+# ---- the train-step kernels (B1, B4, B6) against an older tree ----
+STEP_TASKS = ("multimodal", "dna2rna", "rna2dna")
+EPOCH_FN = {"multimodal": "multimodal_fused_epoch", "dna2rna": "dna2rna_fused_epoch",
+            "rna2dna": "rna2dna_fused_epoch"}
+
+
+def load_module(name, path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tree_modules(name, root):
+    """(``fused_train``, ``fused_epoch``) of the tree at ``root`` loaded as
+    modules of their own: the first bound to a library built from the
+    tree's ``fused_train.cu``, the second to the first."""
+    import types
+
+    root = Path(root) / "vae_los_angeles_torch"
+    so = _build.BUILD_DIR / "other" / name / "libfused_train.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(root / "csrc/fused_train.cu")], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    mod_ft = load_module(f"{name}_fused_train", root / "ops/kernels/fused_train.py")
+    mod_ft.build = lambda _: types.SimpleNamespace(lib=lib)
+    mod_ft.library.cache_clear()
+    mod_fe = load_module(f"{name}_fused_epoch", root / "ops/kernels/fused_epoch.py")
+    mod_fe.ft = mod_ft
+    return mod_ft, mod_fe
+
+
+def step_modules(parent=None):
+    """{"change": (this tree's ``fused_train``, ``fused_epoch``)} and, with an
+    older tree's root, {"parent": that tree's two modules (`tree_modules`)}."""
+    mods = {"change": (ft, fe)}
+    if parent is not None:
+        mods["parent"] = tree_modules("parent", parent)
+    return mods
+
+
+def host_profile(call, calls=200, top=14):
+    """[(function, its own host µs a call)] of the ``top`` costliest
+    functions over ``calls`` calls of ``call`` (cProfile, which slows what
+    it profiles: read the shares, not the sums)."""
+    import cProfile
+    import pstats
+
+    call()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        call()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, f"{Path(f).name}:{line} {fn}") for (f, line, fn), (_, _, tt, _, _)
+                   in stats.items()), reverse=True)[:top]
+    return [[name, round(1e6 * tt / calls, 2)] for tt, name in rows]
+
+
+def step_inputs(dev):
+    """{task: (params, state, rows)} at the full width, B = 32 (chip_smoke's
+    timing inputs)."""
+    return {"multimodal": (*cs.mm_params(dev, 24), cs.mm_rows(dev, 32, 30)),
+            "dna2rna": (*cs.d2r_params(dev, 14), cs.d2r_rows(dev, 32, 20)),
+            "rna2dna": (*cs.train_params(dev, 4), cs.train_rows(dev, 32, 10))}
+
+
+def epoch_call(mod_fe, task, data):
+    """One 200-step epoch of ``task`` through ``mod_fe``'s epoch wrapper on the
+    8000-sample cohort's rows, from zero moments, Philox noise."""
+    mod_ft = mod_fe.ft
+    order = {"multimodal": mod_ft.PARAM_ORDER_MM, "dna2rna": mod_ft.PARAM_ORDER_D2R,
+             "rna2dna": mod_ft.PARAM_ORDER}[task]
+    (params, state, _), (x, t, s, cw, n) = data[task], data["rows"]
+    zt = mod_ft.unflatten({k: torch.zeros_like(v) for k, v in
+                           mod_ft.flatten_params(params, order).items()}, order)
+    rows = (t, x) if task == "dna2rna" else (x, t)
+    kw = dict(seed=2, beta=cs.BETA, lr=cs.LR, weight_decay=cs.WD, n_batches=n)
+    if task == "multimodal":
+        kw.update(gamma=cs.GAMMA, class_weights=cw)
+    fn = getattr(mod_fe, EPOCH_FN[task])
+    return lambda: fn(params, zt, zt, state, *rows, s, N_SITES, **kw)
+
+
+def flat_out(x):
+    """Every tensor of a nested result, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in flat_out(v)]
+    return [t for v in x for t in flat_out(v)]
+
+
+def probe_steps(dev, parent=None):
+    """The train-step kernels B6 (tri-modal), B4 (DNA→RNA) and B1 (RNA→DNA)
+    at the full width, B = 32, Philox noise: each wrapper call and its C
+    entry alone (a step graph's launch, or an older tree's host-loop entry),
+    back to back (CUDA events over 50 calls), one call at a time (median of
+    30) and their host time (the enqueue, after the card has drained), the
+    device µs by kernel and the kernels of one wrapper call
+    (torch.profiler); the 200-step epochs (B2, B5, B7) of the 8000-sample
+    cohort (median of 10, the turns twice over); ``engine.fit(fused_step=True)``
+    over 3 epochs of the 1024-sample cohort after a warm-up epoch; the
+    cProfile of 200 calls of each of this tree's wrappers (`host_profile`).
+    With an older tree's root
+    (``parent``: its ``vae_los_angeles_torch/`` unpacked with ``git
+    archive`` into a gitignored directory), that tree's wrappers and library
+    are timed in turns with this tree's (older, this, this, older), and each
+    step's and epoch's results are compared bit for bit between the trees.
+    One JSON line."""
+    import json
+
+    from vae_los_angeles_torch.data.splits import train_val_indices
+    from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
+    from vae_los_angeles_torch.training import engine
+    from vae_los_angeles_torch.training.cli import compute_class_weights
+
+    _build.build_all(cs.SOURCES)
+    card = cs.card_line()
+    mods = step_modules(parent)
+    order = ["parent", "change", "change", "parent"] if parent is not None else ["change"] * 2
+    inputs = step_inputs(dev)
+    out = {"card": card}
+    for task in STEP_TASKS:
+        calls = {who: {"wrapper": cs.step_call(m[0], task, inputs[task]),
+                       "c_entry": cs.c_entry(m[0], task, inputs[task])} for who, m in mods.items()}
+        for who in order:
+            for what, fn in calls[who].items():
+                key = f"{task}_{who}_{what}"
+                out.setdefault(key + "_loop_ms", []).append(time_ms(fn, 50))
+                out.setdefault(key + "_call_ms", []).append(cs.time_call(fn))
+                out.setdefault(key + "_host_ms", []).append(host_ms(fn))
+        out[f"{task}_change_host_profile"] = host_profile(calls["change"]["wrapper"])
+        for who, (mod, _) in mods.items():
+            prof = device_us(calls[who]["wrapper"])
+            out[f"{task}_{who}_device_us"] = sum(us for us, _ in prof.values())
+            out[f"{task}_{who}_kernels"] = sum(k for _, k in prof.values())
+            out[f"{task}_{who}_by_kernel"] = {k: [round(us, 2), n] for k, (us, n) in prof.items()}
+            graphs = getattr(mod, "step_graphs", {})
+            if task in graphs:
+                g = graphs[task][1]
+                out[f"{task}_{who}_graph_nodes"] = g.nodes
+                out[f"{task}_{who}_capture_ms"] = g.capture_seconds * 1e3
+        if parent is not None:
+            for injected in (False, True):
+                got = {who: cs.step_values(task, cs.step_call(
+                    m[0], task, inputs[task], seed=2**40 + 3, step=5, injected=injected)())
+                       for who, m in mods.items()}
+                out[f"{task}_{'injected' if injected else 'philox'}_step_bits_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(got["parent"], got["change"]))
+
+    tpm, beta, site = generate_synthetic_arrays(n_samples=8000, seed=1)
+    tr, _ = train_val_indices(8000, cs.CFG.train_test_split, cs.CFG.random_seed)
+    n = len(tr) // 32
+    x, t, s = (torch.as_tensor(a[tr[: n * 32]]).to(dev) for a in (tpm, beta, site))
+    cw = torch.as_tensor(compute_class_weights(s.cpu().numpy(), N_SITES)).to(dev)
+    data = dict(inputs, rows=(x, t, s, cw, n))
+    for task in STEP_TASKS:
+        calls = {who: epoch_call(m[1], task, data) for who, m in mods.items()}
+        for who in order + order:
+            out.setdefault(f"{task}_{who}_epoch_ms", []).append(
+                cs.time_call(calls[who], reps=10, warmup=1))
+        if parent is not None:
+            got = {who: flat_out(fn()) for who, fn in calls.items()}
+            out[f"{task}_epoch_bits_equal"] = all(
+                torch.equal(a, b) for a, b in zip(got["parent"], got["change"]))
+    del x, t, s
+
+    tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=2)
+    tr, va = train_val_indices(1024, cs.CFG.train_test_split, cs.CFG.random_seed)
+    arrays = lambda idx: (tpm[idx], beta[idx], site[idx])  # noqa: E731
+    for task in STEP_TASKS:
+        tri = task == "multimodal"
+        cwf = compute_class_weights(site[tr], N_SITES) if tri else None
+        plain = engine.FUSED[task]
+
+        def fit(mod, epochs):
+            engine.FUSED[task] = plain._replace(step=getattr(mod, cs.STEP_FN[task]))
+            try:
+                return engine.fit(task, cs.CFG, arrays(tr), arrays(va), 0, N_SITES,
+                                  num_epochs=epochs, device=dev, class_weights=cwf,
+                                  fused_step=True)
+            finally:
+                engine.FUSED[task] = plain
+
+        for who in order:
+            mod = mods[who][0]
+            fit(mod, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(mod, 3)
+            torch.cuda.synchronize()
+            out.setdefault(f"{task}_{who}_fit_step_epoch_ms", []).append(
+                (time.perf_counter() - t0) * 1e3 / res.epochs_ran)
+    print("[steps] " + json.dumps(out), flush=True)
+
+
+def probe_pdl(dev):
+    """What programmatic dependent launch buys: in turns (PDL, plain, plain,
+    PDL; `cs.launch_mode`), the tri-modal and DNA→RNA step graphs' C entry
+    alone (50 launches back to back, CUDA events) and the three 200-step
+    epochs (the 8000-sample cohort, median of 5), each graph captured with
+    its phases launched programmatically or as plain stream launches (where
+    ``fe._EpochGraph``'s choice by task came from); one JSON line."""
+    import json
+
+    from vae_los_angeles_torch.data.splits import train_val_indices
+    from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
+    from vae_los_angeles_torch.training.cli import compute_class_weights
+
+    _build.build_all(cs.SOURCES)
+    card = cs.card_line()
+    inputs = step_inputs(dev)
+    tpm, beta, site = generate_synthetic_arrays(n_samples=8000, seed=1)
+    tr, _ = train_val_indices(8000, cs.CFG.train_test_split, cs.CFG.random_seed)
+    n = len(tr) // 32
+    x, t, s = (torch.as_tensor(a[tr[: n * 32]]).to(dev) for a in (tpm, beta, site))
+    cw = torch.as_tensor(compute_class_weights(s.cpu().numpy(), N_SITES)).to(dev)
+    data = dict(inputs, rows=(x, t, s, cw, n))
+    out = {"card": card}
+    for pdl in (True, False, False, True):
+        mode = "pdl" if pdl else "plain"
+        with cs.launch_mode(pdl):
+            for task in ("multimodal", "dna2rna"):
+                entry = cs.c_entry(ft, task, inputs[task])
+                out.setdefault(f"{task}_step_{mode}_ms", []).append(time_ms(entry, 50))
+            for task in STEP_TASKS:
+                out.setdefault(f"{task}_epoch_{mode}_ms", []).append(
+                    cs.time_call(epoch_call(fe, task, data), reps=5, warmup=1))
+            torch.cuda.synchronize()
+    print("[pdl] " + json.dumps(out), flush=True)
+
+
 PROBES = {"serving": probe_serving, "serving_calls": probe_serving_calls, "first": probe_first,
           "grads": probe_grads, "race": probe_race, "chain": probe_chain, "widths": probe_widths,
-          "directional": probe_directional, "epoch64": probe_epoch64, "loss": probe_loss}
+          "directional": probe_directional, "epoch64": probe_epoch64, "loss": probe_loss,
+          "steps": probe_steps, "pdl": probe_pdl}
 
 
 def main(argv):
-    if not argv or argv[0] not in PROBES or (len(argv) > 1 and argv[0] != "loss") or len(argv) > 2:
-        raise SystemExit(f"usage: python3 chip_probes.py {'|'.join(PROBES)} (loss [OLDER_TREE])")
+    if (not argv or argv[0] not in PROBES
+            or (len(argv) > 1 and argv[0] not in ("loss", "steps")) or len(argv) > 2):
+        raise SystemExit(f"usage: python3 chip_probes.py {'|'.join(PROBES)} "
+                         "(loss|steps [OLDER_TREE])")
     PROBES[argv[0]](cs.device_policy.require_cuda(), *argv[1:])
 
 

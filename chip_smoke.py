@@ -98,6 +98,18 @@ Phases (any failure raises, and the script exits non-zero):
          and new rows, is held against the plain version from that state
          with the same tolerances (nothing of the first epoch stays baked
          in); its Philox noise as above, for its three dropout masks;
+       * the step graphs of DNA→RNA and the tri-modal model (one captured
+         graph a call, cached a task; `compare_step_graphs`): at B = 32,
+         3 calls of each through one graph with new weights, rows, seed,
+         step, β and γ against a fresh plain version (the step tolerances
+         above), each call's results unchanged by the next and outside the
+         graph's buffers, the two graphs alternating without a capture,
+         each graph's node count and capture time printed; the Philox
+         step at two (seed, step) pairs through one graph equal, loss,
+         gradients and BN statistics bit for bit, to the injected step
+         given the noise kernels' draws; and programmatic launches (PDL)
+         giving the bits of plain stream launches, for both step graphs and
+         the three epoch graphs (4 steps of 32);
        * the wide head (``fused_wide_output_step``) at the whole-methylome
          width, D = 450,000 columns, d_in = 512, at batch 32 and 256, over 3
          chained steps with the state threaded through, from non-zero
@@ -112,9 +124,10 @@ Phases (any failure raises, and the script exits non-zero):
   4. train end to end: ``run_training`` (rna2dna, USE_PALLAS, the card) on
      the 1024-sample synthetic cohort, 3 epochs of 25 steps, the epoch
      kernel once an epoch; then one epoch each of ``engine.fit``'s
-     train-step path and plain path (the loss kernels' backward); then the
-     same for dna2rna (``run_training("dna2rna", "dna2rna")``, its epoch
-     and train-step kernels), and, after serving, for the tri-modal model
+     train-step path (its kernel once a step, checked) and plain path (the
+     loss kernels' backward); then the same for dna2rna
+     (``run_training("dna2rna", "dna2rna")``, its epoch and train-step
+     kernels), and, after serving, for the tri-modal model
      (``run_training("multimodal", "multivae", use_class_weights=True)``);
      and, after evaluating, the whole-methylome-width regime
      (`phase_train_wide`): RNA→DNA at dim_b = 450,000 on 512 synthetic
@@ -150,8 +163,11 @@ Phases (any failure raises, and the script exits non-zero):
      at B in {205, 1600, 4096} beside their bounds, DNA→RNA's at a DNA input
      of 65,536, one call at B = 205 and at B = 1 profiled, device time by
      kernel and kernels a call, and the host cost of a call, its CUDA-event
-     time at B = 1 less its device time): the train steps at B = 32, one
-     200-step epoch of each model on the 8000-sample cohort, the loss pair
+     time at B = 1 less its device time): the train steps at B = 32, each
+     split into host and device (`step_split`: the wrapper's CUDA-event ms
+     a call and host µs, its C entry alone back to back and its host µs,
+     device µs by kernel, launches a call), one 200-step epoch of each
+     model on the 8000-sample cohort, the loss pair
      (the forward at 205 x 1211, 103 x 450,000 and 32 x 450,000, the
      backward at 32 x 1211 and 32 x 450,000, beside their bounds and a
      library composite the port never calls: the forward
@@ -178,6 +194,9 @@ files go to a temporary directory.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import json
 import math
 import os
@@ -1089,17 +1108,21 @@ def check_philox_d2r(dev):
         raise AssertionError(f"d2r Philox: keep rates {rates}, eps mean {mean}, var {var}")
     params, state = d2r_params(dev, 13)
     r = d2r_rows(dev, 32, 19)
-    args = (params, state, r["t"], r["x"], r["site"], N_SITES)
-    a = ft.dna2rna_fused_train_step(*args, seed=5, step=4)  # same kernel both ways: exact
-    e, k1, k2 = ft.philox_noise_d2r(5, 4, 32, H1, H2, CFG.latent_dim, dev)
-    b = ft.dna2rna_fused_train_step(*args, eps=e, drop_mask1=k1, drop_mask2=k2)
-    torch.cuda.synchronize()
-    if not torch.equal(a[0], b[0]):
-        raise AssertionError("d2r Philox: the Philox step differs from the injected step")
+    inp = (params, state, r)
+    for seed, step in PHILOX_STEPS:  # through one Philox graph: the step index from its args
+        a = step_values("dna2rna", step_call(ft, "dna2rna", inp, seed, step)())
+        e, k1, k2 = ft.philox_noise_d2r(seed, step, 32, H1, H2, CFG.latent_dim, dev)
+        b = step_values("dna2rna", step_call(ft, "dna2rna", (params, state, dict(
+            r, eps=e, drop1=k1, drop2=k2)), injected=True)())
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"d2r Philox: the Philox step at (seed, step) = ({seed}, "
+                                 f"{step}) differs from the injected step given the noise "
+                                 "kernels' draws")
     say(f"[compare] d2r Philox: keep rates {rates[0]:.5f} ({keep1.numel()} draws) and "
         f"{rates[1]:.5f} ({keep2.numel()}), eps mean {mean:.5f} var {var:.5f} over {eps.numel()}; "
-        "reproducible, seed-dependent, a stream for each dropout layer, and the Philox step "
-        "equals the injected step given its draws")
+        "reproducible, seed-dependent, a stream for each dropout layer, and the step graph's "
+        f"Philox draws at (seed, step) in {PHILOX_STEPS} are the noise kernels' bit for bit "
+        "(loss, gradients and BN statistics equal the injected step's)")
 
 
 # ---- MultiModalVAE -----------------------------------------------------------
@@ -1334,17 +1357,169 @@ def check_philox_mm(dev):
         raise AssertionError(f"mm Philox: keep rates {rates}, eps mean {mean}, var {var}")
     params, state = mm_params(dev, 23)
     r = mm_rows(dev, 32, 29)
-    args = (params, state, r["a"], r["b"], r["site"], N_SITES)
-    a = ft.multimodal_fused_train_step(*args, seed=5, step=4, class_weights=r["cw"])
-    noise = ft.philox_noise_mm(5, 4, 32, 128, H1, H2, CFG.latent_dim, dev)
-    b = ft.multimodal_fused_train_step(*args, class_weights=r["cw"], **dict(zip(MM_NOISE, noise)))
-    torch.cuda.synchronize()
-    if not torch.equal(a[0], b[0]):
-        raise AssertionError("mm Philox: the Philox step differs from the injected step")
+    inp = (params, state, r)
+    for seed, step in PHILOX_STEPS:  # through one Philox graph: the step index from its args
+        a = step_values("multimodal", step_call(ft, "multimodal", inp, seed, step)())
+        noise = ft.philox_noise_mm(seed, step, 32, 128, H1, H2, CFG.latent_dim, dev)
+        b = step_values("multimodal", step_call(ft, "multimodal", (params, state, dict(
+            r, **dict(zip(MM_NOISE, noise)))), injected=True)())
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"mm Philox: the Philox step at (seed, step) = ({seed}, {step}) "
+                                 "differs from the injected step given the noise kernels' draws")
     say(f"[compare] mm Philox: keep rates {rates[0]:.5f}, {rates[1]:.5f}, {rates[2]:.5f} "
         f"({ka.numel()}, {kb1.numel()}, {kb2.numel()} draws), eps mean {mean:.5f} var {var:.5f} "
         f"over {big.numel()}; reproducible, seed-dependent, a stream for each dropout layer, "
-        "and the Philox step equals the injected step given its draws")
+        f"and the step graph's Philox draws at (seed, step) in {PHILOX_STEPS} are the noise "
+        "kernels' bit for bit")
+
+
+# ---- the step graphs (B4, B6) ------------------------------------------------
+
+PHILOX_STEPS = ((5, 4), (2**40 + 5, 9))  # (seed, step) pairs through one Philox graph
+STEP_REPLAYS = 3
+
+
+def step_values(task, out):
+    """[loss, the gradients in order, the BN statistics] of a step wrapper's
+    result."""
+    if task == "multimodal":
+        return [out[0], *ft.flatten_params(out[1], MM).values(), *ft.bn_mm(out[2])]
+    if task == "dna2rna":
+        return [out[0], *ft.flatten_params(out[1], D2R).values(), *ft.bn_d2r(out[2])]
+    bn = out[2]["encoder_rna"]["bn"]
+    return [out[0], *ft.flatten_params(out[1]).values(), bn["mean"], bn["var"]]
+
+
+def replay_case(dev, task, k):
+    """Call k of `compare_step_graphs`: new weights, rows away from the kinks
+    with their injected noise, β and γ; (inputs, kwargs, [(name, plain,
+    atol, rtol)] of every output)."""
+    beta, gamma = BETA * (k + 1), GAMMA / (k + 1)
+    if task == "dna2rna":
+        params, state = d2r_params(dev, 15 + k)
+        flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
+        r, _, _ = d2r_away_from_kinks(dev, 32, 7000 + 100 * k, flat, bn)
+        want = ft.dna2rna_train_step_reference(flat, bn, r["x"], r["t"], r["site"], r["eps"],
+                                               r["drop1"], r["drop2"], beta)
+        grads = [(f"grad {name}", want[1][name], *GRAD_D2R.values()) for name, _ in D2R]
+    else:
+        params, state = mm_params(dev, 25 + k)
+        flat, bn = ft.flatten_params(params, MM), ft.bn_mm(state)
+        r, _, _ = mm_away_from_kinks(dev, 32, 7300 + 100 * k, flat, bn)
+        want = ft.multimodal_train_step_reference(flat, bn, r["a"], r["b"], r["site"], r["cw"],
+                                                  *(r[n] for n in MM_NOISE), beta, gamma)
+        grads = [(f"grad {name}", want[1][name], 2e-3 if name in MM_ZERO_GRAD else 1e-3, 1e-4)
+                 for name, _ in MM]
+    plain = ([("loss", want[0], 0.0, 1e-5)] + grads
+             + [(f"BN {i}", w, 1e-5, 0.0) for i, w in enumerate(want[2])])
+    return (params, state, r), dict(seed=2**40 + k, step=3 * k, beta=beta, gamma=gamma), plain
+
+
+@contextlib.contextmanager
+def launch_mode(pdl, mod_ft=ft, mod_fe=fe):
+    """Graphs captured in this block launch their phases programmatically
+    (``pdl``) or as plain stream launches (the private ``pdl`` of
+    ``_StepGraph`` and ``_EpochGraph``, whichever a wrapper would choose),
+    cached apart from the wrappers' own graphs, which come back after (and
+    the block's are freed)."""
+    saved = mod_ft._StepGraph, mod_fe._EpochGraph, mod_ft.step_graphs, mod_fe.graphs
+    mod_ft._StepGraph = functools.partial(saved[0], pdl=pdl)
+    mod_fe._EpochGraph = functools.partial(saved[1], pdl=pdl)
+    mod_ft.step_graphs, mod_fe.graphs = {}, {}
+    try:
+        yield
+    finally:
+        mod_ft._StepGraph, mod_fe._EpochGraph, mod_ft.step_graphs, mod_fe.graphs = saved
+
+
+def compare_step_graphs(dev):
+    """The DNA→RNA and tri-modal steps at B = 32 as their graphs run them:
+    STEP_REPLAYS calls of each through one graph (no capture after the
+    first), each with new weights, rows, seed, step, β and γ against a fresh
+    plain version (the tolerances of `compare_d2r_step`, `compare_mm_step`);
+    call k's results unchanged after call k + 1 and outside the graph's
+    buffers; the two tasks' graphs alternating without a capture; each
+    graph's programmatic launches giving the bits of plain stream launches
+    (`launch_mode`, the host loop's order); and each epoch graph's over 4
+    steps of 32 (the tri-modal wrapper's PDL, the directional ones' plain).
+    Returns {kernel: largest |kernel - plain|}."""
+    worst = {}
+    for task in ft.STEP_GRAPH_TASKS:
+        graph, last = None, None
+        for k in range(STEP_REPLAYS):
+            inp, kw, plain = replay_case(dev, task, k)
+            got = step_values(task, step_call(ft, task, inp, kw["seed"], kw["step"],
+                                              injected=True, beta=kw["beta"],
+                                              gamma=kw["gamma"])())
+            g = ft.step_graphs[task][1]
+            if graph is not None and g is not graph:
+                raise AssertionError(f"{task}: call {k} of one key captured a new graph")
+            graph = g
+            worst[task] = max(worst.get(task, 0.0), check_all(
+                f"{task} step graph, call {k}",
+                [(name, a, w, atol, rtol) for a, (name, w, atol, rtol) in zip(got, plain)]))
+            lo, hi = g.out.data_ptr(), g.out.data_ptr() + 4 * g.out.numel()
+            if any(lo <= t.data_ptr() < hi for t in got):
+                raise AssertionError(f"{task}: a result aliases the graph's output buffer")
+            if last is not None and not all(torch.equal(a, b) for a, b in zip(*last)):
+                raise AssertionError(f"{task}: call {k} changed call {k - 1}'s results")
+            last = (got, [t.clone() for t in got])
+        say(f"[compare] {task}_train_step graph: {STEP_REPLAYS} calls through one graph "
+            f"({graph.nodes} kernels a launch, captured in {graph.capture_seconds * 1e3:.1f} ms) "
+            "with new weights, rows, seed, step, β and γ: max |kernel - plain| = "
+            f"{worst[task]:.3e}; each call's results unchanged by the next, none in the graph's "
+            "buffers")
+    calls = {task: step_call(ft, task, replay_case(dev, task, 0)[0], 3, 2)
+             for task in ft.STEP_GRAPH_TASKS}
+    first = {}
+    for _ in range(3):
+        for task, call in calls.items():
+            out = step_values(task, call())
+            graph = ft.step_graphs[task][1]
+            if task not in first:
+                first[task] = (graph, out)
+            elif graph is not first[task][0] or not all(
+                    torch.equal(a, b) for a, b in zip(out, first[task][1])):
+                raise AssertionError(f"{task}: alternating with the other task's step captured "
+                                     "anew or changed its bits")
+    say("[compare] the DNA→RNA and tri-modal step graphs alternate three times without a "
+        "capture, each call giving its task's bits")
+    for task, call in calls.items():
+        bits = {}
+        for pdl in (True, False):
+            with launch_mode(pdl):
+                bits[pdl] = step_values(task, call())
+        if not all(torch.equal(a, b) for a, b in zip(bits[True], bits[False])):
+            raise AssertionError(f"{task}: the programmatic step graph differs from plain "
+                                 "launches")
+    for task, params_of, rows_of in (
+            ("rna2dna", lambda: train_params(dev, 31),
+             lambda: (lambda r: (r["x"], r["t"], r["site"]))(train_rows(dev, 128, 32))),
+            ("dna2rna", lambda: d2r_params(dev, 33),
+             lambda: (lambda r: (r["x"], r["t"], r["site"]))(d2r_rows(dev, 128, 34))),
+            ("multimodal", lambda: mm_params(dev, 35),
+             lambda: (lambda r: (r["a"], r["b"], r["site"]))(mm_rows(dev, 128, 36)))):
+        params, state = params_of()
+        rows = rows_of()
+        order = ft.ORDERS[task]
+        zt = ft.unflatten({k: torch.full_like(v, 1e-4) for k, v in
+                           ft.flatten_params(params, order).items()}, order)
+        fn = getattr(fe, f"{task}_fused_epoch")
+        kw = dict(class_weights=torch.linspace(0.5, 2.0, N_SITES, device=dev),
+                  gamma=GAMMA) if task == "multimodal" else {}
+        bits = {}
+        for pdl in (True, False):
+            with launch_mode(pdl):
+                out = fn(params, zt, zt, state, *rows, N_SITES, seed=3, step0=2, n_batches=4,
+                         **kw)
+            bits[pdl] = [out[0]] + [t for tree in out[1:] for t in tree_leaves(tree)]
+        if not all(torch.equal(a, b) for a, b in zip(bits[True], bits[False])):
+            raise AssertionError(f"{task}: the programmatic epoch graph differs from plain "
+                                 "launches")
+    say("[compare] programmatic launches (PDL) give the bits of plain stream launches: both "
+        "step graphs (weight tiles fetched before each phase waits) and the three epoch graphs "
+        "(4 steps of 32)")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1456,6 +1631,10 @@ def phase_train(dev, workdir, tpm, beta, site, task="rna2dna"):
         counts[path] = read_counts()
         if not np.isfinite(res.val_losses).all():
             raise AssertionError(f"{path}: non-finite validation loss")
+        steps = len(tr) // cfg.batch_size
+        if kw and counts[path][f"{task}_train_step"] != steps:
+            raise AssertionError(f"{path}: {counts[path][f'{task}_train_step']} launches of "
+                                 f"{task}_train_step in an epoch of {steps} steps")
         say(f"[train] engine.fit {task} {path}: 1 epoch, val loss "
             f"{float(res.val_losses[0]):.2f}; launches {counts[path]}")
     return counts, run_id
@@ -1774,6 +1953,137 @@ def alternate(kernel, plain, reps=30, warmup=5):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def host_ms(fn, reps=30):
+    """Median host milliseconds of one call of ``fn`` (what it takes to
+    enqueue its work), each call made after the card has drained."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e3
+
+
+def time_loop(fn, reps=20):
+    """Milliseconds a call of ``fn`` over ``reps`` calls back to back (CUDA
+    events), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+STEP_FN = {"multimodal": "multimodal_fused_train_step", "dna2rna": "dna2rna_fused_train_step",
+           "rna2dna": "rna2dna_fused_train_step"}
+
+
+def step_call(mod, task, inp, seed=1, step=0, injected=False, beta=BETA, gamma=GAMMA):
+    """A call of ``task``'s step wrapper in ``mod`` on ``inp`` = (params,
+    state, rows), Philox noise (as ``engine.fit`` calls it) or the rows'
+    injected noise; γ and the rows' class weights for the tri-modal model."""
+    params, state, r = inp
+    fn = getattr(mod, STEP_FN[task])
+    kw = dict(seed=seed, step=step, beta=beta)
+    if task == "multimodal":
+        kw.update(gamma=gamma, class_weights=r["cw"])
+        if injected:
+            kw.update({k: r[k] for k in MM_NOISE})
+        return lambda: fn(params, state, r["a"], r["b"], r["site"], N_SITES, **kw)
+    if task == "dna2rna":
+        if injected:
+            kw.update(eps=r["eps"], drop_mask1=r["drop1"], drop_mask2=r["drop2"])
+        return lambda: fn(params, state, r["t"], r["x"], r["site"], N_SITES, **kw)
+    if injected:
+        kw.update(eps=r["eps"], drop_mask=r["drop"])
+    return lambda: fn(params, state, r["x"], r["t"], r["site"], N_SITES, **kw)
+
+
+def host_loop_entry(mod, task, inp):
+    """The host-loop C entry of a step (RNA→DNA's, or an older tree's: its
+    phases launched from the host), on buffers packed once, Philox noise."""
+    params, state, r = inp
+    lib, dev = mod.library(), r["site"].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    order, dims_of, entry = {
+        "multimodal": (mod.PARAM_ORDER_MM, mod.dims_of_mm, "multimodal_train_step"),
+        "dna2rna": (mod.PARAM_ORDER_D2R, mod.dims_of_d2r, "dna2rna_train_step"),
+        "rna2dna": (mod.PARAM_ORDER, mod.dims_of, "rna2dna_train_step")}[task]
+    flat = mod.flatten_params(params, order)
+    dims_t = dims_of(flat)
+    dims = (ctypes.c_int * len(dims_t))(*dims_t)
+    keep = {"p": mod.pack(flat, order), "loss": torch.empty(1, device=dev)}
+    keep["g"] = torch.empty_like(keep["p"])
+    keep["work"] = torch.empty(getattr(lib, entry.replace("_step", "_workspace_floats"))(
+        dims, 32, 0), device=dev)
+    if task == "rna2dna":
+        bn = state["encoder_rna"]["bn"]
+        keep["rm"], keep["rv"] = torch.empty_like(bn["mean"]), torch.empty_like(bn["var"])
+        args = (r["x"].data_ptr(), r["t"].data_ptr(), r["site"].data_ptr(), keep["p"].data_ptr(),
+                dims, 32, bn["mean"].data_ptr(), bn["var"].data_ptr(), keep["rm"].data_ptr(),
+                keep["rv"].data_ptr(), None, None, 1, 1, 0, BETA)
+    else:
+        bn = mod.bn_mm(state) if task == "multimodal" else mod.bn_d2r(state)
+        keep["bn_in"] = torch.cat(bn)
+        keep["bn_out"] = torch.empty_like(keep["bn_in"])
+        if task == "multimodal":
+            args = (r["a"].data_ptr(), r["b"].data_ptr(), r["site"].data_ptr(), r["cw"].data_ptr(),
+                    keep["p"].data_ptr(), dims, 32, keep["bn_in"].data_ptr(),
+                    keep["bn_out"].data_ptr(), None, None, None, None, 1, 1, 0, BETA, GAMMA)
+        else:
+            args = (r["x"].data_ptr(), r["t"].data_ptr(), r["site"].data_ptr(),
+                    keep["p"].data_ptr(), dims, 32, keep["bn_in"].data_ptr(),
+                    keep["bn_out"].data_ptr(), None, None, None, 1, 1, 0, BETA)
+    call = functools.partial(getattr(lib, entry), *args, keep["loss"].data_ptr(),
+                             keep["g"].data_ptr(), keep["work"].data_ptr(), stream)
+    call.keep = keep
+    return call
+
+
+def c_entry(mod, task, inp):
+    """The step's C entry alone, on buffers filled once: a cached step
+    graph's launch where the tree has one for ``task``, else its host-loop
+    entry."""
+    graphs = getattr(mod, "step_graphs", None)
+    if graphs is None or task not in getattr(mod, "STEP_GRAPH_TASKS", ()):
+        return host_loop_entry(mod, task, inp)
+    step_call(mod, task, inp)()
+    g = graphs[task][1]
+    lib = mod.library()
+    stream = torch.cuda.current_stream(inp[2]["site"].device).cuda_stream
+    return functools.partial(lib.step_graph_launch, g.handle,
+                             mod.step_args(1, 0, BETA, GAMMA), stream)
+
+
+def step_split(name, task, inp, card):
+    """A step call at B = 32 split into host and device: the wrapper's
+    CUDA-event ms a call and host ms, its C entry alone back to back between
+    CUDA events and its host ms (`c_entry`), the device µs by kernel of one
+    wrapper call (torch.profiler) and the launches a call."""
+    call, entry = step_call(ft, task, inp), c_entry(ft, task, inp)
+    call_ms, call_host = time_call(call), host_ms(call)
+    loop_ms, entry_host = time_loop(entry, 50), host_ms(entry)
+    _, rows = profile_call(call)
+    graph = ft.step_graphs.get(task, (None, None))[1]
+    launch = (f"1 graph launch of {graph.nodes} kernels (captured in "
+              f"{graph.capture_seconds * 1e3:.1f} ms)" if graph is not None
+              else "the host loop's launches")
+    device = ("not measured (the profiler caught no kernel)" if not rows else
+              f"{1e3 * sum(r[0] for r in rows):.2f} us in {sum(r[1] for r in rows)} kernels ("
+              + ", ".join(f"{short_name(k)} {1e3 * ms:.2f} us x{n}"
+                          for ms, n, k in sorted(rows, reverse=True)) + ")")
+    say(f"[split] {name} B=32: a wrapper call {call_ms:.4f} ms, its host {1e3 * call_host:.1f} "
+        f"us; the C entry alone {loop_ms:.4f} ms back to back, its host "
+        f"{1e3 * entry_host:.1f} us; device {device}; a call is {launch}; {card}")
+
+
 def profile_call(fn):
     """(wall ms, [(device ms, launches, kernel name)]) of one call of ``fn``
     under torch.profiler, after a warm-up call. A window that caught no
@@ -1917,6 +2227,7 @@ def phase_timing(dev, card):
                                                 r["site"], r["eps"], r["drop"], BETA))
     out["rna2dna_train_step"] = (ms, plain_ms, None, step_work(32))
     say(f"[time] rna2dna_train_step B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+    step_split("rna2dna_train_step", "rna2dna", (params, state, r), card)
 
     # one epoch of bench.py's cohort: 8000 samples, 6400 train rows, 200 steps
     tpm, beta, site = generate_synthetic_arrays(n_samples=8000, seed=1)
@@ -2009,6 +2320,7 @@ def time_d2r(dev, card, x, t, s, n_steps):
                                                 r["drop1"], r["drop2"], BETA))
     out["dna2rna_train_step"] = (ms, plain_ms, None, step_work_d2r(32))
     say(f"[time] dna2rna_train_step B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+    step_split("dna2rna_train_step", "dna2rna", (params, state, r), card)
 
     zeros = {k: torch.zeros_like(v) for k, v in flat.items()}
     zt = ft.unflatten(zeros, D2R)
@@ -2053,6 +2365,7 @@ def time_mm(dev, card, a, b, s, n_steps):
                                                    *(r[k] for k in MM_NOISE), BETA, GAMMA))
     out["multimodal_train_step"] = (ms, plain_ms, None, step_work_mm(32))
     say(f"[time] multimodal_train_step B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {card}")
+    step_split("multimodal_train_step", "multimodal", (params, state, r), card)
 
     cw = torch.as_tensor(compute_class_weights(s.cpu().numpy(), N_SITES)).to(dev)
     zeros = {k: torch.zeros_like(v) for k, v in flat.items()}
@@ -2152,6 +2465,8 @@ def main():
     errs["multimodal_train_step"] = compare_mm_step(dev)
     errs["multimodal_train_epoch"] = compare_mm_epoch(dev)
     check_philox_mm(dev)
+    for task, err in compare_step_graphs(dev).items():
+        errs[f"{task}_train_step"] = max(errs[f"{task}_train_step"], err)
     errs["fused_wide_output_step"] = compare_wide(dev)
     # timed here, before any other profiler session in the process
     serving_timings = time_serving(dev, card)

@@ -114,6 +114,26 @@ def test_plain_step_matches_pallas_kernel(case):
         np.testing.assert_allclose(_at(state, path).numpy(), w, atol=1e-5, err_msg=str(path))
 
 
+def test_cpu_wrapper_runs_the_plain_version_and_no_graph(case):
+    """On CPU tensors the wrapper is the plain version (held against the
+    Pallas kernel above): bit for bit, no step graph captured, no launch
+    counted."""
+    params, state, d, _, (loss, grads, new) = case
+    before, graphs = dict(ft.launches), dict(ft.step_graphs)
+    again = port_step(params, state, d, beta=BETA)
+    assert ft.launches == before and ft.step_graphs == graphs and "dna2rna" not in graphs
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    flat = ft.flatten_params(tree_from_numpy(params), ft.PARAM_ORDER_D2R)
+    want = ft.dna2rna_train_step_reference(flat, ft.bn_d2r(tree_from_numpy(state)), t["dna"],
+                                           t["rna"], t["site"], t["eps"], t["drop1"],
+                                           t["drop2"], BETA)
+    assert torch.equal(again[0], loss) and torch.equal(loss, want[0])
+    got = ft.flatten_params(again[1], ft.PARAM_ORDER_D2R)
+    for name, _ in ft.PARAM_ORDER_D2R:
+        assert torch.equal(got[name], want[1][name]), name
+    assert all(torch.equal(a, b) for a, b in zip(ft.bn_d2r(again[2]), want[2]))
+
+
 def test_plain_step_matches_autograd_of_the_port_and_jax_forward(case):
     """The hand-derived gradients equal autograd through the port's own
     train-mode forward (`dna2rna_vae_apply` + `dna2rna_loss`) and jax.grad

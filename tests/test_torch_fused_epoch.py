@@ -180,7 +180,7 @@ class _StandInLibrary:
     def __init__(self):
         self.freed = []
 
-    def epoch_graph_destroy(self, handle):
+    def graph_destroy(self, handle):
         self.freed.append(handle)
 
 

@@ -26,6 +26,8 @@ implementations). The wide head over three chained steps, as
 the moments and dh within 2e-5 of each tensor's largest magnitude, the loss
 rtol 1e-5."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ from vae_los_angeles_torch.ops.kernels import fused_wide as fw
 from vae_los_angeles_torch.training import engine
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint
+from vae_los_angeles_torch.utils.tree import tree_map
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict
 
 DIM_A, DIM_B, N_SITES, LATENT, EMBED = 37, 53, 5, 7, 6
@@ -1058,3 +1061,196 @@ def test_fit_through_the_wide_head_launches_it_each_step(cuda_device, monkeypatc
     plain = engine.fit("rna2dna", cfg, data, val, 0, N_SITES, num_epochs=2, device=cuda_device)
     assert np.isfinite(head.train_losses).all() and head.train_losses[1] < head.train_losses[0]
     np.testing.assert_allclose(head.train_losses, plain.train_losses, rtol=1e-4)
+
+
+# ---- the step graphs (B4, B6): one captured graph a call, one cached a task ----
+STEP_GRAPH = {
+    # task: (case, wrapper's row arguments, plain version, order, BN state as a tuple,
+    #        the injected noise's names and keywords, per-gradient tolerance)
+    "dna2rna": (d2r_case, lambda r: (r["t"], r["x"]),
+                lambda flat, bn, r, noise, beta, gamma, cw: ft.dna2rna_train_step_reference(
+                    flat, bn, r["x"], r["t"], r["site"], *noise, beta),
+                ft.PARAM_ORDER_D2R, ft.bn_d2r, ("eps", "drop1", "drop2"),
+                ("eps", "drop_mask1", "drop_mask2"), lambda name: GRAD_D2R),
+    "multimodal": (lambda dev, batch, n_batches=1, seed=0: mm_case(dev, batch, n_batches, seed)[:3],
+                   lambda r: (r["a"], r["b"]),
+                   lambda flat, bn, r, noise, beta, gamma, cw: ft.multimodal_train_step_reference(
+                       flat, bn, r["a"], r["b"], r["site"], cw, *noise, beta, gamma),
+                   ft.PARAM_ORDER_MM, ft.bn_mm, MM_NOISE, MM_NOISE,
+                   lambda name: dict(atol=2e-3 if name in MM_ZERO_GRAD else 1e-3, rtol=1e-4)),
+}
+
+
+def graph_step(task, params, state, r, cw=None, noise=True, gamma=1.7, **kw):
+    """One call of ``task``'s step wrapper with the rows' injected noise (or
+    Philox noise with ``noise=False``); ``cw`` and ``gamma`` for the
+    tri-modal model only."""
+    _, rows_of, _, _, _, names, keys, _ = STEP_GRAPH[task]
+    fn = ft.dna2rna_fused_train_step if task == "dna2rna" else ft.multimodal_fused_train_step
+    if task == "multimodal":
+        kw.update(class_weights=cw, gamma=gamma)
+    if noise:
+        kw.update({k: r[n] for k, n in zip(keys, names)})
+    return fn(params, state, *rows_of(r), r["site"], TRAIN_DIMS["sites"], **kw)
+
+
+def step_values(task, out):
+    """(loss, the gradients in order, the BN statistics) of a wrapper's result."""
+    order, bn_of = STEP_GRAPH[task][3], STEP_GRAPH[task][4]
+    return [out[0], *ft.flatten_params(out[1], order).values(), *bn_of(out[2])]
+
+
+def check_step(task, got, params, state, r, cw, beta, gamma):
+    """A step graph's result against the plain version on the same inputs."""
+    _, _, plain, order, bn_of, names, _, tol = STEP_GRAPH[task]
+    want = plain(ft.flatten_params(params, order), bn_of(state), r,
+                 tuple(r[n] for n in names), beta, gamma, cw)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    flat = ft.flatten_params(got[1], order)
+    for name, _ in order:
+        torch.testing.assert_close(flat[name], want[1][name], **tol(name), msg=name)
+    for a, b in zip(bn_of(got[2]), want[2]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def perturbed(params, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g, device=dev), params)
+
+
+@pytest.mark.parametrize("task", sorted(STEP_GRAPH))
+def test_step_graph_replays_new_rows_weights_seeds_steps_and_scalars(task, cuda_device):
+    """Four calls through one cached graph, each with other rows, weights,
+    seed, step, β and γ, each held against a fresh plain version; the graph
+    holds one launch of the args node and the step's phases."""
+    case = STEP_GRAPH[task][0]
+    _, _, _, cw = mm_case(cuda_device, 16, seed=40)
+    graph = None
+    for k in range(4):
+        params, state, r = case(cuda_device, 16, seed=20 + k)
+        if k:
+            params = perturbed(params, k, cuda_device)
+        beta, gamma = 1e-3 * (k + 1), 1.7 / (k + 1)
+        before = ft.launches[f"{task}_train_step"]
+        got = graph_step(task, params, state, r, cw, gamma=gamma, seed=2**40 + k, step=3 * k,
+                         beta=beta)
+        assert ft.launches[f"{task}_train_step"] == before + 1
+        check_step(task, got, params, state, r, cw, beta, gamma)
+        g = ft.step_graphs[task][1]
+        assert graph is None or g is graph  # no capture after the first call
+        graph = g
+    assert graph.nodes == {"dna2rna": 18, "multimodal": 22}[task]
+
+
+@pytest.mark.parametrize("task", sorted(STEP_GRAPH))
+def test_step_graph_results_never_alias_its_buffers(task, cuda_device):
+    """The gradients, statistics and loss of call k are unchanged by call
+    k + 1 and lie outside the graph's buffers."""
+    case = STEP_GRAPH[task][0]
+    _, _, _, cw = mm_case(cuda_device, 16, seed=41)
+    params, state, r = case(cuda_device, 16, seed=30)
+    first = graph_step(task, params, state, r, cw)
+    kept = [t.clone() for t in step_values(task, first)]
+    params2, state2, r2 = case(cuda_device, 16, seed=31)
+    second = graph_step(task, params2, state2, r2, cw)
+    g = ft.step_graphs[task][1]
+    lo, hi = g.out.data_ptr(), g.out.data_ptr() + 4 * g.out.numel()
+    for a, b, c in zip(step_values(task, first), kept, step_values(task, second)):
+        assert torch.equal(a, b)
+        assert not lo <= a.data_ptr() < hi
+    assert not torch.equal(kept[1], step_values(task, second)[1])
+
+
+def test_step_graphs_of_the_two_tasks_alternate_without_capture(cuda_device):
+    """DNA→RNA and tri-modal steps, one after another three times: each
+    task's later calls run through the graph its first call captured and
+    give its bits."""
+    cases = {task: STEP_GRAPH[task][0](cuda_device, 16, seed=50) for task in STEP_GRAPH}
+    _, _, _, cw = mm_case(cuda_device, 16, seed=51)
+    first, values = {}, {}
+    for _ in range(3):
+        for task, (params, state, r) in cases.items():
+            out = step_values(task, graph_step(task, params, state, r, cw, noise=False, seed=9,
+                                               step=4))
+            if task not in first:
+                first[task], values[task] = ft.step_graphs[task][1], out
+            assert ft.step_graphs[task][1] is first[task]
+            assert all(torch.equal(a, b) for a, b in zip(out, values[task]))
+
+
+@pytest.mark.parametrize("task", sorted(STEP_GRAPH))
+def test_step_graph_philox_draws_equal_the_noise_kernels(task, cuda_device):
+    """Through one Philox graph at several steps and a seed past 32 bits,
+    each call equals the injected call given the draws of the noise kernels
+    (``philox_noise_*``, the parent's bits), bit for bit."""
+    params, state, r = STEP_GRAPH[task][0](cuda_device, 16, seed=60)
+    _, _, _, cw = mm_case(cuda_device, 16, seed=61)
+    d, names = TRAIN_DIMS, STEP_GRAPH[task][5]
+    for seed, step in ((2**40 + 7, 0), (2**40 + 7, 5), (3, 2**31 - 1)):
+        got = step_values(task, graph_step(task, params, state, r, cw, noise=False, seed=seed,
+                                           step=step))
+        if task == "dna2rna":
+            draws = ft.philox_noise_d2r(seed, step, 16, 512, 256, d["latent"], cuda_device)
+        else:
+            draws = ft.philox_noise_mm(seed, step, 16, 128, 512, 256, d["latent"], cuda_device)
+        want = step_values(task, graph_step(task, params, state, dict(r, **dict(zip(names, draws))),
+                                            cw))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (seed, step)
+
+
+def plain_launches(monkeypatch, pdl):
+    """Graphs captured from here on launch their phases programmatically
+    (``pdl``) or as plain stream launches (the private ``pdl`` of
+    `ft._StepGraph` and `fe._EpochGraph`, whichever a wrapper would choose),
+    in caches of their own."""
+    for mod, cls, cache in ((ft, "_StepGraph", "step_graphs"), (fe, "_EpochGraph", "graphs")):
+        monkeypatch.setattr(mod, cache, {})
+        monkeypatch.setattr(mod, cls, functools.partial(GRAPH_CLASSES[cls], pdl=pdl))
+
+
+GRAPH_CLASSES = {"_StepGraph": ft._StepGraph, "_EpochGraph": fe._EpochGraph}
+
+
+@pytest.mark.parametrize("task", sorted(STEP_GRAPH))
+def test_step_graph_launch_modes_give_the_same_bits(task, cuda_device, monkeypatch):
+    """A step graph whose phases launch programmatically, fetching weight
+    tiles before they wait (what the wrapper captures), gives the bits of
+    the same graph launched as plain stream launches (the host loop's
+    order)."""
+    params, state, r = STEP_GRAPH[task][0](cuda_device, 32, seed=70)
+    _, _, _, cw = mm_case(cuda_device, 32, seed=71)
+    got = {}
+    for pdl in (True, False):
+        plain_launches(monkeypatch, pdl)
+        got[pdl] = step_values(task, graph_step(task, params, state, r, cw, noise=False, seed=3,
+                                                step=2))
+        assert ft.step_graphs[task][1].nodes > 1
+    assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))
+
+
+@pytest.mark.parametrize("task", ["rna2dna", "dna2rna", "multimodal"])
+def test_epoch_graph_launch_modes_give_the_same_bits(task, cuda_device, monkeypatch):
+    """An epoch graph whose phases launch programmatically (the tri-modal
+    wrapper's) gives the bits of the same epoch as plain stream launches
+    (the directional wrappers') for each task."""
+    n_batches, batch, sites = 3, 16, TRAIN_DIMS["sites"]
+    if task == "rna2dna":
+        params, state, r = train_case(cuda_device, batch, n_batches, seed=80)
+        order, rows, fn, kw = ft.PARAM_ORDER, (r["x"], r["t"]), fe.rna2dna_fused_epoch, {}
+    elif task == "dna2rna":
+        params, state, r = d2r_case(cuda_device, batch, n_batches, seed=81)
+        order, rows, fn, kw = ft.PARAM_ORDER_D2R, (r["x"], r["t"]), fe.dna2rna_fused_epoch, {}
+    else:
+        params, state, r, cw = mm_case(cuda_device, batch, n_batches, seed=82)
+        order, rows, fn = ft.PARAM_ORDER_MM, (r["a"], r["b"]), fe.multimodal_fused_epoch
+        kw = dict(class_weights=cw, gamma=1.7)
+    m, v = nonzero_moments(cuda_device, ft.flatten_params(params, order), order, 83)
+    got = {}
+    for pdl in (True, False):
+        plain_launches(monkeypatch, pdl)
+        out = fn(params, m, v, state, *rows, r["site"], sites, seed=4, step0=3,
+                 n_batches=n_batches, **kw)
+        assert task in fe.graphs
+        got[pdl] = [out[0]] + [t for tree in out[1:4]
+                               for t in ft.flatten_params(tree, order).values()]
+    assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))

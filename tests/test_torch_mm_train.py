@@ -183,6 +183,26 @@ def _jax_forward(p, state, d, cw):
     return total, {"encoder_a": {"bn": bn_a}, "encoder_b": {"bn1": bn_b1, "bn2": bn_b2}}
 
 
+def test_cpu_wrapper_runs_the_plain_version_and_no_graph(case):
+    """On CPU tensors the wrapper is the plain version (held against the
+    Pallas kernel above): bit for bit, no step graph captured, no launch
+    counted."""
+    params, state, d, cw, _, (loss, grads, new) = case
+    before, graphs = dict(ft.launches), dict(ft.step_graphs)
+    again = port_step(params, state, d, cw)
+    assert ft.launches == before and ft.step_graphs == graphs and "multimodal" not in graphs
+    t = _t(d)
+    flat = ft.flatten_params(tree_from_numpy(params), ft.PARAM_ORDER_MM)
+    want = ft.multimodal_train_step_reference(flat, ft.bn_mm(tree_from_numpy(state)), t["a"],
+                                              t["b"], t["site"], torch.from_numpy(cw),
+                                              *(t[k] for k in NOISE), BETA, GAMMA)
+    assert torch.equal(again[0], loss) and torch.equal(loss, want[0])
+    got = ft.flatten_params(again[1], ft.PARAM_ORDER_MM)
+    for name, _ in ft.PARAM_ORDER_MM:
+        assert torch.equal(got[name], want[1][name]), name
+    assert all(torch.equal(a, b) for a, b in zip(ft.bn_mm(again[2]), want[2]))
+
+
 def test_plain_step_matches_autograd_of_the_port_and_jax_forward(case):
     """The hand-derived gradients equal autograd through the port's own
     train-mode forward (the ``multimodal`` task's loss) and jax.grad of the

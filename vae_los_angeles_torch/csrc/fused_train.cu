@@ -6,7 +6,8 @@
 //   * rna2dna_epoch_graph_create (the epoch rna2dna_train_epoch, a CUDA graph)
 //                         <- vae_los_angeles_tpu/ops/pallas/fused_epoch.py
 //                            _epoch_kernel / _epoch_call (rna2dna_fused_epoch)
-//   * dna2rna_train_step  <- fused_train.py _d2r_train_kernel / _d2r_train_step_call
+//   * dna2rna_step_graph_create (the step dna2rna_train_step, a CUDA graph)
+//                         <- fused_train.py _d2r_train_kernel / _d2r_train_step_call
 //                            (dna2rna_fused_train_step)
 //   * dna2rna_epoch_graph_create (dna2rna_train_epoch)
 //                         <- fused_epoch.py _d2r_epoch_kernel / _d2r_epoch_call
@@ -62,15 +63,30 @@
 //     uniform < 0.9), 1 for eps (Box-Muller).
 //   * Every epoch (RNA->DNA, DNA->RNA, tri-modal) is a CUDA graph: each
 //     step's phases and the AdamW kernel are captured once
-//     (*_epoch_graph_create, capture_epoch), the wrapper caches the graph with
+//     (*_epoch_graph_create, capture), the wrapper caches the graph with
 //     the buffers it addresses, and an epoch is one graph launch
 //     (epoch_graph_launch). What changes between epochs (seed, beta, gamma,
 //     lr, wd, each step's bias corrections) is read on the card from an
 //     EpochArgs buffer; the Philox step index and the row offsets stay baked.
-//     A directional step is 17 launches (from 24 as host-loop launches; the
-//     tri-modal one 28): a phase's independent products and column sums go
-//     out as one gemm_group_kernel, and the BatchNorm backward that reads
-//     only dmh and dlh shares one launch with the heads' gradients.
+//     A directional step is 18 launches with its AdamW (17 phases; 24 as
+//     host-loop launches), a tri-modal one 22 (21 phases):
+//     a phase's independent products and column sums go out as one
+//     gemm_group_kernel, independent BatchNorms, heads and heads' backwards
+//     as one launch each, and the BatchNorm backward that reads only dmh and
+//     dlh shares one launch with the heads' gradients.
+//   * The DNA->RNA and tri-modal train steps are CUDA graphs too
+//     (*_step_graph_create), one graph serving every step of a shape: what
+//     changes between calls (seed, beta, gamma and the Philox step index) is
+//     a StepArgs that the graph's first node (step_args_kernel) writes to the
+//     card, its arguments set before each launch (step_graph_launch); a call
+//     is one graph launch of 18 (DNA->RNA) or 22 (tri-modal) kernels. The
+//     RNA->DNA step stays a host loop of launches (rna2dna_train_step).
+//   * Inside the step graphs and the tri-modal epoch the phases launch
+//     programmatically (PDL, struct Queue): the next phase is scheduled
+//     while the previous one drains, and in a step graph a product fetches
+//     its first tile of a weight operand before it waits for the previous
+//     phase's activations. The directional epochs launch plainly (PDL took
+//     them 1-3% slower).
 //
 // Plain C interface, built with nvcc into a shared library and called through
 // ctypes (ops/kernels/_build.py, fused_train.py, fused_epoch.py). Every entry
@@ -80,6 +96,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -113,6 +130,48 @@ static_assert(sizeof(EpochArgs) == 24, "EpochArgs is 6 floats: the wrapper packs
 
 __device__ __forceinline__ const float* epoch_bc(const EpochArgs* ea) {
     return reinterpret_cast<const float*>(ea + 1);
+}
+
+// A step graph's args (one graph serves every step): the EpochArgs fields a
+// step reads (seed, beta, gamma; lr and wd unused) and the step's Philox
+// index, which the epoch graphs bake into their launches and a step graph
+// cannot. The wrapper packs it (fused_train.step_args); step_args_kernel, the
+// graph's first node, writes it to the device buffer the phases read, and
+// step_graph_launch sets that node's arguments before each launch.
+struct StepArgs {
+    EpochArgs e;
+    int step;
+    int pad;
+};
+static_assert(sizeof(StepArgs) == 32, "StepArgs is 8 floats: the wrapper packs it so");
+
+__global__ void step_args_kernel(StepArgs a, StepArgs* dst) { *dst = a; }
+
+// The Philox step index of a phase: read on the card from a step graph's
+// args (``step_at``), else the launch's own argument.
+__device__ __forceinline__ int step_index(const int* step_at, int step) {
+    return step_at ? *step_at : step;
+}
+
+// Programmatic dependent launch (Hopper). A phase launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may be scheduled once
+// every block of the phase before it has exited, before that phase's writes
+// are flushed: it may read what no phase of its graph writes (a step graph's
+// parameters), then waits until the previous phase has completed and its
+// writes are visible (pdl_wait) before it reads or writes anything else.
+// Every block of every phase waits, so the wait is transitive: a phase that
+// passed its wait sees every earlier phase's writes. No phase triggers its
+// dependents early: an explicit trigger at each phase's start measured slower
+// in every epoch, and one after a product's loop no faster than the implicit
+// one at exit. A phase's <false> instance (plain launches) does not wait.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_all;" ::: "memory");
 }
 enum Stream { STREAM_DROPOUT = 0, STREAM_EPS = 1, STREAM_DROPOUT2 = 2, STREAM_DROPOUT3 = 3 };
 enum Epilogue { EPI_BIAS_RELU = 0, EPI_RELU_MASK = 1 };
@@ -195,12 +254,33 @@ __device__ __forceinline__ float philox_normal(uint64_t seed, int row, int col, 
 // (ceil(N / 32), ceil(M / 32), splits); chunk z covers k in
 // [z * kchunk, min(K, (z + 1) * kchunk)). Loads run along whichever index is
 // contiguous, so global reads coalesce for either layout.
+
+// The FMA of one 32-deep step of a tile (gemm_tile).
+__device__ __forceinline__ void tile_fma(const float (&As)[TILE][TILE + 1],
+                                         const float (&Bs)[TILE][TILE + 1], int tx, int ty,
+                                         float& acc00, float& acc01, float& acc10, float& acc11) {
+#pragma unroll 8
+    for (int kk = 0; kk < TILE; ++kk) {
+        const float x0 = As[kk][ty], x1 = As[kk][ty + 16];
+        const float y0 = Bs[kk][tx], y1 = Bs[kk][tx + 16];
+        acc00 = fmaf(x0, y0, acc00);
+        acc01 = fmaf(x0, y1, acc01);
+        acc10 = fmaf(x1, y0, acc10);
+        acc11 = fmaf(x1, y1, acc11);
+    }
+}
+
 // One output tile (bx, by) of chunk bz; with ``bias`` (a product that is not
-// split) the tile is written through bias + ReLU.
+// split) the tile is written through bias + ReLU. In the PDL instance, with
+// ``b_early`` (B is a parameter of a step graph, which no phase writes) the
+// first B tile is fetched by cp.async before the phase waits for the
+// previous one; the <false> instance is the plain launches' loop.
+template <bool PDL>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, int a0, int a1,
                                           const float* __restrict__ b, int b0, int b1,
                                           float* __restrict__ c, int M, int N, int K, int kchunk,
-                                          const float* __restrict__ bias, int bx, int by, int bz) {
+                                          const float* __restrict__ bias, int b_early, int bx,
+                                          int by, int bz) {
     __shared__ float As[TILE][TILE + 1];  // As[k][i]
     __shared__ float Bs[TILE][TILE + 1];  // Bs[k][j]
     const int tid = threadIdx.x;
@@ -209,7 +289,36 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, int a0, i
     const int kbeg = bz * kchunk;
     const int kend = min(K, kbeg + kchunk);
     float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
-    for (int k0 = kbeg; k0 < kend; k0 += TILE) {
+    int k0 = kbeg;
+    if constexpr (PDL) {
+        if (b_early && k0 < kend) {  // the first B tile in flight while the previous phase drains
+            for (int idx = tid; idx < TILE * TILE; idx += GEMM_THREADS) {
+                const int p = idx & (TILE - 1), q = idx >> 5;
+                const int bj = b1 == 1 ? p : q, bk = b1 == 1 ? q : p;
+                const int gj = j0 + bj, gk2 = k0 + bk;
+                if (gj < N && gk2 < kend) {
+                    cp_async4(&Bs[bk][bj], b + (size_t)gk2 * b0 + (size_t)gj * b1);
+                } else {
+                    Bs[bk][bj] = 0.f;
+                }
+            }
+            pdl_wait();
+            for (int idx = tid; idx < TILE * TILE; idx += GEMM_THREADS) {
+                const int p = idx & (TILE - 1), q = idx >> 5;
+                const int ai = a1 == 1 ? q : p, ak = a1 == 1 ? p : q;
+                const int gi = i0 + ai, gk = k0 + ak;
+                As[ak][ai] = (gi < M && gk < kend) ? a[(size_t)gi * a0 + (size_t)gk * a1] : 0.f;
+            }
+            cp_async_wait_all();
+            __syncthreads();
+            tile_fma(As, Bs, tx, ty, acc00, acc01, acc10, acc11);
+            __syncthreads();
+            k0 += TILE;
+        } else {
+            pdl_wait();
+        }
+    }
+    for (; k0 < kend; k0 += TILE) {
         for (int idx = tid; idx < TILE * TILE; idx += GEMM_THREADS) {
             const int p = idx & (TILE - 1), q = idx >> 5;
             // A: contiguous along k when a1 == 1
@@ -222,15 +331,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, int a0, i
             Bs[bk][bj] = (gj < N && gk2 < kend) ? b[(size_t)gk2 * b0 + (size_t)gj * b1] : 0.f;
         }
         __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < TILE; ++kk) {
-            const float x0 = As[kk][ty], x1 = As[kk][ty + 16];
-            const float y0 = Bs[kk][tx], y1 = Bs[kk][tx + 16];
-            acc00 = fmaf(x0, y0, acc00);
-            acc01 = fmaf(x0, y1, acc01);
-            acc10 = fmaf(x1, y0, acc10);
-            acc11 = fmaf(x1, y1, acc11);
-        }
+        tile_fma(As, Bs, tx, ty, acc00, acc01, acc10, acc11);
         __syncthreads();
     }
     float* cz = c + (size_t)bz * M * N;
@@ -251,11 +352,12 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ a, int a0, i
     if (ib < M && jb < N) cz[(size_t)ib * N + jb] = acc11;
 }
 
+template <bool PDL>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const float* __restrict__ a, int a0, int a1, const float* __restrict__ b, int b0,
-            int b1, float* __restrict__ c, int M, int N, int K, int kchunk) {
-    gemm_tile(a, a0, a1, b, b0, b1, c, M, N, K, kchunk, nullptr, blockIdx.x, blockIdx.y,
-              blockIdx.z);
+            int b1, float* __restrict__ c, int M, int N, int K, int kchunk, int b_early) {
+    gemm_tile<PDL>(a, a0, a1, b, b0, b1, c, M, N, K, kchunk, nullptr, b_early, blockIdx.x,
+                   blockIdx.y, blockIdx.z);
 }
 
 struct Split {
@@ -288,14 +390,53 @@ struct Mat {
     int s0, s1;
 };
 
-int gemm(Mat A, Mat B, float* C, int M, int N, int K, int max_splits, cudaStream_t st,
+// Where and how a step's phases launch: with ``pdl`` (the step graphs, the
+// tri-modal epoch) each with the programmatic-serialization attribute,
+// waiting before it touches anything, else as plain stream launches (the
+// host-loop step, the directional epochs). A
+// product may fetch its first tile of a B operand that lies in [lo, hi)
+// before it waits: a step graph's parameter buffer, which no phase of the
+// graph writes (an epoch's AdamW writes its parameters: null there).
+struct Queue {
+    cudaStream_t st;
+    bool pdl;
+    const float *lo = nullptr, *hi = nullptr;
+
+    int early(const float* p) const { return pdl && p >= lo && p < hi; }
+};
+
+// One phase launch on ``q``; returns its CUDA error.
+template <class... Params, class... Args>
+int launch_phase(const Queue& q, void (*kernel)(Params...), dim3 grid, int threads,
+                 Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.stream = q.st;
+    cfg.attrs = attr;
+    cfg.numAttrs = q.pdl ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+}
+
+// A phase kernel is a template on PDL: its <false> instance is the code of
+// plain stream launches, without the waits, triggers or early fetches, and
+// runs wherever the queue launches without the attribute.
+#define LAUNCH(q, kernel, grid, threads, ...)                                           \
+    ((q).pdl ? launch_phase(q, kernel<true>, grid, threads, __VA_ARGS__) \
+             : launch_phase(q, kernel<false>, grid, threads, __VA_ARGS__))
+
+int gemm(Mat A, Mat B, float* C, int M, int N, int K, int max_splits, const Queue& q,
          int* splits_out) {
     const Split s = split_for(M, N, K, max_splits);
     const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE, s.splits);
-    gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A.p, A.s0, A.s1, B.p, B.s0, B.s1, C, M, N, K,
-                                                s.kchunk);
     if (splits_out) *splits_out = s.splits;
-    return (int)cudaGetLastError();
+    return LAUNCH(q, gemm_kernel, grid, GEMM_THREADS, A.p, A.s0, A.s1, B.p, B.s0, B.s1, C, M, N,
+                  K, s.kchunk, q.early(B.p));
 }
 
 __device__ __forceinline__ float sum_splits(const float* __restrict__ part, int splits, size_t mn,
@@ -317,53 +458,76 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int WARPS = THREADS / 32;
 
-// Encoder BatchNorm (train mode), ReLU and dropout: one warp per column, its
-// lanes over the rows. ``stream`` is the dropout layer's Philox stream.
-__global__ void __launch_bounds__(THREADS)
-bn_forward_kernel(const float* __restrict__ part, int splits, int B, int H,
-                  const float* __restrict__ b1, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, const float* rm_in, const float* rv_in,
-                  float* rm_out, float* rv_out, const float* __restrict__ drop_in, int noise,
-                  uint64_t seed, const EpochArgs* ea, int step, int stream,
-                  float* __restrict__ xhat,
-                  float* __restrict__ dcoef,
-                  float* __restrict__ d, float* __restrict__ inv_std) {
-    const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (j >= H) return;  // warp-uniform
-    const size_t mn = (size_t)B * H;
+// One encoder BatchNorm (train mode), ReLU and dropout: its partial sums,
+// parameters, statistics, noise and outputs, in the order bn_forward takes
+// them. ``stream`` is the dropout layer's Philox stream.
+struct BnForward {
+    const float* part;
+    int splits, B, H;
+    const float *b1, *gamma, *beta, *rm_in, *rv_in;
+    float *rm_out, *rv_out;
+    const float* drop_in;
+    int noise;
+    uint64_t seed;
+    const EpochArgs* ea;
+    int step;
+    const int* step_at;
+    int stream;
+    float *xhat, *dcoef, *d, *inv_std;
+};
+
+// Column ``j`` of one BatchNorm forward, its lanes over the rows.
+__device__ __forceinline__ void bn_forward_col(const BnForward& f, int j, int lane) {
+    if (j >= f.H) return;  // warp-uniform
+    const size_t mn = (size_t)f.B * f.H;
     float sum = 0.f;
-    for (int r = lane; r < B; r += 32) {
-        const float a = sum_splits(part, splits, mn, (size_t)r * H + j) + b1[j];
-        xhat[(size_t)r * H + j] = a;  // a1 for now
+    for (int r = lane; r < f.B; r += 32) {
+        const float a = sum_splits(f.part, f.splits, mn, (size_t)r * f.H + j) + f.b1[j];
+        f.xhat[(size_t)r * f.H + j] = a;  // a1 for now
         sum += a;
     }
-    const float mean = warp_sum(sum) / (float)B;
+    const float mean = warp_sum(sum) / (float)f.B;
     float sq = 0.f;
-    for (int r = lane; r < B; r += 32) {
-        const float c = xhat[(size_t)r * H + j] - mean;
+    for (int r = lane; r < f.B; r += 32) {
+        const float c = f.xhat[(size_t)r * f.H + j] - mean;
         sq += c * c;
     }
-    const float var = warp_sum(sq) / (float)B;
+    const float var = warp_sum(sq) / (float)f.B;
     const float inv = rsqrtf(var + BN_EPS);
-    const float g = gamma[j], bb = beta[j];
-    const uint64_t sd = ea ? ea->seed : seed;
-    for (int r = lane; r < B; r += 32) {
-        const size_t i = (size_t)r * H + j;
-        const float xh = (xhat[i] - mean) * inv;
+    const float g = f.gamma[j], bb = f.beta[j];
+    const uint64_t sd = f.ea ? f.ea->seed : f.seed;
+    const int stp = step_index(f.step_at, f.step);
+    for (int r = lane; r < f.B; r += 32) {
+        const size_t i = (size_t)r * f.H + j;
+        const float xh = (f.xhat[i] - mean) * inv;
         const float h = xh * g + bb;
-        const float keep = noise == NOISE_PHILOX ? philox_keep(sd, r, j, step, stream)
-                                                 : drop_in[i];
+        const float keep = f.noise == NOISE_PHILOX ? philox_keep(sd, r, j, stp, f.stream)
+                                                   : f.drop_in[i];
         const float coef = h > 0.f ? keep / KEEP : 0.f;
-        xhat[i] = xh;
-        dcoef[i] = coef;
-        d[i] = h * coef;
+        f.xhat[i] = xh;
+        f.dcoef[i] = coef;
+        f.d[i] = h * coef;
     }
     if (lane == 0) {
-        inv_std[j] = inv;
-        const float unbias = (float)B / (float)(B > 1 ? B - 1 : 1);
-        rm_out[j] = (1.0f - BN_MOMENTUM) * rm_in[j] + BN_MOMENTUM * mean;
-        rv_out[j] = (1.0f - BN_MOMENTUM) * rv_in[j] + BN_MOMENTUM * var * unbias;
+        f.inv_std[j] = inv;
+        const float unbias = (float)f.B / (float)(f.B > 1 ? f.B - 1 : 1);
+        f.rm_out[j] = (1.0f - BN_MOMENTUM) * f.rm_in[j] + BN_MOMENTUM * mean;
+        f.rv_out[j] = (1.0f - BN_MOMENTUM) * f.rv_in[j] + BN_MOMENTUM * var * unbias;
+    }
+}
+
+// Up to two independent BatchNorm forwards in one launch, a warp a column:
+// blocks [0, ceil(a.H / WARPS)) take ``a``, the rest ``b`` (H = 0: none).
+template <bool PDL>
+__global__ void __launch_bounds__(THREADS) bn_forward_kernel(const BnForward a,
+                                                             const BnForward b) {
+    if constexpr (PDL) pdl_wait();
+    const int blocks_a = (a.H + WARPS - 1) / WARPS;
+    const int lane = threadIdx.x & 31;
+    if ((int)blockIdx.x < blocks_a) {
+        bn_forward_col(a, blockIdx.x * WARPS + (threadIdx.x >> 5), lane);
+    } else {
+        bn_forward_col(b, (blockIdx.x - blocks_a) * WARPS + (threadIdx.x >> 5), lane);
     }
 }
 
@@ -374,13 +538,16 @@ struct Heads {
 // Posterior heads, site gather, fusion and z: one warp per (row, latent
 // index), its lanes over the heads' input index; the grid's threads also
 // store the gathered embedding rows.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 posterior_kernel(const float* __restrict__ d, const int64_t* __restrict__ site, Heads w,
                  int B, int H, int L, int S, int E, const float* __restrict__ eps_in, int noise,
-                 uint64_t seed, const EpochArgs* ea, int step, float* __restrict__ e,
+                 uint64_t seed, const EpochArgs* ea, int step, const int* step_at,
+                 float* __restrict__ e,
                  float* __restrict__ mu,
                  float* __restrict__ lv, float* __restrict__ epsv, float* __restrict__ sigma,
                  float* __restrict__ z) {
+    if constexpr (PDL) pdl_wait();
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
     for (int idx = tid; idx < B * E; idx += gridDim.x * blockDim.x) {
         const int r = idx / E, c = idx - r * E;
@@ -412,8 +579,9 @@ posterior_kernel(const float* __restrict__ d, const int64_t* __restrict__ site, 
     if (lane != 0) return;
     const float m = 0.5f * (mr + ms);
     const float v = 0.5f * (lr + ls);
-    const float ep = noise == NOISE_PHILOX ? philox_normal(ea ? ea->seed : seed, r, j, step)
-                                           : eps_in[idx];
+    const float ep = noise == NOISE_PHILOX
+                         ? philox_normal(ea ? ea->seed : seed, r, j, step_index(step_at, step))
+                         : eps_in[idx];
     const float sg = expf(0.5f * v);
     mu[idx] = m;
     lv[idx] = v;
@@ -423,9 +591,11 @@ posterior_kernel(const float* __restrict__ d, const int64_t* __restrict__ site, 
 }
 
 // out = relu(sum of partials + bias), or out = sum of partials where ref > 0.
+template <bool PDL>
 __global__ void epilogue_kernel(const float* __restrict__ part, int splits, int M, int N,
                                 const float* __restrict__ bias, const float* __restrict__ ref,
                                 float* __restrict__ out, int mode) {
+    if constexpr (PDL) pdl_wait();
     const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     const size_t mn = (size_t)M * N;
     if (idx >= mn) return;
@@ -440,10 +610,12 @@ __global__ void epilogue_kernel(const float* __restrict__ part, int splits, int 
 // Logits, BCE-with-logits per element, dlogits = sigmoid(l) - t. A fixed
 // grid of LOSS_BLOCKS blocks; each writes the sum of its elements' BCE terms
 // (a fixed tree over its threads) to part[block].
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 logits_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
               const float* __restrict__ bias, const float* __restrict__ t,
               float* __restrict__ dlogits, float* __restrict__ part) {
+    if constexpr (PDL) pdl_wait();
     __shared__ float red[THREADS];
     const size_t mn = (size_t)B * O;
     float bce = 0.f;
@@ -466,15 +638,17 @@ logits_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
 // The DNA->RNA head: recon = sum of partials + bias, diff = recon - t,
 // drecon = 2 * diff, and the sum of diff^2 per block (a fixed tree) in
 // part[block]. A fixed grid of LOSS_BLOCKS blocks, as logits_kernel.
-__global__ void __launch_bounds__(THREADS)
-mse_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
-           const float* __restrict__ bias, const float* __restrict__ t,
-           float* __restrict__ drecon, float* __restrict__ part) {
+// Block ``blk`` of the ``nblk`` (LOSS_BLOCKS) that mse_kernel launches.
+__device__ __forceinline__ void mse_block(const float* __restrict__ acc_part, int splits, int B,
+                                          int O, const float* __restrict__ bias,
+                                          const float* __restrict__ t,
+                                          float* __restrict__ drecon, float* __restrict__ part,
+                                          int blk, int nblk) {
     __shared__ float red[THREADS];
     const size_t mn = (size_t)B * O;
     float sq = 0.f;
-    for (size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x; idx < mn;
-         idx += (size_t)gridDim.x * THREADS) {
+    for (size_t idx = (size_t)blk * THREADS + threadIdx.x; idx < mn;
+         idx += (size_t)nblk * THREADS) {
         const float diff = (sum_splits(acc_part, splits, mn, idx) + bias[idx % O]) - t[idx];
         sq = fmaf(diff, diff, sq);
         drecon[idx] = 2.0f * diff;
@@ -485,14 +659,25 @@ mse_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
         if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
         __syncthreads();
     }
-    if (threadIdx.x == 0) part[blockIdx.x] = red[0];
+    if (threadIdx.x == 0) part[blk] = red[0];
+}
+
+template <bool PDL>
+__global__ void __launch_bounds__(THREADS)
+mse_kernel(const float* __restrict__ acc_part, int splits, int B, int O,
+           const float* __restrict__ bias, const float* __restrict__ t,
+           float* __restrict__ drecon, float* __restrict__ part) {
+    if constexpr (PDL) pdl_wait();
+    mse_block(acc_part, splits, B, O, bias, t, drecon, part, blockIdx.x, gridDim.x);
 }
 
 // loss = sum of the block sums + beta * KLD, one block.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 loss_finish_kernel(const float* __restrict__ part, int n_part, const float* __restrict__ mu,
                    const float* __restrict__ lv, int n_lat, float beta, const EpochArgs* ea,
                    float* loss) {
+    if constexpr (PDL) pdl_wait();
     __shared__ float rb[THREADS];
     __shared__ float rk[THREADS];
     float b = 0.f, k = 0.f;
@@ -526,7 +711,7 @@ constexpr int MAX_COLSUMS = 3;
 struct GroupProd {
     const float *a, *b, *bias;
     float* c;
-    int a0, a1, b0, b1, M, N, K, kchunk, tiles_n, tiles, blocks;
+    int a0, a1, b0, b1, M, N, K, kchunk, tiles_n, tiles, blocks, b_early;
 };
 
 struct GroupColsum {
@@ -541,6 +726,7 @@ struct GemmGroup {
     int n_prods, n_colsums;
 };
 
+template <bool PDL>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_group_kernel(const GemmGroup g) {
     int blk = blockIdx.x;
 #pragma unroll
@@ -550,8 +736,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_group_kernel(const GemmGrou
         if (blk < p.blocks) {
             const int z = blk / p.tiles, rem = blk - z * p.tiles;
             const int y = rem / p.tiles_n, x = rem - y * p.tiles_n;
-            gemm_tile(p.a, p.a0, p.a1, p.b, p.b0, p.b1, p.c, p.M, p.N, p.K, p.kchunk, p.bias, x,
-                      y, z);
+            gemm_tile<PDL>(p.a, p.a0, p.a1, p.b, p.b0, p.b1, p.c, p.M, p.N, p.K, p.kchunk,
+                           p.bias, p.b_early, x, y, z);
             return;
         }
         blk -= p.blocks;
@@ -561,6 +747,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_group_kernel(const GemmGrou
         if (q >= g.n_colsums) break;
         const GroupColsum& c = g.cs[q];
         if (blk < c.blocks) {
+            if constexpr (PDL) pdl_wait();
             const int j = blk * GEMM_THREADS + threadIdx.x;
             if (j >= c.N) return;
             float s = 0.f;
@@ -587,7 +774,9 @@ struct EpiGroup {
     int n;
 };
 
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS) relu_mask_group_kernel(const EpiGroup g) {
+    if constexpr (PDL) pdl_wait();
     int blk = blockIdx.x;
 #pragma unroll
     for (int q = 0; q < MAX_EPIS; ++q) {
@@ -608,12 +797,14 @@ __global__ void __launch_bounds__(THREADS) relu_mask_group_kernel(const EpiGroup
 // dz = du1 . d1w^T, then the posterior's backward: dmu/2 and dlogvar/2
 // (each of the two fused posteriors takes half). One warp per (row, j), its
 // lanes over d1.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 posterior_backward_kernel(const float* __restrict__ du1, const float* __restrict__ d1w, int B,
                           int D1, int L, const float* __restrict__ mu,
                           const float* __restrict__ lv, const float* __restrict__ epsv,
                           const float* __restrict__ sigma, float beta, const EpochArgs* ea,
                           float* __restrict__ dmh, float* __restrict__ dlh) {
+    if constexpr (PDL) pdl_wait();
     const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (idx >= B * L) return;  // warp-uniform
@@ -752,12 +943,14 @@ __device__ __forceinline__ void bn_backward_col(
 }
 
 // bn_backward_col's split-K form: dd from a product's partials.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 bn_backward_kernel(const float* __restrict__ dd_part, int splits,
                    const float* __restrict__ dcoef, const float* __restrict__ xhat,
                    const float* __restrict__ inv_std, const float* __restrict__ gamma, int B,
                    int H, float* __restrict__ da1, float* __restrict__ g_gamma,
                    float* __restrict__ g_beta, float* __restrict__ g_b1) {
+    if constexpr (PDL) pdl_wait();
     bn_backward_col<false>(blockIdx.x * WARPS + (threadIdx.x >> 5), threadIdx.x & 31, nullptr,
                            nullptr, nullptr, nullptr, dd_part, splits, dcoef, xhat, inv_std,
                            gamma, B, H, 0, da1, g_gamma, g_beta, g_b1);
@@ -775,11 +968,11 @@ struct HeadsBackward {
     const int64_t* site;
     float *da, *g_gamma, *g_beta, *g_b, *g_emb;
     HeadGrads hg;
-    int B, H, L, S, E, bn_blocks, head_blocks;
+    int B, H, L, S, E, bn_blocks, head_blocks, blocks;
 };
 
-__global__ void __launch_bounds__(THREADS) heads_backward_kernel(const HeadsBackward a) {
-    int blk = blockIdx.x;
+// Block ``blk`` of one encoder's part of heads_backward_kernel.
+__device__ __forceinline__ void heads_backward_block(const HeadsBackward& a, int blk) {
     if (blk < a.bn_blocks) {
         bn_backward_col<true>(blk * WARPS + (threadIdx.x >> 5), threadIdx.x & 31, a.dmh, a.dlh,
                               a.wmu, a.wlv, nullptr, 0, a.dcoef, a.xhat, a.inv_std, a.gamma, a.B,
@@ -796,6 +989,19 @@ __global__ void __launch_bounds__(THREADS) heads_backward_kernel(const HeadsBack
                 a.E, a.L, a.g_emb);
 }
 
+// Up to two encoders' heads_backward in one launch: blocks [0, a.blocks)
+// take ``a``, the rest ``b`` (blocks = 0: none).
+template <bool PDL>
+__global__ void __launch_bounds__(THREADS) heads_backward_kernel(const HeadsBackward a,
+                                                                 const HeadsBackward b) {
+    if constexpr (PDL) pdl_wait();
+    if ((int)blockIdx.x < a.blocks) {
+        heads_backward_block(a, blockIdx.x);
+    } else {
+        heads_backward_block(b, blockIdx.x - a.blocks);
+    }
+}
+
 // The noise NOISE_PHILOX draws at (seed, step): dropout keep flags
 // (B, hidden) of one stream and, when eps is given, eps (B, latent), for
 // checking its statistics.
@@ -809,9 +1015,11 @@ __global__ void noise_kernel(uint64_t seed, int step, int B, int H, int stream, 
 // torch-order AdamW over one flat buffer: decay first, then the
 // bias-corrected Adam step; with ``ea``, lr, wd and step ``t``'s bias
 // corrections come from it.
+template <bool PDL>
 __global__ void adamw_kernel(float* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
                              const float* __restrict__ g, long long n, float lr, float wd,
                              float bc1, float bc2, const EpochArgs* ea, int t) {
+    if constexpr (PDL) pdl_wait();
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     if (ea) {
@@ -876,8 +1084,11 @@ inline int blocks(size_t n, int t = THREADS) { return (int)((n + t - 1) / t); }
 // then one launch. A product with a bias is not split (its tiles are written
 // through bias + ReLU); the others split as gemm() splits them.
 struct Group {
+    const Queue& q;
     GemmGroup g{};
     int total = 0;
+
+    explicit Group(const Queue& queue) : q(queue) {}
 
     void prod(Mat A, Mat B, float* C, int M, int N, int K, int max_splits, const float* bias,
               int* splits_out) {
@@ -885,7 +1096,7 @@ struct Group {
         GroupProd& p = g.p[g.n_prods++];
         const int tiles_n = (N + TILE - 1) / TILE;
         p = GroupProd{A.p, B.p, bias, C, A.s0, A.s1, B.s0, B.s1, M, N, K, s.kchunk, tiles_n,
-                      tiles_n * ((M + TILE - 1) / TILE), 0};
+                      tiles_n * ((M + TILE - 1) / TILE), 0, q.early(B.p)};
         p.blocks = p.tiles * s.splits;
         total += p.blocks;
         if (splits_out) *splits_out = s.splits;
@@ -896,10 +1107,7 @@ struct Group {
         total += g.cs[g.n_colsums - 1].blocks;
     }
 
-    int launch(cudaStream_t st) const {
-        gemm_group_kernel<<<total, GEMM_THREADS, 0, st>>>(g);
-        return (int)cudaGetLastError();
-    }
+    int launch() const { return LAUNCH(q, gemm_group_kernel, dim3(total), GEMM_THREADS, g); }
 };
 
 struct ReluMasks {
@@ -911,9 +1119,8 @@ struct ReluMasks {
         total += g.j[g.n - 1].blocks;
     }
 
-    int launch(cudaStream_t st) const {
-        relu_mask_group_kernel<<<total, THREADS, 0, st>>>(g);
-        return (int)cudaGetLastError();
+    int launch(const Queue& q) const {
+        return LAUNCH(q, relu_mask_group_kernel, dim3(total), THREADS, g);
     }
 };
 
@@ -924,17 +1131,30 @@ struct ReluMasks {
     } while (0)
 #define LAUNCHED() CHECK(cudaGetLastError())
 
-// Host side of heads_backward_kernel: the block ranges of its three parts.
-int heads_backward(HeadsBackward a, cudaStream_t st) {
+// Host side of bn_forward_kernel: one BatchNorm, or two independent ones.
+int bn_forward(const Queue& q, const BnForward& a, const BnForward& b = BnForward{}) {
+    const int total = blocks(a.H, WARPS) + blocks(b.H, WARPS);
+    return LAUNCH(q, bn_forward_kernel, dim3(total), THREADS, a, b);
+}
+
+// Host side of heads_backward_kernel: the block ranges of each encoder's
+// three parts (none for an encoder with H = 0).
+void heads_backward_plan(HeadsBackward& a) {
     a.bn_blocks = blocks(a.H, WARPS);
-    a.head_blocks = blocks((size_t)2 * a.H * a.L + 2 * a.E * a.L + 2 * a.L);
-    const int total = a.bn_blocks + a.head_blocks + blocks((size_t)a.S * a.E);
-    heads_backward_kernel<<<total, THREADS, 0, st>>>(a);
-    return (int)cudaGetLastError();
+    a.head_blocks = a.H ? blocks((size_t)2 * a.H * a.L + 2 * a.E * a.L + 2 * a.L) : 0;
+    a.blocks = a.bn_blocks + a.head_blocks + blocks((size_t)a.S * a.E);
+}
+
+int heads_backward(HeadsBackward a, const Queue& q, HeadsBackward b = HeadsBackward{}) {
+    heads_backward_plan(a);
+    heads_backward_plan(b);
+    return LAUNCH(q, heads_backward_kernel, dim3(a.blocks + b.blocks), THREADS, a, b);
 }
 
 // One step: forward, loss, every gradient, new BN running stats. ``ea`` (or
-// null) gives the seed and beta in place of the arguments (EpochArgs).
+// null) gives the seed and beta in place of the arguments (EpochArgs),
+// ``step_at`` (or null) the Philox step index in place of ``step`` (a step
+// graph's StepArgs); ``q`` is how the phases launch.
 //
 // 17 launches: a backward phase's independent products (dW and the split
 // dX) go out with the bias gradient's column sum as one gemm_group_kernel;
@@ -946,8 +1166,8 @@ int heads_backward(HeadsBackward a, cudaStream_t st) {
 int step_phases(const float* x, const float* t, const int64_t* site, const float* p,
                 const Dims& d, int B, const float* rm_in, const float* rv_in, float* rm_out,
                 float* rv_out, const float* eps_in, const float* drop_in, int noise,
-                uint64_t seed, int step, float beta, const EpochArgs* ea, float* loss, float* g,
-                const Work& w, cudaStream_t st) {
+                uint64_t seed, int step, const int* step_at, float beta, const EpochArgs* ea,
+                float* loss, float* g, const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -962,66 +1182,58 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     const int BIG = 1 << 20;
 
     // ---- forward ----
-    CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H, 1}, w.scratch, B, H, X, BIG, st, &sp));
-    bn_forward_kernel<<<blocks(H, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, H, P[B1], P[GAMMA], P[BNBETA], rm_in, rv_in, rm_out, rv_out, drop_in,
-        noise, seed, ea, step, STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std);
-    LAUNCHED();
+    CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H, 1}, w.scratch, B, H, X, BIG, q, &sp));
+    CHECK(bn_forward(q, BnForward{w.scratch, sp, B, H, P[B1], P[GAMMA], P[BNBETA], rm_in, rv_in,
+                                  rm_out, rv_out, drop_in, noise, seed, ea, step, step_at,
+                                  STREAM_DROPOUT, w.xhat, w.dcoef, w.d, w.inv_std}));
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
-    posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.d, site, heads, B, H, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu, w.lv, w.epsv,
-        w.sigma, w.z);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.d, site,
+        heads, B, H, L, S, E, eps_in, noise, seed, ea, step, step_at, w.e, w.mu, w.lv, w.epsv,
+        w.sigma, w.z));
     {
-        Group first;  // z . W + b through ReLU
+        Group first(q);  // z . W + b through ReLU
         first.prod(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.r1, B, D1, L, 1, P[D1B], nullptr);
-        CHECK(first.launch(st));
+        CHECK(first.launch());
     }
-    CHECK(gemm(Mat{w.r1, D1, 1}, Mat{P[D2W], D2, 1}, w.scratch, B, D2, D1, BIG, st, &sp));
-    epilogue_kernel<<<blocks((size_t)B * D2), THREADS, 0, st>>>(w.scratch, sp, B, D2, P[D2B],
-                                                                nullptr, w.r2, EPI_BIAS_RELU);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.r2, D2, 1}, Mat{P[D3W], O, 1}, w.scratch, B, O, D2, BIG, st, &sp));
-    logits_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, O, P[D3B], t, w.dlogits,
-                                                   w.part);
-    LAUNCHED();
-    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, ea,
-                                              loss);
-    LAUNCHED();
+    CHECK(gemm(Mat{w.r1, D1, 1}, Mat{P[D2W], D2, 1}, w.scratch, B, D2, D1, BIG, q, &sp));
+    CHECK(LAUNCH(q, epilogue_kernel, dim3(blocks((size_t)B * D2)), THREADS, w.scratch, sp, B, D2,
+        P[D2B], nullptr, w.r2, EPI_BIAS_RELU));
+    CHECK(gemm(Mat{w.r2, D2, 1}, Mat{P[D3W], O, 1}, w.scratch, B, O, D2, BIG, q, &sp));
+    CHECK(LAUNCH(q, logits_kernel, dim3(LOSS_BLOCKS), THREADS, w.scratch, sp, B, O, P[D3B], t,
+        w.dlogits, w.part));
+    CHECK(LAUNCH(q, loss_finish_kernel, dim3(1), THREADS, w.part, LOSS_BLOCKS, w.mu, w.lv, B * L,
+        beta, ea, loss));
 
     // ---- backward: decoder (dW = act^T . dy, db = column sums of dy, dx = dy . W^T) ----
     {
-        Group out;
+        Group out(q);
         out.prod(Mat{w.r2, 1, D2}, Mat{w.dlogits, O, 1}, G[D3W], D2, O, B, 1, nullptr, nullptr);
         out.prod(Mat{w.dlogits, O, 1}, Mat{P[D3W], 1, O}, w.scratch, B, D2, O, BIG, nullptr, &sp);
         out.colsum(w.dlogits, B, O, G[D3B]);
-        CHECK(out.launch(st));
+        CHECK(out.launch());
     }
-    epilogue_kernel<<<blocks((size_t)B * D2), THREADS, 0, st>>>(w.scratch, sp, B, D2, nullptr,
-                                                                w.r2, w.du2, EPI_RELU_MASK);
-    LAUNCHED();
+    CHECK(LAUNCH(q, epilogue_kernel, dim3(blocks((size_t)B * D2)), THREADS, w.scratch, sp, B, D2,
+        nullptr, w.r2, w.du2, EPI_RELU_MASK));
     {
-        Group mid;
+        Group mid(q);
         mid.prod(Mat{w.r1, 1, D1}, Mat{w.du2, D2, 1}, G[D2W], D1, D2, B, 1, nullptr, nullptr);
         mid.prod(Mat{w.du2, D2, 1}, Mat{P[D2W], 1, D2}, w.scratch, B, D1, D2, BIG, nullptr, &sp);
         mid.colsum(w.du2, B, D2, G[D2B]);
-        CHECK(mid.launch(st));
+        CHECK(mid.launch());
     }
-    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, nullptr,
-                                                                w.r1, w.du1, EPI_RELU_MASK);
-    LAUNCHED();
+    CHECK(LAUNCH(q, epilogue_kernel, dim3(blocks((size_t)B * D1)), THREADS, w.scratch, sp, B, D1,
+        nullptr, w.r1, w.du1, EPI_RELU_MASK));
     {
-        Group first;
+        Group first(q);
         first.prod(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, nullptr, nullptr);
         first.colsum(w.du1, B, D1, G[D1B]);
-        CHECK(first.launch(st));
+        CHECK(first.launch());
     }
 
     // ---- backward: posterior, then heads, site embedding and encoder BN in one launch ----
-    posterior_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior_backward_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.du1,
+        P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh));
     HeadsBackward hb{};
     hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[WMU]; hb.wlv = P[WLV];
     hb.dcoef = w.dcoef; hb.xhat = w.xhat; hb.inv_std = w.inv_std; hb.gamma = P[GAMMA];
@@ -1030,18 +1242,18 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     hb.g_emb = G[EMB];
     hb.hg = HeadGrads{G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
     hb.B = B; hb.H = H; hb.L = L; hb.S = S; hb.E = E;
-    CHECK(heads_backward(hb, st));
-    CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H, 1}, G[W1], X, H, B, 1, st, nullptr));
+    CHECK(heads_backward(hb, q));
+    CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H, 1}, G[W1], X, H, B, 1, q, nullptr));
     return 0;
 }
 
-// The epoch's launches on ``st``: for each step i, step_phases on rows
+// The epoch's launches on ``q``: for each step i, step_phases on rows
 // [i * B, (i + 1) * B) with Philox step index i, then AdamW with step i's
 // bias corrections; seed, beta, lr and wd come from ``ea``. bn: rm then rv.
 int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, float* params,
                  float* m, float* v, const Dims& d, int batch, int n_batches, float* bn,
                  const float* eps_ep, const float* drop_ep, int noise, const EpochArgs* ea,
-                 float* losses, const Work& w, cudaStream_t st) {
+                 float* losses, const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     const long long n_params = param_offsets(d, off);
     const bool inj = noise == NOISE_INJECTED;
@@ -1051,11 +1263,10 @@ int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, f
         const size_t r0 = (size_t)i * batch;
         CHECK(step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d, batch, rm,
                           rv, rm, rv, inj ? eps_ep + r0 * d.latent : nullptr,
-                          inj ? drop_ep + r0 * d.hid : nullptr, noise, 0, i, 0.f, ea, losses + i,
-                          w.grads, w, st));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
-            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
-        LAUNCHED();
+                          inj ? drop_ep + r0 * d.hid : nullptr, noise, 0, i, nullptr, 0.f, ea,
+                          losses + i, w.grads, w, q));
+        CHECK(LAUNCH(q, adamw_kernel, dim3(blocks((size_t)n_params)), THREADS, params, m, v,
+            w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i));
     }
     return 0;
 }
@@ -1156,7 +1367,8 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 
 // One step: forward, loss, every gradient, the new running stats of both
 // BatchNorms. bn_in/bn_out: rm1 (h1), rv1 (h1), rm2 (h2), rv2 (h2). ``ea``
-// (or null) gives the seed and beta in place of the arguments.
+// (or null) gives the seed and beta in place of the arguments, ``step_at``
+// (or null) the step index, as RNA->DNA's.
 //
 // 17 launches, grouped as RNA->DNA's are: the decoder's backward products
 // with their column sums, dW2 with the split dd1 = da2 . W2^T, the first
@@ -1165,8 +1377,8 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 int step_phases(const float* x, const float* t, const int64_t* site, const float* p,
                 const Dims& d, int B, const float* bn_in, float* bn_out, const float* eps_in,
                 const float* drop1_in, const float* drop2_in, int noise, uint64_t seed, int step,
-                float beta, const EpochArgs* ea, float* loss, float* g, const Work& w,
-                cudaStream_t st) {
+                const int* step_at, float beta, const EpochArgs* ea, float* loss, float* g,
+                const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -1181,59 +1393,52 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     const int BIG = 1 << 20;
 
     // ---- forward: encoder blocks 1 and 2, posterior, decoder, loss ----
-    CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H1, 1}, w.scratch, B, H1, X, BIG, st, &sp));
-    bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, H1, P[B1], P[G1], P[BT1], bn_in, bn_in + H1, bn_out, bn_out + H1,
-        drop1_in, noise, seed, ea, step, STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.d1, H1, 1}, Mat{P[W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
+    CHECK(gemm(Mat{x, X, 1}, Mat{P[W1], H1, 1}, w.scratch, B, H1, X, BIG, q, &sp));
+    CHECK(bn_forward(q, BnForward{w.scratch, sp, B, H1, P[B1], P[G1], P[BT1], bn_in, bn_in + H1,
+                                  bn_out, bn_out + H1, drop1_in, noise, seed, ea, step, step_at,
+                                  STREAM_DROPOUT, w.xhat1, w.dcoef1, w.d1, w.inv1}));
+    CHECK(gemm(Mat{w.d1, H1, 1}, Mat{P[W2], H2, 1}, w.scratch, B, H2, H1, BIG, q, &sp));
     const float* bn2_in = bn_in + 2 * H1;
     float* bn2_out = bn_out + 2 * H1;
-    bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, H2, P[B2], P[G2], P[BT2], bn2_in, bn2_in + H2, bn2_out, bn2_out + H2,
-        drop2_in, noise, seed, ea, step, STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2, w.inv2);
-    LAUNCHED();
+    CHECK(bn_forward(q, BnForward{w.scratch, sp, B, H2, P[B2], P[G2], P[BT2], bn2_in, bn2_in + H2,
+                                  bn2_out, bn2_out + H2, drop2_in, noise, seed, ea, step, step_at,
+                                  STREAM_DROPOUT2, w.xhat2, w.dcoef2, w.d2, w.inv2}));
     const Heads heads = {P[WMU], P[BMU], P[WLV], P[BLV], P[EMB],
                          P[SMU_W], P[SMU_B], P[SLV_W], P[SLV_B]};
-    posterior_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.d2, site, heads, B, H2, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu, w.lv,
-        w.epsv, w.sigma, w.z);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.d2, site,
+        heads, B, H2, L, S, E, eps_in, noise, seed, ea, step, step_at, w.e, w.mu, w.lv, w.epsv,
+        w.sigma, w.z));
     {
-        Group first;  // z . W + b through ReLU
+        Group first(q);  // z . W + b through ReLU
         first.prod(Mat{w.z, L, 1}, Mat{P[D1W], D1, 1}, w.rd1, B, D1, L, 1, P[D1B], nullptr);
-        CHECK(first.launch(st));
+        CHECK(first.launch());
     }
-    CHECK(gemm(Mat{w.rd1, D1, 1}, Mat{P[D2W], O, 1}, w.scratch, B, O, D1, BIG, st, &sp));
-    mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, O, P[D2B], t, w.drecon,
-                                                w.part);
-    LAUNCHED();
-    loss_finish_kernel<<<1, THREADS, 0, st>>>(w.part, LOSS_BLOCKS, w.mu, w.lv, B * L, beta, ea,
-                                              loss);
-    LAUNCHED();
+    CHECK(gemm(Mat{w.rd1, D1, 1}, Mat{P[D2W], O, 1}, w.scratch, B, O, D1, BIG, q, &sp));
+    CHECK(LAUNCH(q, mse_kernel, dim3(LOSS_BLOCKS), THREADS, w.scratch, sp, B, O, P[D2B], t,
+        w.drecon, w.part));
+    CHECK(LAUNCH(q, loss_finish_kernel, dim3(1), THREADS, w.part, LOSS_BLOCKS, w.mu, w.lv, B * L,
+        beta, ea, loss));
 
     // ---- backward: decoder (dW = act^T . dy, db = column sums of dy, dx = dy . W^T) ----
     {
-        Group out;
+        Group out(q);
         out.prod(Mat{w.rd1, 1, D1}, Mat{w.drecon, O, 1}, G[D2W], D1, O, B, 1, nullptr, nullptr);
         out.prod(Mat{w.drecon, O, 1}, Mat{P[D2W], 1, O}, w.scratch, B, D1, O, BIG, nullptr, &sp);
         out.colsum(w.drecon, B, O, G[D2B]);
-        CHECK(out.launch(st));
+        CHECK(out.launch());
     }
-    epilogue_kernel<<<blocks((size_t)B * D1), THREADS, 0, st>>>(w.scratch, sp, B, D1, nullptr,
-                                                                w.rd1, w.du1, EPI_RELU_MASK);
-    LAUNCHED();
+    CHECK(LAUNCH(q, epilogue_kernel, dim3(blocks((size_t)B * D1)), THREADS, w.scratch, sp, B, D1,
+        nullptr, w.rd1, w.du1, EPI_RELU_MASK));
     {
-        Group first;
+        Group first(q);
         first.prod(Mat{w.z, 1, L}, Mat{w.du1, D1, 1}, G[D1W], L, D1, B, 1, nullptr, nullptr);
         first.colsum(w.du1, B, D1, G[D1B]);
-        CHECK(first.launch(st));
+        CHECK(first.launch());
     }
 
     // ---- backward: posterior, then heads, site embedding and block 2's BN in one launch ----
-    posterior_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.du1, P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior_backward_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.du1,
+        P[D1W], B, D1, L, w.mu, w.lv, w.epsv, w.sigma, beta, ea, w.dmh, w.dlh));
     HeadsBackward hb{};
     hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[WMU]; hb.wlv = P[WLV];
     hb.dcoef = w.dcoef2; hb.xhat = w.xhat2; hb.inv_std = w.inv2; hb.gamma = P[G2];
@@ -1242,27 +1447,26 @@ int step_phases(const float* x, const float* t, const int64_t* site, const float
     hb.g_emb = G[EMB];
     hb.hg = HeadGrads{G[WMU], G[BMU], G[WLV], G[BLV], G[SMU_W], G[SMU_B], G[SLV_W], G[SLV_B]};
     hb.B = B; hb.H = H2; hb.L = L; hb.S = S; hb.E = E;
-    CHECK(heads_backward(hb, st));
+    CHECK(heads_backward(hb, q));
 
     // ---- backward: block 1 through dd1 = da2 . W2^T ----
     {
-        Group enc;
+        Group enc(q);
         enc.prod(Mat{w.d1, 1, H1}, Mat{w.da2, H2, 1}, G[W2], H1, H2, B, 1, nullptr, nullptr);
         enc.prod(Mat{w.da2, H2, 1}, Mat{P[W2], 1, H2}, w.scratch, B, H1, H2, BIG, nullptr, &sp);
-        CHECK(enc.launch(st));
+        CHECK(enc.launch());
     }
-    bn_backward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, w.dcoef1, w.xhat1, w.inv1, P[G1], B, H1, w.da1, G[G1], G[BT1], G[B1]);
-    LAUNCHED();
-    CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H1, 1}, G[W1], X, H1, B, 1, st, nullptr));
+    CHECK(LAUNCH(q, bn_backward_kernel, dim3(blocks(H1, WARPS)), THREADS, w.scratch, sp, w.dcoef1,
+        w.xhat1, w.inv1, P[G1], B, H1, w.da1, G[G1], G[BT1], G[B1]));
+    CHECK(gemm(Mat{x, 1, X}, Mat{w.da1, H1, 1}, G[W1], X, H1, B, 1, q, nullptr));
     return 0;
 }
 
-// The epoch's launches on ``st``, as RNA->DNA's (bn: rm1, rv1, rm2, rv2).
+// The epoch's launches on ``q``, as RNA->DNA's (bn: rm1, rv1, rm2, rv2).
 int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, float* params,
                  float* m, float* v, const Dims& d, int batch, int n_batches, float* bn,
                  const float* eps_ep, const float* drop1_ep, const float* drop2_ep, int noise,
-                 const EpochArgs* ea, float* losses, const Work& w, cudaStream_t st) {
+                 const EpochArgs* ea, float* losses, const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     const long long n_params = param_offsets(d, off);
     const bool inj = noise == NOISE_INJECTED;
@@ -1271,11 +1475,10 @@ int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, f
         CHECK(step_phases(x_ep + r0 * d.in, t_ep + r0 * d.out, site_ep + r0, params, d, batch,
                           bn, bn, inj ? eps_ep + r0 * d.latent : nullptr,
                           inj ? drop1_ep + r0 * d.h1 : nullptr,
-                          inj ? drop2_ep + r0 * d.h2 : nullptr, noise, 0, i, 0.f, ea, losses + i,
-                          w.grads, w, st));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
-            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
-        LAUNCHED();
+                          inj ? drop2_ep + r0 * d.h2 : nullptr, noise, 0, i, nullptr, 0.f, ea,
+                          losses + i, w.grads, w, q));
+        CHECK(LAUNCH(q, adamw_kernel, dim3(blocks((size_t)n_params)), THREADS, params, m, v,
+            w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i));
     }
     return 0;
 }
@@ -1303,11 +1506,12 @@ int epoch_phases(const float* x_ep, const float* t_ep, const int64_t* site_ep, f
 // cudaGraphLaunch an epoch; what changes between epochs (seed, beta, gamma,
 // lr, wd and each step's bias corrections) is read from a small device
 // buffer (EpochArgs), while the Philox step index and the row offsets,
-// fixed within an epoch, stay baked. (2) Fewer launches a step, 26 with the
+// fixed within an epoch, stay baked. (2) Fewer launches a step, 22 with the
 // AdamW (from 56): independent products of a phase grouped in one launch
 // with the bias gradients' column sums, the decoders' first layers with their
 // bias and ReLU inside the product, the three ReLU-masked upstream gradients
-// in one launch, an encoder's BN backward with its heads' gradients in one.
+// in one launch, two encoders' BN forwards in one, the three decoders' heads
+// in one, both encoders' last BN backward with their heads' gradients in one.
 // No atomics; each product keeps its tiles and split, so one
 // input gives one set of bits.
 namespace mm {
@@ -1375,13 +1579,14 @@ struct Heads3 {
 // its lanes over each head's input index; the grid's threads also store the
 // gathered embedding rows. mu = (mu_a + mu_b + mu_c) * (1/3) in that order,
 // as the TPU kernel adds them.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 posterior3_kernel(const float* __restrict__ da, int HA, const float* __restrict__ db, int HB,
                   const int64_t* __restrict__ site, Heads3 w, int B, int L, int S, int E,
                   const float* __restrict__ eps_in, int noise, uint64_t seed,
-                  const EpochArgs* ea, int step,
-                  float* __restrict__ e, float* __restrict__ mu, float* __restrict__ lv,
+                  const EpochArgs* ea, int step, const int* step_at, float* __restrict__ e, float* __restrict__ mu, float* __restrict__ lv,
                   float* __restrict__ epsv, float* __restrict__ sigma, float* __restrict__ z) {
+    if constexpr (PDL) pdl_wait();
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
     for (int idx = tid; idx < B * E; idx += gridDim.x * blockDim.x) {
         const int r = idx / E, c = idx - r * E;
@@ -1420,8 +1625,9 @@ posterior3_kernel(const float* __restrict__ da, int HA, const float* __restrict_
     const float third = 1.0f / 3.0f;
     const float m = (ma + mb + mc) * third;
     const float v = (la + lb + lc) * third;
-    const float ep = noise == NOISE_PHILOX ? philox_normal(ea ? ea->seed : seed, r, j, step)
-                                           : eps_in[idx];
+    const float ep = noise == NOISE_PHILOX
+                         ? philox_normal(ea ? ea->seed : seed, r, j, step_index(step_at, step))
+                         : eps_in[idx];
     const float sg = expf(0.5f * v);
     mu[idx] = m;
     lv[idx] = v;
@@ -1441,13 +1647,12 @@ __device__ __forceinline__ float warp_max(float v) {
 // (softmax - one_hot(y)). One warp per row, its lanes over the classes;
 // cw == nullptr means every weight is 1. The wrapper refuses a label outside
 // [0, S).
-__global__ void __launch_bounds__(THREADS)
-ce_kernel(const float* __restrict__ acc_part, int splits, int B, int S,
-          const float* __restrict__ bias, const int64_t* __restrict__ site,
-          const float* __restrict__ cw, float gamma, const EpochArgs* ea,
-          float* __restrict__ dlogits, float* __restrict__ ce_rows) {
-    const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void ce_row(const float* __restrict__ acc_part, int splits, int B,
+                                       int S, const float* __restrict__ bias,
+                                       const int64_t* __restrict__ site,
+                                       const float* __restrict__ cw, float gamma,
+                                       const EpochArgs* ea, float* __restrict__ dlogits,
+                                       float* __restrict__ ce_rows, int r, int lane) {
     if (r >= B) return;  // warp-uniform
     const size_t mn = (size_t)B * S;
     float mx = -INFINITY;
@@ -1472,13 +1677,56 @@ ce_kernel(const float* __restrict__ acc_part, int splits, int B, int S,
     if (lane == 0) ce_rows[r] = wy * nll;
 }
 
+// The three decoders' heads after their second products, independent of one
+// another, in one launch: blocks [0, LOSS_BLOCKS) DecoderA's MSE head
+// (mse_kernel's), then a thread an element of DecoderB's middle layer
+// relu(sum of partials + bias) (epilogue_kernel's EPI_BIAS_RELU), then a
+// warp a row of the site head (ce_row).
+struct MmHeads {
+    const float *mse_part, *mse_bias, *target_a;
+    float *drecon, *part_mse;
+    const float *rb2_part, *rb2_bias;
+    float* rb2;
+    const float *ce_part, *ce_bias, *cw;
+    const int64_t* site;
+    float gamma;
+    const EpochArgs* ea;
+    float *dlogits_c, *ce_rows;
+    int mse_splits, rb2_splits, ce_splits, B, A, DB2, S;
+};
+
+template <bool PDL>
+__global__ void __launch_bounds__(THREADS) mm_heads_kernel(const MmHeads h) {
+    if constexpr (PDL) pdl_wait();
+    int blk = blockIdx.x;
+    if (blk < LOSS_BLOCKS) {
+        mse_block(h.mse_part, h.mse_splits, h.B, h.A, h.mse_bias, h.target_a, h.drecon,
+                  h.part_mse, blk, LOSS_BLOCKS);
+        return;
+    }
+    blk -= LOSS_BLOCKS;
+    const size_t mn = (size_t)h.B * h.DB2;
+    const int rb2_blocks = (int)((mn + THREADS - 1) / THREADS);
+    if (blk < rb2_blocks) {
+        const size_t idx = (size_t)blk * THREADS + threadIdx.x;
+        if (idx < mn) h.rb2[idx] = fmaxf(sum_splits(h.rb2_part, h.rb2_splits, mn, idx)
+                                         + h.rb2_bias[idx % h.DB2], 0.f);
+        return;
+    }
+    blk -= rb2_blocks;
+    ce_row(h.ce_part, h.ce_splits, h.B, h.S, h.ce_bias, h.site, h.cw, h.gamma, h.ea,
+           h.dlogits_c, h.ce_rows, blk * WARPS + (threadIdx.x >> 5), threadIdx.x & 31);
+}
+
 // loss = mse + bce + gamma * ce + beta * KLD from the block sums of the MSE
 // and BCE heads, the CE rows and the posterior, in fixed trees; one block.
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 loss_finish4_kernel(const float* __restrict__ part_mse, const float* __restrict__ part_bce,
                    int n_part, const float* __restrict__ ce_rows, int B,
                    const float* __restrict__ mu, const float* __restrict__ lv, int n_lat,
                    float beta, float gamma, const EpochArgs* ea, float* loss) {
+    if constexpr (PDL) pdl_wait();
     __shared__ float r0[THREADS], r1[THREADS], r2[THREADS], r3[THREADS];
     float a = 0.f, b = 0.f, c = 0.f, k = 0.f;
     for (int i = threadIdx.x; i < n_part; i += THREADS) {
@@ -1516,6 +1764,7 @@ loss_finish4_kernel(const float* __restrict__ part_mse, const float* __restrict_
 // dz = dua . da_w1^T + dub1 . db_w1^T + duc . dc_w1^T (added in that order),
 // then the posterior's backward: dmu/3 and dlogvar/3 (each of the three
 // fused posteriors takes a third). One warp per (row, j).
+template <bool PDL>
 __global__ void __launch_bounds__(THREADS)
 posterior3_backward_kernel(const float* __restrict__ dua, const float* __restrict__ da_w1,
                            int DA, const float* __restrict__ dub1,
@@ -1525,6 +1774,7 @@ posterior3_backward_kernel(const float* __restrict__ dua, const float* __restric
                            const float* __restrict__ lv, const float* __restrict__ epsv,
                            const float* __restrict__ sigma, float beta, const EpochArgs* ea,
                            float* __restrict__ dmh, float* __restrict__ dlh) {
+    if constexpr (PDL) pdl_wait();
     const int idx = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (idx >= B * L) return;  // warp-uniform
@@ -1602,21 +1852,25 @@ Work plan(float* base, const Dims& d, int B, bool with_grads) {
 // One step: forward, loss, every gradient, the new running stats of the
 // three BatchNorms (bn_in/bn_out as bn_floats). a (B, in_a) is the RNA input
 // and target, b (B, in_b) the DNA input and target. ``ea`` (or null) gives
-// the seed, beta and gamma in place of the arguments (EpochArgs).
+// the seed, beta and gamma in place of the arguments (EpochArgs), ``step_at``
+// (or null) the step index, as RNA->DNA's.
 //
-// 25 launches: the products of one phase that do not depend on each other
+// 21 launches: the products of one phase that do not depend on each other
 // (and the bias gradients' column sums) go out as one gemm_group_kernel, the
 // three decoders' ReLU-masked upstream gradients as one relu_mask_group_kernel,
 // the decoders' first layers (K = latent, not split) with their bias and
-// ReLU inside the product, and each encoder's last BN backward with its heads'
-// (and the site embedding's) gradients as one heads_backward_kernel. Each product keeps its own tiles and split, so the
-// arithmetic is that of one launch a product.
+// ReLU inside the product; EncoderA's BatchNorm forward and EncoderB's first
+// share one bn_forward_kernel, the three decoders' heads one mm_heads_kernel,
+// and both encoders' last BN backward with their heads' (and the site
+// embedding's) gradients one heads_backward_kernel. Each product and each
+// column keeps its own code and order, so the arithmetic is that of one
+// launch a phase.
 int step_phases(const float* a, const float* b, const int64_t* site, const float* cw,
                 const float* p, const Dims& d, int B, const float* bn_in, float* bn_out,
                 const float* eps_in, const float* dropa_in, const float* dropb1_in,
-                const float* dropb2_in, int noise, uint64_t seed, int step, float beta,
-                float gamma, const EpochArgs* ea, float* loss, float* g, const Work& w,
-                cudaStream_t st) {
+                const float* dropb2_in, int noise, uint64_t seed, int step, const int* step_at,
+                float beta, float gamma, const EpochArgs* ea, float* loss, float* g,
+                const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     param_offsets(d, off);
     const float* P[N_PARAMS];
@@ -1638,72 +1892,63 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
 
     // ---- forward: the three encoders ----
     {
-        Group enc;
+        Group enc(q);
         enc.prod(Mat{a, A, 1}, Mat{P[A_W1], HA, 1}, w.scratch, B, HA, A, BIG, nullptr, &sp);
         enc.prod(Mat{b, Bd, 1}, Mat{P[B_W1], H1, 1}, w.scratch_b, B, H1, Bd, BIG, nullptr, &sp_b);
-        CHECK(enc.launch(st));
+        CHECK(enc.launch());
     }
-    bn_forward_kernel<<<blocks(HA, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, HA, P[A_B1], P[A_G], P[A_BT], bn_a_in, bn_a_in + HA, bn_a_out,
-        bn_a_out + HA, dropa_in, noise, seed, ea, step, STREAM_DROPOUT, w.xa, w.dca, w.ad,
-        w.inva);
-    LAUNCHED();
-    bn_forward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        w.scratch_b, sp_b, B, H1, P[B_B1], P[B_G1], P[B_BT1], bn_b1_in, bn_b1_in + H1,
-        bn_b1_out, bn_b1_out + H1, dropb1_in, noise, seed, ea, step, STREAM_DROPOUT2, w.xb1,
-        w.dcb1, w.bd1, w.invb1);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.bd1, H1, 1}, Mat{P[B_W2], H2, 1}, w.scratch, B, H2, H1, BIG, st, &sp));
-    bn_forward_kernel<<<blocks(H2, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, B, H2, P[B_B2], P[B_G2], P[B_BT2], bn_b2_in, bn_b2_in + H2, bn_b2_out,
-        bn_b2_out + H2, dropb2_in, noise, seed, ea, step, STREAM_DROPOUT3, w.xb2, w.dcb2, w.bd2,
-        w.invb2);
-    LAUNCHED();
+    CHECK(bn_forward(q,
+                     BnForward{w.scratch, sp, B, HA, P[A_B1], P[A_G], P[A_BT], bn_a_in,
+                               bn_a_in + HA, bn_a_out, bn_a_out + HA, dropa_in, noise, seed, ea,
+                               step, step_at, STREAM_DROPOUT, w.xa, w.dca, w.ad, w.inva},
+                     BnForward{w.scratch_b, sp_b, B, H1, P[B_B1], P[B_G1], P[B_BT1], bn_b1_in,
+                               bn_b1_in + H1, bn_b1_out, bn_b1_out + H1, dropb1_in, noise, seed,
+                               ea, step, step_at, STREAM_DROPOUT2, w.xb1, w.dcb1, w.bd1,
+                               w.invb1}));
+    CHECK(gemm(Mat{w.bd1, H1, 1}, Mat{P[B_W2], H2, 1}, w.scratch, B, H2, H1, BIG, q, &sp));
+    CHECK(bn_forward(q, BnForward{w.scratch, sp, B, H2, P[B_B2], P[B_G2], P[B_BT2], bn_b2_in,
+                                  bn_b2_in + H2, bn_b2_out, bn_b2_out + H2, dropb2_in, noise, seed,
+                                  ea, step, step_at, STREAM_DROPOUT3, w.xb2, w.dcb2, w.bd2,
+                                  w.invb2}));
     const Heads3 heads = {P[A_WMU], P[A_BMU], P[A_WLV], P[A_BLV], P[B_WMU], P[B_BMU], P[B_WLV],
                           P[B_BLV], P[EMB],   P[C_WMU], P[C_BMU], P[C_WLV], P[C_BLV]};
-    posterior3_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.ad, HA, w.bd2, H2, site, heads, B, L, S, E, eps_in, noise, seed, ea, step, w.e, w.mu,
-        w.lv, w.epsv, w.sigma, w.z);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior3_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.ad, HA,
+        w.bd2, H2, site, heads, B, L, S, E, eps_in, noise, seed, ea, step, step_at, w.e, w.mu,
+        w.lv, w.epsv, w.sigma, w.z));
 
     // ---- forward: the three decoders and their heads ----
     {
-        Group first;  // z . W + b through ReLU, for DecoderA, DecoderB and DecoderC
+        Group first(q);  // z . W + b through ReLU, for DecoderA, DecoderB and DecoderC
         first.prod(Mat{w.z, L, 1}, Mat{P[DA_W1], DA, 1}, w.ra, B, DA, L, 1, P[DA_B1], nullptr);
         first.prod(Mat{w.z, L, 1}, Mat{P[DB_W1], DB1, 1}, w.rb1, B, DB1, L, 1, P[DB_B1],
                    nullptr);
         first.prod(Mat{w.z, L, 1}, Mat{P[DC_W1], DC, 1}, w.rc, B, DC, L, 1, P[DC_B1], nullptr);
-        CHECK(first.launch(st));
-        Group second;
+        CHECK(first.launch());
+        Group second(q);
         second.prod(Mat{w.ra, DA, 1}, Mat{P[DA_W2], A, 1}, w.scratch, B, A, DA, BIG, nullptr,
                     &sp);
         second.prod(Mat{w.rb1, DB1, 1}, Mat{P[DB_W2], DB2, 1}, w.scratch_b, B, DB2, DB1, BIG,
                     nullptr, &sp_b);
         second.prod(Mat{w.rc, DC, 1}, Mat{P[DC_W2], S, 1}, w.scratch_c, B, S, DC, BIG, nullptr,
                     &sp_c);
-        CHECK(second.launch(st));
+        CHECK(second.launch());
     }
-    mse_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, A, P[DA_B2], a, w.drecon,
-                                                w.part_mse);
-    LAUNCHED();
-    epilogue_kernel<<<blocks((size_t)B * DB2), THREADS, 0, st>>>(w.scratch_b, sp_b, B, DB2,
-                                                                 P[DB_B2], nullptr, w.rb2,
-                                                                 EPI_BIAS_RELU);
-    LAUNCHED();
-    ce_kernel<<<blocks(B, WARPS), THREADS, 0, st>>>(w.scratch_c, sp_c, B, S, P[DC_B2], site, cw,
-                                                    gamma, ea, w.dlogits_c, w.ce_rows);
-    LAUNCHED();
-    CHECK(gemm(Mat{w.rb2, DB2, 1}, Mat{P[DB_W3], Bd, 1}, w.scratch, B, Bd, DB2, BIG, st, &sp));
-    logits_kernel<<<LOSS_BLOCKS, THREADS, 0, st>>>(w.scratch, sp, B, Bd, P[DB_B3], b, w.dlogits_b,
-                                                   w.part_bce);
-    LAUNCHED();
-    loss_finish4_kernel<<<1, THREADS, 0, st>>>(w.part_mse, w.part_bce, LOSS_BLOCKS, w.ce_rows, B,
-                                              w.mu, w.lv, B * L, beta, gamma, ea, loss);
-    LAUNCHED();
+    {
+        const MmHeads h{w.scratch, P[DA_B2], a, w.drecon, w.part_mse, w.scratch_b, P[DB_B2],
+                        w.rb2, w.scratch_c, P[DC_B2], cw, site, gamma, ea, w.dlogits_c,
+                        w.ce_rows, sp, sp_b, sp_c, B, A, DB2, S};
+        const int total = LOSS_BLOCKS + blocks((size_t)B * DB2) + blocks(B, WARPS);
+        CHECK(LAUNCH(q, mm_heads_kernel, dim3(total), THREADS, h));
+    }
+    CHECK(gemm(Mat{w.rb2, DB2, 1}, Mat{P[DB_W3], Bd, 1}, w.scratch, B, Bd, DB2, BIG, q, &sp));
+    CHECK(LAUNCH(q, logits_kernel, dim3(LOSS_BLOCKS), THREADS, w.scratch, sp, B, Bd, P[DB_B3], b,
+        w.dlogits_b, w.part_bce));
+    CHECK(LAUNCH(q, loss_finish4_kernel, dim3(1), THREADS, w.part_mse, w.part_bce, LOSS_BLOCKS,
+        w.ce_rows, B, w.mu, w.lv, B * L, beta, gamma, ea, loss));
 
     // ---- backward: the decoders' output layers, then DecoderB's middle one ----
     {
-        Group out;  // dW = act^T . dy, db = column sums of dy, dx = dy . W^T (split)
+        Group out(q);  // dW = act^T . dy, db = column sums of dy, dx = dy . W^T (split)
         out.prod(Mat{w.ra, 1, DA}, Mat{w.drecon, A, 1}, G[DA_W2], DA, A, B, 1, nullptr, nullptr);
         out.prod(Mat{w.drecon, A, 1}, Mat{P[DA_W2], 1, A}, w.scratch, B, DA, A, BIG, nullptr,
                  &sp);
@@ -1718,25 +1963,24 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
         out.colsum(w.drecon, B, A, G[DA_B2]);
         out.colsum(w.dlogits_b, B, Bd, G[DB_B3]);
         out.colsum(w.dlogits_c, B, S, G[DC_B2]);
-        CHECK(out.launch(st));
+        CHECK(out.launch());
         ReluMasks masks;
         masks.add(w.scratch, sp, B, DA, w.ra, w.dua);
         masks.add(w.scratch_b, sp_b, B, DB2, w.rb2, w.dub2);
         masks.add(w.scratch_c, sp_c, B, DC, w.rc, w.duc);
-        CHECK(masks.launch(st));
-        Group mid;
+        CHECK(masks.launch(q));
+        Group mid(q);
         mid.prod(Mat{w.rb1, 1, DB1}, Mat{w.dub2, DB2, 1}, G[DB_W2], DB1, DB2, B, 1, nullptr,
                  nullptr);
         mid.prod(Mat{w.dub2, DB2, 1}, Mat{P[DB_W2], 1, DB2}, w.scratch, B, DB1, DB2, BIG,
                  nullptr, &sp);
         mid.colsum(w.dub2, B, DB2, G[DB_B2]);
-        CHECK(mid.launch(st));
+        CHECK(mid.launch());
     }
-    epilogue_kernel<<<blocks((size_t)B * DB1), THREADS, 0, st>>>(w.scratch, sp, B, DB1, nullptr,
-                                                                 w.rb1, w.dub1, EPI_RELU_MASK);
-    LAUNCHED();
+    CHECK(LAUNCH(q, epilogue_kernel, dim3(blocks((size_t)B * DB1)), THREADS, w.scratch, sp, B, DB1,
+        nullptr, w.rb1, w.dub1, EPI_RELU_MASK));
     {
-        Group first;  // the decoders' first layers: z^T . du and the column sums of du
+        Group first(q);  // the decoders' first layers: z^T . du and the column sums of du
         first.prod(Mat{w.z, 1, L}, Mat{w.dua, DA, 1}, G[DA_W1], L, DA, B, 1, nullptr, nullptr);
         first.prod(Mat{w.z, 1, L}, Mat{w.dub1, DB1, 1}, G[DB_W1], L, DB1, B, 1, nullptr,
                    nullptr);
@@ -1744,17 +1988,16 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
         first.colsum(w.dua, B, DA, G[DA_B1]);
         first.colsum(w.dub1, B, DB1, G[DB_B1]);
         first.colsum(w.duc, B, DC, G[DC_B1]);
-        CHECK(first.launch(st));
+        CHECK(first.launch());
     }
 
     // ---- backward: posterior, then EncoderA's block with its heads and the
     // site head and embedding in one launch, EncoderB's block 2 with its
     // heads (no site part: E = 0, S = 0, the bias written once a thread) in
     // another ----
-    posterior3_backward_kernel<<<blocks((size_t)B * L, WARPS), THREADS, 0, st>>>(
-        w.dua, P[DA_W1], DA, w.dub1, P[DB_W1], DB1, w.duc, P[DC_W1], DC, B, L, w.mu, w.lv,
-        w.epsv, w.sigma, beta, ea, w.dmh, w.dlh);
-    LAUNCHED();
+    CHECK(LAUNCH(q, posterior3_backward_kernel, dim3(blocks((size_t)B * L, WARPS)), THREADS, w.dua,
+        P[DA_W1], DA, w.dub1, P[DB_W1], DB1, w.duc, P[DC_W1], DC, B, L, w.mu, w.lv, w.epsv,
+        w.sigma, beta, ea, w.dmh, w.dlh));
     HeadsBackward ha{};
     ha.dmh = w.dmh; ha.dlh = w.dlh; ha.wmu = P[A_WMU]; ha.wlv = P[A_WLV];
     ha.dcoef = w.dca; ha.xhat = w.xa; ha.inv_std = w.inva; ha.gamma = P[A_G];
@@ -1763,7 +2006,6 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
     ha.hg = HeadGrads{G[A_WMU], G[A_BMU], G[A_WLV], G[A_BLV],
                       G[C_WMU], G[C_BMU], G[C_WLV], G[C_BLV]};
     ha.B = B; ha.H = HA; ha.L = L; ha.S = S; ha.E = E;
-    CHECK(heads_backward(ha, st));
     HeadsBackward hb{};
     hb.dmh = w.dmh; hb.dlh = w.dlh; hb.wmu = P[B_WMU]; hb.wlv = P[B_WLV];
     hb.dcoef = w.dcb2; hb.xhat = w.xb2; hb.inv_std = w.invb2; hb.gamma = P[B_G2];
@@ -1771,33 +2013,31 @@ int step_phases(const float* a, const float* b, const int64_t* site, const float
     hb.hg = HeadGrads{G[B_WMU], G[B_BMU], G[B_WLV], G[B_BLV],
                       nullptr,  G[B_BMU], nullptr,  G[B_BLV]};
     hb.B = B; hb.H = H2; hb.L = L;
-    CHECK(heads_backward(hb, st));
+    CHECK(heads_backward(ha, q, hb));
 
     // ---- backward: EncoderA's and EncoderB's block 2 weights, EncoderB's block 1 ----
     {
-        Group enc;
+        Group enc(q);
         enc.prod(Mat{a, 1, A}, Mat{w.daa, HA, 1}, G[A_W1], A, HA, B, 1, nullptr, nullptr);
         enc.prod(Mat{w.bd1, 1, H1}, Mat{w.dba2, H2, 1}, G[B_W2], H1, H2, B, 1, nullptr, nullptr);
         enc.prod(Mat{w.dba2, H2, 1}, Mat{P[B_W2], 1, H2}, w.scratch, B, H1, H2, BIG, nullptr,
                  &sp);
-        CHECK(enc.launch(st));
+        CHECK(enc.launch());
     }
-    bn_backward_kernel<<<blocks(H1, WARPS), THREADS, 0, st>>>(
-        w.scratch, sp, w.dcb1, w.xb1, w.invb1, P[B_G1], B, H1, w.dba1, G[B_G1], G[B_BT1],
-        G[B_B1]);
-    LAUNCHED();
-    CHECK(gemm(Mat{b, 1, Bd}, Mat{w.dba1, H1, 1}, G[B_W1], Bd, H1, B, 1, st, nullptr));
+    CHECK(LAUNCH(q, bn_backward_kernel, dim3(blocks(H1, WARPS)), THREADS, w.scratch, sp, w.dcb1,
+        w.xb1, w.invb1, P[B_G1], B, H1, w.dba1, G[B_G1], G[B_BT1], G[B_B1]));
+    CHECK(gemm(Mat{b, 1, Bd}, Mat{w.dba1, H1, 1}, G[B_W1], Bd, H1, B, 1, q, nullptr));
     return 0;
 }
 
-// The epoch's launches on ``st``: for each step i, step_phases on rows
+// The epoch's launches on ``q``: for each step i, step_phases on rows
 // [i * B, (i + 1) * B) with Philox step index i, then AdamW with step i's
 // bias corrections; seed, beta, gamma, lr and wd come from ``ea``.
 int epoch_phases(const float* a_ep, const float* b_ep, const int64_t* site_ep, const float* cw,
                  float* params, float* m, float* v, const Dims& d, int batch, int n_batches,
                  float* bn, const float* eps_ep, const float* dropa_ep, const float* dropb1_ep,
                  const float* dropb2_ep, int noise, const EpochArgs* ea, float* losses,
-                 const Work& w, cudaStream_t st) {
+                 const Work& w, const Queue& q) {
     long long off[N_PARAMS];
     const long long n_params = param_offsets(d, off);
     const bool inj = noise == NOISE_INJECTED;
@@ -1807,11 +2047,10 @@ int epoch_phases(const float* a_ep, const float* b_ep, const int64_t* site_ep, c
                           bn, inj ? eps_ep + r0 * d.latent : nullptr,
                           inj ? dropa_ep + r0 * d.ha : nullptr,
                           inj ? dropb1_ep + r0 * d.hb1 : nullptr,
-                          inj ? dropb2_ep + r0 * d.hb2 : nullptr, noise, 0, i, 0.f, 0.f, ea,
-                          losses + i, w.grads, w, st));
-        adamw_kernel<<<blocks((size_t)n_params), THREADS, 0, st>>>(
-            params, m, v, w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i);
-        LAUNCHED();
+                          inj ? dropb2_ep + r0 * d.hb2 : nullptr, noise, 0, i, nullptr, 0.f, 0.f,
+                          ea, losses + i, w.grads, w, q));
+        CHECK(LAUNCH(q, adamw_kernel, dim3(blocks((size_t)n_params)), THREADS, params, m, v,
+            w.grads, n_params, 0.f, 0.f, 1.f, 1.f, ea, i));
     }
     return 0;
 }
@@ -1823,32 +2062,54 @@ bool noise_ok(int noise, const float* eps, const float* da, const float* db1, co
 
 }  // namespace mm
 
-// A captured epoch (any of the three tasks): its graph, the stream it
-// replays on, the two events that order it after the caller's stream and the
-// caller after it, and the number of kernel launches it holds.
-struct EpochGraph {
+// A captured graph (an epoch of any task, or a step of the DNA->RNA or the
+// tri-modal model) and the stream it was captured on. An epoch replays on that
+// stream, ordered after the caller's stream by ``ready`` and the caller after
+// it by ``done``; a step replays on the caller's stream, records ``done``
+// there after each launch, and keeps its template graph and that graph's
+// first node (step_args_kernel), whose arguments each launch sets
+// (step_graph_launch), and the device StepArgs the node writes. Either way
+// ``done`` follows the last launch. ``nodes``: the kernel launches the graph
+// holds.
+struct Graph {
     cudaStream_t stream = nullptr;
     cudaEvent_t ready = nullptr, done = nullptr;
+    cudaGraph_t graph = nullptr;
     cudaGraphExec_t exec = nullptr;
+    cudaGraphNode_t args_node = nullptr;
+    StepArgs* args = nullptr;
     size_t nodes = 0;
 };
 
-void free_graph(EpochGraph* g) {
-    if (g->stream) cudaStreamSynchronize(g->stream);
+void free_graph(Graph* g) {
+    if (g->done) cudaEventSynchronize(g->done);
     if (g->exec) cudaGraphExecDestroy(g->exec);
+    if (g->graph) cudaGraphDestroy(g->graph);
     if (g->ready) cudaEventDestroy(g->ready);
     if (g->done) cudaEventDestroy(g->done);
     if (g->stream) cudaStreamDestroy(g->stream);
     delete g;
 }
 
+// The one root of a captured step, which must be step_args_kernel's node.
+int args_node(cudaGraph_t graph, cudaGraphNode_t* node) {
+    size_t n = 0;
+    CHECK(cudaGraphGetRootNodes(graph, nullptr, &n));
+    if (n != 1) return (int)cudaErrorInvalidValue;
+    CHECK(cudaGraphGetRootNodes(graph, node, &n));
+    cudaGraphNodeType type;
+    CHECK(cudaGraphNodeGetType(*node, &type));
+    return type == cudaGraphNodeTypeKernel ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Capture what ``enqueue(stream)`` launches into a CUDA graph, on a
 // non-blocking stream of its own (so the caller's stream may be the legacy
-// default one), and instantiate it. Returns the graph, or null with *err set
-// to the first CUDA error of the capture, the enqueue or the instantiation.
+// default one), and instantiate it; with ``step_args``, a step_args_kernel
+// writing there goes first. Returns the graph, or null with *err set to the
+// first CUDA error of the capture, the enqueue or the instantiation.
 template <class Enqueue>
-void* capture_epoch(Enqueue enqueue, int* err) {
-    auto* g = new EpochGraph;
+void* capture(Enqueue enqueue, int* err, StepArgs* step_args = nullptr) {
+    auto* g = new Graph;
     auto fail = [&](int e) -> void* {
         *err = e;
         free_graph(g);
@@ -1859,13 +2120,23 @@ void* capture_epoch(Enqueue enqueue, int* err) {
     if (!e) e = (int)cudaEventCreateWithFlags(&g->done, cudaEventDisableTiming);
     if (!e) e = (int)cudaStreamBeginCapture(g->stream, cudaStreamCaptureModeThreadLocal);
     if (e) return fail(e);
-    const int enq = enqueue(g->stream);
+    int enq = 0;
+    if (step_args) {
+        step_args_kernel<<<1, 1, 0, g->stream>>>(StepArgs{}, step_args);
+        enq = (int)cudaGetLastError();
+    }
+    if (!enq) enq = enqueue(g->stream);
     cudaGraph_t graph = nullptr;
     const int ended = (int)cudaStreamEndCapture(g->stream, &graph);
     e = enq ? enq : ended;
+    if (step_args) {
+        g->graph = graph;  // the args node's template: freed with g
+        g->args = step_args;
+    }
     if (!e) e = (int)cudaGraphGetNodes(graph, nullptr, &g->nodes);
+    if (!e && step_args) e = args_node(graph, &g->args_node);
     if (!e) e = (int)cudaGraphInstantiate(&g->exec, graph, 0);
-    if (graph) cudaGraphDestroy(graph);
+    if (!step_args && graph) cudaGraphDestroy(graph);
     if (e) return fail(e);
     return g;
 }
@@ -1904,8 +2175,8 @@ int rna2dna_train_step(const float* x, const float* t, const int64_t* site, cons
     }
     const Work w = plan(work, d, batch, false);
     return step_phases(x, t, site, params, d, batch, rm_in, rv_in, rm_out, rv_out, eps_in,
-                       drop_in, noise, (uint64_t)seed, step, beta, nullptr, loss, grads, w,
-                       (cudaStream_t)stream);
+                       drop_in, noise, (uint64_t)seed, step, nullptr, beta, nullptr, loss, grads,
+                       w, Queue{(cudaStream_t)stream, false});
 }
 
 // Floats of the epoch-args buffer of an epoch of n_batches steps (any task):
@@ -1924,13 +2195,15 @@ int epoch_args_floats(int n_batches) {
 // step's bias corrections, read when the graph runs; gamma unused) are baked
 // in by address: each launch of the graph (epoch_graph_launch) runs the
 // epoch on what these buffers hold then, updating params, m, v and bn in
-// place. Step i draws its noise with step index i. Returns a handle, or null
-// with *err set.
+// place. Step i draws its noise with step index i. pdl: 1 launches the
+// phases programmatically, 0 as plain stream launches (the same bits; the
+// wrapper's choice, fused_epoch._EpochGraph). Returns a handle, or null with
+// *err set.
 void* rna2dna_epoch_graph_create(const float* x_ep, const float* t_ep, const int64_t* site_ep,
                                  float* params, float* m, float* v, const int* dims, int batch,
                                  int n_batches, float* bn, const float* eps_ep,
                                  const float* drop_ep, int noise, const float* args,
-                                 float* losses, float* work, int* err) {
+                                 float* losses, float* work, int pdl, int* err) {
     const Dims d = dims_from(dims);
     *err = 0;
     if (!valid(d, batch) || n_batches < 1 || !args ||
@@ -1941,9 +2214,9 @@ void* rna2dna_epoch_graph_create(const float* x_ep, const float* t_ep, const int
     }
     const Work w = plan(work, d, batch, true);
     const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
-    return capture_epoch([&](cudaStream_t st) {
+    return capture([&](cudaStream_t st) {
         return epoch_phases(x_ep, t_ep, site_ep, params, m, v, d, batch, n_batches, bn, eps_ep,
-                            drop_ep, noise, ea, losses, w, st);
+                            drop_ep, noise, ea, losses, w, Queue{st, pdl != 0});
     }, err);
 }
 
@@ -1973,27 +2246,41 @@ long long dna2rna_train_workspace_floats(const int* dims, int batch, int with_gr
     return (long long)d2r::plan(nullptr, d2r::from(dims), batch, with_grads != 0).total;
 }
 
-// One DNA->RNA train step. x (B, in) the DNA input, t (B, out) the RNA
-// target, site (B,) int64; params: the flat parameter buffer; bn_in/bn_out:
-// rm1, rv1 (h1) and rm2, rv2 (h2) in one buffer each; eps_in (B, latent),
-// drop1_in (B, h1) and drop2_in (B, h2) when noise == 0, ignored when 1
-// (Philox); loss (1,), grads: a flat buffer like params; work:
-// dna2rna_train_workspace_floats(dims, B, 0) floats.
-int dna2rna_train_step(const float* x, const float* t, const int64_t* site, const float* params,
-                       const int* dims, int batch, const float* bn_in, float* bn_out,
-                       const float* eps_in, const float* drop1_in, const float* drop2_in,
-                       int noise, unsigned long long seed, int step, float beta, float* loss,
-                       float* grads, float* work, void* stream) {
+// Capture one DNA->RNA train step into a CUDA graph and instantiate it. Its
+// buffers are baked in by address: x (B, in) the DNA input, t (B, out) the
+// RNA target, site (B,) int64, params (the flat parameter buffer), bn_in
+// (rm1, rv1 (h1), rm2, rv2 (h2)), eps_in (B, latent), drop1_in (B, h1) and
+// drop2_in (B, h2) when noise == 0 (NOISE_INJECTED; ignored when 1, Philox),
+// and the outputs bn_out (as bn_in), loss (1,) and grads (like params), work
+// (dna2rna_train_workspace_floats(dims, B, 0) floats) and args (8 floats,
+// struct StepArgs: the seed, beta and the Philox step index, which each
+// step_graph_launch sets). Each launch runs the step on what the buffers
+// hold then. pdl as for rna2dna_epoch_graph_create; with 1 a product fetches
+// its first parameter tile before it waits (nothing in the graph writes
+// params). Returns a handle, or null with *err set.
+void* dna2rna_step_graph_create(const float* x, const float* t, const int64_t* site,
+                                const float* params, const int* dims, int batch,
+                                const float* bn_in, float* bn_out, const float* eps_in,
+                                const float* drop1_in, const float* drop2_in, int noise,
+                                float* args, float* loss, float* grads, float* work, int pdl,
+                                int* err) {
     const d2r::Dims d = d2r::from(dims);
-    if (!d2r::valid(d, batch) ||
+    *err = 0;
+    if (!d2r::valid(d, batch) || !args ||
         (noise == NOISE_INJECTED && (!eps_in || !drop1_in || !drop2_in)) ||
         (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
-        return (int)cudaErrorInvalidValue;
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
     }
+    long long off[d2r::N_PARAMS];
+    const float* end = params + d2r::param_offsets(d, off);
     const d2r::Work w = d2r::plan(work, d, batch, false);
-    return d2r::step_phases(x, t, site, params, d, batch, bn_in, bn_out, eps_in, drop1_in,
-                            drop2_in, noise, (uint64_t)seed, step, beta, nullptr, loss, grads, w,
-                            (cudaStream_t)stream);
+    StepArgs* sa = reinterpret_cast<StepArgs*>(args);
+    return capture([&](cudaStream_t st) {
+        return d2r::step_phases(x, t, site, params, d, batch, bn_in, bn_out, eps_in, drop1_in,
+                                drop2_in, noise, 0, 0, &sa->step, 0.f, &sa->e, loss, grads, w,
+                                Queue{st, pdl != 0, params, end});
+    }, err, sa);
 }
 
 // Capture one DNA->RNA epoch into a CUDA graph, as rna2dna_epoch_graph_create:
@@ -2004,7 +2291,8 @@ void* dna2rna_epoch_graph_create(const float* x_ep, const float* t_ep, const int
                                  float* params, float* m, float* v, const int* dims, int batch,
                                  int n_batches, float* bn, const float* eps_ep,
                                  const float* drop1_ep, const float* drop2_ep, int noise,
-                                 const float* args, float* losses, float* work, int* err) {
+                                 const float* args, float* losses, float* work, int pdl,
+                                 int* err) {
     const d2r::Dims d = d2r::from(dims);
     *err = 0;
     if (!d2r::valid(d, batch) || n_batches < 1 || !args ||
@@ -2015,9 +2303,9 @@ void* dna2rna_epoch_graph_create(const float* x_ep, const float* t_ep, const int
     }
     const d2r::Work w = d2r::plan(work, d, batch, true);
     const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
-    return capture_epoch([&](cudaStream_t st) {
+    return capture([&](cudaStream_t st) {
         return d2r::epoch_phases(x_ep, t_ep, site_ep, params, m, v, d, batch, n_batches, bn,
-                                 eps_ep, drop1_ep, drop2_ep, noise, ea, losses, w, st);
+                                 eps_ep, drop1_ep, drop2_ep, noise, ea, losses, w, Queue{st, pdl != 0});
     }, err);
 }
 
@@ -2052,27 +2340,37 @@ long long multimodal_train_workspace_floats(const int* dims, int batch, int with
     return (long long)mm::plan(nullptr, mm::from(dims), batch, with_grads != 0).total;
 }
 
-// One tri-modal train step. a (B, in_a) RNA and b (B, in_b) DNA, each both
+// Capture one tri-modal train step into a CUDA graph and instantiate it, as
+// dna2rna_step_graph_create: a (B, in_a) RNA and b (B, in_b) DNA, each both
 // an input and a target; site (B,) int64 in [0, sites); cw (sites,) class
-// weights or null for ones; params: the flat parameter buffer; bn_in/bn_out:
-// a_rm, a_rv, b_rm1, b_rv1, b_rm2, b_rv2 in one buffer each; eps_in (B,
-// latent), dropa_in (B, ha), dropb1_in (B, hb1), dropb2_in (B, hb2) when
-// noise == 0, ignored when 1 (Philox); loss (1,), grads: a flat buffer like
-// params; work: multimodal_train_workspace_floats(dims, B, 0) floats.
-int multimodal_train_step(const float* a, const float* b, const int64_t* site, const float* cw,
-                          const float* params, const int* dims, int batch, const float* bn_in,
-                          float* bn_out, const float* eps_in, const float* dropa_in,
-                          const float* dropb1_in, const float* dropb2_in, int noise,
-                          unsigned long long seed, int step, float beta, float gamma, float* loss,
-                          float* grads, float* work, void* stream) {
+// weights or null for ones; params; bn_in/bn_out: a_rm, a_rv, b_rm1, b_rv1,
+// b_rm2, b_rv2; eps_in (B, latent), dropa_in (B, ha), dropb1_in (B, hb1),
+// dropb2_in (B, hb2) when noise == 0; loss, grads, work
+// (multimodal_train_workspace_floats(dims, B, 0) floats) and args (StepArgs:
+// the seed, beta, gamma and the Philox step index).
+void* multimodal_step_graph_create(const float* a, const float* b, const int64_t* site,
+                                   const float* cw, const float* params, const int* dims,
+                                   int batch, const float* bn_in, float* bn_out,
+                                   const float* eps_in, const float* dropa_in,
+                                   const float* dropb1_in, const float* dropb2_in, int noise,
+                                   float* args, float* loss, float* grads, float* work, int pdl,
+                                   int* err) {
     const mm::Dims d = mm::from(dims);
-    if (!mm::valid(d, batch) || !mm::noise_ok(noise, eps_in, dropa_in, dropb1_in, dropb2_in)) {
-        return (int)cudaErrorInvalidValue;
+    *err = 0;
+    if (!mm::valid(d, batch) || !args ||
+        !mm::noise_ok(noise, eps_in, dropa_in, dropb1_in, dropb2_in)) {
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
     }
+    long long off[mm::N_PARAMS];
+    const float* end = params + mm::param_offsets(d, off);
     const mm::Work w = mm::plan(work, d, batch, false);
-    return mm::step_phases(a, b, site, cw, params, d, batch, bn_in, bn_out, eps_in, dropa_in,
-                           dropb1_in, dropb2_in, noise, (uint64_t)seed, step, beta, gamma,
-                           nullptr, loss, grads, w, (cudaStream_t)stream);
+    StepArgs* sa = reinterpret_cast<StepArgs*>(args);
+    return capture([&](cudaStream_t st) {
+        return mm::step_phases(a, b, site, cw, params, d, batch, bn_in, bn_out, eps_in, dropa_in,
+                               dropb1_in, dropb2_in, noise, 0, 0, &sa->step, 0.f, 0.f, &sa->e,
+                               loss, grads, w, Queue{st, pdl != 0, params, end});
+    }, err, sa);
 }
 
 // Capture one tri-modal epoch of n_batches steps into a CUDA graph and
@@ -2084,14 +2382,15 @@ int multimodal_train_step(const float* a, const float* b, const int64_t* site, c
 // gamma, lr, wd and each step's bias corrections, read when the graph runs)
 // are baked in by address: each launch of the graph runs the epoch on what
 // these buffers hold then, updating params, m, v and bn in place. Step i
-// draws its noise with step index i (capture_epoch). Returns a handle for
+// draws its noise with step index i (capture). Returns a handle for
 // epoch_graph_launch, or null with *err set.
 void* multimodal_epoch_graph_create(const float* a_ep, const float* b_ep, const int64_t* site_ep,
                                     const float* cw, float* params, float* m, float* v,
                                     const int* dims, int batch, int n_batches, float* bn,
                                     const float* eps_ep, const float* dropa_ep,
                                     const float* dropb1_ep, const float* dropb2_ep, int noise,
-                                    const float* args, float* losses, float* work, int* err) {
+                                    const float* args, float* losses, float* work, int pdl,
+                                    int* err) {
     const mm::Dims d = mm::from(dims);
     *err = 0;
     if (!mm::valid(d, batch) || n_batches < 1 || !args ||
@@ -2101,16 +2400,16 @@ void* multimodal_epoch_graph_create(const float* a_ep, const float* b_ep, const 
     }
     const mm::Work w = mm::plan(work, d, batch, true);
     const EpochArgs* ea = reinterpret_cast<const EpochArgs*>(args);
-    return capture_epoch([&](cudaStream_t st) {
+    return capture([&](cudaStream_t st) {
         return mm::epoch_phases(a_ep, b_ep, site_ep, cw, params, m, v, d, batch, n_batches, bn,
-                                eps_ep, dropa_ep, dropb1_ep, dropb2_ep, noise, ea, losses, w, st);
+                                eps_ep, dropa_ep, dropb1_ep, dropb2_ep, noise, ea, losses, w, Queue{st, pdl != 0});
     }, err);
 }
 
 // Replay a captured epoch (of any task): after what the caller's stream has
 // queued, and before what it queues next.
 int epoch_graph_launch(void* handle, void* stream) {
-    auto* g = static_cast<EpochGraph*>(handle);
+    auto* g = static_cast<Graph*>(handle);
     cudaStream_t caller = (cudaStream_t)stream;
     CHECK(cudaEventRecord(g->ready, caller));
     CHECK(cudaStreamWaitEvent(g->stream, g->ready, 0));
@@ -2120,14 +2419,33 @@ int epoch_graph_launch(void* handle, void* stream) {
     return 0;
 }
 
-// Kernel launches in a captured epoch.
-long long epoch_graph_nodes(void* handle) {
-    return (long long)static_cast<EpochGraph*>(handle)->nodes;
+// Replay a captured step on the caller's stream with ``args`` (a host
+// StepArgs: the seed, beta, gamma and step index, fused_train.step_args),
+// which the graph's first node writes to the device buffer its phases read.
+// Setting that node's arguments affects this launch and later ones, never one
+// already queued, so the host buffer is free on return.
+int step_graph_launch(void* handle, const void* args, void* stream) {
+    auto* g = static_cast<Graph*>(handle);
+    StepArgs a;
+    memcpy(&a, args, sizeof a);
+    void* params[] = {&a, &g->args};
+    cudaKernelNodeParams p = {};
+    p.func = (void*)step_args_kernel;
+    p.gridDim = dim3(1);
+    p.blockDim = dim3(1);
+    p.kernelParams = params;
+    CHECK(cudaGraphExecKernelNodeSetParams(g->exec, g->args_node, &p));
+    CHECK(cudaGraphLaunch(g->exec, (cudaStream_t)stream));
+    CHECK(cudaEventRecord(g->done, (cudaStream_t)stream));
+    return 0;
 }
 
-// Free a captured epoch, after its last launch has run.
-void epoch_graph_destroy(void* handle) {
-    if (handle) free_graph(static_cast<EpochGraph*>(handle));
+// Kernel launches in a captured graph (an epoch's or a step's).
+long long graph_nodes(void* handle) { return (long long)static_cast<Graph*>(handle)->nodes; }
+
+// Free a captured graph, after its last launch has run.
+void graph_destroy(void* handle) {
+    if (handle) free_graph(static_cast<Graph*>(handle));
 }
 
 // The dropout masks (B, ha), (B, hb1), (B, hb2) and eps (B, latent) that a

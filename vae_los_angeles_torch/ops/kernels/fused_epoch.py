@@ -52,7 +52,9 @@ decay and each step's bias corrections, `epoch_args`) from pinned memory
 into a small device buffer the graph reads. A new key for a task frees that
 task's graph and captures anew; the other tasks' graphs stay, so runs that
 alternate the tasks capture nothing more. A capture or launch that fails
-raises with the CUDA error, and nothing falls back.
+raises with the CUDA error, and nothing falls back. The tri-modal epoch's
+phases launch programmatically (PDL), each scheduled while the previous one
+drains; the directional epochs' launch plainly (`_EpochGraph`).
 
 ``launches`` counts the epochs' graph launches, one an epoch.
 """
@@ -301,26 +303,22 @@ GRAPH_ENTRIES = {
 }
 
 
-def _graph_widths(task, dims_t):
-    """(BatchNorm statistics' floats, the row blocks' widths, the injected
-    noise's widths) of a task's epoch, from its dims."""
-    if task == "rna2dna":  # in, hidden, latent, sites, embed, d1, d2, out
-        return 2 * dims_t[1], (dims_t[0], dims_t[7]), (dims_t[2], dims_t[1])
-    if task == "dna2rna":  # in, h1, h2, latent, sites, embed, d1, out
-        return 2 * (dims_t[1] + dims_t[2]), (dims_t[0], dims_t[7]), (dims_t[3], *dims_t[1:3])
-    a, b, ha, hb1, hb2, latent = dims_t[:6]  # then sites, embed, da, db1, db2, dc
-    return 2 * (ha + hb1 + hb2), (a, b), (latent, ha, hb1, hb2)
-
-
 class _EpochGraph:
-    """A captured epoch of one task and the buffers its launches address."""
+    """A captured epoch of one task and the buffers its launches address.
+    ``pdl``: whether the phases launch programmatically; by default the
+    tri-modal epoch's do and the directional epochs' launch plainly (on the
+    H100 PDL took the tri-modal epoch 4-6% below plain launches and the
+    directional ones 1-3% above; ``python3 chip_probes.py pdl``, PERF.md).
+    Both give the same bits."""
 
-    def __init__(self, lib, task, dev, dims_t, batch, n_batches, injected, with_cw):
+    def __init__(self, lib, task, dev, dims_t, batch, n_batches, injected, with_cw, pdl=None):
+        if pdl is None:
+            pdl = task == "multimodal"
         f32 = dict(device=dev, dtype=torch.float32)
         create, count, workspace = GRAPH_ENTRIES[task]
         dims = (ctypes.c_int * len(dims_t))(*dims_t)
         rows = batch * n_batches
-        bn_floats, row_widths, noise_widths = _graph_widths(task, dims_t)
+        bn_floats, row_widths, noise_widths = ft.graph_widths(task, dims_t)
         n_params = getattr(lib, count)(dims)
         self.lib, self.n_batches = lib, n_batches
         self.p, self.m, self.v = (torch.empty(n_params, **f32) for _ in range(3))
@@ -345,27 +343,22 @@ class _EpochGraph:
             *(t.data_ptr() for t in self.rows), self.site.data_ptr(), *cw, self.p.data_ptr(),
             self.m.data_ptr(), self.v.data_ptr(), dims, batch, n_batches, self.bn.data_ptr(),
             *noise, ft.NOISE_INJECTED if injected else ft.NOISE_PHILOX, self.args.data_ptr(),
-            self.losses.data_ptr(), self.work.data_ptr(), ctypes.byref(err))
+            self.losses.data_ptr(), self.work.data_ptr(), int(pdl), ctypes.byref(err))
         self.capture_seconds = time.perf_counter() - t0
         ft.raise_on(lib, err.value, create)
-        self.launches_per_step = lib.epoch_graph_nodes(self.handle) / n_batches
+        self.launches_per_step = lib.graph_nodes(self.handle) / n_batches
 
     def __del__(self):
         if getattr(self, "handle", None):
-            self.lib.epoch_graph_destroy(self.handle)
+            self.lib.graph_destroy(self.handle)
 
 
 graphs = {}  # task: (key, _EpochGraph), one cached graph a task
 
 
 def epoch_graph(task, key, build):
-    """The cached graph of ``task`` for ``key``; when the key changed, the
-    task's old graph is freed first (its buffers go with it) and
-    ``build()`` captures the new one. The other tasks' graphs stay."""
-    if graphs.get(task, (None,))[0] != key:
-        graphs.pop(task, None)  # no reference to it is left here: it is freed now
-        graphs[task] = (key, build())
-    return graphs[task][1]
+    """The cached graph of ``task`` for ``key`` (`ft.cached_graph`)."""
+    return ft.cached_graph(graphs, task, key, build)
 
 
 def _run_graph(task, dims_t, trees, order, bn, rows, site, noise, cw, args):

@@ -18,10 +18,14 @@ drop_b1=..., drop_b2=...)`` does it for a MultiModalVAE (RNA ``a`` and DNA
 CE sum + beta * KLD, the 39 tensors of `PARAM_ORDER_MM`, the three
 BatchNorms' running statistics; a site label outside [0, n_sites) raises.
 
-  * CUDA tensors: one call of ``rna2dna_train_step``, ``dna2rna_train_step``
-    or ``multimodal_train_step`` in ``csrc/fused_train.cu`` (built at first
-    use), which enqueues the step's phases on the current stream; a tensor
-    it does not take raises, nothing falls back;
+  * CUDA tensors: the DNA→RNA and tri-modal steps are one launch of a CUDA
+    graph of ``csrc/fused_train.cu`` (built at first use), captured once for
+    a key (`step_graph_key`: the task, widths, batch, noise mode, class
+    weights or not, device) with the buffers its phases address and cached,
+    one graph a task (`step_graphs`); see "The step graphs" below. The
+    RNA→DNA step is one call of ``rna2dna_train_step``, which enqueues its
+    phases on the current stream from the host. A tensor the kernels do not
+    take raises; nothing falls back;
   * CPU tensors: `rna2dna_train_step_reference`,
     `dna2rna_train_step_reference` or `multimodal_train_step_reference`, the
     plain PyTorch version of the same hand-derived arithmetic.
@@ -35,13 +39,28 @@ stream), a stream for each dropout layer and one for eps; the plain version
 draws from a ``torch.Generator`` seeded from (seed, step), so the two agree
 only in distribution there.
 
-``launches`` counts the kernels' launches.
+The step graphs: a call copies its inputs (the flat parameters, the
+BatchNorm statistics, the rows, the injected noise, the class weights) into
+the graph's buffers with one ``torch._foreach_copy_`` and the site labels
+with one copy, launches the graph on the current stream with the values that
+change between calls (`step_args`: the seed, β, γ and the Philox step index,
+set as the arguments of the graph's first node, so no host buffer waits on
+the card), and returns the loss, the gradients and the new statistics as
+views of one clone of the graph's output buffer, which the next call
+overwrites. Inside the graph the phases launch programmatically (PDL): each
+one is scheduled while the previous one drains and fetches its first weight
+tile before it waits. A capture or launch that fails raises with the CUDA
+error.
+
+``launches`` counts the kernels' launches (a step graph's launch is one).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+import time
 
 import torch
 
@@ -149,6 +168,8 @@ BN_MM = (("encoder_a", "bn"), ("encoder_b", "bn1"), ("encoder_b", "bn2"))  # ker
 
 launches = {"rna2dna_train_step": 0, "dna2rna_train_step": 0, "multimodal_train_step": 0}
 
+ORDERS = {"rna2dna": PARAM_ORDER, "dna2rna": PARAM_ORDER_D2R, "multimodal": PARAM_ORDER_MM}
+
 
 def check_noise_args(**named):
     """Injected noise is all-or-nothing: a partial set raises. Returns
@@ -207,6 +228,9 @@ def dims_of_mm(flat):
             flat["b_w1"].shape[1], flat["b_w2"].shape[1], flat["a_wmu"].shape[1],
             flat["emb"].shape[0], flat["emb"].shape[1], flat["da_w1"].shape[1],
             flat["db_w1"].shape[1], flat["db_w2"].shape[1], flat["dc_w1"].shape[1])
+
+
+DIMS_OF = {"rna2dna": dims_of, "dna2rna": dims_of_d2r, "multimodal": dims_of_mm}
 
 
 def pack(flat, order=PARAM_ORDER):
@@ -503,7 +527,7 @@ def library():
     lib.rna2dna_train_workspace_floats.restype = ll
     lib.rna2dna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, p, p, p, p]
     lib.rna2dna_train_step.restype = i
-    lib.rna2dna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p,
+    lib.rna2dna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p, i,
                                                ctypes.POINTER(ctypes.c_int)]
     lib.rna2dna_epoch_graph_create.restype = p
     lib.rna2dna_train_noise.argtypes = [u64, i, i, i, i, p, p, p]
@@ -512,9 +536,10 @@ def library():
     lib.dna2rna_param_count.restype = ll
     lib.dna2rna_train_workspace_floats.argtypes = [p, i, i]
     lib.dna2rna_train_workspace_floats.restype = ll
-    lib.dna2rna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, u64, i, f, p, p, p, p]
-    lib.dna2rna_train_step.restype = i
-    lib.dna2rna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, p, p, p,
+    lib.dna2rna_step_graph_create.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, p, p, p, p, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.dna2rna_step_graph_create.restype = p
+    lib.dna2rna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, p, i, p, p, p, i,
                                                ctypes.POINTER(ctypes.c_int)]
     lib.dna2rna_epoch_graph_create.restype = p
     lib.dna2rna_train_noise.argtypes = [u64, i, i, i, i, i, p, p, p, p]
@@ -523,20 +548,22 @@ def library():
     lib.multimodal_param_count.restype = ll
     lib.multimodal_train_workspace_floats.argtypes = [p, i, i]
     lib.multimodal_train_workspace_floats.restype = ll
-    lib.multimodal_train_step.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, f,
-                                          p, p, p, p]
-    lib.multimodal_train_step.restype = i
+    lib.multimodal_step_graph_create.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p, i, p, p,
+                                                 p, p, i, ctypes.POINTER(ctypes.c_int)]
+    lib.multimodal_step_graph_create.restype = p
     lib.multimodal_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p, p, i,
-                                                  p, p, p, ctypes.POINTER(ctypes.c_int)]
+                                                  p, p, p, i, ctypes.POINTER(ctypes.c_int)]
     lib.multimodal_epoch_graph_create.restype = p
     lib.epoch_args_floats.argtypes = [i]
     lib.epoch_args_floats.restype = i
     lib.epoch_graph_launch.argtypes = [p, p]
     lib.epoch_graph_launch.restype = i
-    lib.epoch_graph_nodes.argtypes = [p]
-    lib.epoch_graph_nodes.restype = ll
-    lib.epoch_graph_destroy.argtypes = [p]
-    lib.epoch_graph_destroy.restype = None
+    lib.step_graph_launch.argtypes = [p, p, p]
+    lib.step_graph_launch.restype = i
+    lib.graph_nodes.argtypes = [p]
+    lib.graph_nodes.restype = ll
+    lib.graph_destroy.argtypes = [p]
+    lib.graph_destroy.restype = None
     lib.multimodal_train_noise.argtypes = [u64, i, i, i, i, i, i, p, p, p, p, p]
     lib.multimodal_train_noise.restype = i
     lib.fused_train_error_string.argtypes = [i]
@@ -563,51 +590,64 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_params(flat, order, n_sites):
-    """The parameters' device, after checking that every tensor is float32
-    and contiguous there and that the table has ``n_sites`` rows."""
-    dev = flat[order[0][0]].device
+def check_tensors(items, device):
+    """`check_tensor` over (name, tensor, dtype, shape) items in one pass; the
+    first failure's own error (a wrapper takes up to 52 tensors a call, and
+    the checks are most of its host time)."""
+    index = -1 if device.type == "cpu" else device.index
+    if not all(isinstance(t, torch.Tensor) and t.dtype is dtype and t.get_device() == index
+               and t.shape == shape and t.is_contiguous() for _, t, dtype, shape in items):
+        for name, t, dtype, shape in items:
+            check_tensor(name, t, device, dtype, shape)
+
+
+def _check_params(flat, task, n_sites):
+    """The parameters' device and dims, after checking that every tensor of
+    ``task`` is a float32 tensor, contiguous there, and that the table has
+    ``n_sites`` rows."""
+    names = [name for name, _ in ORDERS[task]]
+    tensors = [flat[name] for name in names]
+    if not all(isinstance(t, torch.Tensor) for t in tensors):
+        bad = next(n for n, t in zip(names, tensors) if not isinstance(t, torch.Tensor))
+        raise TypeError(f"{bad} must be a torch.Tensor, got {type(flat[bad]).__name__}")
+    dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
-    for name, _ in order:
-        check_tensor(name, flat[name], dev, torch.float32, flat[name].shape)
+    f32 = torch.float32
+    check_tensors([(n, t, f32, t.shape) for n, t in zip(names, tensors)], dev)
     if n_sites != flat["emb"].shape[0]:
         raise ValueError(f"n_sites={n_sites} but the embedding table has "
                          f"{flat['emb'].shape[0]} rows")
-    return dev
+    return dev, DIMS_OF[task](flat)
 
 
 def check_step_inputs(flat, rm, rv, rna, dna, site, n_sites, eps, drop, rows):
     """Validate what the kernel takes: every tensor float32 (site int64),
     contiguous, on the parameters' device, at the shapes of `dims_of`."""
-    dev = _check_params(flat, PARAM_ORDER, n_sites)
-    din, hid, latent, _, _, _, _, dout = dims_of(flat)
-    check_tensor("running mean", rm, dev, torch.float32, (hid,))
-    check_tensor("running var", rv, dev, torch.float32, (hid,))
-    check_tensor("rna", rna, dev, torch.float32, (rows, din))
-    check_tensor("dna", dna, dev, torch.float32, (rows, dout))
-    check_tensor("site", site, dev, torch.int64, (rows,))
+    dev, (din, hid, latent, _, _, _, _, dout) = _check_params(flat, "rna2dna", n_sites)
+    f32 = torch.float32
+    items = [("running mean", rm, f32, (hid,)), ("running var", rv, f32, (hid,)),
+             ("rna", rna, f32, (rows, din)), ("dna", dna, f32, (rows, dout)),
+             ("site", site, torch.int64, (rows,))]
     if eps is not None:
-        check_tensor("eps", eps, dev, torch.float32, (rows, latent))
-        check_tensor("drop_mask", drop, dev, torch.float32, (rows, hid))
+        items += [("eps", eps, f32, (rows, latent)), ("drop_mask", drop, f32, (rows, hid))]
+    check_tensors(items, dev)
     return dev
 
 
 def check_d2r_inputs(flat, bn, dna, rna, site, n_sites, eps, drop1, drop2, rows):
     """`check_step_inputs` for the DNA→RNA kernel: ``bn`` is (rm1, rv1,
     rm2, rv2), ``dna`` the input, ``rna`` the target."""
-    dev = _check_params(flat, PARAM_ORDER_D2R, n_sites)
-    din, h1, h2, latent, _, _, _, dout = dims_of_d2r(flat)
-    for name, t, width in zip(("bn1 mean", "bn1 var", "bn2 mean", "bn2 var"), bn,
-                              (h1, h1, h2, h2)):
-        check_tensor(name, t, dev, torch.float32, (width,))
-    check_tensor("dna", dna, dev, torch.float32, (rows, din))
-    check_tensor("rna", rna, dev, torch.float32, (rows, dout))
-    check_tensor("site", site, dev, torch.int64, (rows,))
+    dev, (din, h1, h2, latent, _, _, _, dout) = _check_params(flat, "dna2rna", n_sites)
+    f32 = torch.float32
+    items = [(name, t, f32, (width,)) for name, t, width in zip(
+        ("bn1 mean", "bn1 var", "bn2 mean", "bn2 var"), bn, (h1, h1, h2, h2))]
+    items += [("dna", dna, f32, (rows, din)), ("rna", rna, f32, (rows, dout)),
+              ("site", site, torch.int64, (rows,))]
     if eps is not None:
-        check_tensor("eps", eps, dev, torch.float32, (rows, latent))
-        check_tensor("drop_mask1", drop1, dev, torch.float32, (rows, h1))
-        check_tensor("drop_mask2", drop2, dev, torch.float32, (rows, h2))
+        items += [("eps", eps, f32, (rows, latent)), ("drop_mask1", drop1, f32, (rows, h1)),
+                  ("drop_mask2", drop2, f32, (rows, h2))]
+    check_tensors(items, dev)
     return dev
 
 
@@ -694,42 +734,15 @@ def dna2rna_fused_train_step(params, state, rna, dna, site, n_sites, *, seed=0, 
         loss, grads, bn = dna2rna_train_step_reference(flat, bn, dna, rna, site, eps, drop_mask1,
                                                        drop_mask2, float(beta))
     else:
-        loss, grads, bn = _launch_step_d2r(flat, bn, dna, rna, site, eps, drop_mask1, drop_mask2,
-                                           use_prng, seed, step, float(beta))
+        noise = () if use_prng else (eps, drop_mask1, drop_mask2)
+        loss, grads, bn = _run_step("dna2rna", flat, bn, (dna, rna), site, noise, None, seed,
+                                    step, float(beta), 0.0)
     return loss, unflatten(grads, PARAM_ORDER_D2R), bn_d2r_tree(bn)
 
 
 def split_bn(buf, h1, h2):
     """(rm1, rv1, rm2, rv2) views of one (2·h1 + 2·h2,) buffer."""
     return tuple(buf.split((h1, h1, h2, h2)))
-
-
-def _launch_step_d2r(flat, bn, dna, rna, site, eps, drop1, drop2, use_prng, seed, step, beta):
-    lib = library()
-    dev = dna.device
-    batch = dna.shape[0]
-    dims_t = dims_of_d2r(flat)
-    dims = (ctypes.c_int * 8)(*dims_t)
-    params = pack(flat, PARAM_ORDER_D2R)
-    grads = torch.empty_like(params)
-    loss = torch.empty(1, device=dev, dtype=torch.float32)
-    bn_in = torch.cat(bn)
-    bn_out = torch.empty_like(bn_in)
-    work = torch.empty(lib.dna2rna_train_workspace_floats(dims, batch, 0), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    noise = (None, None, None) if use_prng else (eps.data_ptr(), drop1.data_ptr(),
-                                                 drop2.data_ptr())
-    with torch.cuda.device(dev):
-        err = lib.dna2rna_train_step(
-            dna.data_ptr(), rna.data_ptr(), site.data_ptr(), params.data_ptr(), dims, batch,
-            bn_in.data_ptr(), bn_out.data_ptr(), *noise,
-            NOISE_PHILOX if use_prng else NOISE_INJECTED, seed, step, beta, loss.data_ptr(),
-            grads.data_ptr(), work.data_ptr(), stream)
-    raise_on(lib, err, "dna2rna_train_step")
-    launches["dna2rna_train_step"] += 1
-    return (loss[0], unpack(grads, flat, PARAM_ORDER_D2R),
-            split_bn(bn_out, dims_t[1], dims_t[2]))
 
 
 def philox_noise(seed, step, batch, hidden, latent, device):
@@ -797,20 +810,19 @@ def check_mm_inputs(flat, bn, a, b, site, n_sites, class_weights, noise, rows):
     """Validate what the tri-modal kernel takes: every tensor float32 (site
     int64), contiguous, on the parameters' device, at the shapes of
     `dims_of_mm`; ``noise`` is (eps, drop_a, drop_b1, drop_b2) or Nones."""
-    dev = _check_params(flat, PARAM_ORDER_MM, n_sites)
-    din_a, din_b, ha, hb1, hb2, latent, *_ = dims_of_mm(flat)
-    for name, t, width in zip(("a bn mean", "a bn var", "b bn1 mean", "b bn1 var", "b bn2 mean",
-                               "b bn2 var"), bn, (ha, ha, hb1, hb1, hb2, hb2)):
-        check_tensor(name, t, dev, torch.float32, (width,))
-    check_tensor("a", a, dev, torch.float32, (rows, din_a))
-    check_tensor("b", b, dev, torch.float32, (rows, din_b))
-    check_tensor("site", site, dev, torch.int64, (rows,))
+    dev, (din_a, din_b, ha, hb1, hb2, latent, *_) = _check_params(flat, "multimodal", n_sites)
+    f32 = torch.float32
+    items = [(name, t, f32, (width,)) for name, t, width in zip(
+        ("a bn mean", "a bn var", "b bn1 mean", "b bn1 var", "b bn2 mean", "b bn2 var"), bn,
+        (ha, ha, hb1, hb1, hb2, hb2))]
+    items += [("a", a, f32, (rows, din_a)), ("b", b, f32, (rows, din_b)),
+              ("site", site, torch.int64, (rows,))]
     if class_weights is not None:
-        check_tensor("class_weights", class_weights, dev, torch.float32, (n_sites,))
+        items.append(("class_weights", class_weights, f32, (n_sites,)))
     if noise[0] is not None:
-        for name, t, width in zip(("eps", "drop_a", "drop_b1", "drop_b2"), noise,
-                                  (latent, ha, hb1, hb2)):
-            check_tensor(name, t, dev, torch.float32, (rows, width))
+        items += [(name, t, f32, (rows, width)) for name, t, width in zip(
+            ("eps", "drop_a", "drop_b1", "drop_b2"), noise, (latent, ha, hb1, hb2))]
+    check_tensors(items, dev)
     check_sites(site, n_sites)
     return dev
 
@@ -839,8 +851,9 @@ def multimodal_fused_train_step(params, state, a, b, site, n_sites, *, seed=0, s
         loss, grads, bn = multimodal_train_step_reference(flat, bn, a, b, site, class_weights,
                                                           *noise, float(beta), float(gamma))
     else:
-        loss, grads, bn = _launch_step_mm(flat, bn, a, b, site, class_weights, noise, use_prng,
-                                          seed, step, float(beta), float(gamma))
+        loss, grads, bn = _run_step("multimodal", flat, bn, (a, b), site,
+                                    () if use_prng else noise, class_weights, seed, step,
+                                    float(beta), float(gamma))
     return loss, unflatten(grads, PARAM_ORDER_MM), bn_mm_tree(bn)
 
 
@@ -848,31 +861,149 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_step_mm(flat, bn, a, b, site, cw, noise, use_prng, seed, step, beta, gamma):
+# ---- the step graphs (DNA→RNA, tri-modal) -------------------------------------
+
+STEP_GRAPH_TASKS = ("dna2rna", "multimodal")
+STEP_ARGS = struct.Struct("<Q4fi4x")  # struct StepArgs of csrc/fused_train.cu
+
+
+def step_args(seed, step, beta, gamma=0.0):
+    """A step graph's StepArgs as bytes: the seed's 64 bits, β, γ (0 for
+    DNA→RNA, which has none), lr and weight decay (unused, 0) as float32,
+    the Philox step index as int32, 4 bytes of padding."""
+    return STEP_ARGS.pack(seed, beta, gamma, 0.0, 0.0, step)
+
+
+def step_graph_key(task, dev, dims_t, batch, injected, with_cw):
+    """What a step graph is captured for: a call with another key captures
+    anew."""
+    return (task, dev, tuple(dims_t), int(batch), bool(injected), bool(with_cw))
+
+
+def graph_widths(task, dims_t):
+    """(BatchNorm statistics' floats, the row blocks' widths, the injected
+    noise's widths) of a task's step or epoch, from its dims."""
+    if task == "rna2dna":  # in, hidden, latent, sites, embed, d1, d2, out
+        return 2 * dims_t[1], (dims_t[0], dims_t[7]), (dims_t[2], dims_t[1])
+    if task == "dna2rna":  # in, h1, h2, latent, sites, embed, d1, out
+        return 2 * (dims_t[1] + dims_t[2]), (dims_t[0], dims_t[7]), (dims_t[3], *dims_t[1:3])
+    a, b, ha, hb1, hb2, latent = dims_t[:6]  # then sites, embed, da, db1, db2, dc
+    return 2 * (ha + hb1 + hb2), (a, b), (latent, ha, hb1, hb2)
+
+
+# task: (the C entry that captures its step, its parameter count, its workspace)
+STEP_ENTRIES = {
+    "dna2rna": ("dna2rna_step_graph_create", "dna2rna_param_count",
+                "dna2rna_train_workspace_floats"),
+    "multimodal": ("multimodal_step_graph_create", "multimodal_param_count",
+                   "multimodal_train_workspace_floats"),
+}
+
+
+class _StepGraph:
+    """A captured train step of one task and the buffers its launches
+    address. ``sources`` are a call's inputs in copy order (the parameters,
+    the BatchNorm statistics, the rows, the injected noise, the class
+    weights): ``targets`` are views of the graph's input buffer shaped like
+    them, and ``out_like`` the shapes of its outputs (the gradients, the
+    statistics, the loss) in its output buffer. A graph serves one stream at
+    a time: its buffers are the same for every launch. ``pdl=False``
+    captures the phases as plain stream launches, which give the same bits
+    (for tests; the wrappers capture with PDL)."""
+
+    def __init__(self, lib, key, sources, pdl=True):
+        task, dev, dims_t, batch, injected, with_cw = key
+        f32 = dict(device=dev, dtype=torch.float32)
+        create, count, workspace = STEP_ENTRIES[task]
+        dims = (ctypes.c_int * len(dims_t))(*dims_t)
+        n_params = getattr(lib, count)(dims)
+        bn_floats, _, noise_widths = graph_widths(task, dims_t)
+        n = len(ORDERS[task])
+        n_bn = len(sources) - n - 2 - (len(noise_widths) if injected else 0) - with_cw
+        self.lib = lib
+        self.inp = torch.empty(sum(t.numel() for t in sources), **f32)
+        self.targets = torch._C._nn.unflatten_dense_tensors(self.inp, sources)
+        if sum(t.numel() for t in self.targets[:n]) != n_params:
+            raise RuntimeError(f"{task}: the parameters hold other than {n_params} floats")
+        bn_in, rows = self.targets[n], self.targets[n + n_bn:n + n_bn + 2]
+        noise = self.targets[n + n_bn + 2:n + n_bn + 2 + len(noise_widths)] if injected else ()
+        self.site = torch.empty(batch, device=dev, dtype=torch.int64)
+        self.out = torch.empty(n_params + bn_floats + 1, **f32)
+        self.out_like = self.targets[:n + n_bn] + (torch.empty((), **f32),)
+        self.work = torch.empty(getattr(lib, workspace)(dims, batch, 0), **f32)
+        self.args = torch.empty(STEP_ARGS.size // 4, **f32)
+        noise_ptrs = [t.data_ptr() for t in noise] if injected else [None] * len(noise_widths)
+        cw = (self.targets[-1].data_ptr() if with_cw else None,) if task == "multimodal" else ()
+        err = ctypes.c_int(0)
+        t0 = time.perf_counter()
+        self.handle = getattr(lib, create)(
+            rows[0].data_ptr(), rows[1].data_ptr(), self.site.data_ptr(), *cw,
+            self.inp.data_ptr(), dims, batch, bn_in.data_ptr(), self.out[n_params].data_ptr(),
+            *noise_ptrs, NOISE_INJECTED if injected else NOISE_PHILOX, self.args.data_ptr(),
+            self.out[-1].data_ptr(), self.out.data_ptr(), self.work.data_ptr(), int(pdl),
+            ctypes.byref(err))
+        self.capture_seconds = time.perf_counter() - t0
+        raise_on(lib, err.value, create)
+        self.nodes = lib.graph_nodes(self.handle)
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self.lib.graph_destroy(self.handle)
+
+
+def check_shapes(order, sources, targets):
+    """Each parameter of a call (``sources``, in ``order``) at the shape of its
+    view in the step graph's buffer (``targets``, shaped at capture like the
+    first call's, whose sum `_StepGraph` holds to the parameter count):
+    ``_foreach_copy_`` would broadcast a smaller tensor into it. The wrappers
+    check the other inputs against the dims."""
+    bad = [(name, s, t) for (name, _), s, t in zip(order, sources, targets) if s.shape != t.shape]
+    if bad:
+        name, s, t = bad[0]
+        raise ValueError(f"{name} must have shape {tuple(t.shape)}, got {tuple(s.shape)}")
+
+
+step_graphs = {}  # task: (key, _StepGraph), one cached graph a task
+
+
+def cached_graph(cache, task, key, build):
+    """The graph of ``task`` in ``cache`` for ``key``; when the key changed,
+    the task's old graph is freed first (its buffers go with it) and
+    ``build()`` captures the new one. The other tasks' graphs stay."""
+    if cache.get(task, (None,))[0] != key:
+        cache.pop(task, None)  # no reference to it is left here: it is freed now
+        cache[task] = (key, build())
+    return cache[task][1]
+
+
+def _run_step(task, flat, bn, rows, site, noise, cw, seed, step, beta, gamma):
+    """One step of ``task`` through its cached graph: the inputs copied into
+    the graph's buffers (``noise`` empty in Philox mode, ``cw`` the class
+    weights or None), one graph launch with `step_args`, and (loss, {name:
+    grad}, BatchNorm statistics) as views of one clone of the graph's
+    outputs, which the next call overwrites."""
+    if not -2**31 <= step < 2**31:
+        raise ValueError(f"step must fit in 32 bits, got {step}")
     lib = library()
-    dev = a.device
-    batch = a.shape[0]
-    dims_t = dims_of_mm(flat)
-    dims = (ctypes.c_int * 12)(*dims_t)
-    params = pack(flat, PARAM_ORDER_MM)
-    grads = torch.empty_like(params)
-    loss = torch.empty(1, device=dev, dtype=torch.float32)
-    bn_in = torch.cat(bn)
-    bn_out = torch.empty_like(bn_in)
-    work = torch.empty(lib.multimodal_train_workspace_floats(dims, batch, 0), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    noise_ptrs = (None,) * 4 if use_prng else tuple(t.data_ptr() for t in noise)
+    dev = site.device
+    order = ORDERS[task]
+    sources = [flat[name] for name, _ in order] + list(bn) + list(rows) + list(noise)
+    if cw is not None:
+        sources.append(cw)
     with torch.cuda.device(dev):
-        err = lib.multimodal_train_step(
-            a.data_ptr(), b.data_ptr(), site.data_ptr(), _ptr(cw), params.data_ptr(), dims, batch,
-            bn_in.data_ptr(), bn_out.data_ptr(), *noise_ptrs,
-            NOISE_PHILOX if use_prng else NOISE_INJECTED, seed, step, beta, gamma,
-            loss.data_ptr(), grads.data_ptr(), work.data_ptr(), stream)
-    raise_on(lib, err, "multimodal_train_step")
-    launches["multimodal_train_step"] += 1
-    return (loss[0], unpack(grads, flat, PARAM_ORDER_MM),
-            split_bn_mm(bn_out, dims_t[2], dims_t[3], dims_t[4]))
+        key = step_graph_key(task, dev, DIMS_OF[task](flat), site.shape[0], bool(noise),
+                             cw is not None)
+        g = cached_graph(step_graphs, task, key, lambda: _StepGraph(lib, key, sources))
+        check_shapes(order, sources, g.targets)
+        torch._foreach_copy_(g.targets, sources)
+        g.site.copy_(site)
+        err = lib.step_graph_launch(g.handle, step_args(seed, step, beta, gamma),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+        raise_on(lib, err, "step_graph_launch")
+        launches[f"{task}_train_step"] += 1
+        out = torch._C._nn.unflatten_dense_tensors(g.out.clone(), g.out_like)
+    n = len(order)
+    return out[-1], {name: t for (name, _), t in zip(order, out)}, tuple(out[n:-1])
 
 
 def philox_noise_mm(seed, step, batch, ha, hb1, hb2, latent, device):
