@@ -108,8 +108,7 @@ def probe_first(dev):
         site = torch.randint(0, N_SITES, (batch,), generator=g, device=dev)
         eps = torch.randn(batch, lat, generator=g, device=dev)
         drop = (torch.rand(batch, 128, generator=g, device=dev) < 0.9).float()
-        got = ft._launch_step(flat, {"mean": rm, "var": rv}, x, t, site, eps, drop, False, 0, 0,
-                              1e-3)
+        got = train_step(flat, rm, rv, x, t, site, eps, drop)
         want = ft.rna2dna_train_step_reference(flat, rm, rv, x, t, site, eps, drop, 1e-3)
         torch.cuda.synchronize()
         excess = {k: ((got[1][k] - want[1][k]).abs() - 1e-4 * want[1][k].abs()).max().item()
@@ -136,8 +135,7 @@ def probe_first(dev):
     eps, keep = ft.philox_noise(3, 1, 1024, 128, 20, dev)
     print("keep", keep.mean().item(), "eps", eps.mean().item(), eps.var().item())
     x, t, site = xe[:32], te[:32], se[:32]
-    print("step ms", time_ms(lambda: ft._launch_step(flat, {"mean": rm, "var": rv}, x, t, site,
-                                                       None, None, True, 0, 0, 1e-3)))
+    print("step ms", time_ms(lambda: train_step(flat, rm, rv, x, t, site)))
     print("plain step ms", time_ms(lambda: ft.rna2dna_train_step_reference(
         flat, rm, rv, x, t, site, ee[:32], de[:32], 1e-3)))
     print("epoch25 ms", time_ms(lambda: fe._launch_epoch(
@@ -146,6 +144,15 @@ def probe_first(dev):
 
 
 host_ms, time_ms = cs.host_ms, cs.time_loop
+
+
+def train_step(flat, rm, rv, x, t, site, eps=None, drop=None):
+    """(loss, {name: grad}, new state) of one RNA→DNA step through its graph
+    (injected noise, or Philox without it)."""
+    loss, grads, state = ft.rna2dna_fused_train_step(
+        ft.unflatten(flat), {"encoder_rna": {"bn": {"mean": rm, "var": rv}}}, x, t, site,
+        N_SITES, beta=1e-3, eps=eps, drop_mask=drop)
+    return loss, ft.flatten_params(grads), state
 
 
 def probe_grads(dev):
@@ -206,24 +213,16 @@ def probe_race(dev):
 
 
 def probe_chain(dev, batch=32):
-    lib = ft.library()
     params, state = cs.train_params(dev, 1)
     flat, bn = ft.flatten_params(params), state["encoder_rna"]["bn"]
     r = cs.train_rows(dev, batch, batch)
     _, hid, lat, _, emb, d1, d2, out = ft.dims_of(flat)
-    dims = (ctypes.c_int * 8)(*ft.dims_of(flat))
-    p, loss = ft.pack(flat), torch.empty(1, device=dev)
-    g = torch.empty_like(p)
-    rm, rv = torch.empty_like(bn["mean"]), torch.empty_like(bn["var"])
-    work = torch.full((lib.rna2dna_train_workspace_floats(dims, batch, 0),), float("nan"),
-                      device=dev)
-    err = lib.rna2dna_train_step(
-        r["x"].data_ptr(), r["t"].data_ptr(), r["site"].data_ptr(), p.data_ptr(), dims, batch,
-        bn["mean"].data_ptr(), bn["var"].data_ptr(), rm.data_ptr(), rv.data_ptr(),
-        r["eps"].data_ptr(), r["drop"].data_ptr(), ft.NOISE_INJECTED, 0, 0, 1e-3,
-        loss.data_ptr(), g.data_ptr(), work.data_ptr(), 0)
+    train_step(flat, bn["mean"], bn["var"], r["x"], r["t"], r["site"], r["eps"], r["drop"])
+    work = ft.step_graphs["rna2dna"][1].work
+    work.fill_(float("nan"))  # what the step does not write stays NaN
+    _, g, _ = train_step(flat, bn["mean"], bn["var"], r["x"], r["t"], r["site"], r["eps"],
+                         r["drop"])
     torch.cuda.synchronize()
-    ft.raise_on(lib, err, "rna2dna_train_step")
     # the workspace plan of csrc/fused_train.cu (each block rounded up to 4 floats)
     sizes = [("xhat", (batch, hid)), ("dcoef", (batch, hid)), ("d", (batch, hid)),
              ("inv_std", (hid,)), ("e", (batch, emb)), ("mu", (batch, lat)),
@@ -237,7 +236,7 @@ def probe_chain(dev, batch=32):
         w[name] = work[o:o + n].view(shape).double()
         o += (n + 3) // 4 * 4
     P = {k: v.double() for k, v in flat.items()}
-    G = {k: v.double() for k, v in ft.unpack(g, flat).items()}
+    G = {k: v.double() for k, v in g.items()}
     x, t = r["x"].double(), r["t"].double()
 
     def check(name, got, want):
@@ -802,7 +801,7 @@ def probe_steps(dev, parent=None):
 
 def probe_pdl(dev):
     """What programmatic dependent launch buys: in turns (PDL, plain, plain,
-    PDL; `cs.launch_mode`), the tri-modal and DNA→RNA step graphs' C entry
+    PDL; `cs.launch_mode`), the three step graphs' C entry
     alone (50 launches back to back, CUDA events) and the three 200-step
     epochs (the 8000-sample cohort, median of 5), each graph captured with
     its phases launched programmatically or as plain stream launches (where
@@ -826,7 +825,7 @@ def probe_pdl(dev):
     for pdl in (True, False, False, True):
         mode = "pdl" if pdl else "plain"
         with cs.launch_mode(pdl):
-            for task in ("multimodal", "dna2rna"):
+            for task in STEP_TASKS:
                 entry = cs.c_entry(ft, task, inputs[task])
                 out.setdefault(f"{task}_step_{mode}_ms", []).append(time_ms(entry, 50))
             for task in STEP_TASKS:

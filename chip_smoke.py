@@ -98,18 +98,19 @@ Phases (any failure raises, and the script exits non-zero):
          and new rows, is held against the plain version from that state
          with the same tolerances (nothing of the first epoch stays baked
          in); its Philox noise as above, for its three dropout masks;
-       * the step graphs of DNA→RNA and the tri-modal model (one captured
-         graph a call, cached a task; `compare_step_graphs`): at B = 32,
-         3 calls of each through one graph with new weights, rows, seed,
-         step, β and γ against a fresh plain version (the step tolerances
-         above), each call's results unchanged by the next and outside the
-         graph's buffers, the two graphs alternating without a capture,
+       * the step graphs of RNA→DNA, DNA→RNA and the tri-modal model (one
+         captured graph a call, cached a task; `compare_step_graphs`): at
+         B = 32, 3 calls of each through one graph with new weights, rows,
+         seed, step, β and γ against a fresh plain version (the step
+         tolerances above), each call's results unchanged by the next and
+         outside the graph's buffers, the three graphs alternating without a
+         capture,
          each graph's node count and capture time printed; the Philox
          step at two (seed, step) pairs through one graph equal, loss,
          gradients and BN statistics bit for bit, to the injected step
          given the noise kernels' draws; and programmatic launches (PDL)
-         giving the bits of plain stream launches, for both step graphs and
-         the three epoch graphs (4 steps of 32);
+         giving the bits of plain stream launches, for the three step graphs
+         and the three epoch graphs (4 steps of 32);
        * the wide head (``fused_wide_output_step``) at the whole-methylome
          width, D = 450,000 columns, d_in = 512, at batch 32 and 256, over 3
          chained steps with the state threaded through, from non-zero
@@ -129,7 +130,17 @@ Phases (any failure raises, and the script exits non-zero):
      (``run_training("dna2rna", "dna2rna")``, its epoch and train-step
      kernels), and, after serving, for the tri-modal model
      (``run_training("multimodal", "multivae", use_class_weights=True)``);
-     and, after evaluating, the whole-methylome-width regime
+     after evaluating, the directional autoencoders (`phase_autoencoders`,
+     which have no kernel): one plain train step of each at B = 32 on the
+     card held against the same step on the CPU (the same seeded weights,
+     rows and injected dropout masks, fp32 with TF32 off; near-kink BN cells
+     dropped through the masks at 3e-5 and decoder ReLU margins of 3e-6 by
+     the seed search; loss rtol 1e-5, gradients atol 1e-4 + rtol 1e-4, BN
+     statistics atol 1e-5), then ``run_training(task, task)`` with USE_PALLAS
+     for 3 epochs (routed to the plain path: no kernel launched), a falling
+     validation loss, the checkpoint read back by ``checkpoint.load_best``,
+     the validation MSE beside the mean baseline's, and a timed
+     ``engine.fit`` epoch; and, after that, the whole-methylome-width regime
      (`phase_train_wide`): RNA→DNA at dim_b = 450,000 on 512 synthetic
      samples, batch 32: ``run_training`` with ``--moments_dtype bfloat16``
      and USE_PALLAS (routed to the plain path) for 2 epochs, then resumed
@@ -184,8 +195,8 @@ Phases (any failure raises, and the script exits non-zero):
      ``torch.optim.AdamW(fused=True)``), profiled once.
 
 Each path (serve, evaluate, train, train-step, train-plain, the three
-training paths of dna2rna and of the tri-modal model, and train-wide and
-wide) is driven with every
+training paths of dna2rna and of the tri-modal model, the two autoencoders'
+runs, and train-wide and wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -197,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import io
 import json
 import math
 import os
@@ -216,7 +228,8 @@ from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
 from vae_los_angeles_torch.evaluation import compare_directional_imputation, evaluate
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
-from vae_los_angeles_torch.models import DNA2RNAVAE, RNA2DNAVAE
+from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
+from vae_los_angeles_torch.models.directional_ae import dna2rna_ae_init, rna2dna_ae_init
 from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_init, rna2dna_vae_apply,
                                                          rna2dna_vae_init)
 from vae_los_angeles_torch.models.vae import multimodal_vae_init
@@ -230,7 +243,8 @@ from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
-from vae_los_angeles_torch.utils.tree import tree_leaves
+from vae_los_angeles_torch.training.tasks import Batch, get_task
+from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 from vae_los_angeles_torch.utils.weights import (jax_from_state_dict, state_dict_from_jax,
                                                  tree_from_numpy)
 
@@ -866,15 +880,17 @@ def check_philox(dev):
     params, state = train_params(dev, 3)
     r = train_rows(dev, 32, 9)
     args = (params, state, r["x"], r["t"], r["site"], N_SITES)
-    a = ft.rna2dna_fused_train_step(*args, seed=5, step=4)  # same kernel both ways: exact
+    # the same phases both ways (each mode a graph of its own key): exact
+    a = step_values("rna2dna", ft.rna2dna_fused_train_step(*args, seed=5, step=4))
     e, k = ft.philox_noise(5, 4, 32, 128, CFG.latent_dim, dev)
-    b = ft.rna2dna_fused_train_step(*args, eps=e, drop_mask=k)
+    b = step_values("rna2dna", ft.rna2dna_fused_train_step(*args, eps=e, drop_mask=k))
     torch.cuda.synchronize()
-    if not torch.equal(a[0], b[0]):
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("train Philox: the Philox step differs from the injected step")
     say(f"[compare] train Philox: keep rate {rate:.5f} over {keep.numel()} draws, eps mean "
         f"{mean:.5f} var {var:.5f} over {eps.numel()}; reproducible, seed-dependent, and the "
-        "Philox step equals the injected step given its draws")
+        "Philox step graph equals the injected one given its draws (loss, gradients, BN "
+        "statistics bit for bit)")
 
 
 # ---- DNA→RNA ---------------------------------------------------------------
@@ -1395,7 +1411,16 @@ def replay_case(dev, task, k):
     with their injected noise, β and γ; (inputs, kwargs, [(name, plain,
     atol, rtol)] of every output)."""
     beta, gamma = BETA * (k + 1), GAMMA / (k + 1)
-    if task == "dna2rna":
+    if task == "rna2dna":
+        params, state = train_params(dev, 41 + k)
+        flat, bn = ft.flatten_params(params), state["encoder_rna"]["bn"]
+        r, _ = away_from_kinks(dev, 32, 6900 + 100 * k, lambda r: relu_margins(
+            flat, r["x"], r["site"], r["eps"], r["drop"]))
+        loss, grads_want, rm, rv = ft.rna2dna_train_step_reference(
+            flat, bn["mean"], bn["var"], r["x"], r["t"], r["site"], r["eps"], r["drop"], beta)
+        want = (loss, grads_want, (rm, rv))
+        grads = [(f"grad {name}", want[1][name], *GRAD.values()) for name, _ in ft.PARAM_ORDER]
+    elif task == "dna2rna":
         params, state = d2r_params(dev, 15 + k)
         flat, bn = ft.flatten_params(params, D2R), ft.bn_d2r(state)
         r, _, _ = d2r_away_from_kinks(dev, 32, 7000 + 100 * k, flat, bn)
@@ -1433,12 +1458,13 @@ def launch_mode(pdl, mod_ft=ft, mod_fe=fe):
 
 
 def compare_step_graphs(dev):
-    """The DNA→RNA and tri-modal steps at B = 32 as their graphs run them:
-    STEP_REPLAYS calls of each through one graph (no capture after the
+    """The RNA→DNA, DNA→RNA and tri-modal steps at B = 32 as their graphs run
+    them: STEP_REPLAYS calls of each through one graph (no capture after the
     first), each with new weights, rows, seed, step, β and γ against a fresh
-    plain version (the tolerances of `compare_d2r_step`, `compare_mm_step`);
-    call k's results unchanged after call k + 1 and outside the graph's
-    buffers; the two tasks' graphs alternating without a capture; each
+    plain version (the tolerances of `compare_train_step`, `compare_d2r_step`,
+    `compare_mm_step`); call k's results unchanged after call k + 1 and
+    outside the graph's buffers; the three tasks' graphs alternating without
+    a capture; each
     graph's programmatic launches giving the bits of plain stream launches
     (`launch_mode`, the host loop's order); and each epoch graph's over 4
     steps of 32 (the tri-modal wrapper's PDL, the directional ones' plain).
@@ -1482,8 +1508,8 @@ def compare_step_graphs(dev):
                     torch.equal(a, b) for a, b in zip(out, first[task][1])):
                 raise AssertionError(f"{task}: alternating with the other task's step captured "
                                      "anew or changed its bits")
-    say("[compare] the DNA→RNA and tri-modal step graphs alternate three times without a "
-        "capture, each call giving its task's bits")
+    say("[compare] the RNA→DNA, DNA→RNA and tri-modal step graphs alternate three times "
+        "without a capture, each call giving its task's bits")
     for task, call in calls.items():
         bits = {}
         for pdl in (True, False):
@@ -1516,7 +1542,7 @@ def compare_step_graphs(dev):
         if not all(torch.equal(a, b) for a, b in zip(bits[True], bits[False])):
             raise AssertionError(f"{task}: the programmatic epoch graph differs from plain "
                                  "launches")
-    say("[compare] programmatic launches (PDL) give the bits of plain stream launches: both "
+    say("[compare] programmatic launches (PDL) give the bits of plain stream launches: the three "
         "step graphs (weight tiles fetched before each phase waits) and the three epoch graphs "
         "(4 steps of 32)")
     return worst
@@ -1669,6 +1695,188 @@ def phase_evaluate(dev, workdir, tpm, beta, site, run_id):
             f"imputation {float(np.mean((truth - mean) ** 2)):.5f}; " + json.dumps(rec))
     say(f"[evaluate] evaluation_results.json written; launches {launches}")
     return launches
+
+
+# ---- the directional autoencoders (plain path: they have no kernel) ----------
+
+AE_TASKS = ("rna2dna_ae", "dna2rna_ae")
+AE_INIT = {"rna2dna_ae": rna2dna_ae_init, "dna2rna_ae": dna2rna_ae_init}
+AE_GRAD = dict(atol=1e-4, rtol=1e-4)
+
+
+def ae_rows(task, dev, n, seed):
+    """Rows shaped like the cohort (`train_rows` for RNA→DNA, `d2r_rows` for
+    DNA→RNA: ``x`` the input, ``t`` the target) with their dropout masks."""
+    return train_rows(dev, n, seed) if task == "rna2dna_ae" else d2r_rows(dev, n, seed)
+
+
+def ae_batch(task, r):
+    """The rows as the task's (tpm, beta, site) batch."""
+    tpm, beta = (r["x"], r["t"]) if task == "rna2dna_ae" else (r["t"], r["x"])
+    return Batch(tpm, beta, r["site"])
+
+
+def ae_masks(task, r):
+    if task == "rna2dna_ae":
+        return {"drop_mask": r["drop"]}
+    return {"drop_mask1": r["drop1"], "drop_mask2": r["drop2"]}
+
+
+def ae_clear_kinks(task, params, r):
+    """Drop out (in r's injected masks, in place) the near-kink cells of the
+    encoder's BN blocks (`clear_block`), in float64; returns (cells dropped,
+    the decoder's smallest relative ReLU margin)."""
+    p = tree_map(lambda t: t.double(), params)
+
+    def block(name, bn, h, mask):
+        return clear_block(h, p[name]["w"], p[name]["b"], p[bn]["gamma"], p[bn]["beta"], mask)
+
+    if task == "rna2dna_ae":
+        d, dropped = block("enc_fc1", "enc_bn", r["x"].double(), r["drop"])
+        enc, dec, layers = d @ p["enc_fc2"]["w"] + p["enc_fc2"]["b"], p["decoder_dna"], 2
+    else:
+        d1, n1 = block("enc_fc1", "enc_bn1", r["x"].double(), r["drop1"])
+        d2, n2 = block("enc_fc2", "enc_bn2", d1, r["drop2"])
+        dropped = n1 + n2
+        enc, dec, layers = d2 @ p["enc_fc3"]["w"] + p["enc_fc3"]["b"], p["decoder_rna"], 1
+    site = p["site_embedding"]["table"][r["site"]] @ p["site_projection"]["w"]
+    h = 0.5 * (enc + site + p["site_projection"]["b"])
+    margin = 1.0
+    for i in range(1, layers + 1):
+        u = h @ dec[f"fc{i}"]["w"] + dec[f"fc{i}"]["b"]
+        margin = min(margin, (u.abs().min() / u.abs().max()).item())
+        h = torch.relu(u)
+    return dropped, margin
+
+
+def ae_step(task, params, state, r):
+    """One plain train step of an autoencoder task (autograd over its loss,
+    β = 0): (loss, [(name, gradient)], new BN state)."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, new = get_task(task).loss(leaves, state, ae_batch(task, r), 0.0, True,
+                                    **ae_masks(task, r))
+    names = [name for name, _ in engine._named_leaves(leaves)]
+    return loss.detach(), list(zip(names, torch.autograd.grad(loss, tree_leaves(leaves)))), new
+
+
+def compare_ae_step(dev):
+    """One plain train step of each autoencoder at the live widths (B = 32)
+    on the card against the same step on the CPU: the same weights from a
+    seed, the same rows and injected dropout masks, fp32 with TF32 off on
+    both. The encoder's near-kink BN cells are dropped through the masks
+    (3e-5 of each layer's largest, as `d2r_clear_kinks`) and the rows are the
+    first seed whose decoder ReLU margins reach 3e-6 (`ae_clear_kinks`): a
+    unit on the other side of a kink changes a gradient by a whole term, not
+    by rounding. The loss within rtol 1e-5, each gradient within atol 1e-4 +
+    rtol 1e-4, the BN running statistics within atol 1e-5. Returns the
+    largest gradient difference."""
+    worst = 0.0
+    for k, task in enumerate(AE_TASKS):
+        params, state = AE_INIT[task](torch.Generator().manual_seed(40 + k), CFG.input_dim_a,
+                                      CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim,
+                                      "cpu")
+        for seed in range(7500 + 100 * k, 7900 + 100 * k):
+            r = ae_rows(task, "cpu", 32, seed)
+            dropped, margin = ae_clear_kinks(task, params, r)
+            if margin >= D2R_MARGINS[1]:
+                break
+        else:
+            raise AssertionError(f"{task}: no rows with a decoder margin of {D2R_MARGINS[1]}")
+        to = functools.partial(tree_map, lambda t: t.to(dev))
+        want = ae_step(task, params, state, r)
+        got = ae_step(task, to(params), to(state), {k_: v.to(dev) for k_, v in r.items()})
+        torch.cuda.synchronize()
+        check_close(f"{task} step loss", got[0].cpu(), want[0], 0.0, 1e-5)
+        err = max(check_close(f"{task} step grad {name}", a.cpu(), w, **AE_GRAD)
+                  for (name, a), (_, w) in zip(got[1], want[1]))
+        worst = max(worst, err)
+        for (name, a), (_, w) in zip(engine._named_leaves(got[2]),
+                                     engine._named_leaves(want[2])):
+            check_close(f"{task} step BN {name}", a.cpu(), w, 1e-5, 0.0)
+        say(f"[autoencoders] {task} plain step B=32 on the card against the CPU: rows of seed "
+            f"{seed}, {dropped} near-kink BN cells dropped; loss {got[0].item():.4f}; max "
+            f"|card - CPU| over {len(got[1])} gradients {err:.3e} (loss rtol 1e-5, grads atol "
+            "1e-4 + rtol 1e-4, BN atol 1e-5)")
+    return worst
+
+
+def phase_autoencoders(dev, workdir, tpm, beta, site, card):
+    """Both directional autoencoders: `compare_ae_step`, then
+    ``run_training(task, task)`` with USE_PALLAS on the 1024-sample cohort, 3
+    epochs on the card (routed to the plain path: no kernel launches, the
+    CLI's line saying so), a falling validation loss, the checkpoint read
+    back by ``checkpoint.load_best`` into the module (strict), and the
+    validation split's prediction MSE beside the mean baseline's; then a
+    timed ``engine.fit`` of 3 epochs (after that warm run). Returns the
+    launch counts of each run ({"train_<task>": counts})."""
+    compare_ae_step(dev)
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
+    tr, va = train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)
+    out = {}
+    for task in AE_TASKS:
+        zero_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            result, run_id, wall = run_training(task, task, cfg=cfg,
+                                                argv=["--epochs", "3", "--seed", "0"],
+                                                data=(tpm, beta, site), n_sites=N_SITES,
+                                                device=dev, root=workdir)
+        out[f"train_{task}"] = counts = read_counts()
+        route = f"USE_PALLAS: {task} has no CUDA kernels; using the plain path"
+        if route not in log.getvalue() or "path: plain" not in log.getvalue():
+            raise AssertionError(f"{task}: run_training did not take the plain path:\n"
+                                 + log.getvalue())
+        if any(counts.values()):
+            raise AssertionError(f"{task}: the plain path launched kernels {counts}")
+        val = result.val_losses[: result.epochs_ran]
+        if result.epochs_ran != 3 or not np.isfinite(result.train_losses[:3]).all() \
+                or not np.isfinite(val).all() or not val[-1] < val[0]:
+            raise AssertionError(f"{task}: {result.epochs_ran} epochs, train loss "
+                                 f"{result.train_losses}, val loss {result.val_losses}")
+        params, state, rid = checkpoint.load_best(task, checkpoint_dir=cfg.checkpoint_dir,
+                                                  root=workdir)
+        if rid != run_id:
+            raise AssertionError(f"{task}: load_best read run {rid}, not {run_id}")
+        module = {"rna2dna_ae": RNA2DNAAE, "dna2rna_ae": DNA2RNAAE}[task](
+            CFG.input_dim_a, CFG.input_dim_b, N_SITES, CFG.latent_dim, CFG.embed_dim)
+        module.load_state_dict(state_dict_from_jax(params, state, task), strict=True)
+        for (name, a), (_, b) in zip(engine._named_leaves(tree_from_numpy(params)),
+                                     engine._named_leaves(result.params)):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"{task}: the checkpoint's {name} differs")
+        t = get_task(task)
+        val_rows = Batch(torch.as_tensor(tpm[va]).to(dev), torch.as_tensor(beta[va]).to(dev),
+                         torch.as_tensor(site[va]).long().to(dev))
+        with torch.no_grad():
+            pred = t.predict(tree_from_numpy(params, dev), tree_from_numpy(state, dev),
+                             val_rows)
+        truth = t.target(val_rows)
+        mse = torch.mean(torch.square(pred - truth)).item()
+        mean = torch.as_tensor((tpm if task == "dna2rna_ae" else beta)[tr].mean(0)).to(dev)
+        base = torch.mean(torch.square(mean - truth)).item()
+        if not math.isfinite(mse):
+            raise AssertionError(f"{task}: non-finite prediction MSE")
+
+        def fit():
+            arrays = lambda idx: (tpm[idx], beta[idx], site[idx])  # noqa: E731
+            return engine.fit(task, cfg, arrays(tr), arrays(va), 0, N_SITES, num_epochs=3,
+                              device=dev)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / res.epochs_ran
+        rate = engine.samples_trained(len(tr), cfg.batch_size, 1) / ms * 1e3
+        say(f"[autoencoders] run_training {task} (USE_PALLAS, routed to the plain path, no kernel "
+            f"launched): 3 epochs of {len(tr) // cfg.batch_size} steps in {wall:.3f} s, first "
+            f"epoch included; val loss {val[0]:.2f} -> {val[-1]:.2f}, train loss "
+            f"{result.train_losses[:3].tolist()}; checkpoint read back by load_best; validation "
+            f"MSE {mse:.5f} vs mean imputation {base:.5f}")
+        say(f"[autoencoders] engine.fit {task}, plain path, 1024-sample cohort: {ms:.3f} ms per "
+            f"epoch over 3 epochs (validation included), {rate:,.0f} samples/s; {card}")
+    return out
 
 
 def _wide_fit_line(what, wall, epochs, n_train, result, card):
@@ -2007,8 +2215,9 @@ def step_call(mod, task, inp, seed=1, step=0, injected=False, beta=BETA, gamma=G
 
 
 def host_loop_entry(mod, task, inp):
-    """The host-loop C entry of a step (RNA→DNA's, or an older tree's: its
-    phases launched from the host), on buffers packed once, Philox noise."""
+    """The host-loop C entry of an older tree's step (its phases launched
+    from the host; every step of this tree is a graph), on buffers packed
+    once, Philox noise."""
     params, state, r = inp
     lib, dev = mod.library(), r["site"].device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2485,6 +2694,7 @@ def main():
             counts_mm, run_id_mm = phase_train(dev, workdir, tpm, beta, site, "multimodal")
             counts.update(counts_mm)
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
+            counts.update(phase_autoencoders(dev, workdir, tpm, beta, site, card))
             counts.update(phase_train_wide(dev, workdir, card))
         finally:
             os.chdir(cwd)

@@ -1063,10 +1063,23 @@ def test_fit_through_the_wide_head_launches_it_each_step(cuda_device, monkeypatc
     np.testing.assert_allclose(head.train_losses, plain.train_losses, rtol=1e-4)
 
 
-# ---- the step graphs (B4, B6): one captured graph a call, one cached a task ----
+# ---- the step graphs (B1, B4, B6): one captured graph a call, one cached a task ----
+def bn_r2d(state):
+    """(rm, rv) of an RNA2DNAVAE's BatchNorm state tree."""
+    return state["encoder_rna"]["bn"]["mean"], state["encoder_rna"]["bn"]["var"]
+
+
+def r2d_reference(flat, bn, r, noise, beta, gamma, cw):
+    loss, grads, rm, rv = ft.rna2dna_train_step_reference(flat, *bn, r["x"], r["t"], r["site"],
+                                                          *noise, beta)
+    return loss, grads, (rm, rv)
+
+
 STEP_GRAPH = {
     # task: (case, wrapper's row arguments, plain version, order, BN state as a tuple,
     #        the injected noise's names and keywords, per-gradient tolerance)
+    "rna2dna": (train_case, lambda r: (r["x"], r["t"]), r2d_reference, ft.PARAM_ORDER, bn_r2d,
+                ("eps", "drop"), ("eps", "drop_mask"), lambda name: GRAD),
     "dna2rna": (d2r_case, lambda r: (r["t"], r["x"]),
                 lambda flat, bn, r, noise, beta, gamma, cw: ft.dna2rna_train_step_reference(
                     flat, bn, r["x"], r["t"], r["site"], *noise, beta),
@@ -1086,7 +1099,7 @@ def graph_step(task, params, state, r, cw=None, noise=True, gamma=1.7, **kw):
     Philox noise with ``noise=False``); ``cw`` and ``gamma`` for the
     tri-modal model only."""
     _, rows_of, _, _, _, names, keys, _ = STEP_GRAPH[task]
-    fn = ft.dna2rna_fused_train_step if task == "dna2rna" else ft.multimodal_fused_train_step
+    fn = getattr(ft, f"{task}_fused_train_step")
     if task == "multimodal":
         kw.update(class_weights=cw, gamma=gamma)
     if noise:
@@ -1139,7 +1152,7 @@ def test_step_graph_replays_new_rows_weights_seeds_steps_and_scalars(task, cuda_
         g = ft.step_graphs[task][1]
         assert graph is None or g is graph  # no capture after the first call
         graph = g
-    assert graph.nodes == {"dna2rna": 18, "multimodal": 22}[task]
+    assert graph.nodes == {"rna2dna": 18, "dna2rna": 18, "multimodal": 22}[task]
 
 
 @pytest.mark.parametrize("task", sorted(STEP_GRAPH))
@@ -1161,10 +1174,43 @@ def test_step_graph_results_never_alias_its_buffers(task, cuda_device):
     assert not torch.equal(kept[1], step_values(task, second)[1])
 
 
+@pytest.mark.parametrize("batch", [32, 7])
+@pytest.mark.parametrize("noise", ["injected", "philox"])
+def test_rna2dna_step_graph_matches_plain_version(batch, noise, cuda_device):
+    """B1 through its graph against `rna2dna_train_step_reference`, with the
+    rows' injected noise or Philox noise (the plain version given the noise
+    kernel's draws); one graph launch a call."""
+    params, state, r = train_case(cuda_device, batch, seed=90 + batch)
+    kw = dict(seed=2**40 + batch, step=5, beta=2e-3)
+    if noise == "philox":
+        r = dict(r, **dict(zip(("eps", "drop"), ft.philox_noise(
+            kw["seed"], kw["step"], batch, 128, TRAIN_DIMS["latent"], cuda_device))))
+    before = ft.launches["rna2dna_train_step"]
+    got = graph_step("rna2dna", params, state, r, noise=noise == "injected", **kw)
+    assert ft.launches["rna2dna_train_step"] == before + 1
+    check_step("rna2dna", got, params, state, r, None, kw["beta"], 0.0)
+    assert ft.step_graphs["rna2dna"][0][3:5] == (batch, noise == "injected")
+
+
+def test_rna2dna_step_graphs_of_two_shapes_have_two_keys(cuda_device):
+    """A call at another batch captures a graph of its own key (the task's
+    old one freed), and both shapes match the plain version."""
+    keys, graphs = [], []
+    for batch in (32, 7):
+        params, state, r = train_case(cuda_device, batch, seed=95)
+        got = graph_step("rna2dna", params, state, r, beta=1e-3)
+        check_step("rna2dna", got, params, state, r, None, 1e-3, 0.0)
+        key, g = ft.step_graphs["rna2dna"]
+        keys.append(key)
+        graphs.append(g)
+    assert keys[0] != keys[1] and keys[0][3] == 32 and keys[1][3] == 7
+    assert graphs[0] is not graphs[1] and graphs[1].nodes == 18
+
+
 def test_step_graphs_of_the_two_tasks_alternate_without_capture(cuda_device):
-    """DNA→RNA and tri-modal steps, one after another three times: each
-    task's later calls run through the graph its first call captured and
-    give its bits."""
+    """The RNA→DNA, DNA→RNA and tri-modal steps, one after another three
+    times: each task's later calls run through the graph its first call
+    captured and give its bits."""
     cases = {task: STEP_GRAPH[task][0](cuda_device, 16, seed=50) for task in STEP_GRAPH}
     _, _, _, cw = mm_case(cuda_device, 16, seed=51)
     first, values = {}, {}
@@ -1189,7 +1235,9 @@ def test_step_graph_philox_draws_equal_the_noise_kernels(task, cuda_device):
     for seed, step in ((2**40 + 7, 0), (2**40 + 7, 5), (3, 2**31 - 1)):
         got = step_values(task, graph_step(task, params, state, r, cw, noise=False, seed=seed,
                                            step=step))
-        if task == "dna2rna":
+        if task == "rna2dna":
+            draws = ft.philox_noise(seed, step, 16, 128, d["latent"], cuda_device)
+        elif task == "dna2rna":
             draws = ft.philox_noise_d2r(seed, step, 16, 512, 256, d["latent"], cuda_device)
         else:
             draws = ft.philox_noise_mm(seed, step, 16, 128, 512, 256, d["latent"], cuda_device)

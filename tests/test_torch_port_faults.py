@@ -1,4 +1,4 @@
-"""Two faults of the port against the JAX package, held closed at small
+"""Three faults of the port against the JAX package, held closed at small
 widths on the CPU, and the tri-modal epoch graph's argument buffer.
 
 * The directional loaders route as the JAX loaders do: the fused kernel
@@ -6,6 +6,10 @@ widths on the CPU, and the tri-modal epoch graph's argument buffer.
   site-only imputation, the plain eval forward, which matches the JAX
   loader's XLA path on the same weights (atol = rtol = 1e-4, fp32 on both
   sides summed in different orders).
+* The training CLI routes as the JAX CLI does: with ``USE_PALLAS`` on the
+  card only a task with kernels (``engine.FUSED``) takes the epoch kernel;
+  any other (the directional autoencoders) trains on the plain path and
+  says so, where it used to be sent to the kernel path, which refuses it.
 * ``DEBUG_NANS=1`` raises at the first non-finite value, on the plain path
   (the CLI, with its ``DEBUG_NANS:`` line) and on the kernel paths (their
   plain versions here), naming the epoch and step; without it a NaN trains
@@ -87,6 +91,37 @@ def test_loader_routes_as_the_jax_loader(model_type, tmp_path, monkeypatch):
         np.testing.assert_allclose(lv, np.asarray(jlv), **TOL)
     with pytest.raises(ValueError, match="at least one"):
         plain()
+
+
+class _Picked(Exception):
+    """Raised by the stand-in ``engine.fit``: the CLI has chosen its path."""
+
+
+@pytest.mark.parametrize("task, kernel", [("rna2dna_ae", False), ("dna2rna_ae", False),
+                                          ("dna2rna", True)])
+def test_cli_routes_a_task_without_kernels_to_the_plain_path(task, kernel, tmp_path,
+                                                             monkeypatch, capsys):
+    """``run_training`` with USE_PALLAS on a (stand-in) card: the path it
+    hands ``engine.fit``, recorded by a stand-in that stops the run there."""
+    monkeypatch.chdir(tmp_path)
+    picked = []
+
+    def fit(task_name, cfg, *args, fused_epoch=False, device=None, **kw):
+        picked.append((task_name, fused_epoch, device.type))
+        raise _Picked
+
+    monkeypatch.setattr(port_cli, "resolve_device", lambda device, cfg: torch.device("cuda"))
+    monkeypatch.setattr(port_cli.torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(port_engine, "fit", fit)
+    cfg = PortConfig(**_cfg_kw(tmp_path), use_pallas=True)
+    with pytest.raises(_Picked):
+        port_cli.run_training(task, task, cfg=cfg, argv=["--epochs", "1"],
+                              data=_rows_with_a_nan(), n_sites=3, root=str(tmp_path))
+    assert picked == [(task, kernel, "cuda")]
+    out = capsys.readouterr().out
+    said = f"USE_PALLAS: {task} has no CUDA kernels; using the plain path"
+    assert (said in out) != kernel
+    assert ("path: epoch kernel" if kernel else "path: plain") in out
 
 
 def _rows_with_a_nan(n=64):

@@ -1,8 +1,9 @@
-"""What the step graphs of the DNA→RNA and tri-modal train steps
-(``ops/kernels/fused_train.py``, B4 and B6) decide on the host, held here on
-the CPU: the StepArgs bytes each launch sets (against a numpy emulation of
+"""What the step graphs of the RNA→DNA, DNA→RNA and tri-modal train steps
+(``ops/kernels/fused_train.py``, B1, B4 and B6) decide on the host, held here
+on the CPU: the StepArgs bytes each launch sets (against a numpy emulation of
 ``struct StepArgs`` in ``csrc/fused_train.cu``), the key a graph is cached
-for, the checks of the parameters the wrappers take, the buffer layout, and
+for, the checks of the parameters the wrappers take, the buffer layout (the
+RNA→DNA graph's BatchNorm views through a stand-in of the built library), and
 the one-graph-a-task cache. The graphs themselves run on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``)."""
 
@@ -63,7 +64,9 @@ def test_step_args_refuse_a_step_outside_32_bits():
 
 
 def dims(task, **over):
-    base = {"dna2rna": dict(zip(("in", "h1", "h2", "L", "S", "E", "d1", "out"),
+    base = {"rna2dna": dict(zip(("in", "hid", "L", "S", "E", "d1", "d2", "out"),
+                                (DIM_A, 128, LATENT, N_SITES, EMBED, 256, 512, DIM_B))),
+            "dna2rna": dict(zip(("in", "h1", "h2", "L", "S", "E", "d1", "out"),
                                 (DIM_B, 512, 256, LATENT, N_SITES, EMBED, 128, DIM_A))),
             "multimodal": dict(zip(("a", "b", "ha", "hb1", "hb2", "L", "S", "E", "da", "db1",
                                     "db2", "dc"),
@@ -130,11 +133,11 @@ def test_a_step_call_refuses_a_parameter_of_another_shape(task):
         torch.empty(sum(t.numel() for t in sources)), sources)
     ft.check_shapes(order, sources, targets)
     bias = order[-1][0]  # the output bias: a (1,) tensor would broadcast in the copy
-    width = DIM_A if task == "dna2rna" else N_SITES
+    width = {"rna2dna": DIM_B, "dna2rna": DIM_A, "multimodal": N_SITES}[task]
     with pytest.raises(ValueError, match=rf"{bias} must have shape \({width},\), got \(1,\)"):
         ft.check_shapes(order, sources[:-1] + [flat[bias][:1]], targets)
     names = [name for name, _ in order]
-    i = names.index("d1w" if task == "dna2rna" else "da_w1")  # (latent, d1), transposed
+    i = names.index("da_w1" if task == "multimodal" else "d1w")  # (latent, d1), transposed
     with pytest.raises(ValueError, match=f"{names[i]} must have shape"):
         ft.check_shapes(order, sources[:i] + [sources[i].t()] + sources[i + 1:], targets)
 
@@ -145,11 +148,14 @@ def test_graph_widths_are_the_wrappers_rows_noise_and_statistics(task):
     flat = ft.flatten_params(params, ft.ORDERS[task])
     d = ft.DIMS_OF[task](flat)
     bn_floats, rows, noise = ft.graph_widths(task, d)
-    bn = ft.bn_d2r(state) if task == "dna2rna" else ft.bn_mm(state)
+    bn = {"rna2dna": lambda s: tuple(s["encoder_rna"]["bn"].values()), "dna2rna": ft.bn_d2r,
+          "multimodal": ft.bn_mm}[task](state)
     assert bn_floats == sum(t.numel() for t in bn)
-    # the rows in the graph's order: DNA then RNA (DNA→RNA), RNA then DNA (tri-modal)
+    # the rows in the graph's order: the input then the target (directional), RNA then DNA
+    # (tri-modal); the injected noise: eps, then each dropout layer's mask
     assert rows == ((DIM_B, DIM_A) if task == "dna2rna" else (DIM_A, DIM_B))
-    assert noise == ((LATENT, 512, 256) if task == "dna2rna" else (LATENT, 128, 512, 256))
+    assert noise == {"rna2dna": (LATENT, 128), "dna2rna": (LATENT, 512, 256),
+                     "multimodal": (LATENT, 128, 512, 256)}[task]
 
 
 class _StandInLibrary:
@@ -176,15 +182,85 @@ def test_step_graph_cache_keeps_one_graph_a_task(monkeypatch):
 
     keys = {task: ft.step_graph_key(task, "cuda:0", dims(task), 32, False, False)
             for task in ft.STEP_GRAPH_TASKS}
-    first = {task: ft.cached_graph(ft.step_graphs, task, keys[task], build(h))
-             for h, task in enumerate(ft.STEP_GRAPH_TASKS, 1)}
+    handles = {task: h for h, task in enumerate(ft.STEP_GRAPH_TASKS, 1)}
+    first = {task: ft.cached_graph(ft.step_graphs, task, keys[task], build(handles[task]))
+             for task in ft.STEP_GRAPH_TASKS}
     for _ in range(2):  # the tasks alternate, call by call: nothing is captured again
         for task in first:
             assert ft.cached_graph(ft.step_graphs, task, keys[task], build(99)) is first[task]
-    assert built == [1, 2] and lib.freed == []
+    assert built == [1, 2, 3] and lib.freed == []
     del first
     other = ft.step_graph_key("multimodal", "cuda:0", dims("multimodal"), 32, True, False)
-    ft.cached_graph(ft.step_graphs, "multimodal", other, build(3))
-    assert lib.freed == [2] and built == [1, 2, 3]  # its old graph only, before the capture
-    assert {t: g.handle for t, (_, g) in ft.step_graphs.items()} == {"dna2rna": 1,
-                                                                     "multimodal": 3}
+    ft.cached_graph(ft.step_graphs, "multimodal", other, build(4))
+    # its old graph only, before the capture
+    assert lib.freed == [handles["multimodal"]] and built == [1, 2, 3, 4]
+    assert {t: g.handle for t, (_, g) in ft.step_graphs.items()} == dict(handles, multimodal=4)
+
+
+class _CaptureLibrary(_StandInLibrary):
+    """What `_StepGraph` calls to capture an RNA→DNA step, recording the
+    pointers the capture entry is given."""
+
+    def __init__(self, n_params):
+        super().__init__()
+        self.n_params, self.created = n_params, None
+
+    def rna2dna_param_count(self, dims):
+        return self.n_params
+
+    def rna2dna_train_workspace_floats(self, dims, batch, with_grads):
+        return 8
+
+    def rna2dna_step_graph_create(self, *args):
+        self.created = args
+        return 7
+
+    def graph_nodes(self, handle):
+        return 18
+
+
+@pytest.mark.parametrize("injected", [False, True])
+def test_rna2dna_graph_takes_the_statistics_as_rm_then_rv(injected):
+    """The B1 wrapper's BatchNorm views: rm and rv copied into one buffer, rm
+    first, whose start is the entry's bn_in (the C entry takes rv at bn_in +
+    hidden); the new statistics written at bn_out, rm then rv, after the
+    gradients, and read back by the wrapper as (rm, rv)."""
+    params, state = INITS["rna2dna"]()
+    flat = ft.flatten_params(params)
+    bn = state["encoder_rna"]["bn"]
+    rows = (torch.zeros(4, DIM_A), torch.zeros(4, DIM_B))
+    noise = (torch.zeros(4, LATENT), torch.ones(4, 128)) if injected else ()
+    sources = [flat[name] for name, _ in ft.PARAM_ORDER] + [bn["mean"], bn["var"]] + [
+        *rows, *noise]
+    n_params = sum(t.numel() for t in sources[:len(ft.PARAM_ORDER)])
+    lib = _CaptureLibrary(n_params)
+    d = ft.dims_of(flat)
+    key = ft.step_graph_key("rna2dna", torch.device("cpu"), d, 4, injected, False)
+    g = ft._StepGraph(lib, key, sources)
+    assert (g.handle, g.nodes) == (7, 18) and ft.graph_widths("rna2dna", d)[0] == 2 * 128
+    n = len(ft.PARAM_ORDER)
+    rm, rv = g.targets[n], g.targets[n + 1]
+    x, t, site, p, dims_c, batch, bn_in, bn_out, eps, drop, mode, args, loss, grads, work, pdl, \
+        err = lib.created
+    assert (x, t, site, p) == (rows_ptr := g.targets[n + 2].data_ptr(),
+                               g.targets[n + 3].data_ptr(), g.site.data_ptr(),
+                               g.inp.data_ptr()) and rows_ptr == rm.data_ptr() + 4 * 256
+    assert list(dims_c) == list(d) and batch == 4 and pdl == 1
+    assert bn_in == rm.data_ptr() and rv.data_ptr() == bn_in + 4 * 128
+    assert bn_out == g.out[n_params].data_ptr() and grads == g.out.data_ptr()
+    assert loss == g.out[-1].data_ptr() and g.out.numel() == n_params + 2 * 128 + 1
+    assert (work, args) == (g.work.data_ptr(), g.args.data_ptr())
+    if injected:
+        assert (eps, drop, mode) == (g.targets[n + 4].data_ptr(), g.targets[n + 5].data_ptr(),
+                                     ft.NOISE_INJECTED)
+    else:
+        assert (eps, drop, mode) == (None, None, ft.NOISE_PHILOX)
+    # the outputs as `_run_step` splits them: the gradients, rm, rv, the loss
+    g.out.copy_(torch.arange(g.out.numel(), dtype=torch.float32))
+    out = torch._C._nn.unflatten_dense_tensors(g.out.clone(), g.out_like)
+    assert [tuple(o.shape) for o in out[:n]] == [tuple(flat[k].shape) for k, _ in ft.PARAM_ORDER]
+    got_rm, got_rv = out[n:-1]
+    assert torch.equal(got_rm, torch.arange(n_params, n_params + 128, dtype=torch.float32))
+    assert torch.equal(got_rv, torch.arange(n_params + 128, n_params + 256, dtype=torch.float32))
+    assert out[-1].shape == () and out[-1].item() == n_params + 256
+    g.handle = None  # the stand-in's handle is not freed

@@ -6,8 +6,10 @@ import numpy as np
 import pytest
 import torch
 
-from vae_los_angeles_torch.models import DNA2RNAVAE, MultiModalVAE, RNA2DNAVAE
+from vae_los_angeles_torch.models import (DNA2RNAAE, DNA2RNAVAE, MultiModalVAE, RNA2DNAAE,
+                                          RNA2DNAVAE)
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from vae_los_angeles_tpu.models.directional_ae import dna2rna_ae_init, rna2dna_ae_init
 from vae_los_angeles_tpu.models.directional_vae import dna2rna_vae_init, rna2dna_vae_init
 from vae_los_angeles_tpu.models.vae import multimodal_vae_init
 from vae_los_angeles_tpu.utils.torch_import import export_state_dict
@@ -21,8 +23,13 @@ FAMILIES = {
     "rna2dna": (rna2dna_vae_init, RNA2DNAVAE),
     "dna2rna": (dna2rna_vae_init, DNA2RNAVAE),
     "multivae": (multimodal_vae_init, MultiModalVAE),
+    "rna2dna_ae": (rna2dna_ae_init, RNA2DNAAE),
+    "dna2rna_ae": (dna2rna_ae_init, DNA2RNAAE),
 }
-SITE_ENCODER = {"rna2dna": "encoder_site", "dna2rna": "encoder_site", "multivae": "encoder_c"}
+# where each model keeps its site embedding's table
+SITE_TABLE = {"rna2dna": ("encoder_site", "embedding"), "dna2rna": ("encoder_site", "embedding"),
+              "multivae": ("encoder_c", "embedding"), "rna2dna_ae": ("site_embedding",),
+              "dna2rna_ae": ("site_embedding",)}
 
 
 def jax_model(model_type, seed=0):
@@ -66,10 +73,10 @@ def test_port_module_loads_strictly_and_exports_back(model_type):
     model.load_state_dict(state_dict_from_jax(params, state, model_type), strict=True)
     # the module's own state_dict (num_batches_tracked included) maps back
     p2, s2 = jax_from_state_dict(model.state_dict(), model_type)
-    site = SITE_ENCODER[model_type]
-    np.testing.assert_array_equal(
-        p2[site]["embedding"]["table"], params[site]["embedding"]["table"]
-    )
+    got, want = p2, params
+    for key in SITE_TABLE[model_type]:
+        got, want = got[key], want[key]
+    np.testing.assert_array_equal(got["table"], want["table"])
     for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((p2, s2))):
         np.testing.assert_array_equal(a, b)
 
@@ -84,4 +91,4 @@ def test_wrong_layout_raises():
     with pytest.raises(KeyError):
         jax_from_state_dict({k: v for k, v in sd.items() if "fc_mu" not in k}, "rna2dna")
     with pytest.raises(ValueError, match="unknown model type"):
-        state_dict_from_jax(params, state, "rna2dna_ae")
+        state_dict_from_jax(params, state, "multimodal")  # a task's name, not a model's

@@ -1,7 +1,8 @@
 // Directional-VAE training steps and whole epochs, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels
-//   * rna2dna_train_step  <- vae_los_angeles_tpu/ops/pallas/fused_train.py
+//   * rna2dna_step_graph_create (the step rna2dna_train_step, a CUDA graph)
+//                         <- vae_los_angeles_tpu/ops/pallas/fused_train.py
 //                            _train_kernel / _train_step_call (rna2dna_fused_train_step)
 //   * rna2dna_epoch_graph_create (the epoch rna2dna_train_epoch, a CUDA graph)
 //                         <- vae_los_angeles_tpu/ops/pallas/fused_epoch.py
@@ -74,13 +75,12 @@
 //     gemm_group_kernel, independent BatchNorms, heads and heads' backwards
 //     as one launch each, and the BatchNorm backward that reads only dmh and
 //     dlh shares one launch with the heads' gradients.
-//   * The DNA->RNA and tri-modal train steps are CUDA graphs too
+//   * Every train step (RNA->DNA, DNA->RNA, tri-modal) is a CUDA graph too
 //     (*_step_graph_create), one graph serving every step of a shape: what
 //     changes between calls (seed, beta, gamma and the Philox step index) is
 //     a StepArgs that the graph's first node (step_args_kernel) writes to the
 //     card, its arguments set before each launch (step_graph_launch); a call
-//     is one graph launch of 18 (DNA->RNA) or 22 (tri-modal) kernels. The
-//     RNA->DNA step stays a host loop of launches (rna2dna_train_step).
+//     is one graph launch of 18 (directional) or 22 (tri-modal) kernels.
 //   * Inside the step graphs and the tri-modal epoch the phases launch
 //     programmatically (PDL, struct Queue): the next phase is scheduled
 //     while the previous one drains, and in a step graph a product fetches
@@ -393,7 +393,7 @@ struct Mat {
 // Where and how a step's phases launch: with ``pdl`` (the step graphs, the
 // tri-modal epoch) each with the programmatic-serialization attribute,
 // waiting before it touches anything, else as plain stream launches (the
-// host-loop step, the directional epochs). A
+// directional epochs). A
 // product may fetch its first tile of a B operand that lies in [lo, hi)
 // before it waits: a step graph's parameter buffer, which no phase of the
 // graph writes (an epoch's AdamW writes its parameters: null there).
@@ -2158,27 +2158,6 @@ long long rna2dna_train_workspace_floats(const int* dims, int batch, int with_gr
     return (long long)plan(nullptr, dims_from(dims), batch, with_grads != 0).total;
 }
 
-// One train step. x (B, in), t (B, out), site (B,) int64; params: the flat
-// parameter buffer; rm/rv in (hidden,) and out; eps_in (B, latent) and
-// drop_in (B, hidden) when noise == 0 (NOISE_INJECTED), ignored when 1
-// (NOISE_PHILOX, keyed by seed and step); loss (1,), grads: a flat buffer
-// like params; work: rna2dna_train_workspace_floats(dims, B, 0) floats.
-int rna2dna_train_step(const float* x, const float* t, const int64_t* site, const float* params,
-                       const int* dims, int batch, const float* rm_in, const float* rv_in,
-                       float* rm_out, float* rv_out, const float* eps_in, const float* drop_in,
-                       int noise, unsigned long long seed, int step, float beta, float* loss,
-                       float* grads, float* work, void* stream) {
-    const Dims d = dims_from(dims);
-    if (!valid(d, batch) || (noise == NOISE_INJECTED && (!eps_in || !drop_in)) ||
-        (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const Work w = plan(work, d, batch, false);
-    return step_phases(x, t, site, params, d, batch, rm_in, rv_in, rm_out, rv_out, eps_in,
-                       drop_in, noise, (uint64_t)seed, step, nullptr, beta, nullptr, loss, grads,
-                       w, Queue{(cudaStream_t)stream, false});
-}
-
 // Floats of the epoch-args buffer of an epoch of n_batches steps (any task):
 // struct EpochArgs (seed as two floats' worth of bytes, beta, gamma, lr, wd),
 // then (bc1, bc2) of each step.
@@ -2218,6 +2197,38 @@ void* rna2dna_epoch_graph_create(const float* x_ep, const float* t_ep, const int
         return epoch_phases(x_ep, t_ep, site_ep, params, m, v, d, batch, n_batches, bn, eps_ep,
                             drop_ep, noise, ea, losses, w, Queue{st, pdl != 0});
     }, err);
+}
+
+// Capture one RNA->DNA train step into a CUDA graph and instantiate it, as
+// dna2rna_step_graph_create: x (B, in) the RNA input, t (B, out) the DNA
+// target, site (B,) int64, params (the flat parameter buffer), bn_in (rm
+// then rv, 2 * hidden), eps_in (B, latent) and drop_in (B, hidden) when noise
+// == 0 (NOISE_INJECTED; ignored when 1, Philox), the outputs bn_out (as
+// bn_in), loss (1,) and grads (like params), work
+// (rna2dna_train_workspace_floats(dims, B, 0) floats) and args (8 floats,
+// struct StepArgs). pdl as for dna2rna_step_graph_create. Returns a handle,
+// or null with *err set.
+void* rna2dna_step_graph_create(const float* x, const float* t, const int64_t* site,
+                                const float* params, const int* dims, int batch,
+                                const float* bn_in, float* bn_out, const float* eps_in,
+                                const float* drop_in, int noise, float* args, float* loss,
+                                float* grads, float* work, int pdl, int* err) {
+    const Dims d = dims_from(dims);
+    *err = 0;
+    if (!valid(d, batch) || !args || (noise == NOISE_INJECTED && (!eps_in || !drop_in)) ||
+        (noise != NOISE_INJECTED && noise != NOISE_PHILOX)) {
+        *err = (int)cudaErrorInvalidValue;
+        return nullptr;
+    }
+    long long off[N_PARAMS];
+    const float* end = params + param_offsets(d, off);
+    const Work w = plan(work, d, batch, false);
+    StepArgs* sa = reinterpret_cast<StepArgs*>(args);
+    return capture([&](cudaStream_t st) {
+        return step_phases(x, t, site, params, d, batch, bn_in, bn_in + d.hid, bn_out,
+                           bn_out + d.hid, eps_in, drop_in, noise, 0, 0, &sa->step, 0.f, &sa->e,
+                           loss, grads, w, Queue{st, pdl != 0, params, end});
+    }, err, sa);
 }
 
 // The dropout mask (B, hidden) and eps (B, latent) that a step at (seed,

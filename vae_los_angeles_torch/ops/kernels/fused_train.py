@@ -18,14 +18,12 @@ drop_b1=..., drop_b2=...)`` does it for a MultiModalVAE (RNA ``a`` and DNA
 CE sum + beta * KLD, the 39 tensors of `PARAM_ORDER_MM`, the three
 BatchNorms' running statistics; a site label outside [0, n_sites) raises.
 
-  * CUDA tensors: the DNA→RNA and tri-modal steps are one launch of a CUDA
-    graph of ``csrc/fused_train.cu`` (built at first use), captured once for
-    a key (`step_graph_key`: the task, widths, batch, noise mode, class
-    weights or not, device) with the buffers its phases address and cached,
-    one graph a task (`step_graphs`); see "The step graphs" below. The
-    RNA→DNA step is one call of ``rna2dna_train_step``, which enqueues its
-    phases on the current stream from the host. A tensor the kernels do not
-    take raises; nothing falls back;
+  * CUDA tensors: each step is one launch of a CUDA graph of
+    ``csrc/fused_train.cu`` (built at first use), captured once for a key
+    (`step_graph_key`: the task, widths, batch, noise mode, class weights or
+    not, device) with the buffers its phases address and cached, one graph a
+    task (`step_graphs`); see "The step graphs" below. A tensor the kernels
+    do not take raises; nothing falls back;
   * CPU tensors: `rna2dna_train_step_reference`,
     `dna2rna_train_step_reference` or `multimodal_train_step_reference`, the
     plain PyTorch version of the same hand-derived arithmetic.
@@ -525,8 +523,9 @@ def library():
     lib.rna2dna_param_count.restype = ll
     lib.rna2dna_train_workspace_floats.argtypes = [p, i, i]
     lib.rna2dna_train_workspace_floats.restype = ll
-    lib.rna2dna_train_step.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, u64, i, f, p, p, p, p]
-    lib.rna2dna_train_step.restype = i
+    lib.rna2dna_step_graph_create.argtypes = [p, p, p, p, p, i, p, p, p, p, i, p, p, p, p, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.rna2dna_step_graph_create.restype = p
     lib.rna2dna_epoch_graph_create.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p, i,
                                                ctypes.POINTER(ctypes.c_int)]
     lib.rna2dna_epoch_graph_create.restype = p
@@ -684,33 +683,10 @@ def rna2dna_fused_train_step(params, state, rna, dna, site, n_sites, *, seed=0, 
         loss, grads, rm, rv = rna2dna_train_step_reference(flat, bn["mean"], bn["var"], rna, dna,
                                                            site, eps, drop_mask, float(beta))
     else:
-        loss, grads, rm, rv = _launch_step(flat, bn, rna, dna, site, eps, drop_mask, use_prng,
-                                           seed, step, float(beta))
+        loss, grads, (rm, rv) = _run_step("rna2dna", flat, (bn["mean"], bn["var"]), (rna, dna),
+                                          site, () if use_prng else (eps, drop_mask), None,
+                                          seed, step, float(beta), 0.0)
     return loss, unflatten(grads), {"encoder_rna": {"bn": {"mean": rm, "var": rv}}}
-
-
-def _launch_step(flat, bn, rna, dna, site, eps, drop, use_prng, seed, step, beta):
-    lib = library()
-    dev = rna.device
-    batch = rna.shape[0]
-    dims = (ctypes.c_int * 8)(*dims_of(flat))
-    params = pack(flat)
-    grads = torch.empty_like(params)
-    loss = torch.empty(1, device=dev, dtype=torch.float32)
-    rm, rv = torch.empty_like(bn["mean"]), torch.empty_like(bn["var"])
-    work = torch.empty(lib.rna2dna_train_workspace_floats(dims, batch, 0), device=dev,
-                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.rna2dna_train_step(
-            rna.data_ptr(), dna.data_ptr(), site.data_ptr(), params.data_ptr(), dims, batch,
-            bn["mean"].data_ptr(), bn["var"].data_ptr(), rm.data_ptr(), rv.data_ptr(),
-            None if use_prng else eps.data_ptr(), None if use_prng else drop.data_ptr(),
-            NOISE_PHILOX if use_prng else NOISE_INJECTED, seed, step, beta, loss.data_ptr(),
-            grads.data_ptr(), work.data_ptr(), stream)
-    raise_on(lib, err, "rna2dna_train_step")
-    launches["rna2dna_train_step"] += 1
-    return loss[0], unpack(grads, flat), rm, rv
 
 
 def dna2rna_fused_train_step(params, state, rna, dna, site, n_sites, *, seed=0, step=0,
@@ -861,16 +837,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# ---- the step graphs (DNA→RNA, tri-modal) -------------------------------------
+# ---- the step graphs (RNA→DNA, DNA→RNA, tri-modal) ----------------------------
 
-STEP_GRAPH_TASKS = ("dna2rna", "multimodal")
+STEP_GRAPH_TASKS = ("rna2dna", "dna2rna", "multimodal")
 STEP_ARGS = struct.Struct("<Q4fi4x")  # struct StepArgs of csrc/fused_train.cu
 
 
 def step_args(seed, step, beta, gamma=0.0):
-    """A step graph's StepArgs as bytes: the seed's 64 bits, β, γ (0 for
-    DNA→RNA, which has none), lr and weight decay (unused, 0) as float32,
-    the Philox step index as int32, 4 bytes of padding."""
+    """A step graph's StepArgs as bytes: the seed's 64 bits, β, γ (0 for the
+    directional steps, which have none), lr and weight decay (unused, 0) as
+    float32, the Philox step index as int32, 4 bytes of padding."""
     return STEP_ARGS.pack(seed, beta, gamma, 0.0, 0.0, step)
 
 
@@ -893,6 +869,8 @@ def graph_widths(task, dims_t):
 
 # task: (the C entry that captures its step, its parameter count, its workspace)
 STEP_ENTRIES = {
+    "rna2dna": ("rna2dna_step_graph_create", "rna2dna_param_count",
+                "rna2dna_train_workspace_floats"),
     "dna2rna": ("dna2rna_step_graph_create", "dna2rna_param_count",
                 "dna2rna_train_workspace_floats"),
     "multimodal": ("multimodal_step_graph_create", "multimodal_param_count",

@@ -11,13 +11,15 @@
   * ``rna2dna_loss`` = BCE sum + beta * KLD and ``dna2rna_loss`` = MSE sum +
     beta * KLD, each returning (total, aux);
   * ``vae_loss`` = MSE sum (RNA) + BCE sum (DNA) + gamma * weighted CE sum
-    (site) + beta * KLD, the tri-modal loss, returning (total, aux).
+    (site) + beta * KLD, the tri-modal loss, returning (total, aux);
+  * ``rna2dna_ae_loss`` = BCE sum and ``dna2rna_ae_loss`` = MSE sum, the
+    directional autoencoders' losses (no KLD), each returning (total, aux).
 
 The RNA→DNA trainer calls the fused version (``ops.kernels.fused_loss``),
 whose plain version is this module's ``rna2dna_loss``. The DNA→RNA and
 tri-modal trainers call ``dna2rna_loss`` and ``vae_loss`` themselves: the JAX
-package leaves those losses to XLA too. The directional AEs' losses and the
-``row_mask`` variants are not ported yet.
+package leaves those losses to XLA too, as it does the autoencoders'. The
+``row_mask`` variants are not ported.
 """
 
 from __future__ import annotations
@@ -78,3 +80,15 @@ def dna2rna_loss(recon_rna, rna, mu, logvar, beta=1e-3):
     recon = mse_sum(recon_rna, rna)
     kld = kl_divergence(mu, logvar)
     return recon + beta * kld, {"recon": recon, "kld": kld}
+
+
+def rna2dna_ae_loss(recon_dna_logits, dna):
+    """BCE-sum only; returns (total, {"recon": ..})."""
+    recon = bce_with_logits_sum(recon_dna_logits, dna)
+    return recon, {"recon": recon}
+
+
+def dna2rna_ae_loss(recon_rna, rna):
+    """MSE-sum only; returns (total, {"recon": ..})."""
+    recon = mse_sum(recon_rna, rna)
+    return recon, {"recon": recon}

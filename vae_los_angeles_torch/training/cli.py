@@ -1,5 +1,6 @@
 """Training CLI (counterpart of ``vae_los_angeles_tpu/training/cli.py``,
-tasks ``rna2dna``, ``dna2rna`` and ``multimodal``).
+tasks ``rna2dna``, ``dna2rna``, ``multimodal``, ``rna2dna_ae`` and
+``dna2rna_ae``).
 
     python -m vae_los_angeles_torch.training.cli [--epochs N] [--seed S]
         [--data_path data/processed_data.pkl] [--resume]
@@ -24,8 +25,11 @@ stopped early. ``DEBUG_NANS=1`` prints a ``DEBUG_NANS:`` line and makes
 
 It runs on the card unless asked for the CPU (``device="cpu"`` or
 ``DEVICE=cpu``). With ``use_pallas`` (``USE_PALLAS=1``) on the card, every
-epoch is one call of the epoch kernel, as the JAX CLI picks its whole-epoch
-kernel on a TPU; otherwise the plain path trains. RNA→DNA data at least
+epoch of a task with kernels (``engine.FUSED``) is one call of the epoch
+kernel, as the JAX CLI picks its whole-epoch kernel on a TPU; otherwise the
+plain path trains, and a task without kernels (the directional
+autoencoders: ``run_training("rna2dna_ae", "rna2dna_ae", ...)``, the same
+for ``dna2rna_ae``) says so and trains there. RNA→DNA data at least
 ``engine.WIDE_HEAD_MIN_DIM_B`` probes wide trains there through the wide head
 kernel instead, once a step.
 
@@ -207,6 +211,9 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     print(f"\nStarting training for {num_epochs} epochs...")
     print(f"Early stopping patience: {cfg.patience}")
     fused_epoch = bool(cfg.use_pallas) and device.type == "cuda"
+    if fused_epoch and task_name not in engine.FUSED:
+        print(f"USE_PALLAS: {task_name} has no CUDA kernels; using the plain path")
+        fused_epoch = False
     reduced = _reduced_knobs(cfg)
     if reduced and cfg.use_pallas:
         req = ", ".join(f"{k}={v}" for k, v in reduced.items())

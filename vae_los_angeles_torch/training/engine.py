@@ -33,7 +33,8 @@ Four paths compute an epoch:
     trunk; then ``adamw_update`` of the trunk. The same loss and updates as
     the plain path.
 The step and epoch kernels exist for ``rna2dna``, ``dna2rna`` and
-``multimodal`` (`FUSED`). ``class_weights`` (the tri-modal task's per-site weights of the
+``multimodal`` (`FUSED`); the directional autoencoders (``rna2dna_ae``,
+``dna2rna_ae``) train on the plain path, with β = 0 (no KL term). ``class_weights`` (the tri-modal task's per-site weights of the
 cross-entropy term) and γ (``hp["gamma"]``) reach the train loss, the
 validation loss and both kernels; the directional tasks ignore them. The
 tri-modal kernels' wrappers check the site labels' range, one more read of
@@ -345,7 +346,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     if class_weights is not None:
         class_weights = torch.as_tensor(np.asarray(class_weights, np.float32)).to(device)
     loss_kw = {"gamma": hp["gamma"], "class_weights": class_weights}
-    fused_kw = FUSED[task_name].loss_args(**loss_kw)
+    fused_kw = FUSED[task_name].loss_args(**loss_kw) if kernels else {}
     batch_size = int(cfg.batch_size)
     n_train, n_val = len(train), len(val)
     n_full = n_train // batch_size

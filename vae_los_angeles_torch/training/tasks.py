@@ -16,6 +16,11 @@ fields are inputs and which the target. Ported so far:
     three reconstructed, MSE sum + BCE sum + γ·class-weighted CE sum + β·KLD
     with β warming up, through ``ops.losses.vae_loss`` (plain PyTorch, as in
     the JAX engine); it predicts DNA from RNA alone.
+  * ``rna2dna_ae`` and ``dna2rna_ae``: the directional autoencoders, RNA
+    (DNA) and site in, DNA (RNA) out, BCE-with-logits sum (MSE sum) through
+    ``ops.losses.rna2dna_ae_loss`` (``dna2rna_ae_loss``), no KLD and so no
+    β warm-up. They have no kernel (nor in the JAX package): the engine
+    trains them on the plain path.
 
 Every loss takes ``gamma`` and ``class_weights``; the directional tasks
 ignore them, as the JAX tasks do.
@@ -27,9 +32,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from vae_los_angeles_torch.models import directional_vae, vae
+from vae_los_angeles_torch.models import directional_ae, directional_vae, vae
 from vae_los_angeles_torch.ops.kernels.fused_loss import rna2dna_loss_fused
-from vae_los_angeles_torch.ops.losses import dna2rna_loss, vae_loss
+from vae_los_angeles_torch.ops.losses import (dna2rna_ae_loss, dna2rna_loss, rna2dna_ae_loss,
+                                              vae_loss)
 
 
 class Batch(NamedTuple):
@@ -52,8 +58,9 @@ class Task(NamedTuple):
     init: Callable
     # loss(params, state, batch, beta_kl, train, generator, *, gamma=1.0,
     #      class_weights=None, eps=None, **dropout masks) -> (loss_sum,
-    #      new_state); the masks are drop_mask (rna2dna), drop_mask1 and
-    #      drop_mask2 (dna2rna), or drop_a, drop_b1 and drop_b2 (multimodal)
+    #      new_state); the masks are drop_mask (rna2dna, rna2dna_ae),
+    #      drop_mask1 and drop_mask2 (dna2rna, dna2rna_ae), or drop_a, drop_b1
+    #      and drop_b2 (multimodal); the autoencoders take no eps
     loss: Callable
     # predict(params, state, batch, generator) -> imputed target (eval mode)
     predict: Callable
@@ -101,6 +108,43 @@ def _dna2rna_predict(params, state, batch, generator=None):
         params, state, dna=batch.beta, site=batch.site, train=False, generator=generator).recon
 
 
+def _rna2dna_ae_init(generator, cfg, n_sites, device=None):
+    return directional_ae.rna2dna_ae_init(
+        generator, cfg.input_dim_a, cfg.input_dim_b, n_sites, cfg.latent_dim, cfg.embed_dim,
+        device)
+
+
+def _rna2dna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
+                     class_weights=None, drop_mask=None):
+    out = directional_ae.rna2dna_ae_apply(params, state, rna=batch.tpm, site=batch.site,
+                                          train=train, drop_mask=drop_mask, generator=generator)
+    return rna2dna_ae_loss(out.recon_logits, batch.beta)[0], out.state
+
+
+def _rna2dna_ae_predict(params, state, batch, generator=None):
+    return directional_ae.rna2dna_ae_apply(params, state, rna=batch.tpm, site=batch.site,
+                                           train=False, generator=generator).recon
+
+
+def _dna2rna_ae_init(generator, cfg, n_sites, device=None):
+    return directional_ae.dna2rna_ae_init(
+        generator, cfg.input_dim_a, cfg.input_dim_b, n_sites, cfg.latent_dim, cfg.embed_dim,
+        device)
+
+
+def _dna2rna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
+                     class_weights=None, drop_mask1=None, drop_mask2=None):
+    out = directional_ae.dna2rna_ae_apply(params, state, dna=batch.beta, site=batch.site,
+                                          train=train, drop_mask1=drop_mask1,
+                                          drop_mask2=drop_mask2, generator=generator)
+    return dna2rna_ae_loss(out.recon, batch.tpm)[0], out.state
+
+
+def _dna2rna_ae_predict(params, state, batch, generator=None):
+    return directional_ae.dna2rna_ae_apply(params, state, dna=batch.beta, site=batch.site,
+                                           train=False, generator=generator).recon
+
+
 def _multimodal_init(generator, cfg, n_sites, device=None):
     return vae.multimodal_vae_init(generator, cfg.input_dim_a, cfg.input_dim_b, n_sites,
                                    cfg.latent_dim, cfg.embed_dim, device)
@@ -128,6 +172,10 @@ TASKS = {
                     lambda batch: batch.beta, True),
     "dna2rna": Task("dna2rna", _dna2rna_init, _dna2rna_loss, _dna2rna_predict,
                     lambda batch: batch.tpm, True),
+    "rna2dna_ae": Task("rna2dna_ae", _rna2dna_ae_init, _rna2dna_ae_loss, _rna2dna_ae_predict,
+                       lambda batch: batch.beta, False),
+    "dna2rna_ae": Task("dna2rna_ae", _dna2rna_ae_init, _dna2rna_ae_loss, _dna2rna_ae_predict,
+                       lambda batch: batch.tpm, False),
     "multimodal": Task("multimodal", _multimodal_init, _multimodal_loss, _multimodal_predict,
                        lambda batch: batch.beta, True),
 }

@@ -9,8 +9,11 @@
   * ``num_batches_tracked`` has no JAX counterpart: it is not emitted
     (``load_state_dict`` fills it in) and is ignored when read.
 
-The directional VAEs (``rna2dna``, ``dna2rna``) and the tri-modal VAE
-(``multivae``) are covered; the directional AEs are not ported yet.
+The directional VAEs (``rna2dna``, ``dna2rna``), the directional
+autoencoders (``rna2dna_ae``, ``dna2rna_ae``: each encoder a bare Sequential,
+keys ``encoder_rna.0/.1/.4`` and ``encoder_dna.0/.1/.4/.5/.8``, the site path
+``site_embedding`` and ``site_projection``) and the tri-modal VAE
+(``multivae``) are covered.
 
 The trainer's own trees stay in the JAX layout, so moving them across is a
 copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
@@ -68,6 +71,12 @@ def _decoder(key, path, n_layers):
             for t in _linear(f"{key}.fc.{2 * i}", path + (f"fc{i + 1}",))]
 
 
+def _site_path():
+    """The autoencoders' site path: Embedding, then a Linear to the latent."""
+    return ([("site_embedding.weight", "params", ("site_embedding", "table"), False)]
+            + _linear("site_projection", ("site_projection",)))
+
+
 # (state_dict key, JAX tree, path in that tree, transposed) for each tensor
 MODEL_TYPES = {
     "rna2dna": (
@@ -78,6 +87,17 @@ MODEL_TYPES = {
     "dna2rna": (
         _encoder_b("encoder_dna", ("encoder_dna",))
         + _encoder_c("encoder_site", ("encoder_site",))
+        + _decoder("decoder_rna", ("decoder_rna",), 2)
+    ),
+    "rna2dna_ae": (
+        _linear("encoder_rna.0", ("enc_fc1",)) + _batchnorm("encoder_rna.1", ("enc_bn",))
+        + _linear("encoder_rna.4", ("enc_fc2",)) + _site_path()
+        + _decoder("decoder_dna", ("decoder_dna",), 3)
+    ),
+    "dna2rna_ae": (
+        _linear("encoder_dna.0", ("enc_fc1",)) + _batchnorm("encoder_dna.1", ("enc_bn1",))
+        + _linear("encoder_dna.4", ("enc_fc2",)) + _batchnorm("encoder_dna.5", ("enc_bn2",))
+        + _linear("encoder_dna.8", ("enc_fc3",)) + _site_path()
         + _decoder("decoder_rna", ("decoder_rna",), 2)
     ),
     # MultiModalVAE: EncoderA/B/C, DecoderA (RNA), DecoderB (DNA), DecoderC (site)
