@@ -168,7 +168,28 @@ Phases (any failure raises, and the script exits non-zero):
      baseline's; evaluate: ``evaluation.evaluate.main`` on the
      MultiModalVAE trained in phase 4 writes ``evaluation_results.json``
      with two records of finite metrics, each printed beside the mean
-     baseline's MSE;
+     baseline's MSE; the comparison gives six records, the k-NN baseline
+     (k = 5) printed beside the mean baseline's and the VAE's MSE. After
+     serving, the kNN baselines and the t-SNE, which have no kernel of
+     their own (`compare_knn`, `compare_tsne`): on the same cohort's split
+     (819 training rows, the 205 validation rows and 8 copies of training
+     rows), both directions, both metrics, both weight modes, the card's
+     neighbour sets equal to a float64 numpy brute force (and so to the
+     CPU's), except at a tie within 1e-5 of the k-th float64 distance, where
+     either set is right (such queries are counted and left out of the
+     comparisons below); the card's predictions (k = 20, every k of the grid
+     through ``predict_multi_k``, the site-conditioned ones) within atol =
+     rtol = 1e-4 of the same code on the CPU, the masked conditioned kNN
+     equal to the per-site loop (``models.conditioned_knn``) on the card,
+     the 16 grid MSEs (base and conditioned) within rel 1e-5, the copied
+     rows predicted as their own targets exactly (distance weights); the
+     t-SNE of the 205 RNA validation rows: P within rtol 1e-5 (atol 5e-5 of
+     its largest entry), the PCA init within 1e-4 of its largest entry
+     after the signs are aligned, the two embeddings' trustworthiness within
+     0.02; then ``knn_comparison.main`` with its t-SNE on the directional
+     VAEs (USE_PALLAS: "VAE (Cond)" served by the kernels, whose launches
+     are checked), three finite per-sample MSE arrays a direction and the
+     best grid parameters printed;
   6. time with CUDA events, alternating plain, kernel, kernel, plain (the
      serving calls right after phase 3, before any other profiler session:
      at B in {205, 1600, 4096} beside their bounds, DNA→RNA's at a DNA input
@@ -192,11 +213,17 @@ Phases (any failure raises, and the script exits non-zero):
      each epoch kernel at the 1024- and 8000-sample cohorts, validation
      included; the wide head at batch 32 and 256 against its plain version
      and the library composite (cuBLAS products, ``torch.sigmoid`` and
-     ``torch.optim.AdamW(fused=True)``), profiled once.
+     ``torch.optim.AdamW(fused=True)``), profiled once; the kNN grid pass of
+     each metric, a predict of 1600 queries, the Gram PCA and a t-SNE of
+     1600 rows (1000 steps) on the 8000-sample cohort (`time_knn`); last,
+     the kNN grids at the whole-methylome width (`phase_knn_wide`: 1024
+     samples at DNA 450,000, both directions, both metrics, base and
+     conditioned, each call timed; finite MSEs, 16 queries' neighbour sets
+     against a float64 recomputation on the card, the peak device memory).
 
-Each path (serve, evaluate, train, train-step, train-plain, the three
-training paths of dna2rna and of the tri-modal model, the two autoencoders'
-runs, and train-wide and wide) is driven with every
+Each path (serve, evaluate, the kNN comparison, train, train-step,
+train-plain, the three training paths of dna2rna and of the tri-modal
+model, the two autoencoders' runs, and train-wide and wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -226,9 +253,11 @@ from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
-from vae_los_angeles_torch.evaluation import compare_directional_imputation, evaluate
+from vae_los_angeles_torch.evaluation import (compare_directional_imputation, evaluate,
+                                              knn_comparison)
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
+from vae_los_angeles_torch.models.conditioned_knn import ConditionedKNeighborsRegressor
 from vae_los_angeles_torch.models.directional_ae import dna2rna_ae_init, rna2dna_ae_init
 from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_init, rna2dna_vae_apply,
                                                          rna2dna_vae_init)
@@ -239,7 +268,7 @@ from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_vae as fv
 from vae_los_angeles_torch.ops.kernels import fused_wide as fw
-from vae_los_angeles_torch.ops import optim
+from vae_los_angeles_torch.ops import knn, optim, pca, tsne
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
@@ -2095,8 +2124,8 @@ def phase_serve(dev, workdir, tpm, beta, site, trained):
     for name in KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"the serving run never launched {name}")
-    if results is None or len(results) != 4:
-        raise AssertionError(f"expected 4 records, got {results}")
+    if results is None or len(results) != 6:
+        raise AssertionError(f"expected 6 records, got {results}")
     for rec in results:
         for key in ("MAE", "MSE", "RMSE", "R2", "CosineSimilarity", "PearsonMean", "PearsonStd"):
             if not math.isfinite(rec[key]):
@@ -2125,10 +2154,248 @@ def phase_serve(dev, workdir, tpm, beta, site, trained):
     for rec in results:
         say("[serve] " + json.dumps(rec | {"_pearson_all": len(rec["_pearson_all"])}))
     for model, modality in (("RNA2DNAVAE", "DNA methylation"), ("DNA2RNAVAE", "RNA expression")):
-        vae = next(r for r in results if r["Model"] == model)
-        mean = next(r for r in results if r["Modality"] == modality and r["Model"] != model)
-        say(f"[serve] trained {model} MSE {vae['MSE']:.5f} vs mean imputation {mean['MSE']:.5f}")
+        mse = {r["Model"]: r["MSE"] for r in results if r["Modality"] == modality}
+        say(f"[serve] trained {model} MSE {mse[model]:.5f} vs mean imputation "
+            f"{mse['Mean Imputation']:.5f}, k-NN imputation (k = 5) {mse['k-NN Imputation']:.5f}")
     say(f"[serve] launches during the serving run: {launches}")
+    return launches
+
+
+# ---- the kNN baselines, the t-SNE and the kNN comparison ---------------------
+KNN_KS = tuple(knn_comparison.KNN_GRID["n_neighbors"])
+KNN_MODES = tuple(knn_comparison.KNN_GRID["weights"])
+KNN_METRICS = tuple(knn_comparison.KNN_GRID["metric"])
+KNN_K = 20  # the k of the single-k predictions held card against CPU
+GRID_REL = 1e-5
+TIE_REL = 1e-5  # a float64 gap this small at the k-th neighbour is a tie at fp32 resolution
+N_COPIES = 8  # zero-distance queries: copies of the first training rows
+
+
+def check_near(what, got, want, atol, rtol):
+    """``check_close`` for numpy arrays: the card's result against the CPU's."""
+    err = float(np.max(np.abs(got - want), initial=0.0))
+    if not np.isfinite(got).all() or not np.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{what}: the card differs from the CPU by {err:.3g} "
+                             f"(atol {atol}, rtol {rtol})")
+    return err
+
+
+class Tee(io.TextIOBase):
+    """Writes to the console and keeps a copy."""
+
+    def __init__(self, console):
+        self.console, self.copy = console, io.StringIO()
+
+    def write(self, s):
+        self.copy.write(s)
+        return self.console.write(s)
+
+    def flush(self):
+        self.console.flush()
+
+
+def knn_directions(tpm, beta, site):
+    """{direction: (X train, y train, X val, y val, sites train, sites val)}
+    on the canonical split."""
+    tr, va = train_val_indices(len(tpm), CFG.train_test_split, CFG.random_seed)
+    return {"rna2dna": (tpm[tr], beta[tr], tpm[va], beta[va], site[tr], site[va]),
+            "dna2rna": (beta[tr], tpm[tr], beta[va], tpm[va], site[tr], site[va])}
+
+
+def brute_force64(x, q, metric):
+    """float64 numpy distances (m, n) of each query to each training row."""
+    x, q = x.astype(np.float64), q.astype(np.float64)
+    if metric == "euclidean":
+        d2 = (q * q).sum(1)[:, None] - 2.0 * q @ x.T + (x * x).sum(1)[None, :]
+        return np.sqrt(np.maximum(d2, 0.0))
+    out = np.empty((len(q), len(x)))
+    for s in range(0, len(q), 16):
+        out[s:s + 16] = np.abs(q[s:s + 16, None, :] - x[None, :, :]).sum(-1)
+    return out
+
+
+def neighbour_ties(what, idx, d64, ks=KNN_KS):
+    """Hold each row's k nearest (the first k of ``idx``, sorted) against the
+    k smallest float64 distances ``d64`` for every k: the same set, or sets
+    that differ only by rows within TIE_REL of the k-th float64 distance
+    (a tie at fp32 resolution, where either set is right). Returns the mask
+    of the rows with such a tie."""
+    order = np.argsort(d64, axis=1, kind="stable")
+    ties = np.zeros(len(idx), bool)
+    for k in ks:
+        kth = np.maximum(d64[np.arange(len(d64)), order[:, k - 1]], 1e-30)
+        for r in range(len(idx)):
+            diff = sorted(set(idx[r, :k].tolist()) ^ set(order[r, :k].tolist()))
+            if not diff:
+                continue
+            gap = float(np.max(np.abs(d64[r, diff] - kth[r]) / kth[r]))
+            if not math.isfinite(gap) or gap > TIE_REL:
+                raise AssertionError(f"{what}: query {r}'s {k} neighbours differ from the float64 "
+                                     f"brute force by rows {diff} (relative gap {gap:.3g})")
+            ties[r] = True
+    return ties
+
+
+def compare_knn(dev, tpm, beta, site):
+    """The port's kNN on the card against the same code on the CPU, on the
+    1024-sample cohort's split (819 training rows, 205 validation rows plus
+    N_COPIES copies of training rows), both directions, both metrics, both
+    weight modes: neighbour sets equal to a float64 numpy brute force (card
+    and CPU), predictions (k = 20, every k of the grid through
+    ``predict_multi_k``, the site-conditioned ones) within atol 1e-4 + rtol
+    1e-4, the masked conditioned kNN on the card equal to the per-site loop
+    on the card, every grid MSE within rel 1e-5, and the copied queries
+    predicted as their own rows' targets exactly under distance weights."""
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for direction, (x, y, q, yq, s_tr, s_va) in knn_directions(tpm, beta, site).items():
+        q = np.concatenate([x[:N_COPIES], q])
+        yq = np.concatenate([y[:N_COPIES], yq])
+        s_q = np.concatenate([s_tr[:N_COPIES], s_va])
+        X = np.column_stack([x, s_tr]).astype(np.float32)
+        Q = np.column_stack([q, s_q]).astype(np.float32)
+        for metric in KNN_METRICS:
+            what = f"knn {direction} {metric}"
+            d64 = brute_force64(x, q, metric)
+            d64_cond = np.where(s_q[:, None] == s_tr[None, :], d64, np.inf)
+            ties = np.zeros(len(q), bool)
+            for on in (dev, cpu):
+                xs, qs = torch.as_tensor(x, device=on), torch.as_tensor(q, device=on)
+                _, _, idx = knn._neighbours(xs, qs, max(KNN_KS), metric)
+                ties |= neighbour_ties(f"{what} ({on.type})", idx.cpu().numpy(), d64)
+                _, valid, idx = knn._neighbours(
+                    xs, qs, max(KNN_KS), metric, torch.as_tensor(s_tr, device=on),
+                    torch.as_tensor(s_q, device=on))
+                for r in range(len(q)):  # the same-site neighbours: only the valid slots
+                    n_valid = int(valid[r].sum())
+                    ks = [k for k in KNN_KS if k <= n_valid]
+                    if ks:
+                        ties[r] |= neighbour_ties(f"{what} conditioned ({on.type})",
+                                                  idx[r:r + 1].cpu().numpy(),
+                                                  d64_cond[r:r + 1], ks)[0]
+            keep = ~ties
+            for weights in KNN_MODES:
+                card = knn.KNNRegressor(KNN_K, weights, metric=metric, device=dev).fit(x, y)
+                host = knn.KNNRegressor(KNN_K, weights, metric=metric, device="cpu").fit(x, y)
+                got = card.predict(q)
+                worst = max(worst, check_near(f"{what} {weights} predict", got[keep],
+                                               host.predict(q)[keep], **TOL))
+                if weights == "distance" and not np.array_equal(got[:N_COPIES], y[:N_COPIES]):
+                    raise AssertionError(f"{what}: a query equal to a training row does not get "
+                                         "that row's target (the zero-distance rule)")
+                multi, multi_cpu = card.predict_multi_k(q, KNN_KS), host.predict_multi_k(q, KNN_KS)
+                for k in KNN_KS:
+                    worst = max(worst, check_near(f"{what} {weights} predict_multi_k k={k}",
+                                                   multi[k][keep], multi_cpu[k][keep], **TOL))
+                cond = knn.ConditionedKNNRegressor(KNN_K, weights, metric, device=dev).fit(X, y)
+                got = cond.predict(Q)
+                cond_cpu = knn.ConditionedKNNRegressor(KNN_K, weights, metric, device="cpu")
+                worst = max(worst, check_near(f"{what} {weights} conditioned", got[keep],
+                                               cond_cpu.fit(X, y).predict(Q)[keep], **TOL))
+                loop = ConditionedKNeighborsRegressor(KNN_K, weights, metric, device=dev)
+                check_near(f"{what} {weights} conditioned against the per-site loop",
+                            got[keep], loop.fit(X, y).predict(Q)[keep], **TOL)
+            for conditioned, (xx, qq) in ((False, (x, q)), (True, (X, Q))):
+                card = knn.knn_grid_mse(xx, y, qq[keep], yq[keep], KNN_KS, KNN_MODES,
+                                        conditioned=conditioned, metric=metric, device=dev)
+                host = knn.knn_grid_mse(xx, y, qq[keep], yq[keep], KNN_KS, KNN_MODES,
+                                        conditioned=conditioned, metric=metric, device="cpu")
+                for combo, mse in host.items():
+                    if not abs(card[combo] - mse) <= GRID_REL * abs(mse):
+                        raise AssertionError(f"{what} grid {combo} (conditioned {conditioned}): "
+                                             f"card {card[combo]!r}, CPU {mse!r}")
+            say(f"[knn] {what}: neighbour sets equal to float64 ({int(ties.sum())} of {len(q)} "
+                f"queries with a tie at fp32 resolution, left out of the comparisons); "
+                f"predictions (base, multi-k, conditioned, the per-site loop) and the 16 grid "
+                f"MSEs (base and conditioned) match the CPU")
+    say(f"[knn] card against CPU: largest prediction difference {worst:.3g}")
+    return worst
+
+
+def trustworthiness(x, emb, n_neighbors=5):
+    """sklearn.manifold.trustworthiness (euclidean), in numpy."""
+    n = len(x)
+    dx = brute_force64(x, x, "euclidean")
+    np.fill_diagonal(dx, np.inf)
+    ind_x = np.argsort(dx, axis=1, kind="stable")
+    de = brute_force64(emb, emb, "euclidean")
+    np.fill_diagonal(de, np.inf)
+    ind_e = np.argsort(de, axis=1, kind="stable")[:, :n_neighbors]
+    inverted = np.zeros((n, n), int)
+    inverted[np.arange(n)[:, None], ind_x] = np.arange(1, n + 1)
+    ranks = inverted[np.arange(n)[:, None], ind_e] - n_neighbors
+    t = np.sum(ranks[ranks > 0])
+    return 1.0 - t * (2.0 / (n * n_neighbors * (2.0 * n - 3.0 * n_neighbors - 1.0)))
+
+
+def compare_tsne(dev, x):
+    """The port's t-SNE on the card against the CPU at the rows of ``x``:
+    the joint P within rtol 1e-5 (atol 5e-5 of its largest entry: a row's
+    perplexity search can stop one halving apart in two fp32 orders,
+    tests/test_torch_tsne.py), the PCA init within 1e-4 of its largest entry
+    after the signs are aligned, and the two embeddings' trustworthiness
+    within 0.02."""
+    devices = (dev, torch.device("cpu"))
+    xs = [torch.as_tensor(x, device=d) for d in devices]
+    p_card, p_cpu = (tsne._joint_probabilities(tsne._sq_distances(v), 30.0).cpu().numpy()
+                     for v in xs)
+    p_err = check_near("tsne P", p_card, p_cpu, atol=5e-5 * p_cpu.max(), rtol=1e-5)
+    init = [tsne._pca_init(v, 2).cpu().numpy() for v in xs]
+    signs = np.sign(np.sum(init[0] * init[1], axis=0))
+    err = np.abs(init[0] * signs - init[1]).max()
+    if not err <= 1e-4 * np.abs(init[1]).max():
+        raise AssertionError(f"tsne PCA init: card and CPU differ by {err:.3g}")
+    emb, kl = [], []
+    for d in devices:
+        model = tsne.TSNE(n_components=2, random_state=42, perplexity=min(30, len(x) - 1),
+                          device=d)
+        emb.append(model.fit_transform(x))
+        kl.append(model.kl_divergence_)
+    trust = [trustworthiness(x, e) for e in emb]
+    if not (np.isfinite(emb[0]).all() and abs(trust[0] - trust[1]) <= 0.02):
+        raise AssertionError(f"tsne: trustworthiness card {trust[0]}, CPU {trust[1]}")
+    say(f"[tsne] {len(x)} rows x {x.shape[1]}: P and the PCA init match the CPU (P by "
+        f"{p_err / p_cpu.max():.3g} of its largest entry, the init by "
+        f"{err / np.abs(init[1]).max():.3g} of its); "
+        f"trustworthiness card {trust[0]:.4f}, CPU {trust[1]:.4f}; KL card {kl[0]:.4f}, "
+        f"CPU {kl[1]:.4f}")
+
+
+def phase_knn_comparison(dev, workdir, tpm, beta, site):
+    """``knn_comparison.main`` with the t-SNE, USE_PALLAS on, on the
+    directional VAEs trained in phase 4: three finite per-sample MSE arrays
+    a direction, the best grid parameters printed, the serving kernels
+    launched for "VAE (Cond)"; returns the launch counts of that run."""
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
+    _, va = train_val_indices(len(tpm), cfg.train_test_split, cfg.random_seed)
+    tee = Tee(sys.stdout)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        results = knn_comparison.main(cfg=cfg, make_tsne=True, data=(tpm, beta, site),
+                                      root=workdir, device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for name in KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"the kNN comparison never launched {name}")
+    names = ["KNN (Base)", "KNN (Cond)", "VAE (Cond)"]
+    for direction, res in zip(("RNA_to_DNA", "DNA_to_RNA"), results):
+        if list(res) != names:
+            raise AssertionError(f"{direction}: results {list(res)}")
+        for name, mse in res.items():
+            if mse.shape != (len(va),) or not np.isfinite(mse).all():
+                raise AssertionError(f"{direction} {name}: per-sample MSE of shape {mse.shape}")
+        say(f"[knn_comparison] {direction}: mean per-sample MSE "
+            + ", ".join(f"{name} {float(np.mean(mse)):.5f}" for name, mse in res.items()))
+    printed = tee.copy.getvalue()
+    for name in ("KNN (Base)", "KNN (Conditioned)"):
+        if printed.count(f"Best {name} params: {{'n_neighbors'") != 2:
+            raise AssertionError(f"the best {name} parameters were not printed for both "
+                                 "directions")
+    say(f"[knn_comparison] main with 6 t-SNE runs of {len(va)} rows: {wall:.2f} s; "
+        f"launches {launches}")
     return launches
 
 
@@ -2643,6 +2910,88 @@ def time_wide(dev, card):
     return out
 
 
+def distance_ops(m, n, d, metric):
+    """Operations of one (m, n) distance matrix over d features: 2mnd for
+    the product, 3mnd for L1 (a difference, an absolute value, a sum)."""
+    return (3 if metric == "manhattan" else 2) * m * n * d
+
+
+def time_knn(dev, card):
+    """CUDA-event ms, on the 8000-sample cohort (RNA→DNA: 6400 training rows,
+    1600 queries): the grid pass of each metric (`knn_grid_mse`, its 8
+    combinations), a predict of the 1600 queries (k = 5) for each metric,
+    the Gram PCA of the 1600 rows, and a t-SNE of them (1000 steps) with its
+    affinity stage alone."""
+    tpm, beta, site = generate_synthetic_arrays(n_samples=8000, seed=1)
+    x, y, q, yq, _, _ = (torch.as_tensor(a, device=dev)
+                         for a in knn_directions(tpm, beta, site)["rna2dna"])
+    shape = f"{len(x)} x {len(q)} x {x.shape[1]} (targets {y.shape[1]})"
+    for metric in KNN_METRICS:
+        ops = distance_ops(len(q), len(x), x.shape[1], metric)
+        ms = time_call(lambda: knn.knn_grid_mse(x, y, q, yq, KNN_KS, KNN_MODES, metric=metric,
+                                                device=dev), reps=3, warmup=1)
+        say(f"[time] knn_grid_mse {metric} RNA→DNA {shape}, 8 combinations: {ms:.3f} ms "
+            f"(its distance matrix {ops:.4g} operations: {ops / ms / 1e9:.3f} TFLOP/s if it "
+            f"were all of it); {card}")
+        model = knn.KNNRegressor(5, metric=metric, device=dev).fit(x, y)
+        ms = time_call(lambda: model.predict(q), reps=3, warmup=1)
+        say(f"[time] KNNRegressor(5, {metric}).predict of {len(q)} queries over {len(x)} rows: "
+            f"{ms:.3f} ms; {card}")
+    ms = time_call(lambda: pca.PCA(2, device=dev).fit_transform(q), reps=3, warmup=1)
+    say(f"[time] PCA (Gram, eigh) of {len(q)} x {q.shape[1]}: {ms:.3f} ms; {card}")
+    p_ms = time_call(lambda: tsne._joint_probabilities(tsne._sq_distances(q), 30.0), reps=3,
+                     warmup=1)
+    model = tsne.TSNE(n_components=2, random_state=42, perplexity=30.0, device=dev)
+    ms = time_call(lambda: model.fit_transform(q), reps=1, warmup=1)
+    say(f"[time] TSNE of {len(q)} x {q.shape[1]}, 1000 steps: {ms:.3f} ms (the affinities "
+        f"{p_ms:.3f} ms; KL {model.kl_divergence_:.4f}); {card}")
+
+
+def phase_knn_wide(dev, card):
+    """The kNN grids at the whole-methylome width: the 1024-sample cohort at
+    DNA 450,000 (819 training rows, 205 queries), both directions, both
+    metrics, base and conditioned (`knn_grid_mse`, each one call timed by
+    CUDA events): finite MSEs; the neighbour sets of 16 queries equal to a
+    float64 recomputation on the card; the peak device memory."""
+    t0 = time.perf_counter()
+    tpm, beta, site = generate_synthetic_arrays(n_samples=1024, dim_b=WIDE_D, seed=0)
+    say(f"[knn-wide] synthetic cohort 1024 x (1177 + {WIDE_D}) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for direction, arrays in knn_directions(tpm, beta, site).items():
+        x, y, q, yq, s_tr, s_q = (torch.as_tensor(a, device=dev) for a in arrays)
+        X = torch.cat([x, s_tr[:, None].float()], 1)
+        Q = torch.cat([q, s_q[:, None].float()], 1)
+        shape = f"{len(x)} x {len(q)} x {x.shape[1]} (targets {y.shape[1]})"
+        for metric in KNN_METRICS:
+            for conditioned, (xx, qq) in ((False, (x, q)), (True, (X, Q))):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                mses = knn.knn_grid_mse(xx, y, qq, yq, KNN_KS, KNN_MODES, conditioned=conditioned,
+                                        metric=metric, device=dev)
+                end.record()
+                end.synchronize()
+                if len(mses) != 8 or not all(math.isfinite(v) for v in mses.values()):
+                    raise AssertionError(f"wide {direction} {metric}: MSEs {mses}")
+                best = min(mses, key=mses.get)
+                say(f"[knn-wide] knn_grid_mse {metric} {direction} {shape}"
+                    f"{', conditioned' if conditioned else ''}: {start.elapsed_time(end):.3f} ms "
+                    f"(one call); best {best} MSE {mses[best]:.6f}; {card}")
+            _, _, idx = knn._neighbours(x, q[:16], max(KNN_KS), metric)
+            d64 = torch.cdist(q[:16].double(), x.double(), p=1.0 if metric == "manhattan" else 2.0,
+                              compute_mode="donot_use_mm_for_euclid_dist")
+            ties = neighbour_ties(f"wide {direction} {metric}", idx.cpu().numpy(),
+                                  d64.cpu().numpy())
+            say(f"[knn-wide] {direction} {metric}: 16 queries' neighbour sets equal to float64 "
+                f"on the card ({int(ties.sum())} with a tie at fp32 resolution)")
+        del x, y, q, yq, X, Q
+        torch.cuda.empty_cache()
+    say(f"[knn-wide] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; "
+        f"{card}")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_policy.require_cuda()
@@ -2691,6 +3040,9 @@ def main():
             counts.update(counts_d2r)
             counts["serve"] = phase_serve(dev, workdir, tpm, beta, site,
                                           {"rna2dna": run_id, "dna2rna": run_id_d2r})
+            compare_knn(dev, tpm, beta, site)
+            compare_tsne(dev, knn_directions(tpm, beta, site)["rna2dna"][2])
+            counts["knn_comparison"] = phase_knn_comparison(dev, workdir, tpm, beta, site)
             counts_mm, run_id_mm = phase_train(dev, workdir, tpm, beta, site, "multimodal")
             counts.update(counts_mm)
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
@@ -2701,6 +3053,8 @@ def main():
     timings = phase_timing(dev, card)
     timings.update(serving_timings)
     timings.update(time_wide(dev, card))
+    time_knn(dev, card)
+    phase_knn_wide(dev, card)
 
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",
                "rna2dna_train_epoch": "train", "rna2dna_loss_forward": "train",

@@ -14,6 +14,10 @@ widths on the CPU, and the tri-modal epoch graph's argument buffer.
   (the CLI, with its ``DEBUG_NANS:`` line) and on the kernel paths (their
   plain versions here), naming the epoch and step; without it a NaN trains
   on silently, as before.
+* The kNN baselines and the t-SNE have no host route: the JAX package's
+  resolvers send a CPU host, or ``EVAL_BACKEND=sklearn``, to sklearn, which
+  the card's machine lacks; the port's resolvers return its own classes
+  whatever ``EVAL_BACKEND`` says, and ``shard=True`` (multi-device) raises.
 * ``fused_epoch.epoch_args``: the layout the CUDA graph reads (struct
   EpochArgs of ``csrc/fused_train.cu``), its bias corrections those of the
   directional epochs' host loop, ``(float)(1 - pow((double)β, t))`` computed
@@ -184,3 +188,26 @@ def test_epoch_args_pack_the_host_bias_corrections():
             assert args[6 + 2 * i + k] == host, (t, k)
             gaps.append(abs(float(host) - float(ref)))
     assert max(gaps) <= 2.0**-23
+
+
+@pytest.mark.parametrize("backend", ["sklearn", "auto", "tpu"])
+def test_knn_and_tsne_resolve_to_the_port_whatever_eval_backend(backend, monkeypatch):
+    from vae_los_angeles_torch.ops import knn, tsne
+
+    monkeypatch.setenv("EVAL_BACKEND", backend)
+    assert knn.resolve_knn_regressor(10) is knn.KNNRegressor
+    assert knn.resolve_conditioned_knn(10_000) is knn.ConditionedKNNRegressor
+    assert tsne.resolve_tsne() is tsne.TSNE
+
+
+def test_knn_and_tsne_refuse_shard_true():
+    from vae_los_angeles_torch.ops import knn, tsne
+
+    x = np.random.default_rng(0).normal(size=(12, 4)).astype(np.float32)
+    for call in (lambda: knn.KNNRegressor(shard=True, device="cpu").fit(x, x),
+                 lambda: knn.ConditionedKNNRegressor(shard=True, device="cpu").fit(x, x),
+                 lambda: knn.knn_grid_mse(x, x, x, x, (5,), ("uniform",), shard=True,
+                                          device="cpu"),
+                 lambda: tsne.TSNE(perplexity=3.0, shard=True, device="cpu").fit_transform(x)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            call()

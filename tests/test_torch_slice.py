@@ -6,7 +6,9 @@ Both are made deterministic here, in the test alone: the JAX side decodes
 z = mu by patching ``directional_vae.reparameterize`` (its jitted forward is
 rebuilt), the port side serves through its fused route (``use_pallas``, the
 kernel's plain version on the CPU) with ``use_noise=False``. The VAE and
-mean-imputation records must agree to atol = rtol = 1e-4."""
+mean-imputation records, and the kNN ones (the JAX package's sklearn
+baseline at this cohort size, the port's own kNN), must agree to atol =
+rtol = 1e-4."""
 
 import json
 import os
@@ -69,7 +71,7 @@ def test_compare_directional_imputation_matches_jax(workdir, monkeypatch):
     got = port_compare.main(cfg_for(workdir, "plots_port").replace(use_pallas=True),
                             root=str(workdir), device="cpu")
 
-    want = {(r["Modality"], r["Model"]): r for r in want if r["Model"] != "k-NN Imputation"}
+    want = {(r["Modality"], r["Model"]): r for r in want}
     assert [(r["Modality"], r["Model"]) for r in got] == list(want)
     for rec in got:
         ref = want[(rec["Modality"], rec["Model"])]
@@ -84,7 +86,7 @@ def test_compare_directional_imputation_matches_jax(workdir, monkeypatch):
     assert all("_pearson_all" not in s for s in saved)
     with open(workdir / "plots_port" / out_dir / "comparison_results.csv") as f:
         lines = f.read().splitlines()
-    assert lines[0].split(",")[:3] == ["Modality", "Model", "MAE"] and len(lines) == 5
+    assert lines[0].split(",")[:3] == ["Modality", "Model", "MAE"] and len(lines) == 7
 
 
 def test_compare_takes_arrays_and_serves_one_direction(workdir):
@@ -96,7 +98,7 @@ def test_compare_takes_arrays_and_serves_one_direction(workdir):
     got = port_compare.main(cfg_for(workdir, "plots_arrays"),
                             data=(ds.tpm_data, ds.beta_data, ds.primary_site), root=".",
                             device="cpu")
-    assert [r["Model"] for r in got] == ["RNA2DNAVAE", "Mean Imputation"]
+    assert [r["Model"] for r in got] == ["RNA2DNAVAE", "Mean Imputation", "k-NN Imputation"]
     assert all(np.isfinite(r[k]) for r in got for k in METRICS)
     os.remove("latest_rna2dna_run_id.txt")
     assert port_compare.main(cfg_for(workdir, "plots_none"), root=".", device="cpu") is None

@@ -1,2 +1,2 @@
-"""Serving side of the port: model loading and the directional imputation
-comparison."""
+"""Serving side of the port: model loading, the directional imputation
+comparison, the kNN comparison and the tri-modal evaluation."""

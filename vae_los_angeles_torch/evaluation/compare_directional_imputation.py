@@ -4,13 +4,13 @@
 Loads both directional checkpoints through the run-id files, imputes DNA
 from RNA and RNA from DNA on the shared validation split (served by the
 fused kernels on the card, or their plain versions when the CPU is asked
-for), scores them and the mean baseline (the
-validation table's column means) with MAE/MSE/RMSE/R²/cosine/per-sample
-Pearson, prints the reference's table and writes ``comparison_results.json``
-and ``comparison_results.csv`` into ``plots/directional_comparison_<id>/``.
+for), scores them, the mean baseline (the validation table's column means)
+and the kNN baseline (k = 5, fitted on the training table, `ops.knn` on the
+same device) with MAE/MSE/RMSE/R²/cosine/per-sample Pearson, prints the
+reference's table and writes ``comparison_results.json`` and
+``comparison_results.csv`` into ``plots/directional_comparison_<id>/``.
 
-Not ported yet: the kNN baselines (they wait for ``ops/knn.py``) and the
-plots (the card's machine has no matplotlib).
+Not ported yet: the JAX module's three plots.
 
     python -m vae_los_angeles_torch.evaluation.compare_directional_imputation
 """
@@ -29,6 +29,7 @@ from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
+from vae_los_angeles_torch.ops.knn import KNNRegressor
 from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
 from vae_los_angeles_torch.training import checkpoint
 
@@ -38,6 +39,17 @@ def get_mean_imputation_predictions(val_tpm, val_beta):
     rna_mean_pred = np.tile(val_tpm.mean(axis=0), (len(val_tpm), 1))
     dna_mean_pred = np.tile(val_beta.mean(axis=0), (len(val_beta), 1))
     return rna_mean_pred.astype(np.float32), dna_mean_pred.astype(np.float32)
+
+
+def get_knn_predictions(train_tpm, train_beta, val_tpm, val_beta, n_neighbors=5, device=None):
+    """Cross-modal kNN baselines fitted on the training table: (RNA from
+    DNA, DNA from RNA). ``n_jobs=-1`` is passed as the reference does and
+    ignored."""
+    knn_rna = KNNRegressor(n_neighbors=n_neighbors, n_jobs=-1, device=device)
+    rna_knn_pred = knn_rna.fit(train_beta, train_tpm).predict(val_beta)
+    knn_dna = KNNRegressor(n_neighbors=n_neighbors, n_jobs=-1, device=device)
+    dna_knn_pred = knn_dna.fit(train_tpm, train_beta).predict(val_tpm)
+    return rna_knn_pred, dna_knn_pred
 
 
 def compute_metrics(y_true, y_pred, modality_name, model_name, device=None):
@@ -81,7 +93,8 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
         dataset = MultiModalDataset.from_pickle(os.path.join(cfg.data_dir, "processed_data.pkl"))
     else:
         dataset = MultiModalDataset.from_numpy(*data)
-    _, va_idx = train_val_indices(len(dataset), cfg.train_test_split, cfg.random_seed)
+    tr_idx, va_idx = train_val_indices(len(dataset), cfg.train_test_split, cfg.random_seed)
+    train_tpm, train_beta = dataset.tpm_data[tr_idx], dataset.beta_data[tr_idx]
     rna_true, dna_true = dataset.tpm_data[va_idx], dataset.beta_data[va_idx]
     val_site = dataset.primary_site[va_idx]
 
@@ -93,6 +106,8 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
 
     print("\nComputing baseline imputation predictions...")
     rna_mean_pred, dna_mean_pred = get_mean_imputation_predictions(rna_true, dna_true)
+    rna_knn_pred, dna_knn_pred = get_knn_predictions(train_tpm, train_beta, rna_true, dna_true,
+                                                     device=device)
 
     results = []
     if rna2dna_model is not None:
@@ -102,12 +117,18 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
         results.append(
             compute_metrics(dna_true, dna_mean_pred, "DNA methylation", "Mean Imputation", dev)
         )
+        results.append(
+            compute_metrics(dna_true, dna_knn_pred, "DNA methylation", "k-NN Imputation", dev)
+        )
     if dna2rna_model is not None:
         dev = dna2rna_model.device
         rna_vae_pred, _, _ = dna2rna_model(dna=dna_true, site=val_site)
         results.append(compute_metrics(rna_true, rna_vae_pred, "RNA expression", "DNA2RNAVAE", dev))
         results.append(
             compute_metrics(rna_true, rna_mean_pred, "RNA expression", "Mean Imputation", dev)
+        )
+        results.append(
+            compute_metrics(rna_true, rna_knn_pred, "RNA expression", "k-NN Imputation", dev)
         )
 
     print("\n" + "=" * 80)

@@ -1,2 +1,3 @@
 """Numerics of the port: layers' init and BN folding (`nn`), metrics
-(`metrics`) and the hand-written kernels (`kernels`)."""
+(`metrics`), the kNN baselines (`knn`), the Gram PCA (`pca`), the exact
+t-SNE (`tsne`) and the hand-written kernels (`kernels`)."""
