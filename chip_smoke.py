@@ -159,7 +159,25 @@ Phases (any failure raises, and the script exits non-zero):
      ms an epoch, samples/s and peak device memory, finite losses and a
      falling train loss, and the loss pair's launches an epoch (the plain
      path: a forward and a backward a step and the validation forward; the
-     wide head's path: the validation forward);
+     wide head's path: the validation forward); after the autoencoders, the
+     cross-modality CV (`phase_cross_modality_cv`): ``vmap_meta.fit_folds``
+     of 5 folds x 3 epochs of rna2dna, dna2rna, rna2dna_ae and
+     rna2dna_unified at kl_on = 0 on ``--subset 0.99`` of the 1024-sample
+     cohort (5 folds of all 1024 leave a one-row last batch, which
+     BatchNorm refuses, in the reference too), each member
+     against ``engine.fit``'s plain path at its seed on the card (train and
+     validation losses rtol 2e-4, the JAX package's population-against-
+     sequential tolerance; epochs, best epoch and rates equal), the RNA→DNA
+     populations' loss-pair launches exactly a forward a member a step and
+     a validation, a backward a member a step; then
+     ``cross_modality_cv.main`` (5 folds x 3 epochs, both directions, mean,
+     kNN, unified VAE/AE) with its summary table, wall seconds and
+     loss-pair launches (each >= 1), ten records of finite metrics; and one
+     population epoch of 10 folds on the 8000-sample cohort beside one plain
+     epoch of a single member and, for the VAE, one epoch of it through the
+     epoch kernel (RNA→DNA VAE and AE; host clock and CUDA events); the
+     device busy share and kernels a step of a 10-member population epoch
+     and of a single member's (torch.profiler);
   5. serve (USE_PALLAS, so the loaders serve through the kernels):
      ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
@@ -223,7 +241,8 @@ Phases (any failure raises, and the script exits non-zero):
 
 Each path (serve, evaluate, the kNN comparison, train, train-step,
 train-plain, the three training paths of dna2rna and of the tri-modal
-model, the two autoencoders' runs, and train-wide and wide) is driven with every
+model, the two autoencoders' runs, the cross-modality CV, and train-wide and
+wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -251,10 +270,10 @@ import torch.nn.functional as F
 
 from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
-from vae_los_angeles_torch.data.splits import train_val_indices
+from vae_los_angeles_torch.data.splits import cv_inner_split, kfold_indices, train_val_indices
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
-from vae_los_angeles_torch.evaluation import (compare_directional_imputation, evaluate,
-                                              knn_comparison)
+from vae_los_angeles_torch.evaluation import (compare_directional_imputation,
+                                              cross_modality_cv, evaluate, knn_comparison)
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
 from vae_los_angeles_torch.models.conditioned_knn import ConditionedKNeighborsRegressor
@@ -270,6 +289,7 @@ from vae_los_angeles_torch.ops.kernels import fused_vae as fv
 from vae_los_angeles_torch.ops.kernels import fused_wide as fw
 from vae_los_angeles_torch.ops import knn, optim, pca, tsne
 from vae_los_angeles_torch.ops.nn import reset_parameters
+from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
 from vae_los_angeles_torch.training.tasks import Batch, get_task
@@ -2400,6 +2420,235 @@ def phase_knn_comparison(dev, workdir, tpm, beta, site):
 
 
 # ---------------------------------------------------------------------------
+# the cross-modality CV: fold populations against single runs, the CV entry
+
+CV_TASKS = ("rna2dna", "dna2rna", "rna2dna_ae", "rna2dna_unified")  # unified at kl_on = 0
+CV_FOLDS, CV_EPOCHS = 5, 3
+# 5 folds of the whole 1024-sample cohort give 737-row inner training splits,
+# whose last batch of 32 has one row: train-mode BatchNorm refuses it, in the
+# reference too. The CV's --subset 0.99 (1014 rows) gives 729 and 730.
+CV_SUBSET = 0.99
+MEMBER_RTOL = 2e-4  # the JAX package's population-against-sequential tolerance
+
+
+def cv_fold_tables(tpm, beta, site, n_folds):
+    """The CV's inner (train, validation) tables of each fold, as
+    ``cross_modality_cv`` builds them."""
+    tr, va = [], []
+    for train_index, _ in kfold_indices(len(tpm), n_folds):
+        a, b = cv_inner_split(train_index)
+        tr.append((tpm[a], beta[a], site[a]))
+        va.append((tpm[b], beta[b], site[b]))
+    return tr, va
+
+
+def compare_populations(dev, tpm, beta, site, card):
+    """`vmap_meta.fit_folds` of 5 folds x 3 epochs for each of `CV_TASKS`
+    on the rows of ``--subset 0.99`` of the 1024-sample cohort (two size
+    groups), each member against ``engine.fit``'s plain
+    path at its seed on the card: train and validation losses within rtol
+    2e-4, the epoch count, the best epoch and the rates equal. Returns the
+    RNA→DNA population's loss-pair launches."""
+    rows = cross_modality_cv.subset_rows(len(tpm), CV_SUBSET)
+    tr, va = cv_fold_tables(tpm[rows], beta[rows], site[rows], CV_FOLDS)
+    seeds = vmap_meta.member_seeds(0, CV_FOLDS)
+    launches = {}
+    for name in CV_TASKS:
+        overrides = ({"kl_on": np.zeros(CV_FOLDS, np.float32)} if name.endswith("_unified")
+                     else None)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pop = vmap_meta.fit_folds(name, CFG, tr, va, 0, N_SITES, num_epochs=CV_EPOCHS,
+                                  state_overrides=overrides, device=dev)
+        torch.cuda.synchronize()
+        pop_s = time.perf_counter() - t0
+        counts = {k: fl.launches[k] for k in ("rna2dna_loss_forward", "rna2dna_loss_backward")}
+        if name.startswith("rna2dna") and not name.endswith("_ae"):
+            launches[name] = counts
+            steps = sum(CV_EPOCHS * -(-len(t[0]) // CFG.batch_size) for t in tr)
+            if counts != {"rna2dna_loss_forward": steps + CV_EPOCHS * CV_FOLDS,
+                          "rna2dna_loss_backward": steps}:
+                raise AssertionError(f"{name} population: loss-pair launches {counts}, "
+                                     f"{steps} member steps")
+        elif any(counts.values()):
+            raise AssertionError(f"{name} population launched the loss pair: {counts}")
+        worst, single_s = 0.0, 0.0
+        for i, res in enumerate(pop):
+            params, state = get_task(name).init(torch.Generator().manual_seed(seeds[i]), CFG,
+                                                N_SITES, dev)
+            if overrides:
+                state["kl_on"] = torch.zeros((), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = engine.fit(name, CFG, tr[i], va[i], seeds[i], N_SITES,
+                                num_epochs=CV_EPOCHS, drop_last=False, init_params=params,
+                                init_state=state, device=dev)
+            torch.cuda.synchronize()
+            single_s += time.perf_counter() - t0
+            same = (res.epochs_ran == single.epochs_ran == CV_EPOCHS
+                    and res.best_epoch == single.best_epoch
+                    and np.array_equal(res.lrs, single.lrs) and res.stopped == single.stopped)
+            rel = max(float(np.max(np.abs(res.train_losses / single.train_losses - 1))),
+                      float(np.max(np.abs(res.val_losses / single.val_losses - 1))))
+            worst = max(worst, rel)
+            if not same or not rel <= MEMBER_RTOL:
+                raise AssertionError(
+                    f"{name} member {i}: epochs {res.epochs_ran}/{single.epochs_ran}, best "
+                    f"{res.best_epoch}/{single.best_epoch}, lrs {res.lrs}/{single.lrs}, train "
+                    f"{res.train_losses}/{single.train_losses}, val "
+                    f"{res.val_losses}/{single.val_losses} (rel {rel:.3g})")
+        say(f"[cv] fit_folds {name}{' (kl_on 0)' if overrides else ''}, {CV_FOLDS} folds x "
+            f"{CV_EPOCHS} epochs, {len(rows)} samples: each member within {worst:.3g} (rtol) of "
+            f"engine.fit at its seed, epochs, best epoch and rates equal; population "
+            f"{pop_s:.3f} s, the {CV_FOLDS} single runs {single_s:.3f} s; {card}")
+    return launches
+
+
+def time_population_epoch(dev, card, task="rna2dna", n_samples=8000, n_folds=10):
+    """One epoch of the ``n_folds`` population on the ``n_samples`` cohort
+    beside one plain ``engine.fit`` epoch of its first member (host clock and
+    CUDA events, the init alone, a 0-epoch call, taken off each) and, for a
+    task with an epoch kernel, `time_fused_epoch` of that member."""
+    tpm, beta, site = generate_synthetic_arrays(n_samples=n_samples, seed=2)
+    tr, va = cv_fold_tables(tpm, beta, site, n_folds)
+    seed = vmap_meta.member_seeds(0, n_folds)[0]
+    runs = {
+        "population": lambda n: vmap_meta.fit_folds(task, CFG, tr, va, 0, N_SITES,
+                                                    num_epochs=n, device=dev),
+        "single": lambda n: engine.fit(task, CFG, tr[0], va[0], seed, N_SITES, num_epochs=n,
+                                       drop_last=False, device=dev),
+    }
+    out = {what: timed_epochs(run, 0, 1) for what, run in runs.items()}
+    steps = -(-len(tr[0][0]) // CFG.batch_size)
+    (pop_ms, pop_ev), (one_ms, one_ev) = out["population"], out["single"]
+    say(f"[cv] {task}, {n_samples}-sample cohort, {n_folds} folds ({len(tr[0][0])} training, "
+        f"{len(va[0][0])} validation rows a fold, {steps} steps): one population epoch "
+        f"{pop_ms:.3f} ms host clock ({pop_ev:.3f} ms CUDA events) against one plain "
+        f"engine.fit epoch of one member {one_ms:.3f} ms ({one_ev:.3f}); {n_folds} single "
+        f"runs would take {n_folds * one_ms:.3f} ms, {n_folds * one_ms / pop_ms:.2f}x the "
+        f"population; {card}")
+    if task in engine.FUSED:
+        out["single_fused"] = time_fused_epoch(dev, card, task, tr[0], va[0], seed, n_folds,
+                                               pop_ms)
+    return out
+
+
+def timed_epochs(run, n0, n1):
+    """(host ms, CUDA-event ms) of ``run(n1)`` less ``run(n0)``, each one
+    call between two synchronisations, over ``n1 - n0``."""
+    times = []
+    for n in (n0, n1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run(n)
+        end.record()
+        end.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end)))
+    return tuple((b - a) / (n1 - n0) for a, b in zip(*times))
+
+
+def time_fused_epoch(dev, card, task, train, val, seed, n_folds, pop_ms, extra=10):
+    """One ``engine.fit(fused_epoch=True)`` epoch of one member: the kernel
+    path needs full batches (``drop_last=True``, one step fewer than the
+    CV's); from one init given to every call, after a warm-up call that
+    captures the epoch graph, ``1 + extra`` epochs less 1 over ``extra``
+    (an epoch of ~20 ms is within the init's host-time noise, so the 0-epoch
+    difference of the other runs cannot time it)."""
+    params, state = get_task(task).init(torch.Generator().manual_seed(seed), CFG, N_SITES, dev)
+    ran = {}
+
+    def run(n):
+        ran[n] = engine.fit(task, CFG, train, val, seed, N_SITES, num_epochs=n, drop_last=True,
+                            fused_epoch=True, init_params=params, init_state=state,
+                            device=dev).epochs_ran
+
+    run(1)
+    ms, ev = timed_epochs(run, 1, 1 + extra)
+    if ran[1 + extra] != 1 + extra:
+        raise AssertionError(f"the fused run stopped after {ran[1 + extra]} epochs: "
+                             "the per-epoch time would mix in fewer epochs")
+    say(f"[cv] {task}: one engine.fit(fused_epoch=True) epoch of one member "
+        f"({len(train[0]) // CFG.batch_size} full steps; {1 + extra} epochs less 1, over "
+        f"{extra}, its graph captured in a warm-up call) {ms:.3f} ms host clock ({ev:.3f} ms "
+        f"CUDA events); {n_folds} such runs would take {n_folds * ms:.3f} ms, the population "
+        f"{pop_ms / (n_folds * ms):.2f}x that; {card}")
+    return ms, ev
+
+
+def profile_population_step(dev, card, task="rna2dna", n_samples=1040, n_folds=10):
+    """Device busy share and kernels a step of one population epoch of
+    ``n_folds`` members (torch.profiler), beside one plain ``engine.fit``
+    epoch of its first member: each member's batch is 32 rows, as at 8000
+    samples, and 1040 samples give one group of 10 equal folds (842
+    training rows, 27 steps). The kernels a step include the epoch's one
+    validation pass."""
+    tpm, beta, site = generate_synthetic_arrays(n_samples=n_samples, seed=2)
+    tr, va = cv_fold_tables(tpm, beta, site, n_folds)
+    steps = -(-len(tr[0][0]) // CFG.batch_size)
+    seed = vmap_meta.member_seeds(0, n_folds)[0]
+    calls = {
+        f"{n_folds}-member population": lambda: vmap_meta.fit_folds(
+            task, CFG, tr, va, 0, N_SITES, num_epochs=1, device=dev),
+        "one member, engine.fit": lambda: engine.fit(
+            task, CFG, tr[0], va[0], seed, N_SITES, num_epochs=1, drop_last=False, device=dev),
+    }
+    for what, call in calls.items():
+        wall_ms, rows = profile_call(call)
+        busy_ms = sum(r[0] for r in rows)
+        kernels = sum(r[1] for r in rows)
+        say(f"[cv-profile] {task} {what}, one epoch of {steps} steps ({n_samples}-sample "
+            f"cohort, init included): wall {wall_ms:.3f} ms under the profiler, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels} kernels, "
+            f"{kernels / steps:.1f} a step; {card}")
+        for ms, count, key in sorted(rows, reverse=True)[:6]:
+            say(f"[cv-profile]   {short_name(key):48s} {ms:9.3f} ms  {count:6d} launches")
+
+
+def phase_cross_modality_cv(dev, tpm, beta, site, card):
+    """The CV slice: `compare_populations`, then ``cross_modality_cv.main``
+    with ``data=`` arrays (5 folds x 3 epochs, ``--subset 0.99``, both
+    directions, the four
+    families with unified VAE/AE populations) with every launch count at 0
+    just before it: its summary table, wall seconds and loss-pair launches
+    (each >= 1), ten finite records of 5 folds; then `time_population_epoch`
+    for the VAE and the AE of RNA→DNA and `profile_population_step`.
+    Returns the CV's launch counts."""
+    compare_populations(dev, tpm, beta, site, card)
+    tee = Tee(sys.stdout)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        results = cross_modality_cv.main(["--folds", str(CV_FOLDS), "--epochs", str(CV_EPOCHS),
+                                          "--subset", str(CV_SUBSET)],
+                                         data=(tpm, beta, site), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for name in ("rna2dna_loss_forward", "rna2dna_loss_backward"):
+        if launches[name] < 1:
+            raise AssertionError(f"the cross-modality CV never launched {name}")
+    if "FINAL RESULTS SUMMARY" not in tee.copy.getvalue():
+        raise AssertionError("the CV printed no summary table")
+    if len(results) != 10 or any(
+            len(v) != CV_FOLDS or not np.isfinite(v).all()
+            for r in results for v in r["fold_metrics"].values()):
+        raise AssertionError(f"CV records: {[(r['direction'], r['model']) for r in results]}")
+    say(f"[cv] cross_modality_cv.main, {CV_FOLDS} folds x {CV_EPOCHS} epochs, --subset "
+        f"{CV_SUBSET} of 1024 samples, "
+        f"both directions, mean, kNN (k = 5, 10), unified VAE/AE: {wall:.2f} s; loss-pair "
+        f"launches forward {launches['rna2dna_loss_forward']}, backward "
+        f"{launches['rna2dna_loss_backward']}; {card}")
+    for task in ("rna2dna", "rna2dna_ae"):
+        time_population_epoch(dev, card, task)
+    profile_population_step(dev, card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: time
 
 def time_call(fn, reps=30, warmup=5):
@@ -3047,6 +3296,7 @@ def main():
             counts.update(counts_mm)
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
             counts.update(phase_autoencoders(dev, workdir, tpm, beta, site, card))
+            counts["cv"] = phase_cross_modality_cv(dev, tpm, beta, site, card)
             counts.update(phase_train_wide(dev, workdir, card))
         finally:
             os.chdir(cwd)

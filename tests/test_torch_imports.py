@@ -35,9 +35,10 @@ def test_slice_modules_listed():
     assert "vae_los_angeles_torch.train" in SLICE_MODULES
     assert "vae_los_angeles_torch.ops.kernels.fused_wide" in SLICE_MODULES
     for name in ("ops.knn", "ops.pca", "ops.tsne", "models.conditioned_knn",
-                 "evaluation.knn_comparison"):
+                 "evaluation.knn_comparison", "parallel", "parallel.vmap_meta",
+                 "evaluation.cross_modality_cv"):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 26
+    assert len(SLICE_MODULES) >= 29
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():

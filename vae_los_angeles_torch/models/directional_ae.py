@@ -25,7 +25,8 @@ the train- or eval-mode forwards, with the new BatchNorm state in their
 `DirectionalAEOutput`. Their dropout masks (``drop_mask`` (B, 128);
 ``drop_mask1`` (B, 512) and ``drop_mask2`` (B, 256)) are injected for tests
 or drawn from an explicit generator. The JAX package has no kernel for
-these models: they train on the plain path.
+these models: they train on the plain path. Every apply takes a member axis
+(``ops.nn``).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from vae_los_angeles_torch.models.decoders import (
     decoder_b_apply_logits,
 )
 from vae_los_angeles_torch.models.vae import init_from_module
-from vae_los_angeles_torch.ops.nn import batchnorm_apply, dropout_apply, linear_apply
+from vae_los_angeles_torch.ops.nn import (batchnorm_apply, dropout_apply, embedding_lookup,
+                                         flatten_rows, linear_apply)
 
 DROPOUT_RATE = 0.1
 
@@ -145,7 +147,7 @@ def _latent(params, encoded, site, input_name):
     latents = [] if encoded is None else [encoded]
     if site is not None:
         latents.append(linear_apply(params["site_projection"],
-                                    params["site_embedding"]["table"][site]))
+                                    embedding_lookup(params["site_embedding"]["table"], site)))
     return fuse_latents(latents)
 
 
@@ -174,7 +176,7 @@ def dna2rna_ae_apply(params, state, dna=None, site=None, *, train: bool = False,
     new_state, encoded = dict(state), None
     if dna is not None:
         h = _bn_block(params, state, new_state, "enc_fc1", "enc_bn1",
-                      dna.reshape(dna.shape[0], -1), train, drop_mask1, generator)
+                      flatten_rows(dna, params["enc_fc1"]["w"]), train, drop_mask1, generator)
         h = _bn_block(params, state, new_state, "enc_fc2", "enc_bn2", h, train, drop_mask2,
                       generator)
         encoded = linear_apply(params["enc_fc3"], h)

@@ -24,7 +24,8 @@ an explicit generator. `rna2dna_vae_hidden` is the RNA2DNAVAE forward up to
 DecoderB's output layer, with the same draws in the same order: the trainer's
 wide-head path (``training.engine``: rna2dna's kernel path at
 ``engine.WIDE_HEAD_MIN_DIM_B`` probes or more) trains that layer with a
-kernel.
+kernel. ``noise_scale`` scales eps (``models.vae.reparameterize``): the
+unified tasks' ``kl_on``. Every apply takes a member axis (``ops.nn``).
 """
 
 from __future__ import annotations
@@ -141,10 +142,17 @@ def dna2rna_vae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_s
                  embed_dim, device)
 
 
+def _sample(mu, logvar, eps, generator, noise_scale):
+    """z; the VAE tasks' call (no ``noise_scale``) is the one they always made."""
+    if noise_scale is None:
+        return reparameterize(mu, logvar, eps, generator)
+    return reparameterize(mu, logvar, eps, generator, noise_scale)
+
+
 def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = False,
                        eps: Optional[torch.Tensor] = None,
                        drop_mask: Optional[torch.Tensor] = None,
-                       generator: Optional[torch.Generator] = None):
+                       generator=None, noise_scale=None):
     """RNA2DNAVAE forward up to DecoderB's output layer: (h, mu, logvar,
     new_state), h the (n, 512) input of ``decoder_dna/fc3``."""
     if rna is None and site is None:
@@ -161,18 +169,19 @@ def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = Fals
         mus.append(mu_s)
         logvars.append(lv_s)
     mu, logvar = fuse_posteriors(mus, logvars)
-    z = reparameterize(mu, logvar, eps, generator)
+    z = _sample(mu, logvar, eps, generator, noise_scale)
     return decoder_b_hidden(params["decoder_dna"], z), mu, logvar, new_state
 
 
 def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False,
                       eps: Optional[torch.Tensor] = None,
                       drop_mask: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> DirectionalVAEOutput:
+                      generator=None, noise_scale=None) -> DirectionalVAEOutput:
     """RNA2DNAVAE forward on a params tree; ``eps`` and ``drop_mask`` inject
     the noise, else it is drawn from ``generator`` (on the tensors' device)."""
     h, mu, logvar, new_state = rna2dna_vae_hidden(params, state, rna, site, train=train, eps=eps,
-                                                  drop_mask=drop_mask, generator=generator)
+                                                  drop_mask=drop_mask, generator=generator,
+                                                  noise_scale=noise_scale)
     logits = linear_apply(params["decoder_dna"]["fc3"], h)
     return DirectionalVAEOutput(torch.sigmoid(logits), logits, mu, logvar, new_state)
 
@@ -181,7 +190,7 @@ def dna2rna_vae_apply(params, state, dna=None, site=None, *, train: bool = False
                       eps: Optional[torch.Tensor] = None,
                       drop_mask1: Optional[torch.Tensor] = None,
                       drop_mask2: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> DirectionalVAEOutput:
+                      generator=None, noise_scale=None) -> DirectionalVAEOutput:
     """DNA2RNAVAE forward on a params tree; ``eps`` and the encoder's two
     dropout masks inject the noise, else it is drawn from ``generator``.
     ``recon_logits`` is ``recon`` (a linear head)."""
@@ -199,6 +208,6 @@ def dna2rna_vae_apply(params, state, dna=None, site=None, *, train: bool = False
         mus.append(mu_s)
         logvars.append(lv_s)
     mu, logvar = fuse_posteriors(mus, logvars)
-    z = reparameterize(mu, logvar, eps, generator)
+    z = _sample(mu, logvar, eps, generator, noise_scale)
     recon = decoder_a_apply(params["decoder_rna"], z)
     return DirectionalVAEOutput(recon, recon, mu, logvar, new_state)

@@ -18,14 +18,17 @@ The trainer's train-mode forward is functional, on the JAX package's
 parameter trees (``vae_los_angeles_tpu/models/encoders.py``): `encoder_a_apply`
 (Linear → BatchNorm with batch statistics → ReLU → dropout, returning the new
 BatchNorm state), `encoder_b_apply` (two such blocks, returning both BatchNorm
-states) and `encoder_c_apply` (the site embedding's heads).
+states) and `encoder_c_apply` (the site embedding's heads). Each takes a 2-D
+batch with the model's leaves or a 3-D (members, rows, features) batch with
+stacked leaves and a list of generators, one a member (``ops.nn``).
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from vae_los_angeles_torch.ops.nn import batchnorm_apply, dropout_apply, linear_apply
+from vae_los_angeles_torch.ops.nn import (batchnorm_apply, dropout_apply, embedding_lookup,
+                                         flatten_rows, linear_apply)
 
 DROPOUT_RATE = 0.1
 
@@ -90,7 +93,7 @@ def encoder_b_apply(params, state, x, *, train: bool, drop_mask1=None, drop_mask
     new state of both BatchNorms. In train mode the dropout masks (B, 512)
     and (B, 256) are ``drop_mask1``/``drop_mask2`` or drawn from
     ``generator``, block 1's first."""
-    h = linear_apply(params["fc1"], x.reshape(x.shape[0], -1))
+    h = linear_apply(params["fc1"], flatten_rows(x, params["fc1"]["w"]))
     h, bn1 = batchnorm_apply(params["bn1"], state["bn1"], h, train=train)
     h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask1,
                       generator=generator)
@@ -104,5 +107,5 @@ def encoder_b_apply(params, state, x, *, train: bool, drop_mask1=None, drop_mask
 
 def encoder_c_apply(params, site):
     """EncoderC on a params tree: (mu, logvar) of the site embedding."""
-    h = params["embedding"]["table"][site]
+    h = embedding_lookup(params["embedding"]["table"], site)
     return linear_apply(params["mu"], h), linear_apply(params["logvar"], h)

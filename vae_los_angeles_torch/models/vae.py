@@ -14,8 +14,9 @@ eval-mode forward over any of the 7 modality subsets, returning a
 `MultiModalVAEOutput` with the new BatchNorm state. z is sampled in eval
 mode too, as in the JAX package. Noise (eps and the three dropout masks) is
 injected for tests or drawn from an explicit generator. The JAX package's
-``latent_mask`` and ``row_mask`` (the HPO and CV populations) are not
-ported: they raise.
+``latent_mask`` and ``row_mask`` (the padded HPO populations and the
+masked-size fold populations) are not ported: they raise. The posterior
+helpers take a member axis (``ops.nn``).
 """
 
 from __future__ import annotations
@@ -41,19 +42,24 @@ from vae_los_angeles_torch.models.encoders import (
     encoder_b_apply,
     encoder_c_apply,
 )
-from vae_los_angeles_torch.ops.nn import reset_parameters
+from vae_los_angeles_torch.ops.nn import draw, per_member, reset_parameters
 from vae_los_angeles_torch.utils.weights import jax_from_state_dict, tree_from_numpy
 
 
 def reparameterize(mu, logvar, eps: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator=None, noise_scale=None):
     """z = mu + eps·exp(logvar/2), eps ~ N(0, I).
 
     ``eps`` injects the noise (the tests hand both packages the same draw,
-    and zeros give z = mu); otherwise eps is drawn from ``generator``, which
-    must live on ``mu``'s device."""
+    and zeros give z = mu); otherwise eps is drawn from ``generator`` (a list
+    of them, one a member, for a member axis: ``ops.nn.draw``), which must
+    live on ``mu``'s device. ``noise_scale`` (a scalar, or (P,) for a member
+    axis) scales eps: 1 gives the unscaled z bit for bit (eps·1 is exact),
+    0 gives z = mu, the unified tasks' autoencoder mode."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        eps = draw(torch.randn, mu.shape, generator, mu.device, mu.dtype)
+    if noise_scale is not None:
+        eps = eps * per_member(noise_scale, eps)
     return mu + eps * torch.exp(0.5 * logvar)
 
 
@@ -131,8 +137,8 @@ def multimodal_vae_apply(params, state, a=None, b=None, site=None, *, train: boo
     (B, 512) and ``drop_b2`` (B, 256) inject the noise; what is not injected
     is drawn from ``generator`` (on the tensors' device)."""
     if latent_mask is not None or row_mask is not None:
-        raise ValueError("latent_mask and row_mask are not ported: they belong to the HPO "
-                         "and CV populations")
+        raise ValueError("latent_mask and row_mask are not ported: they belong to the padded "
+                         "HPO populations and the masked-size fold populations")
     if a is None and b is None and site is None:
         raise ValueError("at least one modality must be provided")
     mus, logvars, new_state = [], [], dict(state)

@@ -21,6 +21,12 @@ may be a float or a 0-d tensor (a tensor that requires grad gets dbeta).
 
 ``launches`` counts the kernel launches of each entry, so a run can show
 that its path went through them.
+
+`rna2dna_loss_fused_members` is the fold populations' loss: one call of the
+pair a member, on that member's contiguous (rows, dna) slice, the shapes the
+kernels are held at. ``RNA2DNALoss`` is an old-style autograd Function and
+its CUDA entries have no batching rule, so it is never put under
+``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -175,3 +181,15 @@ def rna2dna_loss_fused(logits, dna, mu, logvar, beta=1e-3):
         beta = torch.full((), float(beta), dtype=torch.float32, device=logits.device)
     _check(logits, dna, mu, logvar, beta)
     return RNA2DNALoss.apply(logits, dna, mu, logvar, beta)
+
+
+def rna2dna_loss_fused_members(logits, dna, mu, logvar, beta=1e-3):
+    """(P,) losses of a member axis: `rna2dna_loss_fused` of each member's
+    (rows, dna) slice; ``beta`` a float, a 0-d tensor or one value a
+    member."""
+    if isinstance(beta, torch.Tensor) and beta.dim() == 1:
+        betas = beta.unbind(0)
+    else:
+        betas = [beta] * logits.shape[0]
+    return torch.stack([rna2dna_loss_fused(*member, b) for *member, b in zip(
+        logits.unbind(0), dna.unbind(0), mu.unbind(0), logvar.unbind(0), betas)])

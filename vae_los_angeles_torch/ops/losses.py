@@ -20,6 +20,10 @@ whose plain version is this module's ``rna2dna_loss``. The DNA→RNA and
 tri-modal trainers call ``dna2rna_loss`` and ``vae_loss`` themselves: the JAX
 package leaves those losses to XLA too, as it does the autoencoders'. The
 ``row_mask`` variants are not ported.
+
+``members=True`` (the fold populations: inputs with a leading member axis)
+sums over every axis but that one, so a population step gives one loss a
+member; ``beta`` may then be a (P,) tensor.
 """
 
 from __future__ import annotations
@@ -27,18 +31,23 @@ from __future__ import annotations
 import torch
 
 
-def kl_divergence(mu, logvar):
-    return -0.5 * torch.sum(1.0 + logvar - torch.square(mu) - torch.exp(logvar))
+def _sum(x, members: bool):
+    """The sum of ``x``, or one sum a member (every axis but the first)."""
+    return x.sum(tuple(range(1, x.dim()))) if members else torch.sum(x)
 
 
-def bce_with_logits_sum(logits, target):
-    return torch.sum(
-        torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+def kl_divergence(mu, logvar, members: bool = False):
+    return -0.5 * _sum(1.0 + logvar - torch.square(mu) - torch.exp(logvar), members)
 
 
-def mse_sum(pred, target):
-    return torch.sum(torch.square(pred - target))
+def bce_with_logits_sum(logits, target, members: bool = False):
+    return _sum(
+        torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits))),
+        members)
+
+
+def mse_sum(pred, target, members: bool = False):
+    return _sum(torch.square(pred - target), members)
 
 
 def cross_entropy_sum(logits, labels, class_weights=None):
@@ -68,27 +77,27 @@ def vae_loss(recon_a, a, recon_b_logits, b, recon_c, site, mu, logvar, beta=1e-3
                                                      "kld": kld}
 
 
-def rna2dna_loss(recon_dna_logits, dna, mu, logvar, beta=1e-3):
+def rna2dna_loss(recon_dna_logits, dna, mu, logvar, beta=1e-3, members: bool = False):
     """BCE-sum + beta*KLD; returns (total, {"recon": .., "kld": ..})."""
-    recon = bce_with_logits_sum(recon_dna_logits, dna)
-    kld = kl_divergence(mu, logvar)
+    recon = bce_with_logits_sum(recon_dna_logits, dna, members)
+    kld = kl_divergence(mu, logvar, members)
     return recon + beta * kld, {"recon": recon, "kld": kld}
 
 
-def dna2rna_loss(recon_rna, rna, mu, logvar, beta=1e-3):
+def dna2rna_loss(recon_rna, rna, mu, logvar, beta=1e-3, members: bool = False):
     """MSE-sum + beta*KLD; returns (total, {"recon": .., "kld": ..})."""
-    recon = mse_sum(recon_rna, rna)
-    kld = kl_divergence(mu, logvar)
+    recon = mse_sum(recon_rna, rna, members)
+    kld = kl_divergence(mu, logvar, members)
     return recon + beta * kld, {"recon": recon, "kld": kld}
 
 
-def rna2dna_ae_loss(recon_dna_logits, dna):
+def rna2dna_ae_loss(recon_dna_logits, dna, members: bool = False):
     """BCE-sum only; returns (total, {"recon": ..})."""
-    recon = bce_with_logits_sum(recon_dna_logits, dna)
+    recon = bce_with_logits_sum(recon_dna_logits, dna, members)
     return recon, {"recon": recon}
 
 
-def dna2rna_ae_loss(recon_rna, rna):
+def dna2rna_ae_loss(recon_rna, rna, members: bool = False):
     """MSE-sum only; returns (total, {"recon": ..})."""
-    recon = mse_sum(recon_rna, rna)
+    recon = mse_sum(recon_rna, rna, members)
     return recon, {"recon": recon}

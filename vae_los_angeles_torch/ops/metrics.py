@@ -6,9 +6,14 @@ are sklearn's/scipy's):
   * R² over the flattened arrays, 0 when the truth is constant;
   * per-sample Pearson r over each row, rows with zero variance masked out
     (the reference skips NaN correlations), std is the population std;
-  * cosine similarity of matching rows, a zero-norm row contributing 0.
+  * cosine similarity of matching rows, a zero-norm row contributing 0;
+  * ``r2_mean`` the uniform average of per-column R² (sklearn's multioutput
+    default), a constant column scoring 1.0 when its residual is < 1e-12
+    and 0.0 otherwise, as sklearn does.
 
-The CV metric dict (``compute_cv_metrics``) is not ported yet.
+`compute_imputation_metrics` is the dict of the reference's
+``compare_directional_imputation.py``, `compute_cv_metrics` that of its
+``vae_cross_modality_cv.py`` (``METRIC_NAMES``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,27 @@ def _as_tensor(a, device=None):
     if isinstance(a, torch.Tensor):
         return a.detach().to(device=device or a.device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+METRIC_NAMES = ["Mean R2", "Global R2", "MSE", "MAE", "Cosine Sim", "Pearson"]
+
+
+def mse(y_true, y_pred):
+    return torch.square(y_true - y_pred).mean()
+
+
+def mae(y_true, y_pred):
+    return torch.abs(y_true - y_pred).mean()
+
+
+def r2_mean(y_true, y_pred):
+    """Uniform average of per-column R², with sklearn's constant-column rule."""
+    ss_res = torch.sum(torch.square(y_true - y_pred), dim=0)
+    ss_tot = torch.sum(torch.square(y_true - y_true.mean(dim=0)), dim=0)
+    degenerate = torch.where(ss_res < 1e-12, 1.0, 0.0)
+    cols = torch.where(ss_tot > 0, 1.0 - ss_res / torch.where(ss_tot > 0, ss_tot, 1.0),
+                       degenerate)
+    return cols.mean()
 
 
 def r2_global(y_true, y_pred):
@@ -86,3 +112,15 @@ def compute_imputation_metrics(y_true, y_pred, modality_name=None, model_name=No
     host = torch.stack(list(vals.values())).cpu().tolist()  # one device→host copy
     out.update(zip(vals, host))
     return out
+
+
+def compute_cv_metrics(y_true, y_pred, device=None):
+    """The six ``METRIC_NAMES`` as Python floats (the reference's
+    ``vae_cross_modality_cv.py:101-108``), computed on ``device`` (the
+    inputs' own when None)."""
+    y_true, y_pred = _as_tensor(y_true, device), _as_tensor(y_pred, device)
+    vals = torch.stack([r2_mean(y_true, y_pred), r2_global(y_true, y_pred),
+                        mse(y_true, y_pred), mae(y_true, y_pred),
+                        cosine_rowwise_mean(y_true, y_pred),
+                        pearson_mean_std(y_true, y_pred)[0]])
+    return dict(zip(METRIC_NAMES, vals.cpu().tolist()))  # one device→host copy

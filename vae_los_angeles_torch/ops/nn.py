@@ -28,6 +28,17 @@ would round its result to bf16, so both operands are upcast to fp32 first.
 A product of two bf16 values is exact in fp32, so this is JAX's arithmetic
 up to the order of the sum, and it has autograd on every device (the
 ``torch.mm(..., out_dtype=float32)`` overload has no derivative).
+
+A member axis (the fold populations, ``parallel.vmap_meta``): every apply
+takes a 2-D ``(rows, features)`` batch with the single model's leaves, or a
+3-D ``(members, rows, features)`` batch with every leaf stacked on a leading
+member axis. A stacked Linear is one batched product (``torch.matmul`` of
+(P, rows, in) by (P, in, out)) with its bias broadcast over the rows;
+BatchNorm reduces over the row axis (-2); `embedding_lookup` gathers each
+member's rows from its own table. The 2-D path is the single-run code, bit
+for bit. Noise for a population comes from one generator a member
+(`draw`): member i's draws are the ones a single run with that generator
+makes, in the same order and shapes.
 """
 
 from __future__ import annotations
@@ -68,15 +79,52 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module
     return module
 
 
+def per_member(t, like):
+    """A per-member (P,) tensor shaped to broadcast over ``like``'s
+    (P, ...) leaf; a scalar, a 0-d tensor or None as it is."""
+    if not isinstance(t, torch.Tensor) or t.dim() == 0:
+        return t
+    return t.reshape(t.shape + (1,) * (like.dim() - t.dim()))
+
+
+def draw(sampler, shape, generator, device, dtype=torch.float32):
+    """``sampler(shape, generator=, device=, dtype=)`` (``torch.rand`` or
+    ``torch.randn``); with a list of generators, one a member, the members'
+    draws of ``shape[1:]`` stacked, each from its own generator."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for {shape[0]} members")
+        return torch.stack([sampler(tuple(shape[1:]), generator=g, device=device, dtype=dtype)
+                            for g in generator])
+    return sampler(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def embedding_lookup(table, ids):
+    """Rows ``ids`` of an Embedding ``table``; a stacked (P, n, d) table
+    gathers each member's (P, rows) ids from its own table."""
+    if table.dim() == 3:
+        return table[torch.arange(table.shape[0], device=ids.device)[:, None], ids]
+    return table[ids]
+
+
+def flatten_rows(x, w):
+    """``x`` with its features flattened for a product with the Linear
+    weight ``w``: (rows, -1), or (P, rows, -1) for a stacked (P, in, out)."""
+    return x.reshape(*x.shape[: w.dim() - 1], -1)
+
+
 def linear_apply(params, x):
-    """``x @ w + b`` with ``w`` stored (in, out). A reduced-precision weight
-    casts ``x`` to its dtype and the product is taken in fp32 (module
-    docstring); the result is fp32 either way."""
-    w = params["w"]
+    """``x @ w + b`` with ``w`` stored (in, out), or a member axis in front
+    of both (one batched product, the bias broadcast over the rows). A
+    reduced-precision weight casts ``x`` to its dtype and the product is
+    taken in fp32 (module docstring); the result is fp32 either way."""
+    w, b = params["w"], params["b"]
+    if w.dim() == 3:
+        b = b.unsqueeze(-2)
     if w.dtype == torch.float32:
-        return x @ w + params["b"]
+        return x @ w + b
     x = x.to(w.dtype)
-    return x.to(torch.float32) @ w.to(torch.float32) + params["b"]
+    return x.to(torch.float32) @ w.to(torch.float32) + b
 
 
 def resolve_compute_dtype(compute_dtype):
@@ -91,29 +139,30 @@ def resolve_compute_dtype(compute_dtype):
     )
 
 
-def cast_matmul_params(params, dtype):
+def cast_matmul_params(params, dtype, members: bool = False):
     """Cast every 2-D leaf of a params tree (Linear weights, Embedding
-    tables) to ``dtype``; 1-D leaves (biases, BatchNorm gamma/beta) stay
-    fp32. ``params`` itself when ``dtype`` is fp32. Differentiable: the
-    gradient of a cast leaf comes back in the master's dtype."""
+    tables; 3-D with ``members``, the stacked ones) to ``dtype``; the other
+    leaves (biases, BatchNorm gamma/beta) stay fp32. ``params`` itself when
+    ``dtype`` is fp32. Differentiable: the gradient of a cast leaf comes
+    back in the master's dtype."""
     if dtype == torch.float32:
         return params
     if isinstance(params, dict):
-        return {k: cast_matmul_params(v, dtype) for k, v in params.items()}
-    return params.to(dtype) if params.dim() == 2 else params
+        return {k: cast_matmul_params(v, dtype, members) for k, v in params.items()}
+    return params.to(dtype) if params.dim() == 2 + members else params
 
 
 def batchnorm_apply(params, state, x, *, train: bool):
     """BatchNorm1d forward: returns (y, new_state). Train mode normalises
-    with the biased batch statistics and moves the running mean and the
-    UNBIASED running variance by momentum 0.1; eval mode uses the running
-    statistics and returns ``state`` unchanged."""
+    with the biased batch statistics (over the row axis, -2) and moves the
+    running mean and the UNBIASED running variance by momentum 0.1; eval
+    mode uses the running statistics and returns ``state`` unchanged."""
     if train:
-        n = x.shape[0]
+        n = x.shape[-2]
         if n <= 1:
             raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {n}")
-        mean = x.mean(0)
-        var = torch.square(x - mean).mean(0)  # biased, used to normalise
+        mean = x.mean(-2)
+        var = torch.square(x - _rows(mean)).mean(-2)  # biased, used to normalise
         new_state = {
             "mean": (1.0 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
             "var": (1.0 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * var * (n / (n - 1)),
@@ -121,17 +170,25 @@ def batchnorm_apply(params, state, x, *, train: bool):
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
-    y = (x - mean) * torch.rsqrt(var + BN_EPS) * params["gamma"] + params["beta"]
+    y = ((x - _rows(mean)) * _rows(torch.rsqrt(var + BN_EPS)) * _rows(params["gamma"])
+         + _rows(params["beta"]))
     return y, new_state
+
+
+def _rows(t):
+    """A per-feature statistic, (features,) or (P, features), broadcast over
+    the row axis."""
+    return t.unsqueeze(-2)
 
 
 def dropout_apply(x, rate: float, *, train: bool, mask=None, generator=None):
     """Inverted dropout (``torch.nn.Dropout``): ``x * mask / (1 - rate)``
-    with a {0, 1} ``mask`` that is injected or drawn from ``generator``
-    (keep with probability 1 - rate). The identity in eval mode."""
+    with a {0, 1} ``mask`` that is injected or drawn from ``generator`` (a
+    list of them for a member axis: `draw`), keep with probability
+    1 - rate. The identity in eval mode."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
     if mask is None:
-        mask = (torch.rand(x.shape, generator=generator, device=x.device) < keep).to(x.dtype)
+        mask = (draw(torch.rand, x.shape, generator, x.device) < keep).to(x.dtype)
     return x * mask / keep

@@ -22,13 +22,21 @@
 Every state is a dict of 0-d tensors updated with ``torch.where``, so a
 trainer reads nothing back to the host to step them. `OPTIMIZERS` maps
 ``Config.optimizer`` to its (init, update) pair.
+
+A member axis (the fold populations): AdamW takes stacked leaves and an
+``lr`` of shape (P,), broadcast over each member's leaves; its decay factor
+1 - lr·wd is formed in float64 and rounded once, as a single run forms it
+on the host from its Python float rate, so each member's update has a
+single run's bits for the same gradient. ``plateau_init(lr, n_members=P)``
+and ``early_stop_init(n_members=P)`` hold one record a member, which the
+steps update elementwise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
+from vae_los_angeles_torch.ops.nn import per_member, resolve_compute_dtype
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 
 ADAM_B1 = 0.9
@@ -66,16 +74,20 @@ def bias_corrections(step):
 
 def adamw_update(params, grads, state, lr, weight_decay):
     """One AdamW step; ``lr`` and ``weight_decay`` may be floats or 0-d
-    tensors. Moments stored reduced are upcast, updated in fp32 and rounded
-    back to their storage dtype. Returns (new_params, new_state)."""
+    tensors, or ``lr`` one fp32 rate a member of stacked leaves (module
+    docstring; ``weight_decay`` a float then). Moments stored reduced are
+    upcast, updated in fp32 and rounded back to their storage dtype.
+    Returns (new_params, new_state)."""
     step, bc1, bc2 = bias_corrections(state["step"])
+    members = isinstance(lr, torch.Tensor) and lr.dim() == 1
+    decay = (1.0 - lr.double() * weight_decay).float() if members else 1.0 - lr * weight_decay
 
     def leaf(p, g, m, v):
         mdt, vdt = m.dtype, v.dtype
         m = ADAM_B1 * m.to(torch.float32) + (1.0 - ADAM_B1) * g
         v = ADAM_B2 * v.to(torch.float32) + (1.0 - ADAM_B2) * torch.square(g)
-        p = p * (1.0 - lr * weight_decay)  # torch order: decay first
-        p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        p = p * per_member(decay, p)  # torch order: decay first
+        p = p - per_member(lr, p) * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
         return p, m.to(mdt), v.to(vdt)
 
     out = tree_map(leaf, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
@@ -151,11 +163,13 @@ OPTIMIZERS = {
 }
 
 
-def plateau_init(lr, device=None):
+def plateau_init(lr, device=None, n_members=None):
+    """A fresh plateau record, or ``n_members`` of them stacked."""
+    shape = () if n_members is None else (n_members,)
     return {
-        "lr": torch.as_tensor(lr, dtype=torch.float32, device=device).clone(),
-        "best": torch.tensor(float("inf"), dtype=torch.float32, device=device),
-        "bad_epochs": torch.zeros((), dtype=torch.int32, device=device),
+        "lr": torch.as_tensor(lr, dtype=torch.float32, device=device).expand(shape).clone(),
+        "best": torch.full(shape, float("inf"), dtype=torch.float32, device=device),
+        "bad_epochs": torch.zeros(shape, dtype=torch.int32, device=device),
     }
 
 
@@ -170,12 +184,14 @@ def plateau_step(state, metric, factor, patience):
     return {"lr": lr, "best": best, "bad_epochs": bad}
 
 
-def early_stop_init(device=None):
+def early_stop_init(device=None, n_members=None):
+    """A fresh early-stop record, or ``n_members`` of them stacked."""
+    shape = () if n_members is None else (n_members,)
     return {
-        "best_val": torch.tensor(float("inf"), dtype=torch.float32, device=device),
-        "trigger": torch.zeros((), dtype=torch.int32, device=device),
-        "stopped": torch.zeros((), dtype=torch.bool, device=device),
-        "best_epoch": torch.zeros((), dtype=torch.int32, device=device),
+        "best_val": torch.full(shape, float("inf"), dtype=torch.float32, device=device),
+        "trigger": torch.zeros(shape, dtype=torch.int32, device=device),
+        "stopped": torch.zeros(shape, dtype=torch.bool, device=device),
+        "best_epoch": torch.zeros(shape, dtype=torch.int32, device=device),
     }
 
 

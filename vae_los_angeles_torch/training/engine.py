@@ -69,6 +69,10 @@ Without it nothing is checked and no sync is added.
 
 Not ported, raising as the JAX engine does where it has no kernel:
 ``masked_sizes`` and ``mesh``.
+
+`predict` is the JAX engine's ``predict``: the task's eval-mode prediction
+over a full table (z sampled from a generator seeded by ``seed``), in
+``compute_dtype``, in one call or in ``chunk_size`` row chunks.
 """
 
 from __future__ import annotations
@@ -156,18 +160,21 @@ def _optimizer(name):
     return optim.OPTIMIZERS[name]
 
 
-def init_carry(params0, state0, lr, moments_dtype: str = "float32", optimizer: str = "adamw"):
+def init_carry(params0, state0, lr, moments_dtype: str = "float32", optimizer: str = "adamw",
+               n_members=None):
     """Fresh training carry for a model, on the parameters' device: the
     optimizer's state from ``optim.OPTIMIZERS[optimizer]``, its moments
-    stored in ``moments_dtype``."""
+    stored in ``moments_dtype``. With ``n_members`` the trees are stacked on
+    a member axis and the plateau and early-stop records hold one entry a
+    member."""
     opt_init, _ = _optimizer(optimizer)
     device = tree_leaves(params0)[0].device
     return {
         "params": params0,
         "state": state0,
         "opt": opt_init(params0, ops_nn.resolve_compute_dtype(moments_dtype)),
-        "plateau": optim.plateau_init(lr, device),
-        "estop": optim.early_stop_init(device),
+        "plateau": optim.plateau_init(lr, device, n_members),
+        "estop": optim.early_stop_init(device, n_members),
         "best": {"params": params0, "state": state0},
     }
 
@@ -321,6 +328,50 @@ def _wide_head_step(params, state, opt, batch, beta, generator, lr, weight_decay
     return (bce + kld_term).detach(), params, tree_map(torch.Tensor.detach, state), new_opt
 
 
+def epoch_noise(seed: int, epoch: int, n_train: int, device):
+    """The plain path's generator of one epoch, seeded by
+    ``epoch_seed(seed, epoch)``, and the shuffle it draws first."""
+    gen = torch.Generator(device=device).manual_seed(epoch_seed(seed, epoch))
+    return gen, torch.randperm(n_train, generator=gen, device=device)
+
+
+def plain_grads(task, params, state, batch, beta, gen, loss_kw, compute_dtype, debug, epoch, b,
+                members: bool = False):
+    """The plain path's loss, gradients and new state of one training batch.
+    With ``members`` every leaf is stacked on a member axis, ``gen`` holds
+    one generator a member and the loss one entry a member; the members are
+    independent, so the gradient of their sum is each member's own."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    # cast inside the differentiated loss: the grads reach the fp32 masters
+    loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype, members),
+                            state, batch, beta, True, gen, **loss_kw)
+    if debug:
+        _nan_check(epoch, b, loss.detach())
+    flat = tree_leaves(leaves)
+    grads_flat = iter(torch.autograd.grad(loss.sum() if members else loss, flat))
+    grads = tree_map(lambda _: next(grads_flat), leaves)
+    return loss.detach(), grads, tree_map(torch.Tensor.detach, state)
+
+
+def end_epoch(task, carry, params, state, opt, val, beta, gen, hp, loss_kw, compute_dtype,
+              n_val_batches, epoch, members: bool = False):
+    """An epoch's close: the validation loss over the whole set (its sum
+    over ceil(n_val / batch) batches), the plateau, the strict-improvement
+    early stop and the best snapshot; returns (val_loss, carry). With
+    ``members`` every record has one entry a member."""
+    with torch.no_grad():
+        val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype, members), state,
+                               val, beta, False, gen, **loss_kw)
+    val_loss = val_sum / n_val_batches
+    plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
+                                 hp["sched_patience"])
+    estop, snap = optim.early_stop_step(carry["estop"], val_loss, epoch, hp["patience"])
+    best = tree_map(lambda b_, c_: torch.where(ops_nn.per_member(snap, c_), c_, b_),
+                    carry["best"], {"params": params, "state": state})
+    return val_loss, {"params": params, "state": state, "opt": opt, "plateau": plateau,
+                      "estop": estop, "best": best}
+
+
 def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_sites: int, *,
         num_epochs: Optional[int] = None, drop_last: bool = True, hp=None, init_params=None,
         init_state=None, resume_carry=None, start_epoch: int = 0, fused_step: bool = False,
@@ -405,8 +456,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
                 break
             beta = beta_schedule(epoch, hp) if task.uses_kl_warmup else 0.0
             eseed = epoch_seed(seed, epoch)
-            gen = torch.Generator(device=device).manual_seed(eseed)
-            perm = torch.randperm(n_train, generator=gen, device=device)
+            gen, perm = epoch_noise(seed, epoch, n_train, device)
             params, state, opt = carry["params"], carry["state"], carry["opt"]
             if fused_epoch:
                 ep = train.take(perm[: n_full * batch_size])
@@ -435,16 +485,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
                             params, state, batch.tpm, batch.beta, batch.site, n_sites,
                             seed=eseed, step=b, beta=beta, **fused_kw)
                     else:
-                        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-                        # cast inside the differentiated loss: the grads reach the fp32 masters
-                        loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype),
-                                                state, batch, beta, True, gen, **loss_kw)
-                        if debug:
-                            _nan_check(epoch, b, loss.detach())
-                        flat = tree_leaves(leaves)
-                        grads_flat = iter(torch.autograd.grad(loss, flat))
-                        grads = tree_map(lambda _: next(grads_flat), leaves)
-                        loss, state = loss.detach(), tree_map(torch.Tensor.detach, state)
+                        loss, grads, state = plain_grads(task, params, state, batch, beta, gen,
+                                                         loss_kw, compute_dtype, debug, epoch, b)
                     params, opt = opt_update(params, grads, opt, lr, hp["weight_decay"])
                     if debug and fused_step:
                         _nan_check(epoch, b, loss, params)
@@ -452,17 +494,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             step_host += n_batches
             train_loss = train_sum / n_batches
 
-            with torch.no_grad():
-                val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype), state,
-                                       val, beta, False, gen, **loss_kw)
-            val_loss = val_sum / n_val_batches
-            plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
-                                         hp["sched_patience"])
-            estop, snap = optim.early_stop_step(carry["estop"], val_loss, epoch, hp["patience"])
-            best = tree_map(lambda b_, c_: torch.where(snap, c_, b_), carry["best"],
-                            {"params": params, "state": state})
-            carry = {"params": params, "state": state, "opt": opt, "plateau": plateau,
-                     "estop": estop, "best": best}
+            val_loss, carry = end_epoch(task, carry, params, state, opt, val, beta, gen, hp,
+                                        loss_kw, compute_dtype, n_val_batches, epoch)
             rows["train"].append(train_loss)
             rows["val"].append(val_loss)
             rows["beta"].append(beta)
@@ -488,6 +521,41 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     )
 
 
+def predict(task_name: str, params, state, arrays, seed: int = 0, mesh=None, chunk_size=None,
+            compute_dtype: str = "float32", device=None):
+    """Eval-mode prediction of ``task_name``'s target over a full table
+    ``arrays`` ((tpm, beta, site) arrays or tensors). ``params``/``state``
+    are trees of arrays or tensors; the noise a VAE samples comes from one
+    generator seeded by ``seed``. ``compute_dtype`` "bfloat16" casts the
+    2-D weights as training does (use the dtype the model trained with).
+    Returns a tensor on the device; with ``chunk_size`` the table goes to
+    the device ``chunk_size`` rows at a time (keep it on the host for that)
+    and the result comes back as one numpy array of the same rows, the
+    chunks drawing their noise from the one generator in turn. Runs on the
+    card unless ``device="cpu"``. ``mesh`` raises (one card)."""
+    if mesh is not None:
+        raise ValueError("mesh-sharded predict is not ported: the port serves on one card")
+    if chunk_size is not None and chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    task = get_task(task_name)
+    device = resolve_device(device)
+    dtype = ops_nn.resolve_compute_dtype(compute_dtype)
+    params = ops_nn.cast_matmul_params(tree_from_numpy(params, device), dtype)
+    state = tree_from_numpy(state, device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    n = len(arrays[0])
+    if n == 0:
+        raise ValueError("cannot predict an empty table")
+    with torch.no_grad():
+        if chunk_size is None:
+            return task.predict(params, state, _as_batch(arrays, device), gen)
+        return np.concatenate([
+            task.predict(params, state,
+                         _as_batch([a[start:start + chunk_size] for a in arrays], device),
+                         gen).cpu().numpy()
+            for start in range(0, n, chunk_size)])
+
+
 def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool = True) -> int:
     """Rows a run of ``epochs`` epochs trains on (drop_last discards the rest)."""
     per_epoch = (n_train // batch_size) * batch_size if drop_last else n_train
@@ -495,4 +563,4 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
 
 
 __all__ = ["FUSED", "FitResult", "WIDE_HEAD_MIN_DIM_B", "beta_schedule", "epoch_seed", "fit",
-           "hyperparams", "init_carry", "samples_trained", "uses_wide_head"]
+           "hyperparams", "init_carry", "predict", "samples_trained", "uses_wide_head"]

@@ -22,8 +22,19 @@ fields are inputs and which the target. Ported so far:
     β warm-up. They have no kernel (nor in the JAX package): the engine
     trains them on the plain path.
 
+  * ``rna2dna_unified`` and ``dna2rna_unified``: the directional VAEs with a
+    ``kl_on`` scalar in ``state`` (JAX ``training/tasks.py:213-283``), which
+    scales eps and β: ``kl_on = 1`` trains bit for bit as the VAE task (eps·1
+    and β·1 are exact), ``kl_on = 0`` gives z = mu and no KL term, the
+    directional autoencoder as the VAE's trunk with its mu head as the
+    latent. The fold populations set it a member (``state_overrides``).
+
 Every loss takes ``gamma`` and ``class_weights``; the directional tasks
-ignore them, as the JAX tasks do.
+ignore them, as the JAX tasks do. Every loss and predict takes a member
+axis (a (P, rows, features) batch and stacked leaves, ``ops.nn``): a loss
+then returns one sum a member, the RNA→DNA loss through one call of the
+loss pair a member (``rna2dna_loss_fused_members``). The VAE tasks' predict
+takes an injected ``eps``.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from vae_los_angeles_torch.models import directional_ae, directional_vae, vae
-from vae_los_angeles_torch.ops.kernels.fused_loss import rna2dna_loss_fused
+from vae_los_angeles_torch.ops.kernels.fused_loss import (rna2dna_loss_fused,
+                                                          rna2dna_loss_fused_members)
 from vae_los_angeles_torch.ops.losses import (dna2rna_ae_loss, dna2rna_loss, rna2dna_ae_loss,
                                               vae_loss)
 
@@ -52,6 +64,11 @@ class Batch(NamedTuple):
         return self.tpm.shape[0]
 
 
+def _members(batch) -> bool:
+    """Whether ``batch`` has a member axis: (P, rows, features) tables."""
+    return batch.tpm.dim() == 3
+
+
 class Task(NamedTuple):
     name: str
     # init(generator, cfg, n_sites, device) -> (params, bn_state)
@@ -62,7 +79,8 @@ class Task(NamedTuple):
     #      drop_mask1 and drop_mask2 (dna2rna, dna2rna_ae), or drop_a, drop_b1
     #      and drop_b2 (multimodal); the autoencoders take no eps
     loss: Callable
-    # predict(params, state, batch, generator) -> imputed target (eval mode)
+    # predict(params, state, batch, generator, **noise) -> imputed target
+    # (eval mode); noise is eps for the VAE tasks
     predict: Callable
     # target(batch) -> ground truth of the prediction
     target: Callable
@@ -76,17 +94,18 @@ def _rna2dna_init(generator, cfg, n_sites, device=None):
 
 
 def _rna2dna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                  class_weights=None, eps=None, drop_mask=None):
+                  class_weights=None, eps=None, drop_mask=None, noise_scale=None):
     out = directional_vae.rna2dna_vae_apply(
         params, state, rna=batch.tpm, site=batch.site, train=train, eps=eps,
-        drop_mask=drop_mask, generator=generator)
-    return rna2dna_loss_fused(out.recon_logits, batch.beta, out.mu, out.logvar, beta_kl), \
-        out.state
+        drop_mask=drop_mask, generator=generator, noise_scale=noise_scale)
+    loss = rna2dna_loss_fused_members if _members(batch) else rna2dna_loss_fused
+    return loss(out.recon_logits, batch.beta, out.mu, out.logvar, beta_kl), out.state
 
 
-def _rna2dna_predict(params, state, batch, generator=None):
+def _rna2dna_predict(params, state, batch, generator=None, *, eps=None, noise_scale=None):
     return directional_vae.rna2dna_vae_apply(
-        params, state, rna=batch.tpm, site=batch.site, train=False, generator=generator).recon
+        params, state, rna=batch.tpm, site=batch.site, train=False, eps=eps,
+        generator=generator, noise_scale=noise_scale).recon
 
 
 def _dna2rna_init(generator, cfg, n_sites, device=None):
@@ -96,16 +115,20 @@ def _dna2rna_init(generator, cfg, n_sites, device=None):
 
 
 def _dna2rna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                  class_weights=None, eps=None, drop_mask1=None, drop_mask2=None):
+                  class_weights=None, eps=None, drop_mask1=None, drop_mask2=None,
+                  noise_scale=None):
     out = directional_vae.dna2rna_vae_apply(
         params, state, dna=batch.beta, site=batch.site, train=train, eps=eps,
-        drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator)
-    return dna2rna_loss(out.recon, batch.tpm, out.mu, out.logvar, beta_kl)[0], out.state
+        drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator,
+        noise_scale=noise_scale)
+    return dna2rna_loss(out.recon, batch.tpm, out.mu, out.logvar, beta_kl,
+                        members=_members(batch))[0], out.state
 
 
-def _dna2rna_predict(params, state, batch, generator=None):
+def _dna2rna_predict(params, state, batch, generator=None, *, eps=None, noise_scale=None):
     return directional_vae.dna2rna_vae_apply(
-        params, state, dna=batch.beta, site=batch.site, train=False, generator=generator).recon
+        params, state, dna=batch.beta, site=batch.site, train=False, eps=eps,
+        generator=generator, noise_scale=noise_scale).recon
 
 
 def _rna2dna_ae_init(generator, cfg, n_sites, device=None):
@@ -118,7 +141,7 @@ def _rna2dna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, ga
                      class_weights=None, drop_mask=None):
     out = directional_ae.rna2dna_ae_apply(params, state, rna=batch.tpm, site=batch.site,
                                           train=train, drop_mask=drop_mask, generator=generator)
-    return rna2dna_ae_loss(out.recon_logits, batch.beta)[0], out.state
+    return rna2dna_ae_loss(out.recon_logits, batch.beta, members=_members(batch))[0], out.state
 
 
 def _rna2dna_ae_predict(params, state, batch, generator=None):
@@ -137,12 +160,43 @@ def _dna2rna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, ga
     out = directional_ae.dna2rna_ae_apply(params, state, dna=batch.beta, site=batch.site,
                                           train=train, drop_mask1=drop_mask1,
                                           drop_mask2=drop_mask2, generator=generator)
-    return dna2rna_ae_loss(out.recon, batch.tpm)[0], out.state
+    return dna2rna_ae_loss(out.recon, batch.tpm, members=_members(batch))[0], out.state
 
 
 def _dna2rna_ae_predict(params, state, batch, generator=None):
     return directional_ae.dna2rna_ae_apply(params, state, dna=batch.beta, site=batch.site,
                                            train=False, generator=generator).recon
+
+
+def _unified_init(vae_init):
+    """The directional VAE's init with ``state["kl_on"] = 1``."""
+
+    def init(generator, cfg, n_sites, device=None):
+        params, state = vae_init(generator, cfg, n_sites, device)
+        return params, {**state, "kl_on": torch.ones((), dtype=torch.float32, device=device)}
+
+    return init
+
+
+def _unified_loss(vae_loss_fn):
+    """The directional VAE's loss with eps scaled by ``kl_on`` and β by
+    ``kl_on`` (one value a member on a member axis); the new state keeps
+    ``kl_on``."""
+
+    def loss(params, state, batch, beta_kl, train, generator=None, **kw):
+        kl_on = state["kl_on"]
+        return vae_loss_fn(params, state, batch, beta_kl * kl_on, train, generator,
+                           noise_scale=kl_on, **kw)
+
+    return loss
+
+
+def _unified_predict(vae_predict):
+    def predict(params, state, batch, generator=None, *, eps=None):
+        return vae_predict(params, state, batch, generator, eps=eps,
+                           noise_scale=state["kl_on"])
+
+    return predict
 
 
 def _multimodal_init(generator, cfg, n_sites, device=None):
@@ -178,6 +232,12 @@ TASKS = {
                        lambda batch: batch.tpm, False),
     "multimodal": Task("multimodal", _multimodal_init, _multimodal_loss, _multimodal_predict,
                        lambda batch: batch.beta, True),
+    "rna2dna_unified": Task("rna2dna_unified", _unified_init(_rna2dna_init),
+                            _unified_loss(_rna2dna_loss), _unified_predict(_rna2dna_predict),
+                            lambda batch: batch.beta, True),
+    "dna2rna_unified": Task("dna2rna_unified", _unified_init(_dna2rna_init),
+                            _unified_loss(_dna2rna_loss), _unified_predict(_dna2rna_predict),
+                            lambda batch: batch.tpm, True),
 }
 
 

@@ -12,8 +12,11 @@
 The directional VAEs (``rna2dna``, ``dna2rna``), the directional
 autoencoders (``rna2dna_ae``, ``dna2rna_ae``: each encoder a bare Sequential,
 keys ``encoder_rna.0/.1/.4`` and ``encoder_dna.0/.1/.4/.5/.8``, the site path
-``site_embedding`` and ``site_projection``) and the tri-modal VAE
-(``multivae``) are covered.
+``site_embedding`` and ``site_projection``), the tri-modal VAE
+(``multivae``) and the unified tasks (``rna2dna_unified``,
+``dna2rna_unified``: the directional VAE's keys and the state's ``kl_on``
+scalar under the key ``kl_on``, which a module does not hold: drop it before
+``load_state_dict``) are covered.
 
 The trainer's own trees stay in the JAX layout, so moving them across is a
 copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
@@ -112,6 +115,12 @@ MODEL_TYPES = {
 }
 
 
+# the unified tasks: the directional VAE and its kl_on state scalar
+for _direction in ("rna2dna", "dna2rna"):
+    MODEL_TYPES[f"{_direction}_unified"] = (MODEL_TYPES[_direction]
+                                            + [("kl_on", "state", ("kl_on",), False)])
+
+
 def _layout(model_type):
     try:
         return MODEL_TYPES[model_type]
@@ -150,7 +159,8 @@ def jax_from_state_dict(sd: dict, model_type: str):
             raise KeyError(f"state_dict is missing {key!r} — wrong model_type {model_type!r}?")
         v = rest.pop(key)
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        v = np.ascontiguousarray(v.astype(np.float32).T if transposed else v.astype(np.float32))
+        v = v.astype(np.float32).T if transposed else v.astype(np.float32)
+        v = np.ascontiguousarray(v).reshape(v.shape)  # a 0-d entry (kl_on) stays 0-d
         node = trees[tree]
         for p in path[:-1]:
             node = node.setdefault(p, {})
