@@ -177,7 +177,32 @@ Phases (any failure raises, and the script exits non-zero):
      epoch of a single member and, for the VAE, one epoch of it through the
      epoch kernel (RNA→DNA VAE and AE; host clock and CUDA events); the
      device busy share and kernels a step of a 10-member population epoch
-     and of a single member's (torch.profiler);
+     and of a single member's (torch.profiler); after the CV, the HPO
+     (`phase_hpo`): ``vmap_meta.fit_trials`` of four tri-modal trials (lr,
+     weight decay, β and γ each their own, balanced class weights, 3
+     epochs) on the 1024-sample cohort's split: each trial alone (a
+     population of one) equal to its ``engine.fit`` run bit for bit on the
+     card, the 4-trial population's first step within the tri-modal step's
+     gradient tolerances of each trial's (atol 1e-3 + rtol 1e-4, 2e-3 for
+     the three encoder fc biases feeding BatchNorm), its epochs, best epoch,
+     βs and rates equal to the single runs' and its losses' distance from
+     them printed (batched products round otherwise, and those biases'
+     zero true gradients become ±lr Adam steps, so the trajectories part
+     with lr; PERF.md §6); two rungs continued from the carries
+     equal to the uninterrupted population bit for bit (all four, and one
+     trial alone against its single run), two survivors' distance printed;
+     a ``--pad-shapes`` bucket of latents 10, 37 and 100 trained at 100:
+     masked mu, logvar, KL and the gradients of every masked weight slice
+     exactly 0, each trial alone equal to ``engine.fit`` from its padded
+     init bit for bit; ``hpo.main`` (8 trials x 3 epochs, ``--prune-rungs
+     2``, then ``--pad-shapes``) with its wall seconds, a finite best value,
+     ``best_hyperparameters.json`` and the retrained checkpoint read back,
+     no kernel launched (the tri-modal plain path); ``run_training``
+     RNA→DNA with ``--replicates 3`` and USE_PALLAS (routed to the plain
+     population path), the loss pair exactly once a member a step and a
+     validation; one 8-trial population epoch at 8000 samples beside one
+     trial's plain epoch (host clock and CUDA events) and, at 1024
+     samples, the device busy share and kernels a step of each;
   5. serve (USE_PALLAS, so the loaders serve through the kernels):
      ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
@@ -241,8 +266,8 @@ Phases (any failure raises, and the script exits non-zero):
 
 Each path (serve, evaluate, the kNN comparison, train, train-step,
 train-plain, the three training paths of dna2rna and of the tri-modal
-model, the two autoencoders' runs, the cross-modality CV, and train-wide and
-wide) is driven with every
+model, the two autoencoders' runs, the cross-modality CV, the two HPO
+searches and the replicates, and train-wide and wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -273,21 +298,21 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.splits import cv_inner_split, kfold_indices, train_val_indices
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
 from vae_los_angeles_torch.evaluation import (compare_directional_imputation,
-                                              cross_modality_cv, evaluate, knn_comparison)
+                                              cross_modality_cv, evaluate, hpo, knn_comparison)
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
 from vae_los_angeles_torch.models.conditioned_knn import ConditionedKNeighborsRegressor
 from vae_los_angeles_torch.models.directional_ae import dna2rna_ae_init, rna2dna_ae_init
 from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_init, rna2dna_vae_apply,
                                                          rna2dna_vae_init)
-from vae_los_angeles_torch.models.vae import multimodal_vae_init
+from vae_los_angeles_torch.models.vae import multimodal_vae_apply, multimodal_vae_init
 from vae_los_angeles_torch.ops.kernels import _build
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_vae as fv
 from vae_los_angeles_torch.ops.kernels import fused_wide as fw
-from vae_los_angeles_torch.ops import knn, optim, pca, tsne
+from vae_los_angeles_torch.ops import knn, losses, optim, pca, tsne
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
@@ -2431,6 +2456,25 @@ CV_SUBSET = 0.99
 MEMBER_RTOL = 2e-4  # the JAX package's population-against-sequential tolerance
 
 
+def hold_member(what, res, single, epochs):
+    """The largest relative distance of a population member's train and
+    validation losses from its single run's; raises unless it is within
+    `MEMBER_RTOL` and the epochs (``epochs`` each), best epoch, stop, βs and
+    rates are equal."""
+    same = (res.epochs_ran == single.epochs_ran == epochs and res.best_epoch == single.best_epoch
+            and np.array_equal(res.lrs, single.lrs) and np.array_equal(res.betas, single.betas)
+            and res.stopped == single.stopped)
+    rel = max(float(np.max(np.abs(res.train_losses / single.train_losses - 1))),
+              float(np.max(np.abs(res.val_losses / single.val_losses - 1))))
+    if not same or not rel <= MEMBER_RTOL:
+        raise AssertionError(
+            f"{what}: epochs {res.epochs_ran}/{single.epochs_ran}, best "
+            f"{res.best_epoch}/{single.best_epoch}, lrs {res.lrs}/{single.lrs}, betas "
+            f"{res.betas}/{single.betas}, train {res.train_losses}/{single.train_losses}, val "
+            f"{res.val_losses}/{single.val_losses} (rel {rel:.3g})")
+    return rel
+
+
 def cv_fold_tables(tpm, beta, site, n_folds):
     """The CV's inner (train, validation) tables of each fold, as
     ``cross_modality_cv`` builds them."""
@@ -2486,18 +2530,7 @@ def compare_populations(dev, tpm, beta, site, card):
                                 init_state=state, device=dev)
             torch.cuda.synchronize()
             single_s += time.perf_counter() - t0
-            same = (res.epochs_ran == single.epochs_ran == CV_EPOCHS
-                    and res.best_epoch == single.best_epoch
-                    and np.array_equal(res.lrs, single.lrs) and res.stopped == single.stopped)
-            rel = max(float(np.max(np.abs(res.train_losses / single.train_losses - 1))),
-                      float(np.max(np.abs(res.val_losses / single.val_losses - 1))))
-            worst = max(worst, rel)
-            if not same or not rel <= MEMBER_RTOL:
-                raise AssertionError(
-                    f"{name} member {i}: epochs {res.epochs_ran}/{single.epochs_ran}, best "
-                    f"{res.best_epoch}/{single.best_epoch}, lrs {res.lrs}/{single.lrs}, train "
-                    f"{res.train_losses}/{single.train_losses}, val "
-                    f"{res.val_losses}/{single.val_losses} (rel {rel:.3g})")
+            worst = max(worst, hold_member(f"{name} member {i}", res, single, CV_EPOCHS))
         say(f"[cv] fit_folds {name}{' (kl_on 0)' if overrides else ''}, {CV_FOLDS} folds x "
             f"{CV_EPOCHS} epochs, {len(rows)} samples: each member within {worst:.3g} (rtol) of "
             f"engine.fit at its seed, epochs, best epoch and rates equal; population "
@@ -2646,6 +2679,390 @@ def phase_cross_modality_cv(dev, tpm, beta, site, card):
         time_population_epoch(dev, card, task)
     profile_population_step(dev, card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the HPO: trial populations against single runs, the padded bucket, rung
+# continuation, the search entry and the training CLI's --replicates
+
+HPO_TRIALS = {  # four tri-modal trials of the live shape, each hyperparameter its own
+    "lr": np.array([5e-4, 1e-3, 2e-4, 2e-3], np.float32),
+    "weight_decay": np.array([1e-5, 1e-4, 1e-6, 3e-5], np.float32),
+    "beta_start": np.array([1e-3, 4e-3, 2e-4, 8e-3], np.float32),
+    "gamma": np.array([1.0, 2.5, 0.6, 4.0], np.float32),
+}
+HPO_EPOCHS = 3
+HPO_PADDED = (10, 37, 100)  # one --pad-shapes bucket: the ends and a middle of the space
+HPO_MAIN_ARGV = ["--trials", "8", "--epochs", "3", "--prune-rungs", "2"]
+REPLICATES = 3
+
+
+def hpo_split(tpm, beta, site):
+    """The HPO's (and the training CLIs') split: (train, val, balanced class
+    weights of the training rows)."""
+    tr, va = train_val_indices(len(tpm), CFG.train_test_split, CFG.random_seed)
+    return ((tpm[tr], beta[tr], site[tr]), (tpm[va], beta[va], site[va]),
+            compute_class_weights(site[tr], N_SITES))
+
+
+def trial_hp(pop, i):
+    """``engine.hyperparams`` of trial ``i`` of a population."""
+    return engine.hyperparams(CFG, **{k: float(v[i]) for k, v in pop.items()})
+
+
+PRE_BN_BIASES = ("encoder_a/fc/b", "encoder_b/fc1/b", "encoder_b/fc2/b")  # true gradient 0
+
+
+def same_run(a, b):
+    """Whether two ``FitResult``s hold the same bits: loss rows, best
+    epoch and final parameters."""
+    return (np.array_equal(a.train_losses, b.train_losses)
+            and np.array_equal(a.val_losses, b.val_losses) and a.best_epoch == b.best_epoch
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                engine._named_leaves(a.final_params), engine._named_leaves(b.final_params))))
+
+
+def same_tail(cont, full):
+    """Whether a continued run's loss rows and final state are the last rows
+    and the final state of the uninterrupted run, bit for bit."""
+    k = len(cont.val_losses)
+    return same_run(cont, full._replace(train_losses=full.train_losses[-k:],
+                                        val_losses=full.val_losses[-k:]))
+
+
+def compare_trial_step(dev, train, cw, seeds):
+    """One train step of the `HPO_TRIALS` population from the trials' inits
+    on 32 training rows with injected eps and dropout masks, against each
+    trial's own step: the loss rtol 1e-5, the 39 gradients atol 1e-3 + rtol
+    1e-4 (2e-3 for `PRE_BN_BIASES`), the tri-modal train step's tolerances.
+    Returns the largest gradient difference."""
+    task = get_task("multimodal")
+    n = len(seeds)
+    inits = [task.init(torch.Generator().manual_seed(s), CFG, N_SITES, dev) for s in seeds]
+    rows = engine._as_batch(tuple(x[:32] for x in train), dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    noise = {"eps": torch.randn(n, 32, CFG.latent_dim, generator=g, device=dev)}
+    for name, width in (("drop_a", 128), ("drop_b1", H1), ("drop_b2", H2)):
+        noise[name] = (torch.rand(n, 32, width, generator=g, device=dev) < 0.9).float()
+    cw = torch.as_tensor(cw).to(dev)
+
+    def step(params, state, batch, beta, gamma, injected):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = task.loss(leaves, state, batch, beta, True, None, gamma=gamma,
+                            class_weights=cw, **injected)
+        return loss.detach(), torch.autograd.grad(loss.sum(), tree_leaves(leaves))
+
+    loss_p, grads_p = step(
+        vmap_meta._stack([p for p, _ in inits]), vmap_meta._stack([s for _, s in inits]),
+        Batch(*(torch.stack([x] * n) for x in rows)),
+        torch.as_tensor(HPO_TRIALS["beta_start"]).to(dev),
+        torch.as_tensor(HPO_TRIALS["gamma"]).to(dev), noise)
+    names = [name for name, _ in engine._named_leaves(inits[0][0])]
+    worst, rel = 0.0, {True: [], False: []}  # relative differences, by PRE_BN_BIASES or not
+    for i, (params, state) in enumerate(inits):
+        loss_s, grads_s = step(params, state, rows, float(HPO_TRIALS["beta_start"][i]),
+                               float(HPO_TRIALS["gamma"][i]),
+                               {k: v[i] for k, v in noise.items()})
+        check_close(f"trial {i} step loss", loss_p[i], loss_s, 0.0, 1e-5)
+        for name, a, b in zip(names, grads_p, grads_s):
+            err = check_close(f"trial {i} gradient {name}", a[i], b,
+                              2e-3 if name in PRE_BN_BIASES else 1e-3, 1e-4)
+            worst = max(worst, err)
+            rel[name in PRE_BN_BIASES].append(err / max(b.abs().max().item(), 1e-30))
+    say(f"[hpo] the population's first step against each trial's: the largest gradient "
+        f"difference {worst:.3g}; relative to the tensor's largest entry at most "
+        f"{max(rel[False]):.3g} in the {len(names) - len(PRE_BN_BIASES)} other tensors, "
+        f"{min(rel[True]):.3g} to {max(rel[True]):.3g} in {', '.join(PRE_BN_BIASES)} (their "
+        f"true gradient is 0: what is left is fp32 noise)")
+    return worst
+
+
+def compare_trials(dev, tpm, beta, site, card):
+    """`vmap_meta.fit_trials` of `HPO_TRIALS` (the tri-modal task, balanced
+    class weights, `HPO_EPOCHS` epochs) on the cohort's split:
+      * each trial alone (a population of one) gives its ``engine.fit`` run
+        at its seed with its hyperparameters bit for bit on the card (loss
+        rows, best epoch, final parameters);
+      * the 4-trial population's first step against each trial's
+        (`compare_trial_step`);
+      * the 4-trial population against the single runs: the epochs, best
+        epoch, βs and rates equal, the losses' relative distance printed (the
+        batched products round otherwise than the single ones, and Adam
+        turns the fp32 noise of `PRE_BN_BIASES`' zero gradients into ±lr
+        steps, so the trajectories part by a distance that grows with lr;
+        PERF.md §6);
+      * two rungs: 2 epochs, then all 4 trials for 1 more from their carries
+        give the uninterrupted population bit for bit; trial 2 alone in two
+        rungs gives its single run bit for bit; trials 0 and 2 continued as a
+        population of two are printed against the uninterrupted one."""
+    train, val, cw = hpo_split(tpm, beta, site)
+    n = len(HPO_TRIALS["lr"])
+    seeds = vmap_meta.member_seeds(0, n)
+    fit = functools.partial(vmap_meta.fit_trials, "multimodal", CFG, train, val, 0, N_SITES,
+                            class_weights=cw, device=dev)
+    trial = lambda *idx: {k: v[list(idx)] for k, v in HPO_TRIALS.items()}  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop = fit(HPO_TRIALS, num_epochs=HPO_EPOCHS)
+    torch.cuda.synchronize()
+    pop_s, single_s, rels, alones = time.perf_counter() - t0, 0.0, [], []
+    for i, res in enumerate(pop):
+        t0 = time.perf_counter()
+        single = engine.fit("multimodal", CFG, train, val, seeds[i], N_SITES,
+                            num_epochs=HPO_EPOCHS, class_weights=cw, hp=trial_hp(HPO_TRIALS, i),
+                            device=dev)
+        torch.cuda.synchronize()
+        single_s += time.perf_counter() - t0
+        alones.append(fit(trial(i), num_epochs=HPO_EPOCHS, seeds=[seeds[i]])[0])
+        alone = alones[-1]
+        if not same_run(alone, single):
+            raise AssertionError(f"trial {i} alone: val {alone.val_losses}, its single run "
+                                 f"{single.val_losses}")
+        if not (res.epochs_ran == single.epochs_ran == HPO_EPOCHS
+                and res.best_epoch == single.best_epoch
+                and np.array_equal(res.betas, single.betas)
+                and np.array_equal(res.lrs, single.lrs) and np.isfinite(res.val_losses).all()):
+            raise AssertionError(f"trial {i}: epochs {res.epochs_ran}, best {res.best_epoch}/"
+                                 f"{single.best_epoch}, betas {res.betas}/{single.betas}")
+        rels.append(max(float(np.max(np.abs(res.train_losses / single.train_losses - 1))),
+                        float(np.max(np.abs(res.val_losses / single.val_losses - 1)))))
+    step_err = compare_trial_step(dev, train, cw, seeds)
+    say(f"[hpo] fit_trials multimodal, {n} trials (lr {', '.join(f'{x:g}' for x in HPO_TRIALS['lr'])}; weight decay, "
+        f"beta, gamma each their own) x {HPO_EPOCHS} epochs, {len(train[0])} training rows: "
+        f"each trial alone is its engine.fit run bit for bit; the population's first step "
+        f"within {step_err:.3g} of each trial's (gradients, atol 1e-3 + rtol 1e-4); the "
+        f"population's losses within {', '.join(f'{r:.3g}' for r in rels)} (rel) of the single "
+        f"runs, epochs, best epoch, betas and rates equal; population {pop_s:.3f} s, the {n} "
+        f"single runs {single_s:.3f} s; {card}")
+
+    first = fit(HPO_TRIALS, num_epochs=HPO_EPOCHS - 1, seeds=seeds)
+    rest = fit(HPO_TRIALS, num_epochs=1, carry0=[r.carry for r in first],
+               start_epoch=HPO_EPOCHS - 1, seeds=seeds)
+    head = fit(trial(2), num_epochs=HPO_EPOCHS - 1, seeds=[seeds[2]])
+    tail = fit(trial(2), num_epochs=1, carry0=[head[0].carry], start_epoch=HPO_EPOCHS - 1,
+               seeds=[seeds[2]])[0]
+    if not (all(same_tail(r, p) for r, p in zip(rest, pop)) and same_tail(tail, alones[2])):
+        raise AssertionError("a continued population differs from the uninterrupted one")
+    keep = [0, 2]
+    kept = fit(trial(*keep), num_epochs=1, carry0=[first[j].carry for j in keep],
+               start_epoch=HPO_EPOCHS - 1, seeds=[seeds[j] for j in keep])
+    moved = []
+    for res, j in zip(kept, keep):
+        if not (res.best_epoch == pop[j].best_epoch and res.betas[0] == pop[j].betas[-1]):
+            raise AssertionError(f"trial {j} continued: best epoch {res.best_epoch}/"
+                                 f"{pop[j].best_epoch}")
+        moved.append(float(abs(res.val_losses[0] / pop[j].val_losses[-1] - 1)))
+    say(f"[hpo] two rungs ({HPO_EPOCHS - 1} epochs, then 1 from the carries): all {n} trials "
+        f"continued give the uninterrupted population bit for bit, trial 2 alone its single "
+        f"run bit for bit; trials {keep} continued as a population of 2 within "
+        f"{', '.join(f'{m:.3g}' for m in moved)} (rel) of the population of {n}'s last "
+        f"validation loss, best epochs and betas equal; {card}")
+    return train, val, cw
+
+
+def masked_slices(tree, member, width, live=False):
+    """Member ``member``'s slices of the encoder heads' columns and the
+    decoders' first-layer rows beyond its live ``width`` (``live``: within)."""
+    cut = slice(None, width) if live else slice(width, None)
+    out = {}
+    for enc in ("encoder_a", "encoder_b", "encoder_c"):
+        for head in ("mu", "logvar"):
+            out[f"{enc}/{head}/w"] = tree[enc][head]["w"][member][:, cut]
+            out[f"{enc}/{head}/b"] = tree[enc][head]["b"][member][cut]
+    for dec in ("decoder_a", "decoder_b", "decoder_c"):
+        out[f"{dec}/fc1/w"] = tree[dec]["fc1"]["w"][member][cut]
+    return out
+
+
+def check_padded_bucket(dev, train, val, cw, card):
+    """One ``--pad-shapes`` bucket: trials of latent widths `HPO_PADDED`
+    trained 2 epochs at the largest as one ``multimodal_padded`` population
+    from ``hpo._padded_carry``; then one train-mode forward and backward of
+    the trained trials on 32 training rows: the masked dims of mu and logvar,
+    their KL terms and the gradients of every masked weight slice exactly 0,
+    every live slice's gradient not; and each trial alone (its own padded
+    carry) against ``engine.fit`` from the same init, bit for bit, with the
+    population's distance from those runs printed."""
+    width = max(HPO_PADDED)
+    cfg = CFG.replace(latent_dim=width, patience=10**6)
+    seeds = hpo._trial_seeds(0, range(len(HPO_PADDED)))
+    lrs = HPO_TRIALS["lr"][:len(HPO_PADDED)]
+    carry = hpo._padded_carry(cfg, N_SITES, seeds, lrs, HPO_PADDED, dev)
+    res = vmap_meta.fit_trials("multimodal_padded", cfg, train, val, 0, N_SITES, {"lr": lrs},
+                               num_epochs=2, class_weights=cw, carry0=carry, seeds=seeds,
+                               device=dev)
+    params = vmap_meta._stack([r.final_params for r in res])
+    state = vmap_meta._stack([r.final_state for r in res])
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    rows = engine._as_batch(tuple(x[:32] for x in train), dev)
+    batch = Batch(*(torch.stack([t] * len(seeds)) for t in rows))
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    out = multimodal_vae_apply(leaves, state, a=batch.tpm, b=batch.beta, site=batch.site,
+                               train=True, generator=gens, latent_mask=state["latent_mask"])
+    total, _ = losses.vae_loss(out.out_a, batch.tpm, out.out_b_logits, batch.beta, out.out_c,
+                               batch.site, out.mu, out.logvar, beta=1e-3, gamma=1.0,
+                               class_weights=torch.as_tensor(cw).to(dev), members=True)
+    flat = iter(torch.autograd.grad(total.sum(), tree_leaves(leaves)))
+    grads = tree_map(lambda _: next(flat), leaves)
+    n_slices = 0
+    for j, w in enumerate(HPO_PADDED):
+        mu, lv = out.mu[j, :, w:].detach(), out.logvar[j, :, w:].detach()
+        if mu.any() or lv.any() or losses.kl_divergence(mu, lv).item() != 0.0:
+            raise AssertionError(f"padded trial {j} (latent {w}): masked mu/logvar not 0")
+        for name, g in masked_slices(grads, j, w).items():
+            if g.numel() and g.any():
+                raise AssertionError(f"padded trial {j}: gradient in masked slice {name}")
+            n_slices += g.numel() > 0
+        if not all(g.abs().max() > 0 for g in masked_slices(grads, j, w, live=True).values()):
+            raise AssertionError(f"padded trial {j}: a live slice got no gradient")
+    vals = [float(r.val_losses[-1]) for r in res]
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"padded bucket: validation losses {vals}")
+    rels = []
+    for j, w in enumerate(HPO_PADDED):  # each trial alone against its single run
+        own = hpo._padded_carry(cfg, N_SITES, seeds[j:j + 1], lrs[j:j + 1], (w,), dev)
+        alone = vmap_meta.fit_trials("multimodal_padded", cfg, train, val, 0, N_SITES,
+                                     {"lr": lrs[j:j + 1]}, num_epochs=2, class_weights=cw,
+                                     carry0=own, seeds=seeds[j:j + 1], device=dev)[0]
+        single = engine.fit("multimodal_padded", cfg, train, val, seeds[j], N_SITES,
+                            num_epochs=2, class_weights=cw,
+                            hp=engine.hyperparams(cfg, lr=float(lrs[j])),
+                            init_params=tree_map(lambda t: t[0], own["params"]),
+                            init_state=tree_map(lambda t: t[0], own["state"]), device=dev)
+        if not same_run(alone, single):
+            raise AssertionError(f"padded trial {j} alone: val {alone.val_losses}, its single "
+                                 f"run {single.val_losses}")
+        rels.append(float(np.max(np.abs(res[j].val_losses / single.val_losses - 1))))
+    say(f"[hpo] padded bucket, latents {HPO_PADDED} at {width}, 2 epochs: validation losses "
+        f"{', '.join(f'{v:.2f}' for v in vals)}; masked mu, logvar, KL and {n_slices} masked "
+        f"weight slices' gradients exactly 0; each trial alone is its engine.fit run "
+        f"(multimodal_padded, from its padded init) bit for bit, the population within "
+        f"{', '.join(f'{r:.3g}' for r in rels)} (rel) of those runs; {card}")
+
+
+def run_hpo_main(dev, tpm, beta, site, argv, card):
+    """``hpo.main(argv, data=...)`` with every launch count at 0 just before
+    it: its wall seconds, a finite best value, ``best_hyperparameters.json``
+    and the retrained checkpoint (read back, its latent width the winner's);
+    returns the launch counts (the tri-modal plain path launches none)."""
+    for path in ("best_hyperparameters.json",
+                 os.path.join(CFG.checkpoint_dir, "best_multivae_optimized.npz")):
+        if os.path.exists(path):
+            os.remove(path)
+    tee = Tee(sys.stdout)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best, value = hpo.main(argv, data=(tpm, beta, site), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    with open("best_hyperparameters.json") as f:
+        saved = json.load(f)
+    params, _ = checkpoint.load(os.path.join(CFG.checkpoint_dir, "best_multivae_optimized.npz"))
+    if not (np.isfinite(value) and saved["best_params"] == best
+            and params["decoder_a"]["fc1"]["w"].shape == (best["latent_dim"], 128)):
+        raise AssertionError(f"hpo.main {argv}: best {best}, value {value}, saved {saved}")
+    if any(launches.values()):
+        raise AssertionError(f"hpo.main launched kernels: {launches}")
+    text = tee.copy.getvalue()
+    say(f"[hpo] hpo.main {' '.join(argv)}: {wall:.2f} s, best val loss {value:.2f} ({best}), "
+        f"{text.count('[complete]')} complete, {text.count('PRUNED@')} pruned, "
+        f"{text.count('[failed]')} failed, both artifacts written; launches {launches}; {card}")
+    return launches
+
+
+def phase_replicates(dev, workdir, tpm, beta, site, card):
+    """``run_training("rna2dna", ...)`` with ``--replicates`` `REPLICATES`
+    and USE_PALLAS (routed to the plain population path, which the CLI
+    says), every launch count at 0 just before it: each replicate's value
+    printed, the best kept, and the loss pair exactly once a member a step
+    and a validation (forward) and once a member a step (backward); no other
+    kernel. Returns the launch counts."""
+    tee = Tee(sys.stdout)
+    zero_counts()
+    with contextlib.redirect_stdout(tee):
+        result, run_id, wall = run_training(
+            "rna2dna", "rna2dna", cfg=CFG.replace(use_pallas=True),
+            argv=["--epochs", str(HPO_EPOCHS), "--replicates", str(REPLICATES)],
+            data=(tpm, beta, site), device=dev, root=workdir)
+    launches = read_counts()
+    text = tee.copy.getvalue()
+    n_train = len(train_val_indices(len(tpm), CFG.train_test_split, CFG.random_seed)[0])
+    steps = n_train // CFG.batch_size
+    want = {"rna2dna_loss_forward": REPLICATES * HPO_EPOCHS * (steps + 1),
+            "rna2dna_loss_backward": REPLICATES * HPO_EPOCHS * steps}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if ({k: launches[k] for k in want} != want or others
+            or "using the plain population path" not in text
+            or any(f"r{r}=" not in text for r in range(REPLICATES))
+            or not np.isfinite(result.best_val_loss)):
+        raise AssertionError(f"--replicates {REPLICATES}: launches {launches} (want {want}), "
+                             f"best {result.best_val_loss}")
+    say(f"[hpo] run_training rna2dna --replicates {REPLICATES} (USE_PALLAS, routed to the plain "
+        f"population path), {HPO_EPOCHS} epochs of {steps} steps: {wall:.2f} s, kept best val "
+        f"loss {result.best_val_loss:.2f}; loss pair forward {launches['rna2dna_loss_forward']}"
+        f", backward {launches['rna2dna_loss_backward']} (once a member a step, and a "
+        f"validation); {card}")
+    return launches
+
+
+def time_trial_population(dev, card, n_samples=8000, n_trials=8):
+    """One epoch of an ``n_trials`` tri-modal trial population (the live
+    shape, the hyperparameters of ``hpo.sample_trials``) on the
+    ``n_samples`` cohort beside one plain ``engine.fit`` epoch of its first
+    trial (`timed_epochs`: host clock and CUDA events, the init taken off);
+    then the device busy share and kernels a step of one epoch of each on
+    the 1024-sample cohort (25 steps a member, the same step as at 8000)."""
+    trials = hpo.sample_trials(n_trials, 0, n_trials)
+    pop = {k: np.asarray([t[name] for t in trials], np.float32)
+           for k, name in hpo.FIT_KEYS.items()}
+    seed = vmap_meta.member_seeds(0, n_trials)[0]
+    for samples in (n_samples, 1024):
+        train, val, cw = hpo_split(*generate_synthetic_arrays(n_samples=samples, seed=2))
+        runs = {
+            f"{n_trials}-trial population": lambda n: vmap_meta.fit_trials(
+                "multimodal", CFG, train, val, 0, N_SITES, pop, num_epochs=n,
+                class_weights=cw, device=dev),
+            "one trial, engine.fit": lambda n: engine.fit(
+                "multimodal", CFG, train, val, seed, N_SITES, num_epochs=n, class_weights=cw,
+                hp=trial_hp(pop, 0), device=dev),
+        }
+        steps = len(train[0]) // CFG.batch_size
+        if samples == n_samples:
+            (pop_ms, pop_ev), (one_ms, one_ev) = (timed_epochs(run, 0, 1)
+                                                  for run in runs.values())
+            say(f"[hpo] multimodal, {samples}-sample cohort, {n_trials} trials ({steps} steps): "
+                f"one population epoch {pop_ms:.3f} ms host clock ({pop_ev:.3f} ms CUDA "
+                f"events) against one plain engine.fit epoch of one trial {one_ms:.3f} ms "
+                f"({one_ev:.3f}); {n_trials} single runs would take {n_trials * one_ms:.3f} ms, "
+                f"{n_trials * one_ms / pop_ms:.2f}x the population; {card}")
+            continue
+        for what, run in runs.items():
+            wall_ms, rows = profile_call(lambda: run(1))
+            busy_ms = sum(r[0] for r in rows)
+            kernels = sum(r[1] for r in rows)
+            say(f"[hpo-profile] multimodal {what}, one epoch of {steps} steps ({samples}-sample "
+                f"cohort, init included): wall {wall_ms:.3f} ms under the profiler, device busy "
+                f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels} kernels, "
+                f"{kernels / steps:.1f} a step; {card}")
+            for ms, count, key in sorted(rows, reverse=True)[:6]:
+                say(f"[hpo-profile]   {short_name(key):48s} {ms:9.3f} ms  {count:6d} launches")
+
+
+def phase_hpo(dev, workdir, tpm, beta, site, card):
+    """The HPO slice: `compare_trials`, `check_padded_bucket`, `run_hpo_main`
+    with `HPO_MAIN_ARGV` and with ``--pad-shapes``, `phase_replicates`, and
+    `time_trial_population`. Returns the launch counts of each driven path."""
+    train, val, cw = compare_trials(dev, tpm, beta, site, card)
+    check_padded_bucket(dev, train, val, cw, card)
+    counts = {"hpo": run_hpo_main(dev, tpm, beta, site, HPO_MAIN_ARGV, card),
+              "hpo_padded": run_hpo_main(dev, tpm, beta, site,
+                                         ["--trials", "8", "--epochs", "3", "--pad-shapes"],
+                                         card),
+              "replicates": phase_replicates(dev, workdir, tpm, beta, site, card)}
+    time_trial_population(dev, card)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3297,6 +3714,7 @@ def main():
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
             counts.update(phase_autoencoders(dev, workdir, tpm, beta, site, card))
             counts["cv"] = phase_cross_modality_cv(dev, tpm, beta, site, card)
+            counts.update(phase_hpo(dev, workdir, tpm, beta, site, card))
             counts.update(phase_train_wide(dev, workdir, card))
         finally:
             os.chdir(cwd)

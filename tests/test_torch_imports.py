@@ -1,5 +1,5 @@
 """The port, ``chip_smoke.py`` and the card's tests run on a machine without
-jax, sklearn, pandas or matplotlib; they import nothing of the JAX package
+jax, sklearn, pandas, matplotlib or optuna; they import nothing of the JAX package
 either (not even its jax-free modules). ``chip_smoke.py`` fails loudly
 without a card or without the repository beside it."""
 
@@ -14,7 +14,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_los_angeles_torch"
 CARD_TESTS = REPO / "tests" / "test_torch_kernels_cuda.py"
-BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "vae_los_angeles_tpu")
+BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "optuna", "vae_los_angeles_tpu")
 SLICE_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -36,9 +36,9 @@ def test_slice_modules_listed():
     assert "vae_los_angeles_torch.ops.kernels.fused_wide" in SLICE_MODULES
     for name in ("ops.knn", "ops.pca", "ops.tsne", "models.conditioned_knn",
                  "evaluation.knn_comparison", "parallel", "parallel.vmap_meta",
-                 "evaluation.cross_modality_cv"):
+                 "evaluation.cross_modality_cv", "evaluation.hpo", "optimize_hyperparameters"):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 29
+    assert len(SLICE_MODULES) >= 31
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():

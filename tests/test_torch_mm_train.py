@@ -471,9 +471,12 @@ def test_module_forward_and_masks_not_ported():
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="at least one modality"):
         model()
-    with pytest.raises(ValueError, match="not ported"):
-        port_vae.multimodal_vae_apply(tree_from_numpy(params), tree_from_numpy(state), t["a"],
-                                      latent_mask=torch.ones(LATENT))
+    # the latent mask is ported (the padded HPO populations): all ones is the unmasked forward
+    masked = port_vae.multimodal_vae_apply(tree_from_numpy(params), tree_from_numpy(state),
+                                           t["a"], t["b"], t["site"], eps=eps,
+                                           latent_mask=torch.ones(LATENT))
+    for name in ("out_a", "out_b", "out_c", "mu", "logvar"):
+        assert torch.equal(getattr(masked, name), getattr(ref, name)), name
     with pytest.raises(ValueError, match="not ported"):
         port_vae.multimodal_vae_apply(tree_from_numpy(params), tree_from_numpy(state), t["a"],
                                       row_mask=torch.ones(B, dtype=torch.bool))

@@ -17,10 +17,12 @@ and names so each counterpart is found at the same place:
     ``nn.Module``s with the reference's state_dict key names, and the
     functional train-mode RNA2DNAVAE;
   * ``utils.weights`` — the JAX-pytree ↔ state_dict and carry bridge;
+  * ``parallel.vmap_meta`` — the CV fold and HPO trial populations;
   * ``training`` — the ``.npz`` + run-id + resume protocol, shared with the
-    JAX package byte for byte; the ``rna2dna`` task, the engine and the CLI;
-  * ``evaluation`` — model loading and the directional imputation
-    comparison (the serving path).
+    JAX package byte for byte; the tasks, the engine and the CLI;
+  * ``evaluation`` — model loading, the directional imputation comparison
+    (the serving path), evaluation, the kNN comparison, the cross-modality
+    CV and the hyperparameter search.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of the JAX package.
 """

@@ -13,10 +13,14 @@ default initialisations, and `multimodal_vae_apply` is the train- or
 eval-mode forward over any of the 7 modality subsets, returning a
 `MultiModalVAEOutput` with the new BatchNorm state. z is sampled in eval
 mode too, as in the JAX package. Noise (eps and the three dropout masks) is
-injected for tests or drawn from an explicit generator. The JAX package's
-``latent_mask`` and ``row_mask`` (the padded HPO populations and the
-masked-size fold populations) are not ported: they raise. The posterior
-helpers take a member axis (``ops.nn``).
+injected for tests or drawn from an explicit generator. ``latent_mask`` (the
+padded HPO populations, ``training.tasks``' ``multimodal_padded``) keeps a
+latent sub-space: masked dims get mu = logvar = z = 0, so they add exactly 0
+to the KL term and to every decoder pre-activation, and their weight slices
+get exactly 0 gradient; an all-ones mask multiplies by 1.0, bit for bit the
+unmasked forward. The JAX package's ``row_mask`` serves only its
+masked-size populations, which the port does not train: it raises. The
+applies and the posterior helpers take a member axis (``ops.nn``).
 """
 
 from __future__ import annotations
@@ -135,10 +139,12 @@ def multimodal_vae_apply(params, state, a=None, b=None, site=None, *, train: boo
     """Forward over any subset of (a, b, site) on a params tree. ``eps``
     (B, latent) and the dropout masks ``drop_a`` (B, 128), ``drop_b1``
     (B, 512) and ``drop_b2`` (B, 256) inject the noise; what is not injected
-    is drawn from ``generator`` (on the tensors' device)."""
-    if latent_mask is not None or row_mask is not None:
-        raise ValueError("latent_mask and row_mask are not ported: they belong to the padded "
-                         "HPO populations and the masked-size fold populations")
+    is drawn from ``generator`` (on the tensors' device). ``latent_mask``
+    (latent,) or, on a member axis, (P, latent) 0/1 values restricts the
+    latent space (module docstring); it is cast to the activations' dtype."""
+    if row_mask is not None:
+        raise ValueError("row_mask is not ported: it serves the masked-size populations, "
+                         "which the port does not train")
     if a is None and b is None and site is None:
         raise ValueError("at least one modality must be provided")
     mus, logvars, new_state = [], [], dict(state)
@@ -159,7 +165,14 @@ def multimodal_vae_apply(params, state, a=None, b=None, site=None, *, train: boo
         mus.append(mu_c)
         logvars.append(lv_c)
     mu, logvar = fuse_posteriors(mus, logvars)
-    z = reparameterize(mu, logvar, eps, generator)
+    if latent_mask is None:
+        z = reparameterize(mu, logvar, eps, generator)
+    else:
+        mask = latent_mask.to(mu.dtype)
+        if mask.dim() == 2:  # one mask a member, broadcast over the rows
+            mask = mask.unsqueeze(-2)
+        mu, logvar = mu * mask, logvar * mask
+        z = mask * reparameterize(mu, logvar, eps, generator)
     logits_b = decoder_b_apply_logits(params["decoder_b"], z)
     return MultiModalVAEOutput(decoder_a_apply(params["decoder_a"], z), torch.sigmoid(logits_b),
                                logits_b, decoder_c_apply(params["decoder_c"], z), mu, logvar,

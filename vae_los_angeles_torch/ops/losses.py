@@ -21,9 +21,10 @@ tri-modal trainers call ``dna2rna_loss`` and ``vae_loss`` themselves: the JAX
 package leaves those losses to XLA too, as it does the autoencoders'. The
 ``row_mask`` variants are not ported.
 
-``members=True`` (the fold populations: inputs with a leading member axis)
-sums over every axis but that one, so a population step gives one loss a
-member; ``beta`` may then be a (P,) tensor.
+``members=True`` (the fold and trial populations: inputs with a leading
+member axis) sums over every axis but that one, so a population step gives
+one loss a member; ``beta`` (and ``vae_loss``'s ``gamma``) may then be a
+(P,) tensor, and class weights stay one (classes,) vector for all members.
 """
 
 from __future__ import annotations
@@ -50,29 +51,32 @@ def mse_sum(pred, target, members: bool = False):
     return _sum(torch.square(pred - target), members)
 
 
-def cross_entropy_sum(logits, labels, class_weights=None):
+def cross_entropy_sum(logits, labels, class_weights=None, members: bool = False):
     """Sum over the rows of ``w[y] * -log softmax(logits)[y]`` (``w`` = 1
-    without class weights)."""
-    nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
+    without class weights); with ``members``, (P, rows, classes) logits and
+    (P, rows) labels give one sum a member, the (classes,) weights shared."""
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
     if class_weights is not None:
         nll = nll * torch.as_tensor(class_weights, dtype=nll.dtype, device=nll.device)[labels]
-    return torch.sum(nll)
+    return _sum(nll, members)
 
 
 def vae_loss(recon_a, a, recon_b_logits, b, recon_c, site, mu, logvar, beta=1e-3, gamma=1.0,
-             class_weights=None):
+             class_weights=None, members: bool = False):
     """Tri-modal loss; ``recon_b_logits`` are pre-sigmoid DNA logits. Any
-    reconstruction term may be None (with or without its target). Returns
-    (total, {"recon": .., "class": .., "kld": ..})."""
-    recon = torch.zeros((), dtype=mu.dtype, device=mu.device)
+    reconstruction term may be None (with or without its target). With
+    ``members`` every term is one sum a member and ``beta``, ``gamma`` may
+    be (P,) tensors. Returns (total, {"recon": .., "class": .., "kld": ..})."""
+    shape = mu.shape[:1] if members else ()
+    recon = torch.zeros(shape, dtype=mu.dtype, device=mu.device)
     if recon_a is not None and a is not None:
-        recon = recon + mse_sum(recon_a, a)
+        recon = recon + mse_sum(recon_a, a, members)
     if recon_b_logits is not None and b is not None:
-        recon = recon + bce_with_logits_sum(recon_b_logits, b)
-    class_loss = torch.zeros((), dtype=mu.dtype, device=mu.device)
+        recon = recon + bce_with_logits_sum(recon_b_logits, b, members)
+    class_loss = torch.zeros(shape, dtype=mu.dtype, device=mu.device)
     if recon_c is not None and site is not None:
-        class_loss = cross_entropy_sum(recon_c, site, class_weights)
-    kld = kl_divergence(mu, logvar)
+        class_loss = cross_entropy_sum(recon_c, site, class_weights, members)
+    kld = kl_divergence(mu, logvar, members)
     return recon + gamma * class_loss + beta * kld, {"recon": recon, "class": class_loss,
                                                      "kld": kld}
 

@@ -23,11 +23,12 @@ Every state is a dict of 0-d tensors updated with ``torch.where``, so a
 trainer reads nothing back to the host to step them. `OPTIMIZERS` maps
 ``Config.optimizer`` to its (init, update) pair.
 
-A member axis (the fold populations): AdamW takes stacked leaves and an
-``lr`` of shape (P,), broadcast over each member's leaves; its decay factor
+A member axis (the fold and trial populations): AdamW takes stacked
+leaves, an ``lr`` of shape (P,) and a ``weight_decay`` that is a float or
+also (P,), each broadcast over its member's leaves; its decay factor
 1 - lr·wd is formed in float64 and rounded once, as a single run forms it
-on the host from its Python float rate, so each member's update has a
-single run's bits for the same gradient. ``plateau_init(lr, n_members=P)``
+on the host from its Python floats, so each member's update has a single
+run's bits for the same gradient. ``plateau_init(lr, n_members=P)``
 and ``early_stop_init(n_members=P)`` hold one record a member, which the
 steps update elementwise.
 """
@@ -74,12 +75,16 @@ def bias_corrections(step):
 
 def adamw_update(params, grads, state, lr, weight_decay):
     """One AdamW step; ``lr`` and ``weight_decay`` may be floats or 0-d
-    tensors, or ``lr`` one fp32 rate a member of stacked leaves (module
-    docstring; ``weight_decay`` a float then). Moments stored reduced are
-    upcast, updated in fp32 and rounded back to their storage dtype.
-    Returns (new_params, new_state)."""
+    tensors, or, for stacked leaves, ``lr`` one fp32 rate a member and
+    ``weight_decay`` a float or one value a member (module docstring).
+    Moments stored reduced are upcast, updated in fp32 and rounded back to
+    their storage dtype. Returns (new_params, new_state)."""
     step, bc1, bc2 = bias_corrections(state["step"])
     members = isinstance(lr, torch.Tensor) and lr.dim() == 1
+    if isinstance(weight_decay, torch.Tensor) and weight_decay.dim() == 1:
+        if not members:
+            raise ValueError("a weight_decay a member needs an lr a member")
+        weight_decay = weight_decay.double()
     decay = (1.0 - lr.double() * weight_decay).float() if members else 1.0 - lr * weight_decay
 
     def leaf(p, g, m, v):

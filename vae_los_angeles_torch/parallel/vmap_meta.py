@@ -1,24 +1,33 @@
-"""CV fold populations (counterpart of ``fit_folds`` in
-``vae_los_angeles_tpu/parallel/vmap_meta.py``).
+"""CV fold and HPO trial populations (counterpart of ``fit_folds`` and
+``fit_trials`` in ``vae_los_angeles_tpu/parallel/vmap_meta.py``).
 
 The reference trains ``folds × directions × families`` full models one after
-another (SURVEY §3.4, its wall-clock hot spot). `fit_folds` trains the folds
-of one family as one population: every parameter, BatchNorm, optimizer,
-plateau and early-stop leaf is stacked on a leading member axis, so each
-layer is one batched launch for all members (``ops.nn``: a 3-D batch with
-stacked leaves), and the population steps together through one Python loop.
+another (SURVEY §3.4, its wall-clock hot spot), and its HPO one trial after
+another. `fit_folds` trains the folds of one family, and `fit_trials` the
+hyperparameter trials of one model shape on one shared split, each as one
+population through one epoch loop (`_fit_group`): every parameter,
+BatchNorm, optimizer, plateau and early-stop leaf is stacked on a leading
+member axis, so each layer is one batched launch for all members
+(``ops.nn``: a 3-D batch with stacked leaves), and the population steps
+together through one Python loop.
 
 Each member is ``engine.fit``'s plain path at that member's integer seed:
 the same init from the seed, the same per-epoch generator
 (``engine.epoch_seed(seed_i, e)``), the shuffle, dropout masks and eps drawn
 from it in the same order and shapes (one generator a member,
 ``ops.nn.draw``), the same β schedule, plateau, strict-improvement early
-stop and best snapshot, NaN loss rows after its stop. A member that stops
+stop and best snapshot, NaN loss rows after its stop. A trial's lr, weight
+decay, β and γ may be its own (one value a member: AdamW's rate and decay,
+the loss's β and γ); the trials' shared tables are gathered by each
+member's own permutation, not copied a member. A member that stops
 leaves the stacked population at the next epoch's start (where a single run
 reads its stop flag and breaks), so it costs nothing more. The products are
-batched, so a member's numbers agree with its single run to fp32 order
-(the JAX package's population-against-sequential tolerance, rtol 2e-4),
-not bit for bit.
+batched, so a member's numbers agree with its single run to fp32 order,
+not bit for bit; a population of one is its single run bit for bit. The
+encoder biases feeding train-mode BatchNorm have a true gradient of 0, so
+Adam turns that order's noise in their gradients into ±lr steps: on the
+card a member's losses part from its single run's by an amount that grows
+with its rate (PERF.md).
 
 The RNA→DNA tasks' loss stays the hand-written loss pair: one forward and
 one backward a member a step, each on that member's contiguous
@@ -51,6 +60,7 @@ from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.training import engine
 from vae_los_angeles_torch.training.tasks import Batch, get_task
 from vae_los_angeles_torch.utils.tree import tree_map
+from vae_los_angeles_torch.utils.weights import tree_from_numpy
 
 
 def member_seeds(seed: int, n: int) -> List[int]:
@@ -88,6 +98,19 @@ def _member(tree, j: int):
     return tree_map(lambda t: t[j] if t.dim() else t, tree)
 
 
+def _refuse(cfg, mask_sizes, mesh):
+    """The options a population of the port does not train."""
+    if mask_sizes:
+        raise ValueError(
+            "mask_sizes=True is not ported: padded rows with masked true sizes save XLA "
+            "compilations, which an eager port does not pay, and would only change the "
+            "members' noise streams; the port trains exact-shape groups (POP_MASK_SIZES=0)")
+    if mesh is not None:
+        raise ValueError("mesh-sharded populations are not ported: the port trains on one card")
+    if cfg.optimizer != "adamw":
+        raise ValueError(f"optimizer={cfg.optimizer!r}: a population trains with AdamW")
+
+
 def fit_folds(task_name: str, cfg: Config, fold_train: Sequence, fold_val: Sequence,
               seed: int, n_sites: int, *, num_epochs: Optional[int] = None,
               drop_last: bool = False, mesh=None, seeds: Optional[Sequence[int]] = None,
@@ -106,15 +129,7 @@ def fit_folds(task_name: str, cfg: Config, fold_train: Sequence, fold_val: Seque
     ``kl_on``); an unknown name raises. ``drop_last`` defaults to False, as
     the CV's loaders. Runs on the card unless ``device="cpu"`` or
     ``cfg.platform == "cpu"``."""
-    if mask_sizes:
-        raise ValueError(
-            "mask_sizes=True is not ported: padded rows with masked true sizes save XLA "
-            "compilations, which an eager port does not pay, and would only change the "
-            "members' noise streams; the port trains exact-shape groups (POP_MASK_SIZES=0)")
-    if mesh is not None:
-        raise ValueError("mesh-sharded populations are not ported: the port trains on one card")
-    if cfg.optimizer != "adamw":
-        raise ValueError(f"optimizer={cfg.optimizer!r}: the fold population trains with AdamW")
+    _refuse(cfg, mask_sizes, mesh)
     if len(fold_train) != len(fold_val):
         raise ValueError(f"{len(fold_train)} training folds for {len(fold_val)} validation folds")
     n_folds = len(fold_train)
@@ -137,52 +152,137 @@ def fit_folds(task_name: str, cfg: Config, fold_train: Sequence, fold_val: Seque
         groups.setdefault((len(tr[0]), len(va[0])), []).append(i)
     results: List[Optional[engine.FitResult]] = [None] * n_folds
     for idxs in groups.values():
-        group = _fit_group(task, cfg, [engine._as_batch(fold_train[i], device) for i in idxs],
-                           [engine._as_batch(fold_val[i], device) for i in idxs],
-                           [seeds[i] for i in idxs], n_sites, num_epochs, bool(drop_last),
-                           {name: value[idxs] for name, value in overrides.items()}, device)
+        tr, va = (Batch(*(torch.stack(f) for f in zip(*(engine._as_batch(folds[i], device)
+                                                        for i in idxs))))
+                  for folds in (fold_train, fold_val))  # (P, rows, ...)
+        group = _fit_group(task, cfg, tr, va, [seeds[i] for i in idxs], n_sites, num_epochs,
+                           bool(drop_last), device,
+                           overrides={name: value[idxs] for name, value in overrides.items()})
         for i, res in zip(idxs, group):
             results[i] = res
     return results
 
 
-def _fit_group(task, cfg, train, val, seeds, n_sites, num_epochs, drop_last, overrides, device):
-    """One population of equal-shape folds (module docstring)."""
+def fit_trials(task_name: str, cfg: Config, train, val, seed: int, n_sites: int,
+               hp_population: Dict[str, np.ndarray], *, num_epochs: Optional[int] = None,
+               class_weights=None, carry0=None, start_epoch: int = 0,
+               seeds: Optional[Sequence[int]] = None, mask_sizes: bool = False, mesh=None,
+               device=None) -> List[engine.FitResult]:
+    """Train a population of hyperparameter trials of one model shape on
+    one shared (train, val) split (JAX ``vmap_meta.fit_trials``); returns a
+    list of ``engine.FitResult``, one a trial.
+
+    ``hp_population`` maps any of ``engine.POPULATION_KEYS`` (lr,
+    weight_decay, beta_start, gamma) to (n_trials,) values, kept as fp32;
+    the other hyperparameters are ``cfg``'s for every trial. Each trial is
+    ``engine.fit``'s plain path at its seed with its hyperparameters
+    (``drop_last=True``, as the JAX package trains trials): its own shuffle
+    and noise from its own generator, the shared tables gathered by its own
+    permutation. ``class_weights`` (n_sites,) are shared. ``seeds`` (one int
+    a trial) default to `member_seeds(seed, n_trials)`.
+
+    ``carry0``/``start_epoch`` continue a population mid-run: a stacked
+    population carry (``evaluation.hpo._padded_carry``) or a list of member
+    carries (``FitResult.carry`` of the trials that go on; their optimizer
+    step, shared by the population, must agree) and the absolute epoch it
+    stopped at. β, the plateau, early stopping and the best snapshot resume
+    exactly, and a trial's noise of epoch e comes from (its seed, e), so a
+    survivor continued with its own seed trains as the uninterrupted run.
+    Continuing needs explicit ``seeds`` (the default depends on the number of
+    trials, so a sliced population would switch streams): without them it
+    raises. ``mask_sizes=True`` and ``mesh`` raise. Runs on the card unless
+    ``device="cpu"`` or ``cfg.platform == "cpu"``."""
+    _refuse(cfg, mask_sizes, mesh)
+    unknown = sorted(set(hp_population) - set(engine.POPULATION_KEYS))
+    if unknown:
+        raise ValueError(f"hp_population keys {unknown}: a trial population sets "
+                         f"{engine.POPULATION_KEYS}")
+    sizes = {len(v) for v in hp_population.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"hp_population needs one (n_trials,) array a key, got lengths "
+                         f"{sorted(sizes)}")
+    n_trials = sizes.pop()
+    if seeds is None:
+        if carry0 is not None or start_epoch:
+            raise ValueError(
+                "continuing a population (carry0/start_epoch) requires explicit per-trial "
+                "`seeds`: pass the seeds of the original run for the trials that go on")
+        seeds = member_seeds(seed, n_trials)
+    seeds = [int(s) for s in seeds]
+    if len(seeds) != n_trials:
+        raise ValueError(f"seeds has {len(seeds)} entries for {n_trials} trials")
+    task = get_task(task_name)
+    device = resolve_device(device, cfg)
+    num_epochs = cfg.num_epochs if num_epochs is None else int(num_epochs)
+    tr, va = engine._as_batch(train, device), engine._as_batch(val, device)
+    _check_sizes([len(tr)], [len(va)], int(cfg.batch_size), True)
+    if carry0 is not None:
+        carry0 = (_stack_carry(carry0, device) if isinstance(carry0, (list, tuple))
+                  else tree_from_numpy(carry0, device))
+        if carry0["estop"]["stopped"].shape != (n_trials,):
+            raise ValueError(f"carry0 holds {carry0['estop']['stopped'].shape[0]} members for "
+                             f"{n_trials} trials")
+    if class_weights is not None:
+        class_weights = torch.as_tensor(np.asarray(class_weights, np.float32)).to(device)
+    return _fit_group(task, cfg, tr, va, seeds, n_sites, num_epochs, True, device,
+                      hp=engine.hyperparams(cfg, **hp_population),
+                      class_weights=class_weights, carry0=carry0, start_epoch=start_epoch)
+
+
+def _stack_carry(carries, device):
+    """One population carry of member carries: every leaf stacked, but the
+    optimizer's step, which the population shares, kept 0-d."""
+    carries = [tree_from_numpy(c, device) for c in carries]
+    steps = {int(c["opt"]["step"]) for c in carries}
+    if len(steps) != 1:
+        raise ValueError(f"the member carries are at different optimizer steps {sorted(steps)}")
+    carry = _stack(carries)
+    carry["opt"]["step"] = carries[0]["opt"]["step"]
+    return carry
+
+
+def _fit_group(task, cfg, tr, va, seeds, n_sites, num_epochs, drop_last, device, *, hp=None,
+               class_weights=None, overrides=None, carry0=None, start_epoch=0):
+    """One population (module docstring). ``tr``/``va`` are stacked
+    (P, rows, ...) tables, one a member, or shared (rows, ...) ones; ``hp``
+    may hold one value a member (`engine.hyperparams`)."""
     n_members = len(seeds)
-    tr = Batch(*(torch.stack(f) for f in zip(*train)))  # (P, n_train, ...)
-    va = Batch(*(torch.stack(f) for f in zip(*val)))
+    shared = tr.tpm.dim() == 2
     if (tr.tpm.shape[-1], tr.beta.shape[-1]) != (cfg.input_dim_a, cfg.input_dim_b):
         raise ValueError(
             f"data widths {tr.tpm.shape[-1]}/{tr.beta.shape[-1]} differ from the config's "
             f"input_dim_a/input_dim_b {cfg.input_dim_a}/{cfg.input_dim_b}")
-    hp = engine.hyperparams(cfg)
-    inits = [task.init(torch.Generator().manual_seed(s), cfg, n_sites, device) for s in seeds]
-    params, state = _stack([p for p, _ in inits]), _stack([s for _, s in inits])
-    for name, value in overrides.items():
-        if name not in state:
-            raise ValueError(f"state_overrides[{name!r}]: task {task.name!r} has no such state "
-                             f"entry (have: {sorted(state)})")
-        new = torch.as_tensor(value, dtype=state[name].dtype).to(device)
-        if new.shape != state[name].shape:
-            raise ValueError(f"state_overrides[{name!r}] has shape {tuple(value.shape)}; "
-                             f"the state entry is {tuple(state[name].shape[1:])} a member")
-        state[name] = new
-    carry = engine.init_carry(params, state, hp["lr"], cfg.moments_dtype, cfg.optimizer,
-                              n_members)
+    hp = engine.hyperparams(cfg) if hp is None else hp
+    if carry0 is None:
+        inits = [task.init(torch.Generator().manual_seed(s), cfg, n_sites, device)
+                 for s in seeds]
+        params, state = _stack([p for p, _ in inits]), _stack([s for _, s in inits])
+        for name, value in (overrides or {}).items():
+            if name not in state:
+                raise ValueError(f"state_overrides[{name!r}]: task {task.name!r} has no such "
+                                 f"state entry (have: {sorted(state)})")
+            new = torch.as_tensor(value, dtype=state[name].dtype).to(device)
+            if new.shape != state[name].shape:
+                raise ValueError(f"state_overrides[{name!r}] has shape {tuple(value.shape)}; "
+                                 f"the state entry is {tuple(state[name].shape[1:])} a member")
+            state[name] = new
+        carry = engine.init_carry(params, state, hp["lr"], cfg.moments_dtype, cfg.optimizer,
+                                  n_members)
+    else:
+        carry = carry0
 
     batch_size = int(cfg.batch_size)
-    n_train, n_val = tr.tpm.shape[1], va.tpm.shape[1]
+    n_train, n_val = tr.tpm.shape[-2], va.tpm.shape[-2]
     n_batches = n_train // batch_size if drop_last else -(-n_train // batch_size)
     n_val_batches = -(-n_val // batch_size)
     compute_dtype = ops_nn.resolve_compute_dtype(cfg.compute_dtype)
-    loss_kw = {"gamma": hp["gamma"], "class_weights": None}
     debug = bool(cfg.debug_nans)
     members = list(range(n_members))  # the input positions still training
     carries: List[Optional[dict]] = [None] * n_members
     history = []  # an epoch: (members, train losses, val losses, lrs, β)
     anomaly = torch.autograd.set_detect_anomaly(True) if debug else contextlib.nullcontext()
     with anomaly:
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, start_epoch + num_epochs):
             # the epoch's one host sync: the stop latches and the plateaus' rates
             stopped, lrs = torch.stack([carry["estop"]["stopped"].to(torch.float32),
                                         carry["plateau"]["lr"]]).tolist()
@@ -193,29 +293,38 @@ def _fit_group(task, cfg, train, val, seeds, n_sites, num_epochs, drop_last, ove
                         carries[members[j]] = _member(carry, j)
                 keep_t = torch.tensor(keep, dtype=torch.int64, device=device)
                 carry = _take(carry, keep_t)
-                tr, va = (Batch(*(t.index_select(0, keep_t) for t in b)) for b in (tr, va))
+                if not shared:
+                    tr, va = (Batch(*(t.index_select(0, keep_t) for t in b)) for b in (tr, va))
                 members, lrs = [members[j] for j in keep], [lrs[j] for j in keep]
             if not members:
                 break
-            beta = engine.beta_schedule(epoch, hp) if task.uses_kl_warmup else 0.0
+            # the live members' hyperparameters: a scalar as it is, one value a member
+            # as a tensor on the device
+            live = {k: np.asarray(v)[members] if np.ndim(v) else v for k, v in hp.items()}
+            beta = engine.beta_schedule(epoch, live) if task.uses_kl_warmup else 0.0
+            beta_kl, gamma, weight_decay = (torch.as_tensor(v).to(device) if np.ndim(v) else v
+                                            for v in (beta, live["gamma"],
+                                                      live["weight_decay"]))
+            loss_kw = {"gamma": gamma, "class_weights": class_weights}
             gens, perm = zip(*(engine.epoch_noise(seeds[i], epoch, n_train, device)
                                for i in members))
             gens, perm = list(gens), torch.stack(perm)
             rows = torch.arange(len(members), device=device)[:, None]
+            val = (Batch(*(t.expand(len(members), *t.shape) for t in va)) if shared else va)
             params, state, opt = carry["params"], carry["state"], carry["opt"]
             lr = carry["plateau"]["lr"]
             train_sum = torch.zeros(len(members), device=device)
             for b in range(n_batches):
                 idx = perm[:, b * batch_size:(b + 1) * batch_size]
-                batch = Batch(*(t[rows, idx] for t in tr))
-                loss, grads, state = engine.plain_grads(task, params, state, batch, beta, gens,
-                                                        loss_kw, compute_dtype, debug, epoch, b,
-                                                        members=True)
-                params, opt = optim.adamw_update(params, grads, opt, lr, hp["weight_decay"])
+                batch = Batch(*(t[idx] if shared else t[rows, idx] for t in tr))
+                loss, grads, state = engine.plain_grads(task, params, state, batch, beta_kl,
+                                                        gens, loss_kw, compute_dtype, debug,
+                                                        epoch, b, members=True)
+                params, opt = optim.adamw_update(params, grads, opt, lr, weight_decay)
                 train_sum = train_sum + loss
-            val_loss, carry = engine.end_epoch(task, carry, params, state, opt, va, beta, gens,
-                                               hp, loss_kw, compute_dtype, n_val_batches, epoch,
-                                               members=True)
+            val_loss, carry = engine.end_epoch(task, carry, params, state, opt, val, beta_kl,
+                                               gens, hp, loss_kw, compute_dtype, n_val_batches,
+                                               epoch, members=True)
             history.append((members, train_sum / n_batches, val_loss, lrs, beta))
     for j, i in enumerate(members):
         carries[i] = _member(carry, j)
@@ -255,4 +364,4 @@ def _results(carries, history, num_epochs):
     return out
 
 
-__all__ = ["fit_folds", "member_seeds"]
+__all__ = ["fit_folds", "fit_trials", "member_seeds"]

@@ -40,12 +40,21 @@ train on the plain path: with ``USE_PALLAS=1`` and any of them set, the CLI
 says so and trains there, as the JAX CLI routes them to its XLA path, since
 the CUDA kernels are fp32 AdamW programs.
 
+``--replicates N`` trains N replicates of the run (the same
+hyperparameters, seeds ``vmap_meta.member_seeds(seed, N)``) as one
+population (``vmap_meta.fit_trials``, the plain path: under USE_PALLAS it
+says so; RNA→DNA runs the loss pair once a member a step), prints each
+one's best validation loss (``r{i}=``) and their mean±std, and keeps the
+best finite one under the run-id protocol (its resume checkpoint records
+its own seed); it refuses N < 1 and ``--resume``, and exits when every
+replicate diverged.
+
 ``run_training(data=(tpm, beta, site))`` takes the cohort as arrays (the
 tests and ``chip_smoke.py`` do); without it the CLI reads
 ``processed_data.pkl`` and its ``label_encoder.pkl`` (pandas and sklearn are
 imported only there). Not ported yet: the loss plot, the ``--synthetic``
-artifact writer, ``--replicates``, ``--dp``, ``--profile`` and the
-``WALL_DETAIL`` steady-state probe.
+artifact writer, ``--dp``, ``--profile`` and the ``WALL_DETAIL``
+steady-state probe.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
+from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.tasks import get_task
 from vae_los_angeles_torch.utils.tree import tree_map
@@ -122,6 +132,11 @@ def _parse(model_name, argv):
         "--optimizer", choices=["adamw", "adafactor"], default=None,
         help="adafactor = factored second moments, no first moment (plain path). Default "
         "adamw = torch-parity recipe. Same as OPTIMIZER env")
+    parser.add_argument(
+        "--replicates", type=int, default=1, metavar="N",
+        help="train N replicates (the same hyperparameters, seeds member_seeds(seed, N)) as "
+        "one population on the plain path; keeps the best one under the run-id protocol and "
+        "reports mean±std. Does not compose with --resume")
     return parser.parse_args(argv)
 
 
@@ -153,6 +168,12 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
         cfg = cfg.replace(**overrides)
     device = resolve_device(device, cfg)
     task = get_task(task_name)
+    if args.replicates < 1:
+        raise SystemExit(f"--replicates must be >= 1, got {args.replicates}")
+    if args.replicates > 1 and args.resume:
+        raise SystemExit("--resume does not compose with --replicates: population members "
+                         "train on per-member noise streams that a single resume checkpoint "
+                         "cannot reproduce")
 
     resume_carry, start_epoch = None, 0
     if args.resume:
@@ -219,6 +240,9 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
         req = ", ".join(f"{k}={v}" for k, v in reduced.items())
         print(f"{req}: using the plain path (the CUDA kernels are fp32 AdamW programs)")
         fused_epoch = False
+    if args.replicates > 1 and fused_epoch:
+        print("--replicates: using the plain population path (vmap_meta.fit_trials)")
+        fused_epoch = False
     path = "plain"
     if fused_epoch:
         path = "wide head kernel" if engine.uses_wide_head(task_name, cfg) else "epoch kernel"
@@ -234,10 +258,15 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    result = engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
-                        num_epochs=num_epochs, resume_carry=resume_carry,
-                        start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
-                        class_weights=class_weights)
+    if args.replicates > 1:
+        result, seed = _train_replicates(task_name, cfg, train_arrays, val_arrays, seed,
+                                         n_sites, num_epochs, class_weights, args.replicates,
+                                         device)
+    else:
+        result = engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
+                            num_epochs=num_epochs, resume_carry=resume_carry,
+                            start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
+                            class_weights=class_weights)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -281,6 +310,32 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
           f"where first used ({samples_per_sec:,.0f} samples/sec)")
     print("=" * 50)
     return result, run_id, wall
+
+
+def _train_replicates(task_name, cfg, train_arrays, val_arrays, seed, n_sites, num_epochs,
+                      class_weights, n, device):
+    """``n`` replicates of one run as one population (``vmap_meta.fit_trials``
+    with one lr population, seeds ``member_seeds(seed, n)``); prints each
+    one's best validation loss and their mean±std, and returns the best
+    finite replicate's ``FitResult`` with its seed (a resume of its
+    checkpoint continues its noise stream). Exits when every replicate
+    diverged."""
+    seeds = vmap_meta.member_seeds(seed, n)
+    res = vmap_meta.fit_trials(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
+                               {"lr": np.full(n, cfg.learning_rate, np.float32)},
+                               num_epochs=num_epochs, class_weights=class_weights, seeds=seeds,
+                               device=device)
+    best_vals = np.asarray([r.best_val_loss for r in res])
+    finite = np.isfinite(best_vals)
+    if not finite.any():
+        raise SystemExit("every replicate diverged to a non-finite validation loss — "
+                         "nothing to save")
+    best_r = int(np.argmin(np.where(finite, best_vals, np.inf)))
+    print("\nReplicates (best val loss each): "
+          + ", ".join(f"r{r}={v:.2f}" for r, v in enumerate(best_vals)))
+    print(f"mean={best_vals[finite].mean():.2f} std={best_vals[finite].std():.2f} -> keeping "
+          f"replicate {best_r}")
+    return res[best_r], seeds[best_r]
 
 
 def main_rna2dna(argv=None):

@@ -179,8 +179,16 @@ def init_carry(params0, state0, lr, moments_dtype: str = "float32", optimizer: s
     }
 
 
+# the hyperparameters a trial population may set a member (JAX
+# ``vmap_meta.fit_trials`` broadcasts the others)
+POPULATION_KEYS = ("lr", "weight_decay", "beta_start", "gamma")
+
+
 def hyperparams(cfg: Config, **overrides):
-    """Hyperparameter bundle; an unknown override name raises."""
+    """Hyperparameter bundle; an unknown override name raises. An override
+    of a `POPULATION_KEYS` entry may be a (P,) array, one value a member of
+    a population, kept as fp32 as the JAX package keeps it; the other keys
+    stay scalars."""
     hp = {
         "lr": float(cfg.learning_rate),
         "weight_decay": float(cfg.weight_decay),
@@ -194,15 +202,24 @@ def hyperparams(cfg: Config, **overrides):
     for k, v in overrides.items():
         if k not in hp:
             raise ValueError(f"unknown hyperparameter override {k!r}; valid: {sorted(hp)}")
-        hp[k] = type(hp[k])(v)
+        if np.ndim(v) == 0:
+            hp[k] = type(hp[k])(v)
+        elif k in POPULATION_KEYS and np.ndim(v) == 1:
+            hp[k] = np.asarray(v, np.float32)
+        else:
+            raise ValueError(f"hyperparameter {k!r} has shape {np.shape(v)}: only "
+                             f"{POPULATION_KEYS} take one value a member, (P,)")
     return hp
 
 
-def beta_schedule(epoch: int, hp) -> float:
-    """β of a 0-based global epoch, in float32 as the JAX engine computes it."""
+def beta_schedule(epoch: int, hp):
+    """β of a 0-based global epoch, in float32 as the JAX engine computes it:
+    a float, or one fp32 value a member when ``hp["beta_start"]`` is (P,)."""
     warm = np.float32(hp["warmup_epochs"])
     frac = np.float32(epoch) / max(warm, np.float32(1.0)) if warm > 0 else np.float32(1.0)
-    return float(np.minimum(np.float32(1.0), np.float32(frac)) * np.float32(hp["beta_start"]))
+    beta = np.minimum(np.float32(1.0), np.float32(frac)) * np.asarray(hp["beta_start"],
+                                                                         np.float32)
+    return beta.astype(np.float32) if beta.ndim else float(beta)
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -393,6 +410,9 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     if num_epochs is None:  # an explicit 0 means "no training epochs"
         num_epochs = cfg.num_epochs
     hp = hyperparams(cfg) if hp is None else hp
+    if any(np.ndim(hp[k]) for k in POPULATION_KEYS):
+        raise ValueError("hyperparameters with one value a member train as a population: "
+                         "use parallel.vmap_meta.fit_trials")
     train, val = _as_batch(train_arrays, device), _as_batch(val_arrays, device)
     if class_weights is not None:
         class_weights = torch.as_tensor(np.asarray(class_weights, np.float32)).to(device)
@@ -562,5 +582,5 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
     return per_epoch * epochs
 
 
-__all__ = ["FUSED", "FitResult", "WIDE_HEAD_MIN_DIM_B", "beta_schedule", "epoch_seed", "fit",
-           "hyperparams", "init_carry", "predict", "samples_trained", "uses_wide_head"]
+__all__ = ["FUSED", "FitResult", "POPULATION_KEYS", "WIDE_HEAD_MIN_DIM_B", "beta_schedule",
+           "epoch_seed", "fit", "hyperparams", "init_carry", "predict", "samples_trained", "uses_wide_head"]

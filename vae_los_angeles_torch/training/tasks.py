@@ -22,6 +22,13 @@ fields are inputs and which the target. Ported so far:
     β warm-up. They have no kernel (nor in the JAX package): the engine
     trains them on the plain path.
 
+  * ``multimodal_padded``: the tri-modal task at a padded latent width
+    with a 0/1 ``latent_mask`` in ``state`` (JAX ``training/tasks.py:166-200``),
+    which the model applies (``models.vae``): the HPO's ``--pad-shapes``
+    trains trials of several latent widths as one population, each with its
+    own mask. The loss and predict read the mask from the state; an
+    all-ones mask trains bit for bit as ``multimodal``.
+
   * ``rna2dna_unified`` and ``dna2rna_unified``: the directional VAEs with a
     ``kl_on`` scalar in ``state`` (JAX ``training/tasks.py:213-283``), which
     scales eps and β: ``kl_on = 1`` trains bit for bit as the VAE task (eps·1
@@ -208,17 +215,28 @@ def _multimodal_loss(params, state, batch, beta_kl, train, generator=None, *, ga
                      class_weights=None, eps=None, drop_a=None, drop_b1=None, drop_b2=None):
     out = vae.multimodal_vae_apply(
         params, state, a=batch.tpm, b=batch.beta, site=batch.site, train=train, eps=eps,
-        drop_a=drop_a, drop_b1=drop_b1, drop_b2=drop_b2, generator=generator)
+        drop_a=drop_a, drop_b1=drop_b1, drop_b2=drop_b2, generator=generator,
+        latent_mask=state.get("latent_mask"))
     total, _ = vae_loss(out.out_a, batch.tpm, out.out_b_logits, batch.beta, out.out_c, batch.site,
                         out.mu, out.logvar, beta=beta_kl, gamma=gamma,
-                        class_weights=class_weights)
-    return total, out.state
+                        class_weights=class_weights, members=_members(batch))
+    return total, out.state  # the apply copies every state key: a mask stays
 
 
 def _multimodal_predict(params, state, batch, generator=None):
     """DNA imputed from RNA alone."""
     return vae.multimodal_vae_apply(params, state, a=batch.tpm, train=False,
-                                    generator=generator).out_b
+                                    generator=generator,
+                                    latent_mask=state.get("latent_mask")).out_b
+
+
+def _multimodal_padded_init(generator, cfg, n_sites, device=None):
+    """The tri-modal init at a padded latent width, with an all-ones
+    ``latent_mask`` (latent,) in the state (the HPO's ``--pad-shapes``
+    writes each trial's own)."""
+    params, state = _multimodal_init(generator, cfg, n_sites, device)
+    return params, {**state, "latent_mask": torch.ones(cfg.latent_dim, dtype=torch.float32,
+                                                       device=device)}
 
 
 TASKS = {
@@ -232,6 +250,8 @@ TASKS = {
                        lambda batch: batch.tpm, False),
     "multimodal": Task("multimodal", _multimodal_init, _multimodal_loss, _multimodal_predict,
                        lambda batch: batch.beta, True),
+    "multimodal_padded": Task("multimodal_padded", _multimodal_padded_init, _multimodal_loss,
+                              _multimodal_predict, lambda batch: batch.beta, True),
     "rna2dna_unified": Task("rna2dna_unified", _unified_init(_rna2dna_init),
                             _unified_loss(_rna2dna_loss), _unified_predict(_rna2dna_predict),
                             lambda batch: batch.beta, True),

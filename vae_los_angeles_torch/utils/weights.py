@@ -16,7 +16,9 @@ keys ``encoder_rna.0/.1/.4`` and ``encoder_dna.0/.1/.4/.5/.8``, the site path
 (``multivae``) and the unified tasks (``rna2dna_unified``,
 ``dna2rna_unified``: the directional VAE's keys and the state's ``kl_on``
 scalar under the key ``kl_on``, which a module does not hold: drop it before
-``load_state_dict``) are covered.
+``load_state_dict``) and the padded tri-modal task (``multimodal_padded``:
+the ``multivae`` keys and the state's (latent,) ``latent_mask`` under the
+key ``latent_mask``, dropped the same way) are covered.
 
 The trainer's own trees stay in the JAX layout, so moving them across is a
 copy: `tree_to_numpy` and `tree_from_numpy` carry any nested dict of arrays
@@ -119,6 +121,9 @@ MODEL_TYPES = {
 for _direction in ("rna2dna", "dna2rna"):
     MODEL_TYPES[f"{_direction}_unified"] = (MODEL_TYPES[_direction]
                                             + [("kl_on", "state", ("kl_on",), False)])
+# the padded tri-modal task: the MultiModalVAE and its (latent,) mask
+MODEL_TYPES["multimodal_padded"] = (MODEL_TYPES["multivae"]
+                                    + [("latent_mask", "state", ("latent_mask",), False)])
 
 
 def _layout(model_type):
