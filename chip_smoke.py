@@ -212,7 +212,28 @@ Phases (any failure raises, and the script exits non-zero):
      MultiModalVAE trained in phase 4 writes ``evaluation_results.json``
      with two records of finite metrics, each printed beside the mean
      baseline's MSE; the comparison gives six records, the k-NN baseline
-     (k = 5) printed beside the mean baseline's and the VAE's MSE. After
+     (k = 5) printed beside the mean baseline's and the VAE's MSE. Then the
+     downstream site classification (`phase_downstream`): a deep and a
+     shallow classifier step at 32 x 2388 (24 classes, a last batch of 26
+     rows, injected dropout masks with the near-kink cells dropped, from
+     zero moments and from a non-zero Adam state) on the card against the
+     CPU, the loss within
+     rtol 1e-6, the gradients and a zero-moment first step's m within
+     1e-5, its v within 2e-5 and the updated parameters within 1e-6 of
+     each tensor's largest entry; ``fit_classifier`` (a population of one)
+     equal to the plain 2-D loop `plain_classifier_fit` bit for bit (deep,
+     100 epochs with early stopping; shallow, 20 epochs); 5 uneven folds of
+     the cohort's 1024 rows: the population's first-step gradients within
+     1e-5 of each member's alone, each member's distance from its single
+     fit after the full run printed; ``downstream.main`` (no kernel launched: the
+     tri-modal loader's plain forward) and ``downstream_directional.main``
+     (exactly one launch of each serving kernel, its imputations within
+     atol = rtol = 1e-4 of the plain eval forward given the kernel's Philox
+     draws, conditioned on the original site codes) with USE_PALLAS, each
+     scenario's accuracy and weighted F1 and each main's seconds printed;
+     one 20-member deep population epoch on the 8000-sample cohort's 1600
+     validation rows beside one member's (host clock, CUDA events) and the
+     busy share and kernels a step of each. After
      serving, the kNN baselines and the t-SNE, which have no kernel of
      their own (`compare_knn`, `compare_tsne`): on the same cohort's split
      (819 training rows, the 205 validation rows and 8 copies of training
@@ -264,8 +285,8 @@ Phases (any failure raises, and the script exits non-zero):
      conditioned, each call timed; finite MSEs, 16 queries' neighbour sets
      against a float64 recomputation on the card, the peak device memory).
 
-Each path (serve, evaluate, the kNN comparison, train, train-step,
-train-plain, the three training paths of dna2rna and of the tri-modal
+Each path (serve, evaluate, the two downstream flows, the kNN comparison,
+train, train-step, train-plain, the three training paths of dna2rna and of the tri-modal
 model, the two autoencoders' runs, the cross-modality CV, the two HPO
 searches and the replicates, and train-wide and wide) is driven with every
 launch count set to 0 just before it and read just after. The line before
@@ -295,16 +316,20 @@ import torch.nn.functional as F
 
 from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
-from vae_los_angeles_torch.data.splits import cv_inner_split, kfold_indices, train_val_indices
+from vae_los_angeles_torch.data.splits import (cv_inner_split, kfold_indices, standard_scale,
+                                               stratified_kfold_indices, train_val_indices)
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
 from vae_los_angeles_torch.evaluation import (compare_directional_imputation,
-                                              cross_modality_cv, evaluate, hpo, knn_comparison)
+                                              cross_modality_cv, downstream,
+                                              downstream_directional, evaluate, hpo,
+                                              knn_comparison, loading)
+from vae_los_angeles_torch.evaluation import mlp_classifier as mc
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
 from vae_los_angeles_torch.models.conditioned_knn import ConditionedKNeighborsRegressor
 from vae_los_angeles_torch.models.directional_ae import dna2rna_ae_init, rna2dna_ae_init
-from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_init, rna2dna_vae_apply,
-                                                         rna2dna_vae_init)
+from vae_los_angeles_torch.models.directional_vae import (dna2rna_vae_apply, dna2rna_vae_init,
+                                                         rna2dna_vae_apply, rna2dna_vae_init)
 from vae_los_angeles_torch.models.vae import multimodal_vae_apply, multimodal_vae_init
 from vae_los_angeles_torch.ops.kernels import _build
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
@@ -2445,6 +2470,387 @@ def phase_knn_comparison(dev, workdir, tpm, beta, site):
 
 
 # ---------------------------------------------------------------------------
+# downstream site classification: the MLP classifiers and the two flows
+
+# Of each tensor's own largest entry. Measured on an H100: gradients and first
+# moments 5.2e-07 (steps) and 1.35e-06 (a population's first step against its
+# members alone), first v 9.8e-07, parameters 1.05e-07, the loss 7.6e-08.
+CLS_LOSS_RTOL = 1e-6
+CLS_GRAD_REL = 1e-5  # fp32 sums of 2388 (or 256) terms; first v at twice this
+CLS_UPDATE_REL = 1e-6  # the updated parameters
+CLS_KINK_REL = 1e-5  # a ReLU input this near 0 (of its layer's largest) is dropped
+CLS_WIDTH = CFG.input_dim_a + CFG.input_dim_b  # the side-by-side scenarios' width, 2388
+DS_FOLDS = 5
+
+
+def rel_err(got, want):
+    """Largest |got - want| over the largest |want| (a tiny floor only
+    against an all-zero ``want``), on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = max(want.abs().max().item(), torch.finfo(torch.float32).tiny)
+    return (got - want).abs().max().item() / scale
+
+
+def tree_rel(got, want):
+    return max(rel_err(got[k][n], want[k][n]) for k in want for n in want[k])
+
+
+def clear_classifier_kinks(params, x, valid, masks, arch):
+    """``masks`` with every live cell whose ReLU input lies within
+    `CLS_KINK_REL` of 0 (relative to its layer's largest, float64 on the
+    host) dropped: a dropped cell gives two fp32 implementations the same
+    forward and gradient whichever side they take. Returns (masks, cells
+    dropped)."""
+    p = tree_map(lambda t: t.detach().double().cpu(), params)
+    h, out, dropped = x.detach().double().cpu(), [], 0
+    live = valid.cpu()[..., None]
+    for i, (rate, mask) in enumerate(zip(mc.DROPOUT[arch], masks), 1):
+        h = h @ p[f"fc{i}"]["w"] + p[f"fc{i}"]["b"].unsqueeze(-2)
+        if arch == "deep":
+            g = p[f"ln{i}"]
+            mu = h.mean(-1, keepdim=True)
+            var = torch.square(h - mu).mean(-1, keepdim=True)
+            h = (h - mu) / torch.sqrt(var + 1e-5) * g["gamma"].unsqueeze(-2) + \
+                g["beta"].unsqueeze(-2)
+        mask = mask.cpu().clone()
+        near = (h.abs() < CLS_KINK_REL * h.abs().amax(dim=(-2, -1), keepdim=True)) & live \
+            & (mask > 0)
+        dropped += int(near.sum())
+        mask[near] = 0.0
+        out.append(mask.to(masks[0].device))
+        h = h.clamp(min=0.0) * mask.double() / (1.0 - rate)
+    return tuple(out), dropped
+
+
+def classifier_step(params, state, x, y, cw, valid, masks, arch, wd):
+    """One training step of the fit: the masked weighted loss, its
+    gradients, then Adam with coupled decay (lr 1e-3)."""
+    loss, grads = mc._grads(params, x, y, cw, valid, masks, arch)
+    lr = torch.tensor(1e-3, device=x.device)
+    new_params, new_state = optim.adam_update(params, grads, state, lr, wd)
+    return loss, grads, new_params, new_state
+
+
+def compare_classifier_steps(dev, card):
+    """A deep and a shallow classifier step at the side-by-side width (2388
+    features, 24 classes, a last batch of 26 rows in 32 slots) on the card
+    against the same step on the CPU, with injected rows and dropout masks,
+    twice: from zero moments, whose updated m = (1 - β1)·g and v = (1 -
+    β2)·g² hold the gradients' arithmetic in the moments (Adam's first step
+    moves every parameter by ±lr, so its parameters are not held), and from
+    a non-zero Adam state, whose updated parameters are held."""
+    for arch, wd in (("deep", 1e-4), ("shallow", 0.0)):
+        g = torch.Generator().manual_seed(17)
+        params = mc.mlp_init(g, CLS_WIDTH, N_SITES, arch)
+        x = torch.randn(CFG.batch_size, CLS_WIDTH, generator=g)
+        y = torch.randint(0, N_SITES, (CFG.batch_size,), generator=g)
+        cw = torch.rand(N_SITES, generator=g) * 1.5 + 0.5
+        valid = torch.arange(CFG.batch_size) < 26
+        masks = tuple((torch.rand(CFG.batch_size, w, generator=g) < 1.0 - r).to(torch.float32)
+                      for w, r in zip(mc.HIDDEN[arch], mc.DROPOUT[arch]))
+        masks, dropped = clear_classifier_kinks(params, x, valid, masks, arch)
+        first = optim.adamw_init(params)
+        state = {"step": torch.tensor(3, dtype=torch.int32),
+                 "m": tree_map(lambda t: torch.randn(t.shape, generator=g) * 1e-2, params),
+                 "v": tree_map(lambda t: torch.rand(t.shape, generator=g) * 1e-3 + 1e-5, params)}
+        to = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+        inputs = (x, y, cw, valid, masks)
+        cpu0, cpu = (classifier_step(params, st, *inputs, arch, wd) for st in (first, state))
+        on_card = (x.to(dev), y.to(dev), cw.to(dev), valid.to(dev), tuple(m.to(dev) for m in masks))
+        got0, got = (classifier_step(to(params), to(st), *on_card, arch, wd)
+                     for st in (first, state))
+        errs = {"loss": rel_err(got[0], cpu[0]), "gradients": tree_rel(got[1], cpu[1]),
+                "first m": tree_rel(got0[3]["m"], cpu0[3]["m"]),
+                "first v": tree_rel(got0[3]["v"], cpu0[3]["v"]),
+                "parameters": tree_rel(got[2], cpu[2])}
+        limits = {"loss": CLS_LOSS_RTOL, "gradients": CLS_GRAD_REL, "first m": CLS_GRAD_REL,
+                  "first v": 2 * CLS_GRAD_REL, "parameters": CLS_UPDATE_REL}
+        bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+        if bad or not torch.isfinite(got[0]):
+            raise AssertionError(f"{arch} classifier step, card against CPU: {bad} (limits "
+                                 f"{limits})")
+        say(f"[downstream] {arch} classifier step at {CFG.batch_size} x {CLS_WIDTH}, card "
+            f"against CPU: " + ", ".join(f"{k} {v:.3g} (limit {limits[k]:g})"
+                                         for k, v in errs.items())
+            + f" (relative to each tensor's largest entry; {dropped} near-kink cells dropped); "
+            f"{card}")
+
+
+def classifier_folds(rna, dna, labels):
+    """The side-by-side scenario of these rows as the downstream flow splits
+    it: (folds as `fit_classifier_folds` takes them, the number of
+    classes)."""
+    x = standard_scale(np.concatenate([rna, dna], axis=1))
+    n_classes = int(labels.max()) + 1
+    splits = stratified_kfold_indices(labels, DS_FOLDS, 42)
+    cws = downstream.fold_class_weights(labels, splits, n_classes)
+    return ([(x[tr], labels[tr], x[va], labels[va], cw) for (tr, va), cw in zip(splits, cws)],
+            n_classes)
+
+
+def same_fit(a, b):
+    return (all(torch.equal(a.params[k][n], b.params[k][n]) for k in a.params
+                for n in a.params[k])
+            and np.array_equal(a.val_accs, b.val_accs, equal_nan=True)
+            and np.array_equal(a.best_val_acc, b.best_val_acc))
+
+
+def member_of(fit, i):
+    return mc.ClassifierFit(tree_map(lambda t: t[i], fit.params), fit.best_val_acc[i],
+                            fit.val_accs[i])
+
+
+def plain_classifier_fit(fold, n_classes, seed, *, arch, num_epochs, batch_size, lr,
+                         weight_decay, early_stop, device):
+    """One member's fit written plainly: 2-D tables, no member axis and no
+    masking, the loop of `mlp_classifier`'s module docstring on the draws
+    of `mlp_classifier._draws`. `fit_classifier` (a population of one) must
+    equal it bit for bit."""
+    x_train, y_train, x_val, y_val, cw = (
+        torch.as_tensor(np.asarray(a), dtype=dt).to(device)
+        for a, dt in zip(fold, (torch.float32, torch.int64, torch.float32, torch.int64,
+                                torch.float32)))
+    params = mc.mlp_init(torch.Generator().manual_seed(seed), x_train.shape[1], n_classes, arch,
+                         device)
+    n = len(x_train)
+    n_batches = -(-n // batch_size)
+    slots = torch.arange(n_batches * batch_size, device=device)
+    opt = optim.adamw_init(params)
+    plateau = optim.plateau_init(lr, device)
+    best, best_acc, patience = params, torch.zeros((), device=device), 0
+    n_val = torch.tensor(float(len(y_val)), device=device)
+    val_accs = np.full(num_epochs, np.nan, np.float32)
+    for epoch in range(num_epochs):
+        perm, masks = mc._draws(seed, epoch, n, n_batches, batch_size, arch, device)
+        idx = perm[slots % n]
+        for b in range(n_batches):
+            rows = idx[b * batch_size:(b + 1) * batch_size]
+            _, grads = mc._grads(params, x_train[rows], y_train[rows], cw,
+                                 slots[b * batch_size:(b + 1) * batch_size] < n,
+                                 tuple(m[b] for m in masks), arch)
+            params, opt = optim.adam_update(params, grads, opt, plateau["lr"], weight_decay)
+        logits = mc.mlp_apply(params, x_val, arch=arch)
+        val_acc = 100.0 * (logits.argmax(-1) == y_val).sum().to(torch.float32) / n_val
+        plateau = optim.plateau_step(plateau, mc.weighted_ce_mean(logits, y_val, cw),
+                                     mc.PLATEAU_FACTOR, mc.PLATEAU_PATIENCE)
+        val_accs[epoch] = val_acc.item()
+        if val_acc.item() > best_acc.item():
+            best, best_acc, patience = params, val_acc, 0
+        else:
+            patience += 1
+        if early_stop and patience >= mc.STOP_PATIENCE:
+            break
+    return mc.ClassifierFit(best if early_stop else params, best_acc.cpu().numpy(), val_accs)
+
+
+def first_step_gradients(dev, folds, n_classes, seeds):
+    """The population's first-step gradients (stacked) and each member's
+    alone, from the fit's own draws of epoch 0 (`mlp_classifier._draws`),
+    batch 0, the near-kink cells dropped from the masks."""
+    inits = [mc.mlp_init(torch.Generator().manual_seed(s), CLS_WIDTH, n_classes, "deep", dev)
+             for s in seeds]
+    xs, ys, valids, maskss = [], [], [], []
+    for f, s, p in zip(folds, seeds, inits):
+        n = len(f[0])
+        perm, masks = mc._draws(s, 0, n, -(-n // CFG.batch_size), CFG.batch_size, "deep", dev)
+        rows = perm[: CFG.batch_size]
+        x = torch.as_tensor(f[0]).to(dev)[rows]
+        y = torch.as_tensor(f[1]).to(dev)[rows]
+        valid = torch.ones(CFG.batch_size, dtype=torch.bool, device=dev)
+        masks, _ = clear_classifier_kinks(p, x, valid, tuple(m[0] for m in masks), "deep")
+        xs.append(x), ys.append(y), valids.append(valid), maskss.append(masks)
+    cws = [torch.as_tensor(f[4]).to(dev) for f in folds]
+    stacked = tree_map(lambda *t: torch.stack(t), *inits)
+    _, pop = mc._grads(stacked, torch.stack(xs), torch.stack(ys), torch.stack(cws),
+                       torch.stack(valids), tuple(torch.stack(m) for m in zip(*maskss)), "deep")
+    singles = [mc._grads(p, x, y, cw, v, m, "deep")[1]
+               for p, x, y, cw, v, m in zip(inits, xs, ys, cws, valids, maskss)]
+    return pop, singles
+
+
+def compare_classifier_populations(dev, tpm, beta, site, card):
+    """A population of one (``fit_classifier``) equal to
+    `plain_classifier_fit` bit for bit (deep, 100 epochs with early
+    stopping; shallow, 20 epochs); the
+    5-fold uneven population's first-step gradients against each member's
+    alone (fp32 order, `CLS_GRAD_REL`); after the full deep run each
+    member's distance from its single fit, printed. On all the cohort's
+    rows: its 205 validation rows give 5 even folds, 1024 uneven ones
+    (819/820 training, 205/204 validation rows)."""
+    folds, n_classes = classifier_folds(tpm, beta, site.astype(np.int64))
+    for arch, recipe in (("deep", downstream.DEEP), ("shallow", downstream_directional.SHALLOW)):
+        one = plain_classifier_fit(folds[1], n_classes, 1, device=dev, **recipe)
+        pop = mc.fit_classifier(*folds[1][:4], n_classes, folds[1][4], 1, device=dev, **recipe)
+        if not same_fit(one, pop):
+            raise AssertionError(f"{arch}: a population of one is not its plain single fit")
+        ran = int(np.sum(~np.isnan(one.val_accs)))
+        say(f"[downstream] {arch}: a population of one (fit_classifier) is its plain single fit "
+            f"bit for bit ({ran} epochs, best validation accuracy "
+            f"{float(one.best_val_acc):.2f}%)")
+    sizes = [(len(f[0]), len(f[2])) for f in folds]
+    if len(set(sizes)) < 2:
+        raise AssertionError(f"the folds are even ({sizes}): nothing masked to hold")
+    pop_grads, singles = first_step_gradients(dev, folds, n_classes, range(DS_FOLDS))
+    errs = [tree_rel(tree_map(lambda t: t[i], pop_grads), g) for i, g in enumerate(singles)]
+    if not max(errs) <= CLS_GRAD_REL:
+        raise AssertionError(f"first-step gradients of the population against each member "
+                             f"alone: {errs} (limit {CLS_GRAD_REL})")
+    say(f"[downstream] {DS_FOLDS} uneven folds (training, validation rows: {sizes}): the "
+        f"population's first-step gradients within {max(errs):.3g} of each member's alone "
+        f"(of each tensor's largest; by member {[f'{e:.3g}' for e in errs]}); {card}")
+    pop = mc.fit_classifier_folds(folds, n_classes, device=dev, **downstream.DEEP)
+    for i, f in enumerate(folds):
+        one = mc.fit_classifier(*f[:4], n_classes, f[4], i, device=dev, **downstream.DEEP)
+        ran, ran_one = ~np.isnan(pop.val_accs[i]), ~np.isnan(one.val_accs)
+        both = ran & ran_one
+        say(f"[downstream] fold {i} after the full deep run: {int(ran.sum())} epochs in the "
+            f"population, {int(ran_one.sum())} alone; "
+            f"{int(np.sum(one.val_accs[both] == pop.val_accs[i][both]))} of {int(both.sum())} "
+            f"shared epochs' accuracies equal; parameters within "
+            f"{tree_rel(member_of(pop, i).params, one.params):.3g} of its single fit's (of each "
+            f"tensor's largest); best accuracy {float(pop.best_val_acc[i]):.2f}% against "
+            f"{float(one.best_val_acc):.2f}%")
+
+
+def run_downstream_mains(dev, workdir, tpm, beta, site, card):
+    """``downstream.main`` and ``downstream_directional.main`` with
+    USE_PALLAS on the three models trained in phase 4, each with every
+    launch count at 0 just before it: the tri-modal flow launches no kernel
+    (its loader's plain forward), the directional flow exactly one B0a and
+    one B0b (the validation rows' two imputations), which are held within
+    `TOL` of the plain eval forward given the kernels' own Philox draws and
+    must be conditioned on the original site codes. Prints each scenario's
+    accuracy and weighted F1 and each main's wall seconds; returns the
+    launch counts of the two runs."""
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      plots_dir=os.path.join(workdir, "plots"), use_pallas=True)
+    data = (tpm, beta, site)
+    counts = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        results = downstream.main(cfg, data=data, device=dev, root=workdir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["downstream"] = read_counts()
+    if any(counts["downstream"].values()):
+        raise AssertionError(f"downstream.main launched kernels: {counts['downstream']}")
+    say(f"[downstream] downstream.main (8 scenarios x {DS_FOLDS} folds, deep MLP, 3 populations): "
+        f"{wall:.2f} s; launches {counts['downstream']}; {card}")
+    if len(results) != 8:
+        raise AssertionError(f"downstream.main gave {list(results)}")
+    for name, agg in results.items():
+        if not (0.0 <= agg["accuracy"] <= 1.0 and math.isfinite(agg["weighted avg"]["f1-score"])):
+            raise AssertionError(f"{name}: {agg['accuracy']}, {agg['weighted avg']}")
+        say(f"[downstream]   {name:24s} accuracy {agg['accuracy']:.4f} ± "
+            f"{agg['accuracy_std']:.4f}, weighted F1 {agg['weighted avg']['f1-score']:.4f}")
+
+    seen = {}
+    spied = {"generate_estimated_dna": "rna2dna", "generate_estimated_rna": "dna2rna"}
+    real = {name: getattr(downstream_directional, name) for name in spied}
+
+    def spy(name):
+        def call(model, x, sites):
+            est = real[name](model, x, sites)
+            seen[spied[name]] = (model.run_id, x, np.asarray(sites), est)
+            return est
+        return call
+
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        for name in spied:
+            setattr(downstream_directional, name, spy(name))
+        with contextlib.redirect_stdout(Tee(sys.stdout)):
+            reports = downstream_directional.main(cfg, data=data, device=dev, root=workdir)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(downstream_directional, name, fn)
+    wall = time.perf_counter() - t0
+    launches = counts["downstream_directional"] = read_counts()
+    want = {name: int(name in KERNELS) for name in launches}
+    if launches != want:
+        raise AssertionError(f"downstream_directional.main launched {launches}, want {want}")
+    say(f"[downstream] downstream_directional.main (4 scenarios, shallow MLP, 2 populations): "
+        f"{wall:.2f} s; launches {launches}; {card}")
+    orig = downstream.prepare_filtered_val_data(cfg, True, data=data)[4]
+    seed = loading._seed_of(None)
+    for ckpt, apply, kw in (("rna2dna", rna2dna_vae_apply, "rna"),
+                            ("dna2rna", dna2rna_vae_apply, "dna")):
+        run_id, x, sites, est = seen[ckpt]
+        if not np.array_equal(sites, orig):
+            raise AssertionError(f"{ckpt} was conditioned on other than the original site codes")
+        p, s, _ = checkpoint.load_best(ckpt, run_id, cfg.checkpoint_dir)
+        eps = fv.philox_normal_reference(seed, len(x), CFG.latent_dim, dev)
+        with torch.no_grad():
+            ref = apply(tree_from_numpy(p, dev), tree_from_numpy(s, dev), site=torch.as_tensor(
+                sites).to(dev), eps=eps, **{kw: torch.as_tensor(x).to(dev)}).recon
+        check_near(f"{ckpt} imputation of the downstream rows", est, ref.cpu().numpy(), **TOL)
+        say(f"[downstream] {ckpt}: the {len(x)} served imputations within "
+            f"{np.abs(est - ref.cpu().numpy()).max():.3g} of the plain eval forward given the "
+            f"kernel's Philox draws (atol = rtol = {TOL['atol']}); conditioned on the original "
+            "site codes")
+    for name, rep in reports.items():
+        say(f"[downstream]   {name:24s} accuracy {rep['accuracy']:.4f}, weighted F1 "
+            f"{rep['weighted avg']['f1-score']:.4f}")
+    return counts
+
+
+def time_classifier_population(dev, card, n_samples=8000):
+    """One deep population epoch on the ``n_samples`` cohort's filtered
+    validation rows (1600 at 8000 samples; 5 folds of ~1280 training rows,
+    40 steps) with the side-by-side group's 4 scenarios x 5 folds = 20
+    members, beside one member's epoch alone (`timed_epochs`: host clock
+    and CUDA events, the init taken off); then the device busy share and
+    kernels a step of one epoch of each (init included)."""
+    rna, dna, labels, _ = downstream.prepare_filtered_val_data(
+        CFG, data=generate_synthetic_arrays(n_samples=n_samples, seed=2))
+    folds, n_classes = classifier_folds(rna, dna, labels)
+    members = folds * 4
+    seeds = [f for _ in range(4) for f in range(DS_FOLDS)]
+    recipe = dict(downstream.DEEP)
+    runs = {
+        f"{len(members)}-member population": lambda n: mc.fit_classifier_folds(
+            members, n_classes, seeds=seeds, device=dev, **(recipe | {"num_epochs": n})),
+        "one member, fit_classifier": lambda n: mc.fit_classifier(
+            *folds[0][:4], n_classes, folds[0][4], 0, device=dev, **(recipe | {"num_epochs": n})),
+    }
+    steps = -(-len(folds[0][0]) // CFG.batch_size)
+    (pop_ms, pop_ev), (one_ms, one_ev) = (timed_epochs(run, 0, 1) for run in runs.values())
+    say(f"[downstream] deep MLP, {n_samples}-sample cohort ({sum(len(f[2]) for f in folds)} "
+        f"validation rows, {len(folds[0][0])} training rows a fold, {steps} steps, width "
+        f"{CLS_WIDTH}): one {len(members)}-member population epoch {pop_ms:.3f} ms host clock "
+        f"({pop_ev:.3f} ms CUDA events) against one member's epoch {one_ms:.3f} ms "
+        f"({one_ev:.3f}); {len(members)} single fits would take {len(members) * one_ms:.3f} ms, "
+        f"{len(members) * one_ms / pop_ms:.2f}x the population; {card}")
+    for what, run in runs.items():
+        wall_ms, rows = profile_call(lambda: run(1))
+        busy_ms = sum(r[0] for r in rows)
+        kernels = sum(r[1] for r in rows)
+        say(f"[downstream-profile] {what}, one epoch of {steps} steps (init included): wall "
+            f"{wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%), {kernels} kernels, {kernels / steps:.1f} a step; "
+            f"{card}")
+        for ms, count, key in sorted(rows, reverse=True)[:6]:
+            say(f"[downstream-profile]   {short_name(key):48s} {ms:9.3f} ms  {count:6d} launches")
+
+
+def phase_downstream(dev, workdir, tpm, beta, site, card):
+    """The downstream slice: `compare_classifier_steps`,
+    `compare_classifier_populations`, `run_downstream_mains` and
+    `time_classifier_population`. Returns the launch counts of the two
+    driven flows."""
+    t0 = time.perf_counter()
+    compare_classifier_steps(dev, card)
+    compare_classifier_populations(dev, tpm, beta, site, card)
+    counts = run_downstream_mains(dev, workdir, tpm, beta, site, card)
+    time_classifier_population(dev, card)
+    say(f"[downstream] phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the cross-modality CV: fold populations against single runs, the CV entry
 
 CV_TASKS = ("rna2dna", "dna2rna", "rna2dna_ae", "rna2dna_unified")  # unified at kl_on = 0
@@ -3712,6 +4118,7 @@ def main():
             counts_mm, run_id_mm = phase_train(dev, workdir, tpm, beta, site, "multimodal")
             counts.update(counts_mm)
             counts["evaluate"] = phase_evaluate(dev, workdir, tpm, beta, site, run_id_mm)
+            counts.update(phase_downstream(dev, workdir, tpm, beta, site, card))
             counts.update(phase_autoencoders(dev, workdir, tpm, beta, site, card))
             counts["cv"] = phase_cross_modality_cv(dev, tpm, beta, site, card)
             counts.update(phase_hpo(dev, workdir, tpm, beta, site, card))

@@ -798,6 +798,22 @@ def test_replicates_keep_the_best_and_each_is_its_single_run(cohort, split, tmp_
     assert saved_seed == seeds[best]
 
 
+def test_replicates_print_the_population_throughput(cohort, tmp_path, capsys):
+    """``--replicates 3`` prints the samples the whole population trained:
+    3 x one member's rows an epoch x the epochs run, over the wall time."""
+    cfg = PortConfig(checkpoint_dir=str(tmp_path / "ckpt"), plots_dir=str(tmp_path / "plots"),
+                     batch_size=BATCH, latent_dim=LATENT, embed_dim=EMBED)
+    capsys.readouterr()
+    result, _, wall = run_training("rna2dna", "rna2dna", cfg=cfg,
+                                   argv=["--epochs", "2", "--replicates", "3", "--seed", "1"],
+                                   data=cohort, device="cpu", root=str(tmp_path))
+    line = [ln for ln in capsys.readouterr().out.splitlines() if "samples/sec" in ln]
+    n_train = len(train_val_indices(len(cohort[0]), cfg.train_test_split, cfg.random_seed)[0])
+    trained = 3 * (n_train // BATCH) * BATCH * result.epochs_ran
+    assert len(line) == 1 and result.epochs_ran == 2
+    assert f"({trained / wall:,.0f} samples/sec)" in line[0], line[0]
+
+
 def test_replicates_refusals(cohort, tmp_path):
     data = cohort
     cfg = PortConfig(checkpoint_dir=str(tmp_path / "c"), plots_dir=str(tmp_path / "p"))

@@ -36,7 +36,9 @@ def test_slice_modules_listed():
     assert "vae_los_angeles_torch.ops.kernels.fused_wide" in SLICE_MODULES
     for name in ("ops.knn", "ops.pca", "ops.tsne", "models.conditioned_knn",
                  "evaluation.knn_comparison", "parallel", "parallel.vmap_meta",
-                 "evaluation.cross_modality_cv", "evaluation.hpo", "optimize_hyperparameters"):
+                 "evaluation.cross_modality_cv", "evaluation.hpo", "optimize_hyperparameters",
+                 "evaluation.mlp_classifier", "evaluation.downstream",
+                 "evaluation.downstream_directional"):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
     assert len(SLICE_MODULES) >= 31
 
@@ -70,6 +72,26 @@ def test_no_jax_import_in_port_source(path):
         stripped = line.strip()
         assert not stripped.startswith(("import jax", "from jax", "import vae_los_angeles_tpu",
                                         "from vae_los_angeles_tpu")), f"{path}: {line}"
+
+
+DOWNSTREAM_SOURCES = ("data/splits.py", "ops/metrics.py", "evaluation/mlp_classifier.py",
+                      "evaluation/downstream.py", "evaluation/downstream_directional.py")
+
+
+@pytest.mark.parametrize("path", DOWNSTREAM_SOURCES)
+def test_downstream_sources_import_no_sklearn_pandas_or_matplotlib(path):
+    """The downstream flow's numpy stand-ins for sklearn import none of the
+    blocked packages; the one exception is matplotlib imported inside a
+    plotting function (indented), which prints a line when it is missing."""
+    for line in (PORT / path).read_text().splitlines():
+        stripped = line.strip()
+        words = stripped.split()
+        if len(words) < 2 or words[0] not in ("import", "from"):
+            continue
+        root = words[1].split(".")[0]
+        if root not in BLOCKED:
+            continue
+        assert root == "matplotlib" and line.startswith("    "), f"{path}: {line}"
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -14,6 +14,10 @@ are sklearn's/scipy's):
 `compute_imputation_metrics` is the dict of the reference's
 ``compare_directional_imputation.py``, `compute_cv_metrics` that of its
 ``vae_cross_modality_cv.py`` (``METRIC_NAMES``).
+
+`classification_report` is sklearn's ``classification_report(...,
+output_dict=True)`` in numpy (the downstream classifiers' scores; the
+card's machine has no sklearn), and `format_report` its text form.
 """
 
 from __future__ import annotations
@@ -124,3 +128,82 @@ def compute_cv_metrics(y_true, y_pred, device=None):
                         cosine_rowwise_mean(y_true, y_pred),
                         pearson_mean_std(y_true, y_pred)[0]])
     return dict(zip(METRIC_NAMES, vals.cpu().tolist()))  # one device→host copy
+
+
+REPORT_STATS = ("precision", "recall", "f1-score", "support")
+
+
+def _divide(num, den, zero_division):
+    """``num / den`` in float64, ``zero_division`` where ``den`` is 0."""
+    den = np.asarray(den, dtype=np.float64)
+    zero = den == 0
+    out = np.asarray(num, dtype=np.float64) / np.where(zero, 1.0, den)
+    out[zero] = zero_division
+    return out
+
+
+def _scores(tp, pred, true, zero_division):
+    precision = _divide(tp, pred, zero_division)
+    recall = _divide(tp, true, zero_division)
+    f1 = _divide(2.0 * np.asarray(tp, np.float64),
+                 np.asarray(true, np.float64) + np.asarray(pred, np.float64), zero_division)
+    return precision, recall, f1
+
+
+def classification_report(y_true, y_pred, labels, target_names=None, zero_division=0.0):
+    """sklearn's ``classification_report(y_true, y_pred, labels=labels,
+    target_names=target_names, output_dict=True, zero_division=...)`` for
+    integer class codes: a dict by target name of precision, recall,
+    f1-score and support (floats), then ``accuracy`` (a float; "micro avg"
+    as a dict when ``labels`` leave out a label that occurs), "macro avg"
+    and "weighted avg" (weighted by support; unweighted when no label has
+    support). A class with no predictions or no support scores
+    ``zero_division``."""
+    y_true, y_pred, labels = (np.asarray(a).astype(np.int64) for a in (y_true, y_pred, labels))
+    names = [str(v) for v in labels] if target_names is None else list(target_names)
+    if len(names) != len(labels):
+        raise ValueError(f"{len(labels)} labels but {len(names)} target names")
+    true = np.array([np.sum(y_true == v) for v in labels], dtype=np.int64)
+    pred = np.array([np.sum(y_pred == v) for v in labels], dtype=np.int64)
+    tp = np.array([np.sum((y_true == v) & (y_pred == v)) for v in labels], dtype=np.int64)
+    precision, recall, f1 = _scores(tp, pred, true, zero_division)
+    report = {name: dict(zip(REPORT_STATS, (float(p), float(r), float(f), float(s))))
+              for name, p, r, f, s in zip(names, precision, recall, f1, true)}
+    support = float(np.sum(true))
+    micro = _scores(tp.sum(keepdims=True), pred.sum(keepdims=True), true.sum(keepdims=True),
+                    zero_division)
+    if set(labels.tolist()) >= set(np.union1d(y_true, y_pred).tolist()):
+        report["accuracy"] = float(micro[0][0])
+    else:
+        report["micro avg"] = dict(zip(REPORT_STATS, [float(m[0]) for m in micro] + [support]))
+    report["macro avg"] = dict(zip(REPORT_STATS, [float(np.mean(m)) for m in
+                                                  (precision, recall, f1)] + [support]))
+    weights = true if true.sum() > 0 else None
+    report["weighted avg"] = dict(zip(REPORT_STATS, [float(np.average(m, weights=weights)) for m
+                                                     in (precision, recall, f1)] + [support]))
+    return report
+
+
+def format_report(report, digits: int = 2) -> str:
+    """The text form of a `classification_report` dict, laid out as
+    sklearn's."""
+    avgs = ("accuracy", "micro avg", "macro avg", "weighted avg")
+    names = [str(k) for k in report if k not in avgs]
+    width = max([len(n) for n in names] + [len("weighted avg"), digits])
+    head = f"{'':>{width}s} " + "".join(f" {h:>9}" for h in REPORT_STATS)
+    lines = [head, ""]
+
+    def row(name, rec):
+        return (f"{name:>{width}s} " + "".join(f" {rec[h]:>9.{digits}f}" for h in REPORT_STATS[:3])
+                + f" {int(rec['support']):>9}")
+
+    lines += [row(str(k), v) for k, v in report.items() if k not in avgs]
+    lines.append("")
+    support = int(report["weighted avg"]["support"])
+    if "accuracy" in report:
+        lines.append(f"{'accuracy':>{width}s} " + f" {'':>9}" * 2
+                     + f" {report['accuracy']:>9.{digits}f} {support:>9}")
+    for k in ("micro avg", "macro avg", "weighted avg"):
+        if k in report:
+            lines.append(row(k, report[k]))
+    return "\n".join(lines) + "\n"

@@ -16,7 +16,9 @@ semantics, on tensors in its layout (a Linear's ``w`` is (in, out)):
 `batchnorm_apply` normalises with the biased batch variance in train mode
 and tracks the unbiased one (factor B/(B-1)) with momentum 0.1;
 `dropout_apply` zeroes with probability ``rate`` and scales what it keeps
-by 1/(1 - rate), from an injected mask or an explicit ``torch.Generator``.
+by 1/(1 - rate), from an injected mask or an explicit ``torch.Generator``;
+`layernorm_apply` (the downstream classifiers') normalises each row with
+its biased variance.
 
 Mixed precision (``Config.compute_dtype = "bfloat16"``), the JAX package's
 policy: `cast_matmul_params` casts the 2-D leaves (Linear weights and the
@@ -50,6 +52,7 @@ from torch import nn
 
 BN_EPS = 1e-5  # nn.BatchNorm1d's default, as in the JAX package
 BN_MOMENTUM = 0.1
+LN_EPS = 1e-5  # nn.LayerNorm's default, as the JAX classifiers'
 
 
 def fold_bn_eval(linear, bn_params, bn_state):
@@ -173,6 +176,18 @@ def batchnorm_apply(params, state, x, *, train: bool):
     y = ((x - _rows(mean)) * _rows(torch.rsqrt(var + BN_EPS)) * _rows(params["gamma"])
          + _rows(params["beta"]))
     return y, new_state
+
+
+def layernorm_apply(params, x):
+    """LayerNorm over the last axis (``nn.LayerNorm``): the row's mean and
+    biased variance, eps 1e-5, then γ and β; with a member axis, γ and β
+    are (P, features) and broadcast over each member's rows."""
+    mean = x.mean(-1, keepdim=True)
+    var = torch.square(x - mean).mean(-1, keepdim=True)
+    gamma, beta = params["gamma"], params["beta"]
+    if x.dim() == 3:
+        gamma, beta = _rows(gamma), _rows(beta)
+    return (x - mean) * torch.rsqrt(var + LN_EPS) * gamma + beta
 
 
 def _rows(t):

@@ -14,6 +14,9 @@
     β₂ₜ = 1 − t^−0.8, the update RMS-clipped to 1, decoupled decay first.
     State keys ``step``, ``vr`` and ``vc`` as in JAX (``vc`` is a (0,)
     placeholder for a 1-D leaf).
+  * Adam as ``torch.optim.Adam(weight_decay=...)`` computes it (the
+    downstream classifiers'): the *coupled* L2 decay ``g += wd·p`` before
+    the moments, then the same bias-corrected step; not AdamW.
   * ReduceLROnPlateau, torch's defaults: mode 'min', threshold 1e-4
     relative, cooldown 0; ``lr`` is the rate for the NEXT epoch.
   * Early stopping on strict improvement, with the flag that tells the
@@ -28,9 +31,11 @@ leaves, an ``lr`` of shape (P,) and a ``weight_decay`` that is a float or
 also (P,), each broadcast over its member's leaves; its decay factor
 1 - lr·wd is formed in float64 and rounded once, as a single run forms it
 on the host from its Python floats, so each member's update has a single
-run's bits for the same gradient. ``plateau_init(lr, n_members=P)``
-and ``early_stop_init(n_members=P)`` hold one record a member, which the
-steps update elementwise.
+run's bits for the same gradient. Adam takes the same (P,) rate, and a
+state whose step is (P,) too where members take their steps apart (the
+classifiers' uneven folds: a member with one batch fewer skips it).
+``plateau_init(lr, n_members=P)`` and ``early_stop_init(n_members=P)`` hold
+one record a member, which the steps update elementwise.
 """
 
 from __future__ import annotations
@@ -96,6 +101,30 @@ def adamw_update(params, grads, state, lr, weight_decay):
         return p, m.to(mdt), v.to(vdt)
 
     out = tree_map(leaf, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
+
+    def pick(i):
+        return tree_map(lambda o: o[i], out)
+
+    return pick(0), {"step": step, "m": pick(1), "v": pick(2)}
+
+
+def adam_update(params, grads, state, lr, weight_decay=0.0):
+    """One Adam step with torch's coupled L2 decay (``g + wd·p`` feeds the
+    moments), the counterpart of the JAX package's ``adam_update``.
+    ``state`` is `adamw_init`'s (fp32 moments); its step may be 0-d or one
+    a member, as ``lr`` and ``weight_decay`` may be floats, 0-d tensors or
+    (P,) tensors for stacked leaves. Returns (new_params, new_state)."""
+    step, bc1, bc2 = bias_corrections(state["step"])
+
+    def leaf(p, g, m, v):
+        g = g + per_member(weight_decay, p) * p
+        m = ADAM_B1 * m + (1.0 - ADAM_B1) * g
+        v = ADAM_B2 * v + (1.0 - ADAM_B2) * torch.square(g)
+        p = p - per_member(lr, p) * (m / per_member(bc1, p)) / (
+            torch.sqrt(v / per_member(bc2, p)) + ADAM_EPS)
+        return p, m, v
+
+    out = tree_map(leaf, params, grads, state["m"], state["v"])
 
     def pick(i):
         return tree_map(lambda o: o[i], out)

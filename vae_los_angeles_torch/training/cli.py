@@ -299,7 +299,8 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
                            start_epoch + n_ran, cfg.checkpoint_dir, seed=seed)
     checkpoint.write_run_id(model_name, run_id, root)
 
-    trained = engine.samples_trained(len(tr_idx), cfg.batch_size, n_ran)
+    # with --replicates the wall covers the whole population: count its samples
+    trained = engine.samples_trained(len(tr_idx), cfg.batch_size, n_ran) * args.replicates
     samples_per_sec = trained / wall if wall > 0 else float("inf")
     print("\n" + "=" * 50)
     print("Training complete!")
