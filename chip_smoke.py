@@ -208,7 +208,24 @@ Phases (any failure raises, and the script exits non-zero):
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
      phase 4 (through their run-id files), the served posteriors held
      against the unfused modules, each model's MSE beside the mean
-     baseline's; evaluate: ``evaluation.evaluate.main`` on the
+     baseline's; then the unmatched cohorts (`phase_clustering`, on the
+     same two models): ``reconstruct_unmatched.main`` with USE_PALLAS on
+     `unmatched_cohorts` (1024 matched, 128 RNA-only and 128 DNA-only rows;
+     exactly one launch of each serving kernel, B0b without a site, each
+     cohort within atol = rtol = 1e-4 of the plain eval forward given the
+     kernel's Philox draws), ``cluster_reconstructed.main`` on its output
+     and ``cluster_imputation_methods.main`` (3 methods x 2 cohorts, each
+     cohort one population), every score printed and in range, the summary
+     report written; the card's silhouette within 1e-7 of float64 numpy at
+     128 x 2388 and its hit equal (a row at a tie within 1e-5 of the k-th
+     float64 distance may take either neighbour), the compensated path at
+     205 x 450,000 within 1e-7 (its documented contract 5e-4; the plain
+     identity's drift printed), each member of a 3-space
+     ``cluster_scores_members`` within 1e-6 of its single scores; and at
+     1600 x 2388 (CUDA events) the fused scores of one space, the 3-member
+     population t-SNE beside 3 single runs and
+     ``analyze_cohort_population``, with each main's wall;
+     evaluate: ``evaluation.evaluate.main`` on the
      MultiModalVAE trained in phase 4 writes ``evaluation_results.json``
      with two records of finite metrics, each printed beside the mean
      baseline's MSE; the comparison gives six records, the k-NN baseline
@@ -285,7 +302,7 @@ Phases (any failure raises, and the script exits non-zero):
      conditioned, each call timed; finite MSEs, 16 queries' neighbour sets
      against a float64 recomputation on the card, the peak device memory).
 
-Each path (serve, evaluate, the two downstream flows, the kNN comparison,
+Each path (serve, reconstruct, evaluate, the two downstream flows, the kNN comparison,
 train, train-step, train-plain, the three training paths of dna2rna and of the tri-modal
 model, the two autoencoders' runs, the cross-modality CV, the two HPO
 searches and the replicates, and train-wide and wide) is driven with every
@@ -318,11 +335,14 @@ from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.splits import (cv_inner_split, kfold_indices, standard_scale,
                                                stratified_kfold_indices, train_val_indices)
-from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays
+from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays, unmatched_cohorts
 from vae_los_angeles_torch.evaluation import (compare_directional_imputation,
                                               cross_modality_cv, downstream,
                                               downstream_directional, evaluate, hpo,
-                                              knn_comparison, loading)
+                                              knn_comparison, loading, reconstruct_unmatched)
+from vae_los_angeles_torch.evaluation.clustering import (cluster_imputation_methods,
+                                                         cluster_reconstructed)
+from vae_los_angeles_torch.evaluation.clustering import common as clustering_common
 from vae_los_angeles_torch.evaluation import mlp_classifier as mc
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.models import DNA2RNAAE, DNA2RNAVAE, RNA2DNAAE, RNA2DNAVAE
@@ -337,7 +357,7 @@ from vae_los_angeles_torch.ops.kernels import fused_loss as fl
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_vae as fv
 from vae_los_angeles_torch.ops.kernels import fused_wide as fw
-from vae_los_angeles_torch.ops import knn, losses, optim, pca, tsne
+from vae_los_angeles_torch.ops import cluster_metrics, knn, losses, optim, pca, tsne
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
@@ -2470,6 +2490,247 @@ def phase_knn_comparison(dev, workdir, tpm, beta, site):
 
 
 # ---------------------------------------------------------------------------
+# the unmatched cohorts: reconstruction and the clustering evaluation
+
+UNMATCHED = dict(n_samples=1024, n_unmatched=128, seed=0)
+CLUSTER_K = 5  # the neighbourhood hit's k
+# The silhouette against float64, from an H100's readings with room: 5.5e-09 at
+# 128 x 2388 and 2.9e-09 on the compensated path at 205 x 450,000, where the
+# plain identity drifts 7.2e-07 (so this limit tells the two apart). The
+# compensated path's documented contract is the looser 5e-4 at dim >= 100k.
+SIL_ABS = 1e-7  # at 128 x 2388
+WIDE_SIL_ABS = 1e-7  # the compensated path at WIDE_CLUSTER
+WIDE_CLUSTER = (205, WIDE_D)  # rows x features of the compensated-path check
+MEMBER_ABS = 1e-6  # a member of a population against its single score
+CLUSTER_ROWS = 1600  # the 8000-sample cohort's validation rows
+
+
+def silhouette64(d, labels):
+    """sklearn's silhouette in float64 numpy from the (n, n) distances
+    ``d``: a the mean distance to the own cluster (self excluded), b the
+    smallest mean distance to another, singletons 0."""
+    d = d.copy()
+    np.fill_diagonal(d, 0.0)
+    uniq, lab = np.unique(labels, return_inverse=True)
+    onehot = (lab[:, None] == np.arange(len(uniq))[None, :]).astype(np.float64)
+    sums, counts = d @ onehot, onehot.sum(0)
+    rows = np.arange(len(d))
+    own = counts[lab]
+    a = sums[rows, lab] / np.maximum(own - 1.0, 1.0)
+    means = sums / counts
+    means[rows, lab] = np.inf
+    b = means.min(1)
+    return float(np.mean(np.where(own > 1, (b - a) / np.maximum(a, b), 0.0)))
+
+
+def nh64(d, labels, k=CLUSTER_K):
+    """(the neighbourhood hit in float64 numpy from the (n, n) distances
+    ``d``, the rows whose k-th and (k+1)-th neighbours lie within TIE_REL of
+    each other with different labels: a tie at fp32 resolution, where
+    either neighbour is right)."""
+    d = d.copy()
+    np.fill_diagonal(d, np.inf)
+    order = np.argsort(d, axis=1, kind="stable")
+    rows = np.arange(len(d))
+    kth, nxt = d[rows, order[:, k - 1]], d[rows, order[:, k]]
+    tie = (nxt - kth <= TIE_REL * kth) & (labels[order[:, k - 1]] != labels[order[:, k]])
+    return float(np.mean(labels[order[:, :k]] == labels[:, None])), int(tie.sum())
+
+
+def hold_scores(what, dev, x, labels, sil_abs):
+    """The card's silhouette and hit of ``x`` (numpy) within ``sil_abs`` of
+    float64 and equal to float64's up to the tie rows (1/(n·k) each);
+    returns the float64 silhouette."""
+    sil, nh = cluster_metrics.cluster_scores(x, labels, k=CLUSTER_K, device=dev)
+    d64 = brute_force64(x, x, "euclidean")
+    want_sil = silhouette64(d64, labels)
+    want_nh, ties = nh64(d64, labels)
+    drift = abs(sil - want_sil)
+    if not drift <= sil_abs:
+        raise AssertionError(f"{what}: silhouette {sil} against float64 {want_sil} "
+                             f"(|drift| {drift:.3g} > {sil_abs})")
+    if not abs(nh - want_nh) <= ties / (len(x) * CLUSTER_K) + 1e-7:
+        raise AssertionError(f"{what}: neighbourhood hit {nh} against float64 {want_nh} "
+                             f"({ties} tie rows)")
+    say(f"[clustering] {what}: silhouette {sil:.6f} (float64 {want_sil:.6f}, |drift| "
+        f"{drift:.3g}), hit {nh:.6f} (float64 {want_nh:.6f}, {ties} tie rows)")
+    return want_sil
+
+
+def check_reconstruction(dev, cfg, workdir, parts, rna_rec, dna_rec):
+    """Each reconstructed cohort within `TOL` of the plain eval forward of
+    its model given the kernel's own Philox draws (the loader's fixed
+    seed), the DNA-only cohort without a site. A forward is continuous at
+    the ReLU kinks, so no cell is left out."""
+    seed = loading._seed_of(None)
+    (_, _, _), (raw_tpm, rna_site), (beta_only, _) = parts
+    for ckpt, apply, kw, x, sites, got in (
+            ("rna2dna", rna2dna_vae_apply, "rna", np.log1p(raw_tpm), rna_site,
+             rna_rec["reconstructed_beta_value"]),
+            ("dna2rna", dna2rna_vae_apply, "dna", beta_only, None,
+             dna_rec["reconstructed_tpm_unstranded"])):
+        p, s, _ = checkpoint.load_best(ckpt, checkpoint.get_run_id(ckpt, workdir),
+                                       cfg.checkpoint_dir)
+        eps = fv.philox_normal_reference(seed, len(x), CFG.latent_dim, dev)
+        site_t = None if sites is None else torch.as_tensor(sites).to(dev)
+        with torch.no_grad():
+            ref = apply(tree_from_numpy(p, dev), tree_from_numpy(s, dev), site=site_t, eps=eps,
+                        **{kw: torch.as_tensor(np.asarray(x, np.float32)).to(dev)}).recon
+        err = check_near(f"{ckpt} reconstruction of the unmatched cohort", got,
+                         ref.cpu().numpy(), **TOL)
+        say(f"[clustering] {ckpt}: {len(x)} reconstructed rows within {err:.3g} of the plain "
+            f"eval forward given the kernel's Philox draws (atol = rtol = {TOL['atol']}; "
+            f"site {'none' if sites is None else 'given'})")
+
+
+def check_cluster_results(what, results, n_expected):
+    if len(results) != n_expected:
+        raise AssertionError(f"{what}: {len(results)} results, want {n_expected}")
+    for rec in results:
+        name = " ".join(str(rec[k]) for k in ("cohort", "method") if k in rec)
+        for space in ("orig", "pca", "tsne"):
+            sil, nh = rec[f"{space}_silhouette"], rec[f"{space}_nh"]
+            if not (-1.0 <= sil <= 1.0 and 0.0 <= nh <= 1.0):
+                raise AssertionError(f"{what} {name} {space}: silhouette {sil}, hit {nh}")
+        say(f"[clustering] {what} {name}: " + ", ".join(
+            f"{space} silhouette {rec[f'{space}_silhouette']:.4f} hit {rec[f'{space}_nh']:.4f}"
+            for space in ("orig", "pca", "tsne")))
+
+
+def time_clustering(dev, card):
+    """At the 8000-sample cohort's 1600 validation rows (width 2388, three
+    members), CUDA events: the fused scores of one space (the median of 3
+    after a warm-up); the 3-member population t-SNE (1000 steps, on PCA-50
+    inputs as the flow gives it) and `analyze_cohort_population`, the
+    median of 3 with no warm-up (the clustering mains ran the same code at
+    other shapes); 3 single `TSNE` runs, each timed once, summed."""
+    tpm, beta, site = generate_synthetic_arrays(n_samples=CLUSTER_ROWS, seed=1)
+    rng = np.random.default_rng(1)
+    base = np.concatenate([tpm, beta], axis=1)
+    members = [base + np.float32(0.05 * m) * rng.standard_normal(base.shape, np.float32)
+               for m in range(3)]
+    stacked = pca.standardize_members(torch.stack([torch.as_tensor(f).to(dev) for f in members]))
+    pre = pca.pca_scores_members(stacked, 50)[0]
+    out = {}
+    out["cluster_scores"] = time_call(
+        lambda: cluster_metrics.cluster_scores(stacked[0], site, device=dev), reps=3, warmup=1)
+    out["tsne_population"] = time_call(
+        lambda: tsne.tsne_fit_transform_members(pre, perplexity=30.0, device=dev), reps=3,
+        warmup=0)
+    out["tsne_3_single"] = sum(time_call(
+        lambda m=m: tsne.TSNE(perplexity=30.0, device=dev).fit_transform(pre[m]), reps=1,
+        warmup=0)
+        for m in range(3))
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["analyze_cohort_population"] = time_call(
+            lambda: clustering_common.analyze_cohort_population(members, site, device=dev),
+            reps=3, warmup=0)
+    say(f"[clustering] at {CLUSTER_ROWS} x {base.shape[1]} (3 members), CUDA events: "
+        f"cluster_scores of one space {out['cluster_scores']:.2f} ms (median of 3); "
+        f"population t-SNE (3 members, 1000 steps, PCA-50 inputs) {out['tsne_population']:.1f} "
+        f"ms (median of 3) against 3 single TSNE runs {out['tsne_3_single']:.1f} ms (each "
+        f"once); analyze_cohort_population {out['analyze_cohort_population']:.1f} ms (median "
+        f"of 3); {card}")
+    return out
+
+
+def hold_wide_silhouette(dev, card):
+    """The compensated path at 205 x 450,000 (β-like values around 24 site
+    centres, 0.37 GB in fp32 on the card, 0.74 GB in float64 on the host):
+    the silhouette within WIDE_SIL_ABS of float64 (the path's documented
+    contract is 5e-4); the plain identity's drift printed beside it."""
+    n, d = WIDE_CLUSTER
+    rng = np.random.default_rng(7)
+    labels = rng.integers(0, N_SITES, n)
+    x = np.empty((n, d), np.float32)
+    for s in range(0, d, 65_536):
+        centres = rng.standard_normal((N_SITES, min(65_536, d - s)), np.float32)
+        noise = rng.standard_normal((n, centres.shape[1]), np.float32)
+        x[:, s:s + centres.shape[1]] = 1.0 / (1.0 + np.exp(-(centres[labels] + 2.0 * noise)))
+    if not cluster_metrics._resolve_compensated(None, d):
+        raise AssertionError(f"dim {d} did not select the compensated path")
+    want = hold_scores(f"compensated path at {n} x {d}", dev, x, labels, WIDE_SIL_ABS)
+    plain = cluster_metrics.silhouette_score(x, labels, compensated=False, device=dev)
+    say(f"[clustering] at {n} x {d}: the plain identity's silhouette drift against float64 "
+        f"{abs(plain - want):.3g} (TF32 off; printed, not held); {card}")
+    torch.cuda.empty_cache()
+
+
+def phase_clustering(dev, workdir, card):
+    """The unmatched cohorts of `unmatched_cohorts` (1024 matched rows, 128
+    RNA-only, 128 DNA-only, the full width) with the directional VAEs that
+    phase 4 trained (their run-id files in ``workdir``), USE_PALLAS on:
+    ``reconstruct_unmatched.main`` (exactly one launch of B0a and one of
+    B0b, without a site, each cohort held against the plain forward), then
+    ``cluster_reconstructed.main`` on its output and
+    ``cluster_imputation_methods.main`` (3 methods x 2 cohorts, each cohort
+    one population), every score printed and in range; the card's metrics
+    against float64 (`hold_scores`, `hold_wide_silhouette`), a population's
+    members against their single scores, and the timings
+    (`time_clustering`). Returns {"reconstruct": launch counts}."""
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      plots_dir=os.path.join(workdir, "plots"),
+                      data_dir=os.path.join(workdir, "unmatched"), use_pallas=True)
+    t_phase = time.perf_counter()
+    parts = unmatched_cohorts(**UNMATCHED)
+    zero_counts()
+    t0 = time.perf_counter()
+    rna_rec, dna_rec = reconstruct_unmatched.main(cfg, data=parts, device=dev, root=workdir)
+    torch.cuda.synchronize()
+    walls = {"reconstruct_unmatched": time.perf_counter() - t0}
+    launches = read_counts()
+    want = {name: int(name in KERNELS) for name in launches}
+    if launches != want:
+        raise AssertionError(f"reconstruct_unmatched.main launched {launches}, want {want}")
+    check_reconstruction(dev, cfg, workdir, parts, rna_rec, dna_rec)
+
+    zero_counts()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        reconstructed = cluster_reconstructed.main(cfg, data=(rna_rec, dna_rec, parts[0][2]),
+                                                   device=dev)
+        torch.cuda.synchronize()
+        walls["cluster_reconstructed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        methods = cluster_imputation_methods.main(cfg, data=parts, device=dev)
+        torch.cuda.synchronize()
+        walls["cluster_imputation_methods"] = time.perf_counter() - t0
+    if any(read_counts().values()):
+        raise AssertionError(f"the clustering mains launched kernels: {read_counts()}")
+    check_cluster_results("cluster_reconstructed", reconstructed, 2)
+    check_cluster_results("cluster_imputation_methods", methods, 6)
+    if tee.copy.getvalue().count("3 methods as one population") != 2:
+        raise AssertionError("the imputation methods did not run as one population a cohort")
+    reports = os.listdir(os.path.join(cfg.plots_dir, "clustering"))
+    if not any(r.startswith("clustering_summary_") and r.endswith(".txt") for r in reports):
+        raise AssertionError("the clustering summary report was not written")
+
+    # the metrics against float64 on the host, at the cohort's width
+    x = np.concatenate([np.log1p(rna_rec["tpm_unstranded"]), rna_rec["reconstructed_beta_value"]],
+                       axis=1).astype(np.float32)
+    x = ((x - x.mean(0)) / np.where(x.std(0) == 0, 1.0, x.std(0))).astype(np.float32)
+    labels = rna_rec["primary_site_encoded"]
+    hold_scores(f"RNA-only cohort {x.shape[0]} x {x.shape[1]}", dev, x, labels, SIL_ABS)
+    hold_wide_silhouette(dev, card)
+    rng = np.random.default_rng(3)
+    spaces = [x + np.float32(0.1 * m) * rng.standard_normal(x.shape, np.float32)
+              for m in range(3)]
+    pop = cluster_metrics.cluster_scores_members(spaces, labels, device=dev)
+    alone = [cluster_metrics.cluster_scores(f, labels, device=dev) for f in spaces]
+    worst = max(abs(a - b) for p, q in zip(pop, alone) for a, b in zip(p, q))
+    if not worst <= MEMBER_ABS:
+        raise AssertionError(f"population {pop} against the members alone {alone}")
+    say(f"[clustering] cluster_scores_members of 3 spaces of {x.shape[0]} x {x.shape[1]}: each "
+        f"within {worst:.3g} of its single scores (held at {MEMBER_ABS})")
+    time_clustering(dev, card)
+    say("[clustering] walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s; launches during the "
+        f"reconstruction {launches}; {card}")
+    return {"reconstruct": launches}
+
+
+# ---------------------------------------------------------------------------
 # downstream site classification: the MLP classifiers and the two flows
 
 # Of each tensor's own largest entry. Measured on an H100: gradients and first
@@ -4112,6 +4373,7 @@ def main():
             counts.update(counts_d2r)
             counts["serve"] = phase_serve(dev, workdir, tpm, beta, site,
                                           {"rna2dna": run_id, "dna2rna": run_id_d2r})
+            counts.update(phase_clustering(dev, workdir, card))
             compare_knn(dev, tpm, beta, site)
             compare_tsne(dev, knn_directions(tpm, beta, site)["rna2dna"][2])
             counts["knn_comparison"] = phase_knn_comparison(dev, workdir, tpm, beta, site)

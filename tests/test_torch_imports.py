@@ -14,7 +14,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_los_angeles_torch"
 CARD_TESTS = REPO / "tests" / "test_torch_kernels_cuda.py"
-BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "optuna", "vae_los_angeles_tpu")
+BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "plotly", "optuna",
+           "vae_los_angeles_tpu")
 SLICE_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -28,6 +29,13 @@ def run(args, cwd, env_extra=None, timeout=240):
                           text=True, timeout=timeout)
 
 
+CLUSTERING_MODULES = ("ops.cluster_metrics", "evaluation.tables", "evaluation.plotting",
+                      "evaluation.reconstruct_unmatched", "evaluation.create_boxplots",
+                      "evaluation.clustering", "evaluation.clustering.metrics_utils",
+                      "evaluation.clustering.common", "evaluation.clustering.cluster_reconstructed",
+                      "evaluation.clustering.cluster_imputation_methods")
+
+
 def test_slice_modules_listed():
     assert "vae_los_angeles_torch.ops.kernels.fused_vae" in SLICE_MODULES
     assert "vae_los_angeles_torch.evaluation.compare_directional_imputation" in SLICE_MODULES
@@ -38,9 +46,9 @@ def test_slice_modules_listed():
                  "evaluation.knn_comparison", "parallel", "parallel.vmap_meta",
                  "evaluation.cross_modality_cv", "evaluation.hpo", "optimize_hyperparameters",
                  "evaluation.mlp_classifier", "evaluation.downstream",
-                 "evaluation.downstream_directional"):
+                 "evaluation.downstream_directional", *CLUSTERING_MODULES):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 31
+    assert len(SLICE_MODULES) >= 41
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():
@@ -107,3 +115,26 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "vae_los_angeles_torch" in proc.stderr
+
+
+CLUSTERING_SOURCES = ("data/synthetic.py", "data/splits.py", "ops/pca.py", "ops/tsne.py",
+                      "evaluation/evaluate.py", "evaluation/compare_directional_imputation.py",
+                      "training/cli.py") + tuple(
+    name.replace(".", "/") + ("/__init__.py" if name == "evaluation.clustering" else ".py")
+    for name in CLUSTERING_MODULES)
+LAZY = ("pandas", "matplotlib", "plotly")  # read a pickle, draw a plot
+
+
+@pytest.mark.parametrize("path", CLUSTERING_SOURCES)
+def test_clustering_sources_import_blocked_packages_only_lazily(path):
+    """The reconstruction, clustering and plotting modules import none of
+    the blocked packages at module level; pandas (where a pickle is read)
+    and matplotlib or plotly (where a plot is drawn) only inside a function
+    (indented), which prints a line when a plotting package is missing."""
+    for line in (PORT / path).read_text().splitlines():
+        words = line.strip().split()
+        if len(words) < 2 or words[0] not in ("import", "from"):
+            continue
+        root = words[1].split(".")[0]
+        if root in BLOCKED:
+            assert root in LAZY and line.startswith("    "), f"{path}: {line}"

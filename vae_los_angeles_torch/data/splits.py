@@ -14,9 +14,10 @@ call the JAX package makes (index for index, or value for value):
 `stratified_kfold_indices` (``StratifiedKFold(shuffle=True)``),
 `stratified_train_test_split` (``train_test_split(stratify=)``),
 `balanced_class_weight` (``compute_class_weight("balanced")``),
-`standard_scale` (``StandardScaler().fit_transform``) and `LabelCodes`
-(``LabelEncoder``). Both splitters draw from ``np.random.RandomState(seed)``
-in sklearn's order, so they give its indices for the same seed.
+`standard_scale` (``StandardScaler().fit_transform``), `LabelCodes`
+(``LabelEncoder``) and `SiteCodes` (the label encoder of ``data=`` arrays).
+Both splitters draw from ``np.random.RandomState(seed)`` in sklearn's order,
+so they give its indices for the same seed.
 """
 
 from __future__ import annotations
@@ -214,3 +215,24 @@ class LabelCodes:
     def fit_transform(self, y):
         self.classes_, codes = np.unique(np.asarray(y), return_inverse=True)
         return codes.astype(np.int64)
+
+
+class SiteCodes:
+    """The ``LabelEncoder`` surface for site codes that stand for the site
+    names (``main(data=...)`` of the clustering flows): ``classes_`` the
+    known codes, ``transform`` and ``inverse_transform`` the identity, so a
+    code conditions a model on itself. ``transform`` refuses an unknown
+    code, as ``LabelEncoder`` refuses an unseen label."""
+
+    def __init__(self, codes):
+        self.classes_ = np.unique(np.asarray(codes).astype(np.int64))
+
+    def transform(self, y):
+        y = np.asarray(y).astype(np.int64)
+        unseen = np.setdiff1d(y, self.classes_)
+        if unseen.size:
+            raise ValueError(f"y contains previously unseen labels: {unseen.tolist()}")
+        return y
+
+    def inverse_transform(self, y):
+        return np.asarray(y).astype(np.int64)

@@ -8,9 +8,10 @@ for), scores them, the mean baseline (the validation table's column means)
 and the kNN baseline (k = 5, fitted on the training table, `ops.knn` on the
 same device) with MAE/MSE/RMSE/R²/cosine/per-sample Pearson, prints the
 reference's table and writes ``comparison_results.json`` and
-``comparison_results.csv`` into ``plots/directional_comparison_<id>/``.
-
-Not ported yet: the JAX module's three plots.
+``comparison_results.csv`` into ``plots/directional_comparison_<id>/``,
+and with both models the JAX module's three plots (`plot_comparison`,
+`plot_correlation_distributions`, `create_interactive_plot`), which import
+matplotlib or plotly where they draw; without them a line says so.
 
     python -m vae_los_angeles_torch.evaluation.compare_directional_imputation
 """
@@ -29,6 +30,7 @@ from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
+from vae_los_angeles_torch.evaluation.plotting import plotly_go, pyplot
 from vae_los_angeles_torch.ops.knn import KNNRegressor
 from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
 from vae_los_angeles_torch.training import checkpoint
@@ -58,6 +60,75 @@ def compute_metrics(y_true, y_pred, modality_name, model_name, device=None):
     r, valid = pearson_per_sample(np.asarray(y_true), np.asarray(y_pred))
     rec["_pearson_all"] = r[valid].tolist()
     return rec
+
+
+def plot_comparison(rna_true, dna_true, dna_vae, rna_vae, dna_mean, rna_mean, dna_knn, rna_knn,
+                    output_dir, n_samples=3, seed=42):
+    """True against predicted values of a few samples, VAE and kNN, both
+    directions → ``comparison_sample_{i}.png``."""
+    plt = pyplot()
+    if plt is None:
+        return
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(rna_true), size=min(n_samples, len(rna_true)), replace=False)
+    for rank, i in enumerate(idx):
+        fig, axes = plt.subplots(2, 2, figsize=(14, 8))
+        panels = [("DNA: VAE vs true", dna_true[i], dna_vae[i]),
+                  ("DNA: kNN vs true", dna_true[i], dna_knn[i]),
+                  ("RNA: VAE vs true", rna_true[i], rna_vae[i]),
+                  ("RNA: kNN vs true", rna_true[i], rna_knn[i])]
+        for ax, (title, truth, pred) in zip(axes.ravel(), panels):
+            ax.scatter(truth, pred, s=2, alpha=0.4)
+            lo = float(min(truth.min(), pred.min()))
+            hi = float(max(truth.max(), pred.max()))
+            ax.plot([lo, hi], [lo, hi], "r--", linewidth=1)
+            ax.set_title(title)
+            ax.set_xlabel("true")
+            ax.set_ylabel("predicted")
+        fig.suptitle(f"Sample {i}")
+        fig.tight_layout()
+        fig.savefig(os.path.join(output_dir, f"comparison_sample_{rank}.png"), dpi=150,
+                    bbox_inches="tight")
+        plt.close(fig)
+
+
+def plot_correlation_distributions(dna_metrics, rna_metrics, output_dir):
+    """The two VAEs' per-sample Pearson histograms →
+    ``pearson_distributions.png``."""
+    plt = pyplot()
+    if plt is None:
+        return
+    fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+    for ax, rec, name in ((axes[0], dna_metrics, "RNA→DNA"), (axes[1], rna_metrics, "DNA→RNA")):
+        ax.hist(rec["_pearson_all"], bins=30, alpha=0.8)
+        ax.axvline(rec["PearsonMean"], color="r", linestyle="--",
+                   label=f"mean={rec['PearsonMean']:.3f}")
+        ax.set_title(f"{name}: per-sample Pearson r")
+        ax.legend()
+    fig.tight_layout()
+    fig.savefig(os.path.join(output_dir, "pearson_distributions.png"), dpi=150,
+                bbox_inches="tight")
+    plt.close(fig)
+
+
+def create_interactive_plot(results, output_dir):
+    """Bars of each metric by modality and model →
+    ``interactive_comparison.html`` (plotly)."""
+    go = plotly_go()
+    if go is None:
+        return
+    from plotly.subplots import make_subplots
+
+    metrics = ["MAE", "MSE", "RMSE", "R2", "CosineSimilarity", "PearsonMean"]
+    fig = make_subplots(rows=2, cols=3, subplot_titles=metrics)
+    for k, metric in enumerate(metrics):
+        fig.add_trace(go.Bar(x=[f"{r['Modality'][:3]}:{r['Model']}" for r in results],
+                             y=[r[metric] for r in results], showlegend=False),
+                      row=k // 3 + 1, col=k % 3 + 1)
+    fig.update_layout(title="Directional imputation comparison", height=700)
+    filename = os.path.join(output_dir, "interactive_comparison.html")
+    fig.write_html(filename)
+    print(f"Interactive plot saved to {filename}")
 
 
 def save_results(results, output_dir):
@@ -110,6 +181,7 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
                                                      device=device)
 
     results = []
+    dna_vae_pred = rna_vae_pred = None
     if rna2dna_model is not None:
         dev = rna2dna_model.device
         dna_vae_pred, _, _ = rna2dna_model(rna=rna_true, site=val_site)
@@ -139,6 +211,12 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
             f"{rec['Modality']:>16s} | {rec['Model']:>16s} | MAE={rec['MAE']:.4f} "
             f"MSE={rec['MSE']:.4f} R2={rec['R2']:.4f} Pearson={rec['PearsonMean']:.4f}"
         )
+
+    if dna_vae_pred is not None and rna_vae_pred is not None:
+        plot_comparison(rna_true, dna_true, dna_vae_pred, rna_vae_pred, dna_mean_pred,
+                        rna_mean_pred, dna_knn_pred, rna_knn_pred, output_dir)
+        plot_correlation_distributions(results[0], results[3], output_dir)
+        create_interactive_plot(results, output_dir)
 
     save_results(results, output_dir)
     print(f"\nComparison complete! All results saved to {output_dir}/")

@@ -42,7 +42,7 @@ from vae_los_angeles_torch.data.splits import (LabelCodes, balanced_class_weight
                                                stratified_kfold_indices)
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation import evaluate as evaluate_mod
-from vae_los_angeles_torch.evaluation.knn_comparison import _pyplot
+from vae_los_angeles_torch.evaluation.plotting import pyplot as _pyplot
 from vae_los_angeles_torch.evaluation.loading import load_multimodal
 from vae_los_angeles_torch.evaluation.mlp_classifier import (fit_classifier, fit_classifier_folds,
                                                              predict_classes,

@@ -16,9 +16,9 @@
 Every function takes ``data=(tpm, beta, site)`` arrays in place of
 ``processed_data.pkl`` (pandas, and the label encoder's sklearn, are
 imported only where the pickle is read). The model serves on the card
-unless the CPU is asked for. Not ported yet: the two plots (the
-reconstruction examples and the Pearson histograms; the card's machine has
-no matplotlib).
+unless the CPU is asked for. The two plots (`plot_reconstruction_examples`,
+`plot_correlation_distributions`) import matplotlib where they draw; the
+card's machine has none, and a line says so.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.evaluation.loading import LoadedMultiModalVAE, load_multimodal
-from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics
+from vae_los_angeles_torch.evaluation.plotting import pyplot
+from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
 from vae_los_angeles_torch.training import checkpoint
 
 
@@ -88,6 +89,62 @@ def evaluate_model(model: LoadedMultiModalVAE, tpm: np.ndarray, beta: np.ndarray
     return records, est_dna, est_rna
 
 
+def plot_reconstruction_examples(tpm, beta, est_rna, est_dna, plots_dir="plots", n_samples=3,
+                                 seed=42):
+    """True against reconstructed values of a few validation samples →
+    ``reconstruction_example_{i}.png``, from the reconstructions
+    `evaluate_model` computed."""
+    plt = pyplot()
+    if plt is None:
+        return
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(tpm), size=min(n_samples, len(tpm)), replace=False)
+    os.makedirs(plots_dir, exist_ok=True)
+    for rank, i in enumerate(idx):
+        fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+        for ax, truth, pred, name in ((axes[0], tpm[i], est_rna[i], "RNA (log1p TPM)"),
+                                      (axes[1], beta[i], est_dna[i], "DNA (β-value)")):
+            ax.scatter(truth, pred, s=3, alpha=0.4)
+            lo = float(min(truth.min(), pred.min()))
+            hi = float(max(truth.max(), pred.max()))
+            ax.plot([lo, hi], [lo, hi], "r--", linewidth=1)
+            ax.set_title(f"{name}: cross-modal reconstruction")
+            ax.set_xlabel("true")
+            ax.set_ylabel("reconstructed")
+        fig.suptitle(f"Validation sample {i}")
+        fig.tight_layout()
+        path = os.path.join(plots_dir, f"reconstruction_example_{rank}.png")
+        fig.savefig(path, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+        print(f"Reconstruction example saved to {path}")
+
+
+def plot_correlation_distributions(tpm, beta, est_rna, est_dna, plots_dir="plots"):
+    """Per-sample Pearson histograms of both directions →
+    ``pearson_distributions.png``."""
+    plt = pyplot()
+    if plt is None:
+        return
+    os.makedirs(plots_dir, exist_ok=True)
+    fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+    for ax, truth, pred, name in ((axes[0], beta, est_dna, "DNA methylation (from RNA)"),
+                                  (axes[1], tpm, est_rna, "RNA expression (from DNA)")):
+        r, valid = pearson_per_sample(truth, pred)
+        r = r[valid].cpu().numpy()
+        ax.hist(r, bins=40, alpha=0.8, edgecolor="black", linewidth=0.3)
+        if len(r):  # all-constant predictions: no valid correlation
+            ax.axvline(float(r.mean()), color="red", linestyle="--", label=f"mean {r.mean():.3f}")
+            ax.legend()
+        ax.set_title(f"Per-sample Pearson r: {name}")
+        ax.set_xlabel("Pearson r")
+        ax.set_ylabel("samples")
+    fig.tight_layout()
+    path = os.path.join(plots_dir, "pearson_distributions.png")
+    fig.savefig(path, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    print(f"Correlation distributions saved to {path}")
+
+
 def main(cfg: Optional[Config] = None, output_path: Optional[str] = None, data=None,
          device=None, root: str = "."):
     """Evaluate the latest tri-modal run (its run-id file in ``root``) and
@@ -95,9 +152,9 @@ def main(cfg: Optional[Config] = None, output_path: Optional[str] = None, data=N
     cfg = cfg or Config.from_env()
     model, (tpm, beta, _), run_id = load_model_and_data(cfg, data, root, device)
     print(f"Evaluating MultiModalVAE run {run_id} on {len(tpm)} validation samples")
-    results, _, _ = evaluate_model(model, tpm, beta)
-    print("The reconstruction and correlation plots are not ported (no matplotlib on the card's "
-          "machine).")
+    results, est_dna, est_rna = evaluate_model(model, tpm, beta)
+    plot_reconstruction_examples(tpm, beta, est_rna, est_dna, cfg.plots_dir)
+    plot_correlation_distributions(tpm, beta, est_rna, est_dna, cfg.plots_dir)
     for rec in results:
         print(
             f"  {rec['Modality']:>16s}: MSE={rec['MSE']:.4f} MAE={rec['MAE']:.4f} "

@@ -30,6 +30,8 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.evaluate import load_val_split
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
+from vae_los_angeles_torch.evaluation.plotting import plotly_go as _plotly_go
+from vae_los_angeles_torch.evaluation.plotting import pyplot as _pyplot
 from vae_los_angeles_torch.ops.knn import ConditionedKNNRegressor, KNNRegressor, knn_grid_mse
 from vae_los_angeles_torch.ops.tsne import TSNE
 
@@ -38,29 +40,6 @@ KNN_GRID = {
     "weights": ["uniform", "distance"],
     "metric": ["euclidean", "manhattan"],
 }
-
-
-def _pyplot():
-    """matplotlib's pyplot on the Agg backend, or None (with a line) when
-    matplotlib is missing."""
-    try:
-        import matplotlib
-    except ImportError:
-        print("matplotlib unavailable; skipping the plot")
-        return None
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
-def _plotly_go():
-    try:
-        import plotly.graph_objects as go
-    except ImportError:
-        print("plotly unavailable; skipping the interactive plot")
-        return None
-    return go
 
 
 def optimize_knn(X_train, y_train, X_val, y_val, name="KNN", model_class=KNNRegressor,

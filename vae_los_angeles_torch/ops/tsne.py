@@ -19,8 +19,12 @@ sklearn's default is Barnes-Hut, a host quadtree. At evaluation-cohort sizes
 As in the JAX package: no early exit (``min_grad_norm``), a Gram-PCA init
 (`ops.pca`) rescaled so that the first component's σ is 1e-4, P and Q floored
 at the float64 machine epsilon even in fp32 (as sklearn does), and the KL
-reported against the un-exaggerated P. ``tsne_fit_transform_members`` (the
-member-batched program) is not ported.
+reported against the un-exaggerated P.
+
+Every stage takes (n, ·) or a leading member axis (M, n, ·):
+`tsne_fit_transform_members` embeds M same-shaped feature spaces of one
+cohort (the clustering flow's imputation methods) with one set of launches
+a step for all of them, each member's arithmetic that of `TSNE`.
 """
 
 from __future__ import annotations
@@ -48,10 +52,15 @@ def _offdiag(n, like):
 def _sq_distances(x: torch.Tensor) -> torch.Tensor:
     """Pairwise squared euclidean distances through the product identity,
     clamped at 0, with an exactly zero diagonal."""
-    sq = torch.sum(x * x, dim=1)
-    d2 = sq[:, None] - 2.0 * torch.matmul(x, x.T)
-    d2 = torch.clamp_min(d2 + sq[None, :], 0.0)
-    return d2 * _offdiag(x.shape[0], x)
+    sq = torch.sum(x * x, dim=-1)
+    d2 = sq[..., :, None] - 2.0 * torch.matmul(x, x.transpose(-1, -2))
+    d2 = torch.clamp_min(d2 + sq[..., None, :], 0.0)
+    return d2 * _offdiag(x.shape[-2], x)
+
+
+def _total(a):
+    """The sum of each (n, n) matrix, kept as (..., 1, 1)."""
+    return torch.sum(a, dim=(-2, -1), keepdim=True)
 
 
 def _perplexity_search(d2, include, perplexity):
@@ -62,19 +71,18 @@ def _perplexity_search(d2, include, perplexity):
     log(perplexity) in nats, a row frozen once within 1e-5; Σexp floored at
     the machine epsilon, no max-subtraction before the exp. ``include`` is
     the 0/1 mask of the columns in each row's distribution."""
-    n_rows = d2.shape[0]
     desired_entropy = torch.log(torch.tensor(perplexity, dtype=d2.dtype, device=d2.device))
 
     def row_quantities(beta):
-        p = torch.exp(-d2 * beta[:, None]) * include
-        sum_p = torch.clamp_min(torch.sum(p, dim=1), MACHINE_EPSILON)
-        entropy = torch.log(sum_p) + beta * torch.sum(d2 * p, dim=1) / sum_p
+        p = torch.exp(-d2 * beta[..., None]) * include
+        sum_p = torch.clamp_min(torch.sum(p, dim=-1), MACHINE_EPSILON)
+        entropy = torch.log(sum_p) + beta * torch.sum(d2 * p, dim=-1) / sum_p
         return sum_p, entropy
 
-    beta = torch.ones(n_rows, dtype=d2.dtype, device=d2.device)
+    beta = torch.ones(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
     beta_min = torch.full_like(beta, -torch.inf)
     beta_max = torch.full_like(beta, torch.inf)
-    done = torch.zeros(n_rows, dtype=torch.bool, device=d2.device)
+    done = torch.zeros(d2.shape[:-1], dtype=torch.bool, device=d2.device)
     for _ in range(_PERPLEXITY_STEPS):
         _, entropy = row_quantities(beta)
         diff = entropy - desired_entropy
@@ -93,19 +101,19 @@ def _perplexity_search(d2, include, perplexity):
 
 def _conditional_probabilities(d2, perplexity):
     """Row-conditional affinities P_{j|i} at the perplexity, diagonal 0."""
-    offdiag = _offdiag(d2.shape[0], d2)
+    offdiag = _offdiag(d2.shape[-1], d2)
     beta, sum_p = _perplexity_search(d2, offdiag, perplexity)
-    p = torch.exp(-d2 * beta[:, None]) * offdiag
-    return p / sum_p[:, None]
+    p = torch.exp(-d2 * beta[..., None]) * offdiag
+    return p / sum_p[..., None]
 
 
 def _joint_probabilities(d2, perplexity):
     """Symmetrized, normalized joint P with a zero diagonal, sklearn's
     ``_joint_probabilities``: max((C + Cᵀ)/ΣΣ, eps) off the diagonal."""
     cond = _conditional_probabilities(d2, perplexity)
-    p = cond + cond.T
-    p = p / torch.clamp_min(torch.sum(p), MACHINE_EPSILON)
-    return torch.clamp_min(p, MACHINE_EPSILON) * _offdiag(d2.shape[0], d2)
+    p = cond + cond.transpose(-1, -2)
+    p = p / torch.clamp_min(_total(p), MACHINE_EPSILON)
+    return torch.clamp_min(p, MACHINE_EPSILON) * _offdiag(d2.shape[-1], d2)
 
 
 def _apply_update(grad, update, gains, lr, i: int):
@@ -123,9 +131,9 @@ def _apply_update(grad, update, gains, lr, i: int):
 def _student_t(y, dof: float):
     """(Q, W) of the embedding: W = (1 + d²/dof)^(−(dof+1)/2) off the
     diagonal, Q = max(W/ΣW, eps) off the diagonal."""
-    offdiag = _offdiag(y.shape[0], y)
+    offdiag = _offdiag(y.shape[-2], y)
     w = (1.0 + _sq_distances(y) / dof) ** (-(dof + 1.0) / 2.0) * offdiag
-    q = torch.clamp_min(w / torch.clamp_min(torch.sum(w), MACHINE_EPSILON),
+    q = torch.clamp_min(w / torch.clamp_min(_total(w), MACHINE_EPSILON),
                         MACHINE_EPSILON) * offdiag
     return q, w
 
@@ -134,7 +142,7 @@ def _gradient(p_eff, y, dof: float):
     """c·(diag(S·1) − S)·Y with S = (P_eff − Q)∘W and c = 2(dof+1)/dof."""
     q, w = _student_t(y, dof)
     s = (p_eff - q) * w
-    return 2.0 * (dof + 1.0) / dof * (y * torch.sum(s, dim=1, keepdim=True)
+    return 2.0 * (dof + 1.0) / dof * (y * torch.sum(s, dim=-1, keepdim=True)
                                       - torch.matmul(s, y))
 
 
@@ -147,25 +155,26 @@ def _step(p, y, update, gains, lr, early_exaggeration, i: int, dof: float):
 
 def _optimize(p, y0, lr, early_exaggeration, max_iter: int, dof: float):
     """All ``max_iter`` steps from (y0, update 0, gains 1): (Y, KL), the KL
-    taken against the un-exaggerated P on the final embedding."""
+    (one a member) taken against the un-exaggerated P on the final
+    embedding."""
     y, update, gains = y0, torch.zeros_like(y0), torch.ones_like(y0)
     for i in range(max_iter):
         y, update, gains = _step(p, y, update, gains, lr, early_exaggeration, i, dof)
     q, _ = _student_t(y, dof)
     # the diagonal of q is 0: floor it for the ratio, so that it adds 0·log 1
     kl = torch.sum(p * torch.log(torch.clamp_min(p, MACHINE_EPSILON)
-                                 / torch.clamp_min(q, MACHINE_EPSILON)))
+                                 / torch.clamp_min(q, MACHINE_EPSILON)), dim=(-2, -1))
     return y, kl
 
 
 def _pca_init(x, n_components: int):
     """sklearn's PCA init: Gram-PCA scores (columns past the rank zero),
     rescaled so that the first component's σ is 1e-4."""
-    scores, _ = _pca_gram(x, min(n_components, x.shape[0]))
-    scores = torch.nn.functional.pad(scores, (0, n_components - scores.shape[1]))
-    first = scores[:, 0]
-    std0 = torch.sqrt(torch.mean((first - torch.mean(first)) ** 2))
-    return scores / torch.clamp_min(std0, torch.finfo(torch.float32).tiny) * 1e-4
+    scores, _ = _pca_gram(x, min(n_components, x.shape[-2]))
+    scores = torch.nn.functional.pad(scores, (0, n_components - scores.shape[-1]))
+    first = scores[..., 0]
+    std0 = torch.sqrt(torch.mean((first - torch.mean(first, dim=-1, keepdim=True)) ** 2, dim=-1))
+    return scores / torch.clamp_min(std0, torch.finfo(torch.float32).tiny)[..., None, None] * 1e-4
 
 
 class TSNE:
@@ -210,24 +219,51 @@ class TSNE:
     def fit_transform(self, X, y=None) -> np.ndarray:
         _check_shard(self.shard)
         x = _to_device(X, resolve_device(self.device))
-        n = x.shape[0]
-        if n <= 1:
-            raise ValueError("t-SNE requires at least 2 samples")
-        if self.perplexity >= n:
-            raise ValueError(f"perplexity ({self.perplexity}) must be less than n_samples ({n})")
-        if self.learning_rate == "auto":  # sklearn TSNE._fit
-            lr = max(n / self.early_exaggeration / 4.0, 50.0)
-        else:
-            lr = float(self.learning_rate)
-        dof = float(max(self.n_components - 1, 1))
-        y0 = self._initial_embedding(x)
-        p = _joint_probabilities(_sq_distances(x), self.perplexity)
-        emb, kl = _optimize(p, y0, lr, self.early_exaggeration, self.max_iter, dof)
+        lr = _learning_rate(x.shape[0], self.perplexity, self.early_exaggeration,
+                            self.learning_rate)
+        emb, kl = _embed(x, self._initial_embedding(x), self.n_components, self.perplexity,
+                         self.early_exaggeration, lr, self.max_iter)
         self.kl_divergence_ = float(kl)
         self.embedding_ = emb.cpu().numpy()
         if self.verbose:
-            print(f"[t-SNE] n={n} KL={self.kl_divergence_:.4f}")
+            print(f"[t-SNE] n={x.shape[0]} KL={self.kl_divergence_:.4f}")
         return self.embedding_
+
+
+def _learning_rate(n: int, perplexity: float, early_exaggeration: float, learning_rate) -> float:
+    """sklearn ``TSNE._fit``'s checks of ``n_samples`` and the perplexity,
+    and its learning rate: max(n / early_exaggeration / 4, 50) for "auto"."""
+    if n <= 1:
+        raise ValueError("t-SNE requires at least 2 samples")
+    if perplexity >= n:
+        raise ValueError(f"perplexity ({perplexity}) must be less than n_samples ({n})")
+    if learning_rate == "auto":
+        return max(n / early_exaggeration / 4.0, 50.0)
+    return float(learning_rate)
+
+
+def _embed(x, y0, n_components, perplexity, early_exaggeration, lr, max_iter):
+    """Affinities of ``x`` (..., n, d), then the descent from ``y0``."""
+    dof = float(max(n_components - 1, 1))
+    p = _joint_probabilities(_sq_distances(x), float(perplexity))
+    return _optimize(p, y0, lr, float(early_exaggeration), int(max_iter), dof)
+
+
+def tsne_fit_transform_members(x_members, *, n_components: int = 2, perplexity: float = 30.0,
+                               early_exaggeration: float = 12.0, learning_rate="auto",
+                               max_iter: int = 1000, device=None):
+    """Exact t-SNE of M same-shaped feature spaces (M, n, d) at once, PCA
+    init (the JAX package's ``tsne_fit_transform_members``): one set of
+    launches a step for all members, each member's arithmetic that of
+    `TSNE` (the same checks, learning rate, dof and ``max_iter``). The
+    descent is chaotic, so a member matches its single run statistically,
+    not bit for bit. Returns (embeddings (M, n, n_components), KL (M,)) as
+    numpy."""
+    x = _to_device(x_members, resolve_device(device))
+    lr = _learning_rate(x.shape[1], float(perplexity), float(early_exaggeration), learning_rate)
+    emb, kl = _embed(x, _pca_init(x, n_components), n_components, perplexity,
+                     early_exaggeration, lr, max_iter)
+    return emb.cpu().numpy(), kl.cpu().numpy()
 
 
 def resolve_tsne(n_rows=None):

@@ -52,9 +52,10 @@ replicate diverged.
 ``run_training(data=(tpm, beta, site))`` takes the cohort as arrays (the
 tests and ``chip_smoke.py`` do); without it the CLI reads
 ``processed_data.pkl`` and its ``label_encoder.pkl`` (pandas and sklearn are
-imported only there). Not ported yet: the loss plot, the ``--synthetic``
-artifact writer, ``--dp``, ``--profile`` and the ``WALL_DETAIL``
-steady-state probe.
+imported only there). The loss plot (`plot_losses`) imports matplotlib
+where it draws; without it a line says so. Not ported yet: the
+``--synthetic`` artifact writer, ``--dp``, ``--profile`` and the
+``WALL_DETAIL`` steady-state probe.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.device import resolve_device
+from vae_los_angeles_torch.evaluation.plotting import pyplot
 from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
@@ -109,6 +111,31 @@ def compute_class_weights(site_labels, n_classes):
     weights[present] = (len(labels) / (len(present) * counts.astype(np.float64))).astype(
         np.float32)
     return weights
+
+
+def plot_losses(train_losses, val_losses, run_id, model_name, plots_dir="plots",
+                start_epoch=0):
+    """Loss plot (reference train_rna2dna.py:134-147) →
+    ``training_losses_<model>_<run_id>.png``; ``start_epoch`` keeps the
+    x-axis in global epoch numbers on resumed runs. Returns the file name,
+    or None without matplotlib."""
+    plt = pyplot()
+    if plt is None:
+        return None
+    epochs = range(start_epoch, start_epoch + len(train_losses))
+    plt.figure(figsize=(10, 6))
+    plt.plot(epochs, train_losses, label="Train Loss")
+    plt.plot(epochs, val_losses, label="Validation Loss")
+    plt.title(f"Training & Validation Loss for {model_name}")
+    plt.xlabel("Epoch")
+    plt.ylabel("Loss")
+    plt.legend()
+    plt.grid(True)
+    filename = os.path.join(plots_dir, f"training_losses_{model_name}_{run_id}.png")
+    plt.savefig(filename, dpi=300, bbox_inches="tight")
+    plt.close()
+    print(f"Loss plot saved to {filename}")
+    return filename
 
 
 def _parse(model_name, argv):
@@ -297,6 +324,9 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     print(f"✓ Best model saved (val_loss: {result.best_val_loss:.2f})")
     checkpoint.save_resume(model_name, run_id, tree_to_numpy(result.carry),
                            start_epoch + n_ran, cfg.checkpoint_dir, seed=seed)
+    print("\nGenerating loss plots...")
+    plot_losses(result.train_losses[:n_ran], result.val_losses[:n_ran], run_id, model_name,
+                cfg.plots_dir, start_epoch=start_epoch)
     checkpoint.write_run_id(model_name, run_id, root)
 
     # with --replicates the wall covers the whole population: count its samples
