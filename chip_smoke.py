@@ -202,7 +202,25 @@ Phases (any failure raises, and the script exits non-zero):
      population path), the loss pair exactly once a member a step and a
      validation; one 8-trial population epoch at 8000 samples beside one
      trial's plain epoch (host clock and CUDA events) and, at 1024
-     samples, the device busy share and kernels a step of each;
+     samples, the device busy share and kernels a step of each; last, after
+     the wide regime, the shell entry points with no arrays passed
+     (`phase_cli`, in ``cli`` under the work directory, USE_PALLAS=1; the
+     other phases run with WALL_DETAIL=0, so their runs are counted alone):
+     ``main_rna2dna(["--synthetic", "--epochs", "3", "--seed", "0"])``
+     writes the port's pandas-free synthetic artifacts and trains from them
+     (the RNA→DNA epoch graph dropped first, so its first call captures it
+     again): the epoch kernel 6 times (3 epochs, and 3 more in the
+     steady-state probe), the loss forward at least once, a stderr wall
+     split whose steady-state run is above 0 and at most the compile+run;
+     ``python -m vae_los_angeles_torch.train --synthetic --epochs 2
+     --profile`` in a subprocess on those artifacts (the tri-modal epoch
+     kernel), exit 0 and CUDA kernel events in its Chrome trace; the RNA→DNA
+     run's best checkpoint through ``export_main`` (a ``.pt`` that
+     ``RNA2DNAVAE`` loads with strict=True) and ``import_main
+     --write-run-id`` back, every leaf bit-equal, then served through the
+     loader (B0a at least once) within atol = rtol = 1e-4 of the module's
+     forward; and the data preparation's native pivot, built with g++, equal
+     to a numpy version of it on 100 x 450,000 cells, its host time printed;
   5. serve (USE_PALLAS, so the loaders serve through the kernels):
      ``compare_directional_imputation.main`` on the same cohort's
      validation split, with the RNA2DNAVAE and the DNA2RNAVAE trained in
@@ -305,7 +323,8 @@ Phases (any failure raises, and the script exits non-zero):
 Each path (serve, reconstruct, evaluate, the two downstream flows, the kNN comparison,
 train, train-step, train-plain, the three training paths of dna2rna and of the tri-modal
 model, the two autoencoders' runs, the cross-modality CV, the two HPO
-searches and the replicates, and train-wide and wide) is driven with every
+searches and the replicates, train-wide and wide, and the shell CLI's run and
+the imported checkpoint's serving) is driven with every
 launch count set to 0 just before it and read just after. The line before
 the last is the kernels' JSON record (times beside bounds computed from
 this run's shapes), the last line ``{"ok": true, "device": {...}}``. Work
@@ -321,6 +340,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -333,6 +353,7 @@ import torch.nn.functional as F
 
 from vae_los_angeles_torch import device as device_policy
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.splits import (cv_inner_split, kfold_indices, standard_scale,
                                                stratified_kfold_indices, train_val_indices)
 from vae_los_angeles_torch.data.synthetic import generate_synthetic_arrays, unmatched_cohorts
@@ -361,8 +382,9 @@ from vae_los_angeles_torch.ops import cluster_metrics, knn, losses, optim, pca, 
 from vae_los_angeles_torch.ops.nn import reset_parameters
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
-from vae_los_angeles_torch.training.cli import compute_class_weights, run_training
+from vae_los_angeles_torch.training.cli import compute_class_weights, main_rna2dna, run_training
 from vae_los_angeles_torch.training.tasks import Batch, get_task
+from vae_los_angeles_torch.utils import native, torch_import
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 from vae_los_angeles_torch.utils.weights import (jax_from_state_dict, state_dict_from_jax,
                                                  tree_from_numpy)
@@ -2011,6 +2033,203 @@ def _wide_fit_line(what, wall, epochs, n_train, result, card):
     say(f"[train-wide] {what}: {ms:.3f} ms an epoch over {epochs} epochs ({rate:,.0f} samples/s),"
         f" peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; train loss "
         f"{losses.tolist()}, val loss {result.val_losses[:epochs].tolist()}; {card}")
+
+
+# ---- the shell entry points, from the port's own artifacts ---------------------
+
+WALL_SPLIT = re.compile(r"compile\+run: ([0-9.]+)s \| steady-state run: ([0-9.]+)s")
+PIVOT = (100, 450_000)  # patients x probes of the native pivot's check
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pivot_numpy(pat, probe, beta, n_pat, n_probe, n_first):
+    """The native pivot's transform in numpy, for rows whose first ``n_first``
+    hold each observed cell once (the later rows repeat cells, which the first
+    occurrence shadows): each patient's mean summed in probe order (a
+    cumulative sum is sequential), then divided by its count."""
+    out = np.full(n_pat * n_probe, np.nan)
+    out[pat[:n_first].astype(np.int64) * n_probe + probe[:n_first]] = beta[:n_first]
+    out = out.reshape(n_pat, n_probe)
+    seen = ~np.isnan(out)
+    total = np.cumsum(np.where(seen, out, 0.0), axis=1)[:, -1]
+    count = seen.sum(axis=1)
+    for p in np.flatnonzero(count):
+        out[p, ~seen[p]] = total[p] / count[p]
+    return out
+
+
+def check_native_pivot():
+    """The data preparation's C++ pivot, built here with g++, against
+    `pivot_numpy` on 100 x 450,000 cells: 90% of the cells observed, 5% of
+    the betas NaN, 2% of the cells repeated later with other values, one
+    patient without a finite value; exactly equal."""
+    n_pat, n_probe = PIVOT
+    rng = np.random.default_rng(18)
+    t0 = time.perf_counter()
+    native.load_pivot_impute()
+    build_s = time.perf_counter() - t0
+    cells = np.flatnonzero(rng.random(n_pat * n_probe) < 0.9)
+    cells = cells[rng.permutation(len(cells))]
+    repeats = cells[rng.random(len(cells)) < 0.02]
+    idx = np.concatenate([cells, repeats])
+    beta = rng.random(len(idx))
+    beta[rng.random(len(idx)) < 0.05] = np.nan
+    pat, probe = (idx // n_probe).astype(np.int32), (idx % n_probe).astype(np.int32)
+    beta[pat == 7] = np.nan
+    t0 = time.perf_counter()
+    got = native.pivot_impute(pat, probe, beta, n_pat, n_probe)
+    host_s = time.perf_counter() - t0
+    want = pivot_numpy(pat, probe, beta, n_pat, n_probe, len(cells))
+    if not np.array_equal(got, want, equal_nan=True):
+        bad = ~((got == want) | (np.isnan(got) & np.isnan(want)))
+        raise AssertionError(f"native pivot: {int(bad.sum())} of {got.size} cells differ from "
+                             "the numpy version")
+    if not np.isnan(got[7]).all() or np.isnan(np.delete(got, 7, axis=0)).any():
+        raise AssertionError("native pivot: NaN cells outside the patient without values")
+    say(f"[cli] native pivot: {n_pat} x {n_probe:,} cells from {len(idx):,} rows equal the numpy "
+        f"version exactly; g++ build and load {build_s:.3f} s, pivot {host_s:.3f} s of host time")
+    return host_s
+
+
+def phase_cli(dev, workdir, card):
+    """The port's shell entry points with no arrays passed, in ``cli`` under
+    the work directory, with USE_PALLAS=1: (a) ``main_rna2dna(["--synthetic",
+    "--epochs", "3", "--seed", "0"])`` writes the port's synthetic artifacts
+    and trains from them through the RNA→DNA epoch kernel (its cached graph
+    dropped first, so the first call captures it), with the stderr wall
+    split's steady-state probe (WALL_DETAIL=1: `main` turns it off for the
+    other phases, whose launch counts it would double); (b) ``python -m vae_los_angeles_torch.train
+    --synthetic --epochs 2 --profile`` in a subprocess, on (a)'s artifacts,
+    whose trace holds the card's kernels; (c) (a)'s best checkpoint exported
+    to a reference ``.pt`` (loaded strictly into ``RNA2DNAVAE``), imported
+    back under the run-id protocol bit for bit, and served through the
+    loader (B0a) within TOL of the plain forward; (d) the native pivot.
+    Returns the launch counts of (a) and (c)."""
+    clidir = os.path.join(workdir, "cli")
+    os.makedirs(clidir)
+    cwd = os.getcwd()
+    os.chdir(clidir)  # the CLI's data/, checkpoints/ and run-id files
+    counts = {}
+    try:
+        t_phase = time.perf_counter()
+        # (a) the CLI from the shell's point of view
+        torch.cuda.synchronize(dev)
+        fe.graphs.pop("rna2dna", None)  # the first call captures its graph again
+        err = io.StringIO()
+        zero_counts()
+        with env_set(USE_PALLAS="1", WALL_DETAIL="1"), contextlib.redirect_stderr(err):
+            result, run_id, wall = main_rna2dna(["--synthetic", "--epochs", "3", "--seed", "0"])
+        counts["cli"] = read_counts()
+        sys.stderr.write(err.getvalue())
+        split = WALL_SPLIT.search(err.getvalue())
+        if split is None:
+            raise AssertionError(
+                f"no steady-state figure in the CLI's wall line: {err.getvalue()!r}")
+        first, steady = float(split.group(1)), float(split.group(2))
+        if not 0 < steady <= first:
+            raise AssertionError(f"steady-state run {steady} s against compile+run {first} s")
+        # 3 epochs, and 3 more in the steady-state probe
+        if counts["cli"]["rna2dna_train_epoch"] != 6 or result.epochs_ran != 3:
+            raise AssertionError(f"the CLI launched the epoch kernel "
+                                 f"{counts['cli']['rna2dna_train_epoch']} times for 3 epochs "
+                                 "and the probe's 3")
+        if counts["cli"]["rna2dna_loss_forward"] < 1:
+            raise AssertionError("the CLI's validation never launched rna2dna_loss_forward")
+        for name in artifacts.ARTIFACTS:
+            if not os.path.exists(os.path.join("data", name)):
+                raise AssertionError(f"--synthetic did not write data/{name}")
+        losses = result.train_losses[:3]
+        if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+            raise AssertionError(f"CLI train losses {losses}")
+        say(f"[cli] main_rna2dna --synthetic --epochs 3: {err.getvalue().strip().splitlines()[-1]}"
+            f"; train loss {losses.tolist()}; launches {counts['cli']}; {card}")
+
+        # (b) the tri-modal CLI as a subprocess, profiled
+        trace_dir = os.path.join(clidir, "trace")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(device_policy.__file__)))
+        env = dict(os.environ, USE_PALLAS="1", PYTHONPATH=os.pathsep.join(
+            filter(None, (root, os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vae_los_angeles_torch.train", "--synthetic", "--epochs", "2",
+             "--data_path", os.path.join(clidir, "data", "processed_data.pkl"), "--profile",
+             trace_dir], cwd=clidir, env=env, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m vae_los_angeles_torch.train exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"--profile wrote {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels or "path: epoch kernel" not in proc.stdout:
+            raise AssertionError(f"the tri-modal CLI's trace holds {len(kernels)} CUDA kernel "
+                                 f"events:\n{proc.stdout[-2000:]}")
+        say(f"[cli] python -m vae_los_angeles_torch.train --synthetic --epochs 2 --profile: exit 0 "
+            f"in {sub_s:.2f} s; {len(kernels)} CUDA kernel events in {traces[0]}; "
+            + " ".join(line for line in proc.stderr.splitlines() if line.startswith("backend")))
+
+        # (c) export, import, serve
+        cfg = CFG.replace(checkpoint_dir=os.path.join(clidir, "checkpoints"), use_pallas=True)
+        best = checkpoint.checkpoint_path("rna2dna", run_id, cfg.checkpoint_dir)
+        exported = os.path.join(clidir, "reference", "best_rna2dna_20000101_000000.pt")
+        torch_import.export_main([best, "--out", exported])
+        sd = torch.load(exported, weights_only=True)
+        module = RNA2DNAVAE(CFG.input_dim_a, CFG.input_dim_b, N_SITES, CFG.latent_dim,
+                            CFG.embed_dim).eval()
+        module.load_state_dict(sd, strict=True)
+        torch_import.import_main([exported, "--write-run-id"])
+        if checkpoint.get_run_id("rna2dna") != "20000101_000000":
+            raise AssertionError("import_main --write-run-id did not register the run")
+        (p0, s0), (p1, s1) = (checkpoint.load(best), checkpoint.load(checkpoint.checkpoint_path(
+            "rna2dna", "20000101_000000", cfg.checkpoint_dir)))
+        a, b = tree_leaves({"p": p0, "s": s0}), tree_leaves({"p": p1, "s": s1})
+        if len(a) != len(b) or not all(x.dtype == y.dtype and np.array_equal(x, y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError("the imported checkpoint differs from the trained one")
+        table = artifacts.read_table(os.path.join("data", "processed_data.pkl"))
+        _, va = train_val_indices(len(table["primary_site_encoded"]), cfg.train_test_split,
+                                  cfg.random_seed)
+        x, s = table["tpm_unstranded"][va], table["primary_site_encoded"][va]
+        zero_counts()
+        served = load_rna2dna(cfg=cfg, root=clidir, device=dev)
+        _, mu, logvar = served(rna=x, site=s)
+        counts["cli_serve"] = read_counts()
+        if counts["cli_serve"]["rna2dna_fused_forward"] < 1:
+            raise AssertionError("serving the imported checkpoint never launched "
+                                 "rna2dna_fused_forward")
+        with torch.no_grad():
+            ref = module.to(dev)(torch.as_tensor(x).to(dev), torch.as_tensor(s).to(dev),
+                                 eps=torch.zeros(len(va), CFG.latent_dim, device=dev))
+        for got, want, what in ((mu, ref[2], "mu"), (logvar, ref[3], "logvar")):
+            if not np.allclose(got, want.cpu().numpy(), **TOL):
+                raise AssertionError(f"imported rna2dna: served {what} differs from the module by "
+                                     f"{np.abs(got - want.cpu().numpy()).max():.3g}")
+        say(f"[cli] export_main -> {os.path.basename(exported)} ({len(sd)} tensors, strict load), "
+            f"import_main --write-run-id: {len(a)} leaves bit-equal; served {len(va)} rows through "
+            f"the loader: mu/logvar within TOL of the module; launches {counts['cli_serve']}")
+
+        # (d) the native pivot
+        check_native_pivot()
+        say(f"[cli] phase wall {time.perf_counter() - t_phase:.2f} s; {card}")
+    finally:
+        os.chdir(cwd)
+    return counts
 
 
 def phase_train_wide(dev, workdir, card):
@@ -4364,7 +4583,9 @@ def main():
     loss_kernels_a_call(dev, card)
 
     tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+    # the phases count each run's launches: no steady-state re-run of the
+    # training CLI's, except where phase_cli asks for one
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir, env_set(WALL_DETAIL="0"):
         cwd = os.getcwd()
         os.chdir(workdir)  # the run-id protocol writes into the working directory
         try:
@@ -4385,6 +4606,7 @@ def main():
             counts["cv"] = phase_cross_modality_cv(dev, tpm, beta, site, card)
             counts.update(phase_hpo(dev, workdir, tpm, beta, site, card))
             counts.update(phase_train_wide(dev, workdir, card))
+            counts.update(phase_cli(dev, workdir, card))
         finally:
             os.chdir(cwd)
     timings = phase_timing(dev, card)

@@ -748,8 +748,7 @@ def test_main_writes_both_artifacts_and_jax_loads_the_checkpoint(cohort, hpo_dir
 
 
 def test_main_guards(hpo_dirs):
-    for argv in (["--mode", "optuna", "--pad-shapes"], ["--pad-shapes", "--bucket-size", "4"],
-                 ["--synthetic"]):
+    for argv in (["--mode", "optuna", "--pad-shapes"], ["--pad-shapes", "--bucket-size", "4"]):
         with pytest.raises(SystemExit):
             port_hpo.main(argv, data=None, device="cpu", cfg=hpo_dirs)
 

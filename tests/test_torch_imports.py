@@ -14,8 +14,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_los_angeles_torch"
 CARD_TESTS = REPO / "tests" / "test_torch_kernels_cuda.py"
-BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "plotly", "optuna",
-           "vae_los_angeles_tpu")
+BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "plotly", "optuna", "pyarrow",
+           "kagglehub", "vae_los_angeles_tpu")
 SLICE_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -36,6 +36,14 @@ CLUSTERING_MODULES = ("ops.cluster_metrics", "evaluation.tables", "evaluation.pl
                       "evaluation.clustering.cluster_imputation_methods")
 
 
+# the shell entry points, the pandas-free artifacts, checkpoint migration and
+# the data preparation
+SHELL_MODULES = ("data.artifacts", "data.prepare_data", "data.prepare_dna",
+                 "data.ingest_manifest", "utils.native", "utils.profiling",
+                 "utils.torch_import", "console", "train_rna2dna", "import_torch_checkpoint",
+                 "export_torch_checkpoint")
+
+
 def test_slice_modules_listed():
     assert "vae_los_angeles_torch.ops.kernels.fused_vae" in SLICE_MODULES
     assert "vae_los_angeles_torch.evaluation.compare_directional_imputation" in SLICE_MODULES
@@ -48,7 +56,9 @@ def test_slice_modules_listed():
                  "evaluation.mlp_classifier", "evaluation.downstream",
                  "evaluation.downstream_directional", *CLUSTERING_MODULES):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 41
+    for name in SHELL_MODULES:
+        assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
+    assert len(SLICE_MODULES) >= 72
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():
@@ -138,3 +148,29 @@ def test_clustering_sources_import_blocked_packages_only_lazily(path):
         root = words[1].split(".")[0]
         if root in BLOCKED:
             assert root in LAZY and line.startswith("    "), f"{path}: {line}"
+
+
+SHELL_SOURCES = tuple(name.replace(".", "/") + ".py" for name in SHELL_MODULES) + (
+    "data/dataset.py", "data/synthetic.py", "data/splits.py", "training/cli.py",
+    "evaluation/hpo.py", "evaluation/evaluate.py", "evaluation/cross_modality_cv.py",
+    "evaluation/create_boxplots.py", "evaluation/reconstruct_unmatched.py",
+    "evaluation/compare_directional_imputation.py",
+    "evaluation/clustering/cluster_reconstructed.py",
+    "evaluation/clustering/cluster_imputation_methods.py")
+SHELL_LAZY = ("pandas", "pyarrow", "kagglehub", "matplotlib", "plotly", "optuna")
+
+
+@pytest.mark.parametrize("path", SHELL_SOURCES)
+def test_shell_sources_import_blocked_packages_only_lazily(path):
+    """The artifact readers and writers, the entry points and the data
+    preparation import no blocked package at module level: pandas, pyarrow
+    and kagglehub (the preparation's parquet and download), matplotlib or
+    plotly (a plot) and optuna (the HPO's optuna mode) only inside a
+    function, sklearn and jax never."""
+    for line in (PORT / path).read_text().splitlines():
+        words = line.strip().split()
+        if len(words) < 2 or words[0] not in ("import", "from"):
+            continue
+        root = words[1].split(".")[0]
+        if root in BLOCKED:
+            assert root in SHELL_LAZY and line.startswith("    "), f"{path}: {line}"

@@ -116,6 +116,9 @@ def test_cli_routes_a_task_without_kernels_to_the_plain_path(task, kernel, tmp_p
 
     monkeypatch.setattr(port_cli, "resolve_device", lambda device, cfg: torch.device("cuda"))
     monkeypatch.setattr(port_cli.torch.cuda, "synchronize", lambda device=None: None)
+    # the stand-in card holds no tensor: the rows stay on the host
+    monkeypatch.setattr(port_cli, "_stage", lambda ds, tr, va, device: (
+        0.0, 0.0, *((ds.tpm_data[i], ds.beta_data[i], ds.primary_site[i]) for i in (tr, va))))
     monkeypatch.setattr(port_engine, "fit", fit)
     cfg = PortConfig(**_cfg_kw(tmp_path), use_pallas=True)
     with pytest.raises(_Picked):

@@ -30,6 +30,7 @@ import pytest
 import torch
 from sklearn.manifold import trustworthiness
 from sklearn.preprocessing import StandardScaler
+from threadpoolctl import threadpool_limits
 
 from vae_los_angeles_torch.config import Config as PortConfig
 from vae_los_angeles_torch.data.synthetic import unmatched_cohorts
@@ -47,6 +48,10 @@ from vae_los_angeles_tpu.training import checkpoint as jax_ckpt
 # Tiny tensors: one intra-op thread, so that the xdist workers' OpenMP threads,
 # which spin at each barrier, do not oversubscribe the cores.
 torch.set_num_threads(1)
+# The same for sklearn's own OpenMP pool, which the JAX flows' host t-SNE
+# runs on: with a thread a core in each worker, one fixture here took 437 s
+# under the tier-1 command against 3.4 s alone.
+threadpool_limits(limits=1, user_api="openmp")
 
 DIM_A, DIM_B, N_SITES, LATENT, N, N_UNMATCHED = 40, 56, 5, 8, 120, 60
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -6,7 +6,8 @@ and names so each counterpart is found at the same place:
   * ``config`` — the port's own copy of the JAX package's ``Config``;
   * ``device`` holds the one device/precision policy (fp32, TF32 off, the
     card unless the CPU is asked for);
-  * ``data`` — synthetic generator, split protocol, dataset;
+  * ``data`` — synthetic generator, split protocol, dataset, the
+    pandas-free artifacts (``data.artifacts``) and the data preparation;
   * ``ops.nn`` / ``ops.losses`` / ``ops.optim`` / ``ops.metrics`` — layers,
     the RNA→DNA loss, AdamW and the scheduler state machines, metrics;
   * ``ops.kernels`` — the hand-written CUDA kernels (``csrc/``) with their
@@ -17,6 +18,9 @@ and names so each counterpart is found at the same place:
     ``nn.Module``s with the reference's state_dict key names, and the
     functional train-mode RNA2DNAVAE;
   * ``utils.weights`` — the JAX-pytree ↔ state_dict and carry bridge;
+    ``utils.torch_import`` the reference ``.pt`` import/export,
+    ``utils.profiling`` the timers and the profiler trace, ``utils.native``
+    the data preparation's C++ pivot;
   * ``parallel.vmap_meta`` — the CV fold and HPO trial populations;
   * ``training`` — the ``.npz`` + run-id + resume protocol, shared with the
     JAX package byte for byte; the tasks, the engine and the CLI;

@@ -1,6 +1,9 @@
-"""Data layer of the port: synthetic generator, split protocol, dataset.
+"""Data layer of the port: synthetic generator and artifacts, split
+protocol, dataset, and the data preparation (``prepare_data``,
+``prepare_dna``, ``ingest_manifest``).
 
-Importing it pulls in numpy only; pandas is imported when a pickle is read.
+Importing it pulls in numpy only; pandas is imported when a JAX-package
+frame is unpickled and inside the preparation's functions.
 """
 
 from vae_los_angeles_torch.data.dataset import MultiModalDataset  # noqa: F401

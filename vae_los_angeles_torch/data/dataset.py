@@ -15,15 +15,20 @@ from __future__ import annotations
 
 import numpy as np
 
+from vae_los_angeles_torch.data import artifacts
+from vae_los_angeles_torch.evaluation import tables
+
 
 class MultiModalDataset:
-    """Construct from a DataFrame, from arrays (`from_numpy`) or from the
-    pickle artifact (`from_pickle`)."""
+    """Construct from a table (the port's dict of arrays or a DataFrame),
+    from arrays (`from_numpy`) or from the pickle artifact (`from_pickle`,
+    either package's)."""
 
-    def __init__(self, dataframe):
-        self.tpm_data = np.array(dataframe["tpm_unstranded"].tolist()).astype(np.float32)
-        self.beta_data = np.array(dataframe["beta_value"].tolist()).astype(np.float32)
-        self.primary_site = np.array(dataframe["primary_site_encoded"]).astype(np.int32)
+    def __init__(self, table):
+        self.tpm_data = tables.column(table, "tpm_unstranded").astype(np.float32)
+        self.beta_data = tables.column(table, "beta_value").astype(np.float32)
+        self.primary_site = np.asarray(
+            tables.column(table, "primary_site_encoded")).astype(np.int32)
 
     def __len__(self):
         return len(self.tpm_data)
@@ -41,6 +46,4 @@ class MultiModalDataset:
 
     @classmethod
     def from_pickle(cls, path) -> "MultiModalDataset":
-        import pandas as pd  # only here: the card's machine has no pandas
-
-        return cls(pd.read_pickle(path))
+        return cls(artifacts.read_table(path))

@@ -203,8 +203,11 @@ def standard_scale(x) -> np.ndarray:
 
 
 class LabelCodes:
-    """``LabelEncoder``'s fit: ``classes_`` the sorted distinct labels, and
-    the codes of ``y`` into them."""
+    """sklearn's ``LabelEncoder``, numpy only: ``classes_`` the sorted
+    distinct labels, ``transform`` the codes of labels into them (an unseen
+    label raises, as sklearn's does), ``inverse_transform`` the labels of
+    codes. It is the data preparation's ``label_encoder.pkl``, which the
+    card's machine (no sklearn) can unpickle."""
 
     classes_ = None
 
@@ -214,7 +217,26 @@ class LabelCodes:
 
     def fit_transform(self, y):
         self.classes_, codes = np.unique(np.asarray(y), return_inverse=True)
-        return codes.astype(np.int64)
+        return codes.astype(np.int64).reshape(-1)
+
+    def _fitted(self):
+        if self.classes_ is None:
+            raise ValueError("this LabelCodes is not fitted yet: call fit first")
+        return self.classes_
+
+    def transform(self, y):
+        classes, y = self._fitted(), np.asarray(y)
+        unseen = np.setdiff1d(y, classes)
+        if unseen.size:
+            raise ValueError(f"y contains previously unseen labels: {unseen.tolist()}")
+        return np.searchsorted(classes, y).astype(np.int64)
+
+    def inverse_transform(self, y):
+        classes, y = self._fitted(), np.asarray(y)
+        unseen = np.setdiff1d(y, np.arange(len(classes)))
+        if unseen.size:
+            raise ValueError(f"y contains previously unseen labels: {unseen.tolist()}")
+        return classes[y.astype(np.int64)]
 
 
 class SiteCodes:

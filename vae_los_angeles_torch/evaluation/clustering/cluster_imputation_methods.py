@@ -18,18 +18,19 @@ The kNN imputers are the port's (`ops.knn.KNNRegressor`,
 ``ConditionedKNNRegressor``), on the card unless the CPU is asked for.
 ``main(data=(matched, rna_only, dna_only))`` takes the three parts of
 `data.synthetic.unmatched_cohorts` (the site codes stand for the names; the
-matched sites are the known ones); None reads the pickles with pandas.
+matched sites are the known ones); None reads the pickles (either package's,
+``data.artifacts``).
 """
 
 from __future__ import annotations
 
 import os
-import pickle
 from typing import Optional
 
 import numpy as np
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.splits import SiteCodes
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation import tables
@@ -255,14 +256,11 @@ def _tables(cfg, data):
         dna = {"beta_value": dna_beta, "primary_site": dna_site,
                "primary_site_encoded": dna_site}
         return SiteCodes(site), train, rna, dna
-    import pandas as pd  # only here: the card's machine has no pandas
-
-    train_df = pd.read_pickle(os.path.join(cfg.data_dir, "processed_data.pkl"))
-    with open(os.path.join(cfg.data_dir, "label_encoder.pkl"), "rb") as f:
-        label_encoder = pickle.load(f)
+    train_df = artifacts.read_table(os.path.join(cfg.data_dir, "processed_data.pkl"))
+    label_encoder = artifacts.read_pickle(os.path.join(cfg.data_dir, "label_encoder.pkl"))
     cohorts = [os.path.join(cfg.data_dir, f"{m}_only_unmatched.pkl") for m in ("rna", "dna")]
     return (label_encoder, train_df,
-            *(pd.read_pickle(p) if os.path.exists(p) else None for p in cohorts))
+            *(artifacts.read_table(p) if os.path.exists(p) else None for p in cohorts))
 
 
 def main(cfg: Optional[Config] = None, data=None, device=None):

@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import glob
 import os
-import pickle
 from typing import Optional
 
 import numpy as np
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.splits import SiteCodes
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation import tables
@@ -137,15 +137,12 @@ def _cohort_tables(cfg, data):
     if data is not None:
         rna, dna, known_sites = data
         return SiteCodes(known_sites), [rna, dna]
-    import pandas as pd  # only here: the card's machine has no pandas
-
-    with open(os.path.join(cfg.data_dir, "label_encoder.pkl"), "rb") as f:
-        label_encoder = pickle.load(f)
+    label_encoder = artifacts.read_pickle(os.path.join(cfg.data_dir, "label_encoder.pkl"))
     found = []
     for path, (name, _) in zip(find_latest_reconstruction_files(cfg.data_dir), COHORTS):
         if path:
             print(f"\nLoading {name} reconstruction from: {path}")
-        found.append(pd.read_pickle(path) if path else None)
+        found.append(artifacts.read_table(path) if path else None)
     return label_encoder, found
 
 

@@ -13,12 +13,13 @@ and ``feature_names.pkl``; the plots import matplotlib where they draw.
 from __future__ import annotations
 
 import os
-import pickle
 from typing import Optional
 
 import numpy as np
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
+from vae_los_angeles_torch.evaluation import tables
 from vae_los_angeles_torch.evaluation.plotting import pyplot
 
 PLOTS = (
@@ -69,13 +70,9 @@ def _inputs(cfg, data):
     if data is not None:
         tpm, beta, gene_names, probe_ids = data
         return np.asarray(tpm), np.asarray(beta), gene_names, probe_ids
-    import pandas as pd  # only here: the card's machine has no pandas
-
-    df = pd.read_pickle(os.path.join(cfg.data_dir, "processed_data.pkl"))
-    with open(os.path.join(cfg.data_dir, "feature_names.pkl"), "rb") as f:
-        feature_names = pickle.load(f)
-    return (np.vstack(df["tpm_unstranded"].values),
-            np.vstack([np.array(x) for x in df["beta_value"].values]),
+    table = artifacts.read_table(os.path.join(cfg.data_dir, "processed_data.pkl"))
+    feature_names = artifacts.read_pickle(os.path.join(cfg.data_dir, "feature_names.pkl"))
+    return (tables.column(table, "tpm_unstranded"), tables.column(table, "beta_value"),
             feature_names["gene_names"], feature_names["probe_ids"])
 
 

@@ -21,9 +21,10 @@ is the VAE's trunk with z = mu and no KL term (JAX ``training/tasks.py``).
 Everything runs on the card unless the CPU is asked for (``device="cpu"``
 or ``DEVICE=cpu``). The card's machine has no pandas: `tidy_results` and
 `pairwise_tests` return lists of row dicts (the JAX frames' columns),
-``main(data=(tpm, beta, site))`` takes arrays, and pandas (for a ``.pkl``)
-and plotly are imported only where they are needed; a line says when one
-is missing.
+``main(data=(tpm, beta, site))`` takes arrays, the ``.pkl`` is read by
+``data.artifacts`` (the port's pandas-free form anywhere, the JAX
+package's frame where pandas is installed), and plotly is imported only
+where it draws; a line says when it is missing.
 
     python -m vae_los_angeles_torch.evaluation.cross_modality_cv --folds 5 --epochs 3
 """
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import cv_inner_split, kfold_indices
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops.knn import KNNRegressor
@@ -103,18 +105,10 @@ def subset_rows(n: int, frac: float) -> np.ndarray:
 
 
 def load_data(data_path, subset=1.0):
-    """(tpm, beta, site) of the processed pickle, a ``subset`` of its rows."""
-    try:
-        import pandas as pd
-    except ImportError:
-        print("pandas unavailable; a .pkl cannot be read here: pass the arrays with "
-              "main(data=(tpm, beta, site))")
-        raise
-    df = pd.read_pickle(data_path)
-    tpm = np.array(df["tpm_unstranded"].tolist()).astype(np.float32)
-    beta = np.array(df["beta_value"].tolist()).astype(np.float32)
-    site = np.array(df["primary_site_encoded"]).astype(np.int32)
-    return _subset((tpm, beta, site), subset)
+    """(tpm, beta, site) of the processed pickle (either package's), a
+    ``subset`` of its rows."""
+    dataset = MultiModalDataset.from_pickle(data_path)
+    return _subset((dataset.tpm_data, dataset.beta_data, dataset.primary_site), subset)
 
 
 def _subset(data, subset):
@@ -405,7 +399,7 @@ def print_summary(all_results):
 
 def main(argv=None, data=None, device=None):
     """The whole benchmark. ``data`` is (tpm, beta, site) arrays (``--subset``
-    applies to them as to the pickle); None reads ``--data_path`` (pandas).
+    applies to them as to the pickle); None reads ``--data_path``.
     Runs on the card unless ``device="cpu"`` or ``DEVICE=cpu``. Returns the
     result records in the report's order."""
     args = parse_args(argv)

@@ -14,8 +14,8 @@
     ``{"run_id", "results": [two records]}``.
 
 Every function takes ``data=(tpm, beta, site)`` arrays in place of
-``processed_data.pkl`` (pandas, and the label encoder's sklearn, are
-imported only where the pickle is read). The model serves on the card
+``processed_data.pkl`` and ``label_encoder.pkl`` (either package's, read by
+``data.artifacts``: the port's pandas-free ones on the card). The model serves on the card
 unless the CPU is asked for. The two plots (`plot_reconstruction_examples`,
 `plot_correlation_distributions`) import matplotlib where they draw; the
 card's machine has none, and a line says so.
@@ -25,12 +25,12 @@ from __future__ import annotations
 
 import json
 import os
-import pickle
 from typing import Optional
 
 import numpy as np
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.evaluation.loading import LoadedMultiModalVAE, load_multimodal
@@ -53,8 +53,7 @@ def load_val_split(cfg: Optional[Config] = None, data=None):
     label_encoder = None
     if data is None:
         dataset = MultiModalDataset.from_pickle(os.path.join(cfg.data_dir, "processed_data.pkl"))
-        with open(os.path.join(cfg.data_dir, "label_encoder.pkl"), "rb") as f:
-            label_encoder = pickle.load(f)
+        label_encoder = artifacts.read_pickle(os.path.join(cfg.data_dir, "label_encoder.pkl"))
     else:
         dataset = MultiModalDataset.from_numpy(*data)
     tr_idx, va_idx = train_val_indices(len(dataset), cfg.train_test_split, cfg.random_seed)

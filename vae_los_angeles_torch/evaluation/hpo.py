@@ -41,9 +41,11 @@ Every trial is ``engine.fit``'s plain path at its seed (the JAX package
 trains its trial populations in XLA, never through its Pallas kernels); a
 trial's seed comes from its global index (`_trial_seeds`), so neither its
 group nor a pruned neighbour changes its noise. No pandas here: ``main``
-takes ``data=(tpm, beta, site)`` arrays, as the card's machine needs;
-without them it reads ``processed_data.pkl`` (pandas imported there only).
-``--synthetic`` is not ported and raises. It runs on the card unless
+takes ``data=(tpm, beta, site)`` arrays; without them it reads
+``processed_data.pkl`` and its ``label_encoder.pkl`` (``data.artifacts``:
+the port's pandas-free form anywhere, so on the card too), which
+``--synthetic`` first writes where the pickle is missing
+(``data.synthetic.ensure_synthetic_artifacts``). It runs on the card unless
 ``device="cpu"`` or ``DEVICE=cpu``. optuna is imported only in optuna mode.
 """
 
@@ -61,6 +63,7 @@ import torch
 from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
+from vae_los_angeles_torch.data.synthetic import ensure_synthetic_artifacts
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
@@ -343,8 +346,10 @@ def parse_args(argv=None):
         help="vmapped mode: draw latent_dim for every trial on its own and still batch: "
         "trials sharing an embed_dim train together at the group's largest latent width, "
         "each with a 0/1 latent mask")
-    parser.add_argument("--synthetic", action="store_true",
-                        help="not ported: pass data=(tpm, beta, site) to main() instead")
+    parser.add_argument(
+        "--synthetic", action="store_true",
+        help="generate synthetic data first if processed_data.pkl is missing (same bootstrap "
+        "as the training CLIs)")
     args = parser.parse_args(argv)
     if args.pad_shapes and args.mode == "optuna":
         parser.error("--pad-shapes applies to the vmapped mode only "
@@ -352,21 +357,21 @@ def parse_args(argv=None):
     if args.pad_shapes and args.bucket_size is not None:
         parser.error("--bucket-size and --pad-shapes are mutually exclusive: pad-shapes "
                      "samples shapes fully independently and batches by embed_dim")
-    if args.synthetic:
-        parser.error("--synthetic is not ported: pass the cohort as arrays, "
-                     "main(data=(tpm, beta, site))")
     return args
 
 
 def main(argv=None, data=None, device=None, cfg: Optional[Config] = None):
     """The search, the JSON and the retrained checkpoint; returns
     (best_params, best_value). ``data`` is (tpm, beta, site) arrays; None
-    reads ``<data_dir>/processed_data.pkl`` (pandas).
+    reads ``<data_dir>/processed_data.pkl`` (written first by ``--synthetic`` where it is
+    missing).
     Runs on the card unless ``device="cpu"`` or ``DEVICE=cpu``."""
     args = parse_args(argv)
     cfg = cfg or Config.from_env()
     device = resolve_device(device, cfg)
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    if args.synthetic and data is None:
+        ensure_synthetic_artifacts(cfg.data_dir, dim_a=cfg.input_dim_a, dim_b=cfg.input_dim_b)
     cfg, train_arrays, val_arrays, n_sites, class_weights = _split(cfg, data)
     # an explicit --epochs 0 means "no training epochs", as in the training CLIs
     num_epochs = cfg.num_epochs if args.epochs is None else args.epochs

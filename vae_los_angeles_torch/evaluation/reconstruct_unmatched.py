@@ -9,9 +9,10 @@ TPM on the host, their sites label-encoded), the DNA-only samples get RNA
 from DNA2RNAVAE with ``site=None`` (they have no site the model may use).
 RNA-only rows of a site the label encoder does not know are dropped first.
 With pickles (``cfg.data_dir``'s ``rna_only_unmatched.pkl`` and
-``dna_only_unmatched.pkl``, read with pandas) it writes
+``dna_only_unmatched.pkl``, either package's, read by ``data.artifacts``) it writes
 ``rna_with_reconstructed_dna_<ts>.pkl`` and
-``dna_with_reconstructed_rna_<ts>.pkl`` with the JAX frames' columns, for
+``dna_with_reconstructed_rna_<ts>.pkl`` with the JAX frames' columns (a
+frame read stays a frame, the port's dict a dict), for
 `clustering.cluster_reconstructed`; ``main(data=...)`` takes the three
 parts of `data.synthetic.unmatched_cohorts` (the site codes stand for the
 names) and returns each cohort as a dict of arrays under the same column
@@ -32,6 +33,7 @@ from typing import Optional
 import numpy as np
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.splits import SiteCodes
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation import tables
@@ -98,16 +100,12 @@ def _cohorts(cfg, data):
                "primary_site_encoded": rna_site}
         dna = {"beta_value": beta, "primary_site": dna_site, "primary_site_encoded": dna_site}
         return SiteCodes(site), rna, dna
-    import pandas as pd  # only here: the card's machine has no pandas
-
-    with open(os.path.join(cfg.data_dir, "label_encoder.pkl"), "rb") as f:
-        label_encoder = pickle.load(f)
-    out = [label_encoder]
+    out = [artifacts.read_pickle(os.path.join(cfg.data_dir, "label_encoder.pkl"))]
     for name in ("rna_only_unmatched.pkl", "dna_only_unmatched.pkl"):
         path = os.path.join(cfg.data_dir, name)
         if not os.path.exists(path):
             print(f"\n⚠ {name.split('_')[0].upper()}-only data file not found: {path}")
-        out.append(pd.read_pickle(path) if os.path.exists(path) else None)
+        out.append(artifacts.read_table(path) if os.path.exists(path) else None)
     return tuple(out)
 
 
@@ -143,7 +141,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None, root: str = "."):
                                                             label_encoder)
             if data is None:
                 out = os.path.join(cfg.data_dir, f"rna_with_reconstructed_dna_{run_timestamp}.pkl")
-                rna_reconstructed_df.to_pickle(out)
+                artifacts.write_pickle(out, rna_reconstructed_df)
                 print(f"✓ Saved reconstructed data to: {out}")
 
     if dna_only_df is not None and dna2rna_model is not None:
@@ -152,7 +150,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None, root: str = "."):
                                                             label_encoder)
             if data is None:
                 out = os.path.join(cfg.data_dir, f"dna_with_reconstructed_rna_{run_timestamp}.pkl")
-                dna_reconstructed_df.to_pickle(out)
+                artifacts.write_pickle(out, dna_reconstructed_df)
                 print(f"✓ Saved reconstructed data to: {out}")
 
     if rna_reconstructed_df is not None or dna_reconstructed_df is not None:

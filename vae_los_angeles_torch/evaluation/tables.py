@@ -1,7 +1,7 @@
 """Cohort tables as the evaluation flows pass them: a pandas DataFrame (the
-pickles of the reference's data preparation, list-valued feature columns)
-or a dict of numpy arrays under the same column names (``main(data=...)``,
-for the card's machine, which has no pandas). These helpers read and extend
+JAX package's pickles, list-valued feature columns) or a dict of numpy
+arrays under the same column names (the port's pandas-free artifacts,
+``data.artifacts``, and ``main(data=...)``). These helpers read and extend
 either kind without importing pandas.
 """
 

@@ -2,8 +2,9 @@
 tasks ``rna2dna``, ``dna2rna``, ``multimodal``, ``rna2dna_ae`` and
 ``dna2rna_ae``).
 
-    python -m vae_los_angeles_torch.training.cli [--epochs N] [--seed S]
-        [--data_path data/processed_data.pkl] [--resume]
+    python -m vae_los_angeles_torch.train_rna2dna [--epochs N] [--seed S]
+        [--data_path data/processed_data.pkl] [--synthetic] [--resume]
+        [--profile LOG_DIR]
         [--compute_dtype bfloat16] [--moments_dtype bfloat16]
         [--optimizer adafactor]                                # RNA→DNA
     python -m vae_los_angeles_torch.train_dna2rna [same flags]  # DNA→RNA
@@ -49,21 +50,37 @@ best finite one under the run-id protocol (its resume checkpoint records
 its own seed); it refuses N < 1 and ``--resume``, and exits when every
 replicate diverged.
 
-``run_training(data=(tpm, beta, site))`` takes the cohort as arrays (the
-tests and ``chip_smoke.py`` do); without it the CLI reads
-``processed_data.pkl`` and its ``label_encoder.pkl`` (pandas and sklearn are
-imported only there). The loss plot (`plot_losses`) imports matplotlib
-where it draws; without it a line says so. Not ported yet: the
-``--synthetic`` artifact writer, ``--dp``, ``--profile`` and the
-``WALL_DETAIL`` steady-state probe.
+``run_training(data=(tpm, beta, site))`` takes the cohort as arrays;
+without it the CLI reads ``processed_data.pkl`` and its
+``label_encoder.pkl`` (``data.artifacts``: the port's pandas-free form
+anywhere, the JAX package's frames where pandas is installed; ``--data_path``
+names the pickle, the encoder beside it). ``--synthetic`` first writes the
+synthetic artifact set where that pickle is missing
+(``data.synthetic.ensure_synthetic_artifacts``, never overwriting), so
+``python -m vae_los_angeles_torch.train_rna2dna --synthetic`` runs from the
+shell on the card.
+
+The wall is split as the JAX CLI splits it, on one stderr line: the device
+init (the CUDA context and a tiny synced op), the data placement (the
+split's rows copied to the device), the training call (kernel builds,
+graph captures and the run) and, on the card with ``--replicates 1`` and
+without ``--profile``, a steady-state probe: ``engine.fit`` once more with
+the same arguments, whose difference from the first call is "compile".
+``WALL_DETAIL=1`` forces the probe, ``0`` disables it; otherwise it runs
+while the first call took less than ``WALL_DETAIL_MAX_S`` (300 s). The
+probe launches the kernels again, and its result is discarded.
+``--profile LOG_DIR`` records the training call with ``torch.profiler``
+(CPU and CUDA activities; a Chrome trace in LOG_DIR, `utils.profiling.trace`).
+The loss plot (`plot_losses`) imports matplotlib where it draws; without it
+a line says so. ``--dp`` is not ported (one card).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
-import pickle
 import sys
 import time
 
@@ -71,14 +88,17 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.config import Config
+from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
+from vae_los_angeles_torch.data.synthetic import ensure_synthetic_artifacts
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.plotting import pyplot
 from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
 from vae_los_angeles_torch.parallel import vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.tasks import get_task
+from vae_los_angeles_torch.utils import profiling
 from vae_los_angeles_torch.utils.tree import tree_map
 from vae_los_angeles_torch.utils.weights import tree_to_numpy
 
@@ -90,12 +110,11 @@ def load_data(cfg: Config, data_path=None):
     le_path = os.path.join(os.path.dirname(data_path) or ".", "label_encoder.pkl")
     if not os.path.exists(data_path):
         raise FileNotFoundError(
-            f"{data_path} not found. Run `python scripts/prepare_data.py` "
-            "first.")
+            f"{data_path} not found. Run `python -m vae_los_angeles_torch.data.prepare_data` "
+            "(or pass --synthetic for offline environments) first.")
     print("Loading processed data...")
     dataset = MultiModalDataset.from_pickle(data_path)
-    with open(le_path, "rb") as f:  # written by the data preparation step
-        n_sites = len(pickle.load(f).classes_)
+    n_sites = len(artifacts.read_pickle(le_path).classes_)  # the data preparation's encoder
     print(f"Data shape: ({len(dataset)}, ...)")
     print(f"Number of primary sites: {n_sites}")
     return dataset, n_sites
@@ -145,6 +164,12 @@ def _parse(model_name, argv):
     parser.add_argument(
         "--seed", type=int, default=None,
         help="run seed (default 0; on --resume, the seed recorded in the checkpoint)")
+    parser.add_argument(
+        "--synthetic", action="store_true",
+        help="generate synthetic data first if processed_data.pkl is missing")
+    parser.add_argument(
+        "--profile", type=str, default=None, metavar="LOG_DIR",
+        help="record a torch.profiler trace (CPU and CUDA) of the training call into LOG_DIR")
     parser.add_argument(
         "--resume", action="store_true",
         help="continue the latest run from its saved training state")
@@ -228,6 +253,11 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     os.makedirs(cfg.plots_dir, exist_ok=True)
     if data is None:
+        if args.data_path:  # the exact file named, its artifacts beside it
+            cfg = cfg.replace(data_dir=os.path.dirname(args.data_path) or ".")
+        if args.synthetic:
+            ensure_synthetic_artifacts(cfg.data_dir, target_pkl=args.data_path,
+                                       dim_a=cfg.input_dim_a, dim_b=cfg.input_dim_b)
         dataset, n_sites = load_data(cfg, args.data_path)
     else:
         dataset = MultiModalDataset.from_numpy(*data)
@@ -248,10 +278,8 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     tr_idx, va_idx = train_val_indices(len(dataset), cfg.train_test_split, cfg.random_seed)
     print(f"Train set size: {len(tr_idx)}")
     print(f"Validation set size: {len(va_idx)}")
-    train_arrays = (dataset.tpm_data[tr_idx], dataset.beta_data[tr_idx],
-                    dataset.primary_site[tr_idx])
-    val_arrays = (dataset.tpm_data[va_idx], dataset.beta_data[va_idx],
-                  dataset.primary_site[va_idx])
+
+    init_s, place_s, train_arrays, val_arrays = _stage(dataset, tr_idx, va_idx, device)
     class_weights = (compute_class_weights(dataset.primary_site[tr_idx], n_sites)
                      if use_class_weights else None)
 
@@ -282,21 +310,43 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
                  "torch.autograd anomaly detection and every step's loss checked")
         print(f"DEBUG_NANS: {check}; the first non-finite value raises")
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    if args.replicates > 1:
-        result, seed = _train_replicates(task_name, cfg, train_arrays, val_arrays, seed,
-                                         n_sites, num_epochs, class_weights, args.replicates,
-                                         device)
+    def fit_once():
+        return engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
+                          num_epochs=num_epochs, resume_carry=resume_carry,
+                          start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
+                          class_weights=class_weights)
+
+    trace = (profiling.trace(args.profile, cuda=device.type == "cuda") if args.profile
+             else contextlib.nullcontext())
+    with trace:
+        profiling.synchronize(device)
+        t0 = time.perf_counter()
+        if args.replicates > 1:
+            result, seed = _train_replicates(task_name, cfg, train_arrays, val_arrays, seed,
+                                             n_sites, num_epochs, class_weights,
+                                             args.replicates, device)
+        else:
+            result = fit_once()
+        profiling.synchronize(device)
+        wall = time.perf_counter() - t0
+    steady_s = None
+    detail = os.getenv("WALL_DETAIL", "")
+    probe_ok = detail == "1" or (
+        detail != "0" and wall < float(os.getenv("WALL_DETAIL_MAX_S", "300")))
+    split = f"backend init: {init_s:.3f}s | data placement: {place_s:.3f}s"
+    if device.type == "cuda" and args.replicates == 1 and not args.profile and probe_ok:
+        # one more run of the built kernels and captured graphs: the
+        # difference from the first call is what building them cost
+        t0 = time.perf_counter()
+        fit_once()
+        profiling.synchronize(device)
+        steady_s = time.perf_counter() - t0
+        print(f"{split} | compile: {max(0.0, wall - steady_s):.3f}s | compile+run: {wall:.3f}s"
+              f" | steady-state run: {steady_s:.3f}s", file=sys.stderr)
     else:
-        result = engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
-                            num_epochs=num_epochs, resume_carry=resume_carry,
-                            start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
-                            class_weights=class_weights)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+        print(f"{split} | compile+run: {wall:.3f}s (steady probe skipped)", file=sys.stderr)
+    if args.profile:
+        print(f"Profiler trace written to {args.profile}")
 
     n_ran = result.epochs_ran
     total = start_epoch + num_epochs
@@ -339,8 +389,27 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     print(f"Best model saved to: {model_path}")
     print(f"Wall-clock: {wall:.2f}s for {n_ran} epochs on {device}, kernels' build included "
           f"where first used ({samples_per_sec:,.0f} samples/sec)")
+    if steady_s is not None and steady_s > 0:
+        print(f"Steady-state: {steady_s:.2f}s ({trained / steady_s:,.0f} samples/sec excl. "
+              "the kernels' build)")
     print("=" * 50)
     return result, run_id, wall
+
+
+def _stage(dataset, tr_idx, va_idx, device):
+    """The JAX CLI's first two wall figures: (seconds to bring the device up,
+    a tiny synced op in a new CUDA context; seconds to place the train and
+    validation rows on it, synced), then the rows as (tpm, beta, site)
+    tensors on ``device``."""
+    t0 = time.perf_counter()
+    torch.zeros(8, 128, device=device).sum().item()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = [tuple(torch.from_numpy(a[idx]).to(device) for a in (
+        dataset.tpm_data, dataset.beta_data, dataset.primary_site.astype(np.int64)))
+        for idx in (tr_idx, va_idx)]
+    profiling.synchronize(device)
+    return init_s, time.perf_counter() - t0, *rows
 
 
 def _train_replicates(task_name, cfg, train_arrays, val_arrays, seed, n_sites, num_epochs,
@@ -370,7 +439,8 @@ def _train_replicates(task_name, cfg, train_arrays, val_arrays, seed, n_sites, n
 
 
 def main_rna2dna(argv=None):
-    """Entry point: ``python -m vae_los_angeles_torch.training.cli``."""
+    """Entry point: ``python -m vae_los_angeles_torch.train_rna2dna`` (or
+    ``...training.cli``)."""
     return run_training("rna2dna", "rna2dna", argv=argv)
 
 
