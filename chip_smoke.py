@@ -4544,6 +4544,260 @@ def phase_knn_wide(dev, card):
         f"{card}")
 
 
+# --- multi-device: data- and tensor-parallel training, sharded serving ----------
+
+MD_TRAIN, MD_EPOCHS, MD_SERVE_ROWS = 819, 2, 600  # live-width DP fit rows, its epochs, served rows
+MD_LR = 1e-3  # Config's learning rate: the DP fit's AdamW rate
+MD_PRE_BN = ("encoder_rna/fc/b", "encoder_dna/fc1/b", "encoder_dna/fc2/b")  # feed BatchNorm
+
+
+def _md_cohort():
+    tpm, beta, site = generate_synthetic_arrays(n_samples=1024, seed=0)
+    return (tpm[:MD_TRAIN], beta[:MD_TRAIN], site[:MD_TRAIN]), \
+        (tpm[MD_TRAIN:], beta[MD_TRAIN:], site[MD_TRAIN:])
+
+
+def _md_first_grads(dev, mesh):
+    """(loss, gradients) of the live-width RNA→DNA fit's first step: epoch 0's
+    shuffle and noise, its first batch of 32 (this rank's rows of it)."""
+    from vae_los_angeles_torch.parallel import sharding
+
+    task = get_task("rna2dna")
+    (tr, _) = _md_cohort()
+    params, state = task.init(torch.Generator().manual_seed(0), CFG, N_SITES, dev)
+    train = engine._as_batch(tr, dev)
+    gen, perm = engine.epoch_noise(0, 0, len(train), dev)
+    idx = perm[:CFG.batch_size]
+    lo, hi = mesh.row_range(len(idx))
+    loss, grads, _ = sharding.sharded_loss_and_grads(task, params, state, train.take(idx[lo:hi]),
+                                                     BETA, gen, mesh, len(idx), split=False)
+    return float(loss), {n: t.cpu().numpy() for n, t in engine._named_leaves(grads)}
+
+
+def _md_fit(dev, mesh):
+    (tr, va) = _md_cohort()
+    res = engine.fit("rna2dna", CFG, tr, va, 0, N_SITES, num_epochs=MD_EPOCHS, mesh=mesh,
+                     device=dev)
+    return res.val_losses, res.params["encoder_rna"]["fc"]["b"].cpu().numpy()
+
+
+def _md_serve(dev, workdir):
+    """The two directional loaders under USE_PALLAS on MD_SERVE_ROWS rows:
+    (outputs, launches of each serving kernel)."""
+    tpm, beta, site = generate_synthetic_arrays(n_samples=MD_SERVE_ROWS, seed=1)
+    cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"), use_pallas=True)
+    out, launches = {}, {}
+    for name, loader, kw in (("rna2dna", load_rna2dna, {"rna": tpm}),
+                             ("dna2rna", load_dna2rna, {"dna": beta})):
+        model = loader(cfg=cfg, root=workdir, device=dev)
+        cls = KERNELS[f"{name}_fused_forward"][0]
+        cls.launches = 0
+        out[name] = model(site=site, generator=torch.Generator().manual_seed(3), **kw)
+        launches[f"{name}_fused_forward"] = cls.launches
+    return out, launches
+
+
+def _md_tp(dev, task_name, mesh):
+    """One step of ``task_name`` at DNA 450,000 unsplit and tensor-parallel
+    over ``mesh`` from the same weights, batch and generator: (loss error,
+    largest gradient error over the tensor's largest |g|, largest parameter
+    error outside the pre-BN biases and the entries whose gradient is within
+    1e-5 of the tensor's largest |g| of 0, the TP step's ms, the 57.6 MB
+    all-reduce's ms)."""
+    from vae_los_angeles_torch.parallel import comm, sharding
+
+    cfg = CFG.replace(input_dim_b=WIDE_D)
+    task = get_task(task_name)
+    params, state = task.init(torch.Generator().manual_seed(0), cfg, N_SITES, dev)
+    g = torch.Generator().manual_seed(5)
+    batch = (torch.rand(32, CFG.input_dim_a, generator=g).to(dev),
+             torch.rand(32, WIDE_D, generator=g).to(dev),
+             torch.randint(0, N_SITES, (32,), generator=g).to(dev))
+    whole = sharding.Mesh(1, 1)
+    loss1, grads1, _ = sharding.sharded_loss_and_grads(
+        task, params, state, Batch(*batch), BETA, torch.Generator(dev).manual_seed(9), whole, 32)
+    p1, _ = optim.adamw_update(params, grads1, optim.adamw_init(params), WIDE_LR, WIDE_WD)
+    local = sharding.shard_params(params, mesh)
+    sb = sharding.shard_arrays(batch, mesh, dev)
+    loss2, grads2, _ = sharding.sharded_loss_and_grads(
+        task, local, state, sb.rows(), BETA, torch.Generator(dev).manual_seed(9), mesh, sb.n)
+    p2, _ = optim.adamw_update(local, grads2, optim.adamw_init(local), WIDE_LR, WIDE_WD)
+    specs = sharding.param_specs(params)
+    cut = lambda tree: tree_map(lambda t, s: sharding._cut(t, s, mesh), tree, specs)  # noqa: E731
+    top = max(float(t.abs().max()) for t in tree_leaves(grads1))
+    grad_err = param_err = 0.0
+    for (name, a), (_, b), (_, p_new), (_, p_want) in zip(
+            engine._named_leaves(grads2), engine._named_leaves(cut(grads1)),
+            engine._named_leaves(p2), engine._named_leaves(cut(p1))):
+        # a pre-BN bias's true gradient is 0: its error is held against the largest of all
+        scale = top if name in MD_PRE_BN else float(b.abs().max()) or 1.0
+        grad_err = max(grad_err, float((a - b).abs().max()) / scale)
+        # an entry within the gradient tolerance of 0 may take either sign, and Adam's
+        # first step is then ±lr; a pre-BN bias moves up to lr either way (ROADMAP C)
+        big = b.abs() > 1e-5 * float(b.abs().max())
+        if name not in MD_PRE_BN and bool(big.any()):
+            param_err = max(param_err, float((p_new - p_want)[big].abs().max()))
+    del params, grads1, p1, grads2, p2
+    step = sharding.sharded_train_step(task_name)
+    opt = optim.adamw_init(local)
+    gen = torch.Generator(dev).manual_seed(9)
+    for _ in range(2):  # a warm-up, then the timed step
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        local, state, opt, _ = step(local, state, opt, sb, gen, WIDE_LR, WIDE_WD, BETA)
+        torch.cuda.synchronize(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    partial = torch.zeros(32, WIDE_D, device=dev)
+    comm.all_reduce(partial, mesh.group("model"))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    comm.all_reduce(partial, mesh.group("model"))
+    torch.cuda.synchronize(dev)
+    ar_ms = (time.perf_counter() - t0) * 1e3
+    return abs(float(loss2) - float(loss1)) / abs(float(loss1)), grad_err, param_err, step_ms, \
+        ar_ms
+
+
+def _md_gloo_rank(workdir):
+    """A rank of the two gloo ranks that share card 0 (`phase_multidevice` a)."""
+    from vae_los_angeles_torch.parallel import comm, dryrun, sharding
+
+    dev = comm.device()
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.run()
+    times["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = vmap_meta.population_mesh()
+    out["grads"] = _md_first_grads(dev, mesh)
+    out["fit"] = _md_fit(dev, mesh)
+    times["dp_fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"] = _md_serve(dev, workdir)
+    times["sharded_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_mesh = sharding.make_mesh(2, model_parallel=2)
+    out["tp"] = {task: _md_tp(dev, task, tp_mesh) for task in ("rna2dna", "dna2rna")}
+    times["tp_450k"] = time.perf_counter() - t0
+    out["times"] = times
+    out["routes"] = comm.routes()
+    return out
+
+
+def _md_nccl_one():
+    """One NCCL rank: ``make_mesh(1)`` and the 1 x 1 sharded step against the
+    plain step (the same bits), and one NCCL all-reduce on the card."""
+    from vae_los_angeles_torch.parallel import comm, sharding
+
+    dev = comm.device()
+    mesh = sharding.make_mesh(1)
+    task = get_task("rna2dna")
+    params, state = task.init(torch.Generator().manual_seed(0), CFG, N_SITES, dev)
+    tpm, beta, site = generate_synthetic_arrays(n_samples=64, seed=2)
+    step = sharding.sharded_train_step("rna2dna")
+    outs = []
+    for batch in (sharding.shard_arrays((tpm, beta, site), mesh, dev), (tpm, beta, site)):
+        p, _, _, loss = step(params, state, optim.adamw_init(params), batch,
+                             torch.Generator(dev).manual_seed(9), LR, WD, BETA)
+        outs.append((float(loss), torch.cat([t.reshape(-1) for t in tree_leaves(p)])))
+    x = torch.ones(4, device=dev)
+    torch.distributed.all_reduce(x)
+    return {"mesh": dict(mesh.shape), "equal": outs[0][0] == outs[1][0]
+            and bool(torch.equal(outs[0][1], outs[1][1])), "all_reduce": x.tolist(),
+            "routes": comm.routes()}
+
+
+def phase_multidevice(dev, card):
+    """(a) two gloo ranks on card 0 (``cuda:0`` each): the dry run, the
+    data-parallel RNA→DNA fit at the live widths against this process's
+    single-device fit (first-step gradients within 1e-5 of each tensor's
+    largest |g|, validation losses within 1e-3 relative, the pre-BN encoder
+    bias within 2·lr·steps), the sharded serve through B0a/B0b under
+    USE_PALLAS against the single call (TOL), and the tensor-parallel step at
+    DNA 450,000 (RNA→DNA's row-split DecoderB output layer, DNA→RNA's
+    column-split EncoderB input layer) against the unsplit step (loss rtol
+    1e-5, gradients 1e-5 of each tensor's largest |g|, a pre-BN bias's of the
+    largest of all, parameters 1e-5 outside the pre-BN biases and the entries
+    whose gradient lies within that tolerance of 0, which may take either
+    sign, so that Adam's first step, ±lr, flips); (b) one NCCL rank;
+    (c) NCCL over every card when there are two or more. Prints each leg's
+    wall time and the collectives' routes."""
+    from vae_los_angeles_torch.parallel import comm, dryrun, sharding
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as workdir:
+        cfg = CFG.replace(checkpoint_dir=os.path.join(workdir, "checkpoints"), use_pallas=True)
+        for name in ("rna2dna", "dna2rna"):
+            p, s_ = get_task(name).init(torch.Generator().manual_seed(7), CFG, N_SITES, "cpu")
+            checkpoint.save_best(name, "md", p, s_, cfg.checkpoint_dir)
+            checkpoint.write_run_id(name, "md", workdir)
+        t0 = time.perf_counter()
+        single = {"grads": _md_first_grads(dev, sharding.Mesh(1, 1)),
+                  "fit": _md_fit(dev, None), "serve": _md_serve(dev, workdir)}
+        say(f"[multidevice] single-device references: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        ranks = comm.spawn(_md_gloo_rank, 2, "gloo", "cuda:0", args=(workdir,), threads=4)
+        wall_a = time.perf_counter() - t0
+    say(f"[multidevice] (a) 2 gloo ranks on cuda:0: {wall_a:.2f} s with the spawn; routes "
+        f"{ranks[0]['routes']}; legs (rank 0) "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in ranks[0]["times"].items()) + f"; {card}")
+    say(f"[multidevice] dry run: {ranks[0]['dryrun']}")
+    loss_w, grads_w = single["grads"]
+    top = max(float(np.abs(g).max()) for g in grads_w.values())
+    hazard = 2 * MD_LR * MD_EPOCHS * (MD_TRAIN // CFG.batch_size)
+    for r, res in enumerate(ranks):
+        loss, grads = res["grads"]
+        if abs(loss - loss_w) > 1e-5 * abs(loss_w):
+            raise AssertionError(f"rank {r}: DP first-step loss {loss} against {loss_w}")
+        for name, g in grads.items():
+            scale = top if name in MD_PRE_BN else float(np.abs(grads_w[name]).max())
+            err = float(np.abs(g - grads_w[name]).max())
+            if err > 1e-5 * scale:
+                raise AssertionError(f"rank {r}: DP first-step gradient {name} off by {err:.3g} "
+                                     f"(scale {scale:.3g})")
+        val, bias = res["fit"]
+        if not np.allclose(val, single["fit"][0], rtol=1e-3, atol=0):
+            raise AssertionError(f"rank {r}: DP validation losses {val} against "
+                                 f"{single['fit'][0]}")
+        drift = float(np.abs(bias - single["fit"][1]).max())
+        if drift > hazard:
+            raise AssertionError(f"rank {r}: the pre-BN bias moved {drift:.3g} > {hazard:.3g}")
+        served, launches = res["serve"]
+        for name in ("rna2dna", "dna2rna"):
+            for got, ref, what in zip(served[name], single["serve"][0][name],
+                                      ("recon", "mu", "logvar")):
+                if not np.allclose(got, ref, **TOL):
+                    raise AssertionError(f"rank {r}: sharded {name} {what} off by "
+                                         f"{np.abs(got - ref).max():.3g}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"rank {r}: the sharded serve launched {launches}")
+        for task, (loss_err, grad_err, param_err, step_ms, ar_ms) in res["tp"].items():
+            if loss_err > 1e-5 or grad_err > 1e-5 or param_err > 1e-5:
+                raise AssertionError(f"rank {r}: TP {task} at 450,000: loss {loss_err:.3g}, "
+                                     f"grads {grad_err:.3g}, params {param_err:.3g}")
+    say(f"[multidevice] DP fit at the live widths: val losses {ranks[0]['fit'][0]} against "
+        f"{single['fit'][0]}; sharded serve launches (a rank) {ranks[0]['serve'][1]}")
+    for task, (loss_err, grad_err, param_err, step_ms, ar_ms) in ranks[0]["tp"].items():
+        say(f"[multidevice] TP {task} at DNA 450,000 over 2 ranks: loss err {loss_err:.2e}, "
+            f"grad err {grad_err:.2e}, param err {param_err:.2e}; step {step_ms:.1f} ms, "
+            f"all-reduce of (32, 450,000) fp32 {ar_ms:.1f} ms (gloo, one card); {card}")
+
+    t0 = time.perf_counter()
+    one = comm.spawn(_md_nccl_one, 1, "nccl", None)[0]
+    say(f"[multidevice] (b) 1 NCCL rank: {time.perf_counter() - t0:.2f} s; mesh {one['mesh']}, "
+        f"1 x 1 step equal to the plain step: {one['equal']}; routes {one['routes']}")
+    if not one["equal"] or one["all_reduce"] != [1.0] * 4:
+        raise AssertionError(f"the one-rank NCCL leg failed: {one}")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        res = comm.spawn(dryrun.run, n, "nccl", None)
+        say(f"[multidevice] (c) NCCL over {n} cards: {time.perf_counter() - t0:.2f} s; {res[0]}")
+    else:
+        say("[multidevice] (c) NCCL across cards: skipped, one card visible")
+    say(f"[multidevice] phase: {time.perf_counter() - t_phase:.2f} s; {card}")
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_policy.require_cuda()
@@ -4614,6 +4868,7 @@ def main():
     timings.update(time_wide(dev, card))
     time_knn(dev, card)
     phase_knn_wide(dev, card)
+    phase_multidevice(dev, card)
 
     path_of = {"rna2dna_fused_forward": "serve", "dna2rna_fused_forward": "serve",
                "rna2dna_train_epoch": "train", "rna2dna_loss_forward": "train",

@@ -93,8 +93,8 @@ def test_cli_refuses_the_cpu_unasked(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training("rna2dna", "rna2dna", cfg=PortConfig(input_dim_a=DIM_A, input_dim_b=DIM_B),
                      argv=["--synthetic", "--epochs", "1"])
-    with pytest.raises(SystemExit):
-        run_training("rna2dna", "rna2dna", argv=["--dp"])  # multi-device: not ported
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training("rna2dna", "rna2dna", argv=["--dp"])  # --dp refuses the CPU unasked too
 
 
 def test_hpo_synthetic_runs(tmp_path, monkeypatch):

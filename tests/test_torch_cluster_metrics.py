@@ -173,8 +173,8 @@ def test_metrics_utils_hit_is_the_device_path_and_raises():
 
 def test_shard_raises_and_the_card_is_the_default(monkeypatch):
     x, labels = planted(20, 4, seed=10)
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_cm.silhouette_score(x, labels, shard=True, device="cpu")
+    with pytest.raises(ValueError, match="shard=True requires more than one visible device"):
+        port_cm.silhouette_score(x, labels, shard=True, device="cpu")  # one rank
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cm.cluster_scores(x, labels)

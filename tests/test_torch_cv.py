@@ -47,6 +47,7 @@ from vae_los_angeles_torch.ops import nn as ops_nn
 from vae_los_angeles_torch.ops import optim as port_optim
 from vae_los_angeles_torch.ops.kernels import fused_loss
 from vae_los_angeles_torch.parallel import vmap_meta as port_vm
+from vae_los_angeles_torch.parallel.sharding import make_mesh
 from vae_los_angeles_torch.training import engine as port_engine
 from vae_los_angeles_torch.training import tasks as port_tasks
 from vae_los_angeles_torch.training.tasks import Batch
@@ -396,8 +397,12 @@ def test_fit_folds_refusals(cohort):
     cfg = PortConfig(**DIMS)
     with pytest.raises(ValueError, match="mask_sizes=True is not ported"):
         port_vm.fit_folds("rna2dna", cfg, tr, va, 0, N_SITES, mask_sizes=True, device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        port_vm.fit_folds("rna2dna", cfg, tr, va, 0, N_SITES, mesh=object(), device="cpu")
+    # the one refusal left is JAX's; a mesh of one device is the plain population
+    alone = port_vm.fit_folds("rna2dna", cfg, tr, va, 0, N_SITES, num_epochs=1, device="cpu")
+    meshed = port_vm.fit_folds("rna2dna", cfg, tr, va, 0, N_SITES, num_epochs=1,
+                               mesh=make_mesh(), device="cpu")
+    for a, b in zip(alone, meshed):
+        np.testing.assert_array_equal(a.val_losses, b.val_losses)
     with pytest.raises(ValueError, match="no such state entry"):
         port_vm.fit_folds("rna2dna", cfg, tr, va, 0, N_SITES, num_epochs=1, device="cpu",
                           state_overrides={"kl_on": np.ones(3, np.float32)})
@@ -443,8 +448,9 @@ def test_predict_in_chunks_gives_the_rows_of_one_call(cohort):
                                compute_dtype="bfloat16", device="cpu")
     assert bf16.dtype == torch.float32 and not torch.equal(bf16, want)
     torch.testing.assert_close(bf16, want, rtol=0.05, atol=0.05)
-    with pytest.raises(ValueError, match="mesh"):
-        port_engine.predict("rna2dna", params, state, table, mesh=object(), device="cpu")
+    # a mesh of one device serves as the single call (parallel tests: several)
+    assert torch.equal(port_engine.predict("rna2dna", params, state, table, seed=3,
+                                           mesh=make_mesh(), device="cpu"), want)
     with pytest.raises(ValueError, match="chunk_size"):
         port_engine.predict("rna2dna", params, state, table, chunk_size=0, device="cpu")
 

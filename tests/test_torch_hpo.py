@@ -47,6 +47,7 @@ from vae_los_angeles_torch.models import vae as port_vae
 from vae_los_angeles_torch.ops import losses as port_losses
 from vae_los_angeles_torch.ops import optim as port_optim
 from vae_los_angeles_torch.parallel import vmap_meta as port_vm
+from vae_los_angeles_torch.parallel.sharding import make_mesh
 from vae_los_angeles_torch.training import checkpoint as port_ckpt
 from vae_los_angeles_torch.training import cli as port_cli
 from vae_los_angeles_torch.training import engine as port_engine
@@ -515,9 +516,11 @@ def test_fit_trials_refusals(split):
     with pytest.raises(ValueError, match="mask_sizes=True is not ported"):
         port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, mask_sizes=True,
                            device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, mesh=object(),
-                           device="cpu")
+    # the mesh refusal is gone: a mesh of one device trains the plain population
+    meshed = port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, num_epochs=1,
+                                mesh=make_mesh(), device="cpu")
+    for a, b in zip(first, meshed):
+        np.testing.assert_array_equal(a.val_losses, b.val_losses)
     with pytest.raises(ValueError, match="hp_population keys"):
         port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, {"patience": [1]},
                            device="cpu")

@@ -14,6 +14,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_los_angeles_torch"
 CARD_TESTS = REPO / "tests" / "test_torch_kernels_cuda.py"
+RANK_PROGRAMS = REPO / "tests" / "torch_parallel_ranks.py"
 BLOCKED = ("jax", "jaxlib", "sklearn", "pandas", "matplotlib", "plotly", "optuna", "pyarrow",
            "kagglehub", "vae_los_angeles_tpu")
 SLICE_MODULES = sorted(
@@ -36,6 +37,12 @@ CLUSTERING_MODULES = ("ops.cluster_metrics", "evaluation.tables", "evaluation.pl
                       "evaluation.clustering.cluster_imputation_methods")
 
 
+# the multi-device modules: the process group, the mesh and sharded step, the
+# row-sharded evaluation programs, the dry run
+PARALLEL_MODULES = ("parallel.comm", "parallel.sharding", "parallel.sharded_eval",
+                    "parallel.dryrun")
+
+
 # the shell entry points, the pandas-free artifacts, checkpoint migration and
 # the data preparation
 SHELL_MODULES = ("data.artifacts", "data.prepare_data", "data.prepare_dna",
@@ -56,9 +63,26 @@ def test_slice_modules_listed():
                  "evaluation.mlp_classifier", "evaluation.downstream",
                  "evaluation.downstream_directional", *CLUSTERING_MODULES):
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    for name in SHELL_MODULES:
+    for name in SHELL_MODULES + PARALLEL_MODULES:
         assert f"vae_los_angeles_torch.{name}" in SLICE_MODULES
-    assert len(SLICE_MODULES) >= 72
+    assert len(SLICE_MODULES) >= 76
+
+
+def test_parallel_rank_programs_import_without_jax():
+    """The programs the multi-device tests spawn (``tests/torch_parallel_ranks.py``)
+    run in processes without jax or the JAX package, as on the card's machine."""
+    code = "\n".join([
+        "import importlib.util, sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        f"spec = importlib.util.spec_from_file_location('ranks', {str(RANK_PROGRAMS)!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "import vae_los_angeles_torch.parallel.dryrun",
+        "print('imported')",
+    ])
+    proc = run(["-c", code], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
 
 
 def test_port_and_chip_smoke_import_without_jax_sklearn_pandas_matplotlib():

@@ -373,6 +373,20 @@ def test_loss_kernels_match_plain_versions(batch, width, offsets, cuda_device):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
+def test_loss_pair_takes_an_empty_batch(cuda_device):
+    """A data-parallel rank's share of a batch smaller than the rank count
+    has no rows: the loss is 0 and its gradients empty, with no launch."""
+    logits = torch.zeros(0, 53, device=cuda_device, requires_grad=True)
+    mu = torch.zeros(0, LATENT, device=cuda_device, requires_grad=True)
+    lv = torch.zeros(0, LATENT, device=cuda_device, requires_grad=True)
+    before = dict(fl.launches)
+    val = fl.rna2dna_loss_fused(logits, torch.zeros(0, 53, device=cuda_device), mu, lv,
+                                torch.tensor(2e-3, device=cuda_device))
+    grads = torch.autograd.grad(val, (logits, mu, lv))
+    assert float(val) == 0.0 and [g.shape for g in grads] == [(0, 53), (0, LATENT), (0, LATENT)]
+    assert fl.launches == before
+
+
 def test_loss_forward_gives_the_same_bits_every_call(cuda_device):
     logits, t, mu, lv = loss_inputs(cuda_device, 67, 100_003, (1, 1), seed=4)
     beta = torch.tensor(2e-3, device=cuda_device)

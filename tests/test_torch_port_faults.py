@@ -17,7 +17,8 @@ widths on the CPU, and the tri-modal epoch graph's argument buffer.
 * The kNN baselines and the t-SNE have no host route: the JAX package's
   resolvers send a CPU host, or ``EVAL_BACKEND=sklearn``, to sklearn, which
   the card's machine lacks; the port's resolvers return its own classes
-  whatever ``EVAL_BACKEND`` says, and ``shard=True`` (multi-device) raises.
+  whatever ``EVAL_BACKEND`` says, and ``shard=True`` on a single rank raises
+  with the JAX package's message.
 * ``fused_epoch.epoch_args``: the layout the CUDA graph reads (struct
   EpochArgs of ``csrc/fused_train.cu``), its bias corrections those of the
   directional epochs' host loop, ``(float)(1 - pow((double)β, t))`` computed
@@ -212,5 +213,5 @@ def test_knn_and_tsne_refuse_shard_true():
                  lambda: knn.knn_grid_mse(x, x, x, x, (5,), ("uniform",), shard=True,
                                           device="cpu"),
                  lambda: tsne.TSNE(perplexity=3.0, shard=True, device="cpu").fit_transform(x)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(ValueError, match="shard=True requires more than one visible device"):
             call()

@@ -21,7 +21,11 @@ and names so each counterpart is found at the same place:
     ``utils.torch_import`` the reference ``.pt`` import/export,
     ``utils.profiling`` the timers and the profiler trace, ``utils.native``
     the data preparation's C++ pivot;
-  * ``parallel.vmap_meta`` — the CV fold and HPO trial populations;
+  * ``parallel`` — the CV fold and HPO trial populations (``vmap_meta``)
+    and the multi-device port: the process group and its collectives
+    (``comm``, one process a device), the ("data", "model") mesh with data-
+    and tensor-parallel training (``sharding``), the row-sharded evaluation
+    programs (``sharded_eval``) and the dry run (``dryrun``);
   * ``training`` — the ``.npz`` + run-id + resume protocol, shared with the
     JAX package byte for byte; the tasks, the engine and the CLI;
   * ``evaluation`` — model loading, the directional imputation comparison

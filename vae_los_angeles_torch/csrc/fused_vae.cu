@@ -14,8 +14,10 @@
 // Noise modes: NOISE_NONE gives z = mu; NOISE_EPS reads an injected (B, L)
 // eps; NOISE_PHILOX draws eps by Box-Muller on (0, 1] uniforms from
 // Philox4x32-10 keyed by the 64-bit seed, with the counter (global row,
-// latent index, 0, 0), so a row's noise does not depend on the batch it is
-// served in nor on the tiling (ops/kernels/fused_vae.philox_normal_reference
+// latent index, 0, 0), the global row being the call's row0 plus the row
+// within the call (a rank serving rows [row0, row0 + batch) of a sharded
+// cohort draws what the whole cohort's call draws for them), so a row's
+// noise does not depend on the batch it is served in nor on the tiling (ops/kernels/fused_vae.philox_normal_reference
 // is the same draw in plain PyTorch).
 //
 // What bounds it on an H100: ~0.9 MFLOP a row against ~3.7 MB of weights at
@@ -649,7 +651,8 @@ __device__ void trunk_first_partials(const float* __restrict__ part, int splits,
 // 0 writes mu and logvar of the valid rows.
 __device__ void posterior(const Model& m, float* sm, const TrunkSmem& p, int rb, int row0,
                           int rows_valid, bool has_site, int noise, const float* __restrict__ eps,
-                          uint64_t seed, float* mu_out, float* lv_out, bool write_out) {
+                          uint64_t seed, long long row_base, float* mu_out, float* lv_out,
+                          bool write_out) {
     const int L = m.latent, Lp = pad4(L);
     for (int i = threadIdx.x; i < rb * Lp; i += blockDim.x) {
         const int r = i / Lp, j = i - r * Lp;
@@ -669,7 +672,7 @@ __device__ void posterior(const Model& m, float* sm, const TrunkSmem& p, int rb,
             if (noise == NOISE_EPS) {
                 z = reparameterize(mm, v, eps[g]);
             } else if (noise == NOISE_PHILOX) {
-                z = reparameterize(mm, v, philox_normal(seed, row0 + r, j));
+                z = reparameterize(mm, v, philox_normal(seed, (int)(row_base + row0 + r), j));
             }
         }
         sm[p.z + i] = z;
@@ -686,7 +689,8 @@ __global__ void __launch_bounds__(TRUNK_THREADS, 1)
 trunk_kernel(Model m, Plan p, const PieceTable* __restrict__ tables,
              const float* __restrict__ x, const int64_t* __restrict__ site,
              const float* __restrict__ eps, int has_site, int noise, uint64_t seed,
-             const float* __restrict__ part, float* __restrict__ hid, float* __restrict__ recon,
+             long long row_base, const float* __restrict__ part, float* __restrict__ hid,
+             float* __restrict__ recon,
              float* __restrict__ mu_out, float* __restrict__ lv_out) {
     cg::cluster_group cluster = cg::this_cluster();
     extern __shared__ float4 smem4[];
@@ -739,8 +743,8 @@ trunk_kernel(Model m, Plan p, const PieceTable* __restrict__ tables,
     }
     run_pieces(ends[PH_L1], ends[PH_HEADS], cc, st, red, cluster);
     cluster.sync();
-    posterior(m, sm, L, rb, row0, rows_valid, has_site != 0, noise, eps, seed, mu_out, lv_out,
-              rank == 0);
+    posterior(m, sm, L, rb, row0, rows_valid, has_site != 0, noise, eps, seed, row_base, mu_out,
+              lv_out, rank == 0);
     run_pieces(ends[PH_HEADS], ends[PH_D0], cc, st, red, cluster);
     if (m.n_dec > 2) {
         cluster.sync();
@@ -873,11 +877,13 @@ cudaError_t launch_sweep(bool aligned, dim3 grid, cudaStream_t stream, const flo
 int forward(bool rna2dna, const Model* m, const Plan* p, const void* tables, const float* x,
             const int64_t* site,
             const float* eps, float* recon, float* mu, float* logvar, float* part, float* hid,
-            int batch, int has_site, int noise_mode, unsigned long long seed, void* stream) {
+            int batch, int has_site, int noise_mode, unsigned long long seed, long long row0,
+            void* stream) {
     if (m == nullptr || p == nullptr || tables == nullptr || (m->n_enc == 1) != rna2dna ||
         batch <= 0 || batch > p->batch ||
         (has_site && site == nullptr) || (noise_mode == NOISE_EPS && eps == nullptr) ||
-        noise_mode < NOISE_NONE || noise_mode > NOISE_EPS || (p->in_sweep && part == nullptr) ||
+        noise_mode < NOISE_NONE || noise_mode > NOISE_EPS || row0 < 0 ||
+        row0 + batch > 2147483647LL || (p->in_sweep && part == nullptr) ||
         (p->out_sweep && hid == nullptr) || p->rows < 1 ||
         p->slot_f < 64 || p->slot_f % 4 != 0 ||
         (size_t)p->trunk_smem != sizeof(float) * (size_t)trunk_smem(*m, p->rows, p->slot_f).total ||
@@ -914,7 +920,7 @@ int forward(bool rna2dna, const Model* m, const Plan* p, const void* tables, con
     err = cudaLaunchKernelEx(&cfg, trunk_kernel, *m, q,
                              reinterpret_cast<const PieceTable*>(tables), x, site, eps, has_site,
                              noise_mode,
-                             (uint64_t)seed, (const float*)part, hid, recon, mu, logvar);
+                             (uint64_t)seed, row0, (const float*)part, hid, recon, mu, logvar);
     if (err != cudaSuccess) return (int)err;
 
     if (p->out_sweep) {
@@ -979,7 +985,9 @@ int fused_vae_tables(const Model* m, const Plan* p, int has_site, void* out, lon
 int fused_vae_table_bytes(void) { return (int)sizeof(PieceTable); }
 
 // tables: the plan's piece tables on the card (fused_vae_tables, for this
-// call's has_site); batch: the call's rows, 1 to p->batch; x (batch, in) f32; site (batch,) int64 or null; eps (batch, latent) f32 or
+// call's has_site); batch: the call's rows, 1 to p->batch; row0: the global
+// row of the call's first row, for the drawn noise (0 for a whole cohort);
+// x (batch, in) f32; site (batch,) int64 or null; eps (batch, latent) f32 or
 // null; outputs recon (batch, out), mu and logvar (batch, latent); part
 // (in_splits, batch, pad4(en[0])) f32 with p->in_sweep, else null; hid
 // (batch, pad4(last hidden)) f32 with p->out_sweep, else null. Returns a
@@ -988,18 +996,18 @@ int rna2dna_fused_forward(const Model* m, const Plan* p, const void* tables, con
                           const int64_t* site,
                           const float* eps, float* recon, float* mu, float* logvar, float* part,
                           float* hid, int batch, int has_site, int noise_mode,
-                          unsigned long long seed, void* stream) {
+                          unsigned long long seed, long long row0, void* stream) {
     return forward(true, m, p, tables, x, site, eps, recon, mu, logvar, part, hid, batch,
-                   has_site, noise_mode, seed, stream);
+                   has_site, noise_mode, seed, row0, stream);
 }
 
 int dna2rna_fused_forward(const Model* m, const Plan* p, const void* tables, const float* x,
                           const int64_t* site,
                           const float* eps, float* recon, float* mu, float* logvar, float* part,
                           float* hid, int batch, int has_site, int noise_mode,
-                          unsigned long long seed, void* stream) {
+                          unsigned long long seed, long long row0, void* stream) {
     return forward(false, m, p, tables, x, site, eps, recon, mu, logvar, part, hid, batch,
-                   has_site, noise_mode, seed, stream);
+                   has_site, noise_mode, seed, row0, stream);
 }
 
 const char* fused_vae_error_string(int err) {

@@ -29,6 +29,7 @@ import pickle
 import numpy as np
 
 from vae_los_angeles_torch.evaluation import tables
+from vae_los_angeles_torch.parallel import comm
 
 ARTIFACTS = ("processed_data.pkl", "label_encoder.pkl", "rna_only_unmatched.pkl",
              "dna_only_unmatched.pkl", "feature_names.pkl")
@@ -78,6 +79,7 @@ def table_from_frame(frame) -> dict:
     return out
 
 
+@comm.writes_files
 def write_pickle(path, obj):
     """Pickle ``obj`` (a table as it is: the port's dict, or a DataFrame read
     from the JAX package's files) at ``path``."""

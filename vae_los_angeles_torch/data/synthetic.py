@@ -26,6 +26,7 @@ import numpy as np
 
 from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.data.splits import LabelCodes
+from vae_los_angeles_torch.parallel import comm
 
 SITE_NAMES = [
     "Breast", "Lung", "Kidney", "Brain", "Colon", "Prostate", "Thyroid",
@@ -128,6 +129,7 @@ def write_synthetic_artifacts(data_dir: str = "data", n_samples: int = 1024, dim
     return matched, label_encoder
 
 
+@comm.writes_files
 def ensure_synthetic_artifacts(data_dir: str, target_pkl: str = None, dim_a: int = 1177,
                                dim_b: int = 1211) -> bool:
     """The ``--synthetic`` bootstrap of the training and HPO CLIs: nothing
@@ -136,7 +138,8 @@ def ensure_synthetic_artifacts(data_dir: str, target_pkl: str = None, dim_a: int
     ``data_dir`` and moved without overwriting (the requested pickle, then
     each other file only where it is missing), so real artifacts beside a
     missing custom ``target_pkl`` stay as they are. Returns True when it
-    wrote artifacts."""
+    wrote artifacts (on the writing rank of a process group; None on the
+    others, which wait for it)."""
     target_pkl = target_pkl or os.path.join(data_dir, "processed_data.pkl")
     if os.path.exists(target_pkl):
         return False

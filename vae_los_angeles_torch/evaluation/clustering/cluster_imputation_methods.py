@@ -12,7 +12,11 @@ reduction, scores and plots of `cluster_reconstructed` run for each
 feature shape, so they run as one population (`analyze_cohort_grouped`:
 every stage over a member axis, one member as well as three);
 ``CLUSTER_VMAP`` and ``EVAL_BACKEND`` are not read. `analyze_samples` is
-the plain per-method function the population is tested against.
+the plain per-method function the population is tested against. Under a
+process group of two or more ranks the main takes `analyze_samples` a
+method instead, as the JAX main does on several devices: its metric passes
+and t-SNE row-shard over the ranks (``parallel.sharded_eval``), where the
+population would hold every member's n² state on each device.
 
 The kNN imputers are the port's (`ops.knn.KNNRegressor`,
 ``ConditionedKNNRegressor``), on the card unless the CPU is asked for.
@@ -40,6 +44,8 @@ from vae_los_angeles_torch.evaluation.clustering.common import (analyze_cohort_p
                                                                 plot_clusters_2d,
                                                                 prepare_features)
 from vae_los_angeles_torch.ops.knn import ConditionedKNNRegressor, KNNRegressor
+from vae_los_angeles_torch.parallel import comm
+from vae_los_angeles_torch.parallel.vmap_meta import population_mesh
 from vae_los_angeles_torch.training import checkpoint
 
 
@@ -267,6 +273,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None):
     """The three methods on both unmatched cohorts; returns the scored
     (method, cohort) result dicts, or None without unmatched samples."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     run_timestamp = checkpoint.new_run_id()
     print("=" * 80)
@@ -290,8 +297,12 @@ def main(cfg: Optional[Config] = None, data=None, device=None):
                    if dna_imp is not None and tables.n_rows(dna_imp) > 0
                    and tables.has(dna_imp, "primary_site")]
     results = []
+    per_method = population_mesh() is not None
     for entries, sample_type in ((rna_entries, "RNA-only"), (dna_entries, "DNA-only")):
-        if entries:
+        if entries and per_method:
+            results.extend(analyze_samples(df, label_encoder, run_timestamp, name, sample_type,
+                                           cfg.plots_dir, device) for name, df in entries)
+        elif entries:
             results.extend(analyze_cohort_grouped(entries, label_encoder, run_timestamp,
                                                   sample_type, cfg.plots_dir, device))
     print("\nVisualization analysis complete!")

@@ -34,6 +34,7 @@ from vae_los_angeles_torch.evaluation.clustering.common import (cluster_scores,
                                                                 perform_dimensionality_reduction,
                                                                 plot_clusters_2d,
                                                                 prepare_features)
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training import checkpoint
 
 COHORTS = (("RNA-only", ["tpm_unstranded", "reconstructed_beta_value"]),
@@ -110,6 +111,7 @@ def analyze_cohort(df, label_encoder, cohort_name, feature_columns, run_timestam
     return {"cohort": cohort_name, "n_samples": tables.n_rows(df), **scores}
 
 
+@comm.writes_files
 def write_summary_report(results, run_timestamp, plots_dir="plots"):
     """Text summary report (reference :375-420)."""
     out_dir = os.path.join(plots_dir, "clustering")
@@ -152,6 +154,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None):
     reads the latest pickles. Returns the cohorts' result dicts (None for a cohort that was
     not scored)."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     run_timestamp = checkpoint.new_run_id()
     print("=" * 80)

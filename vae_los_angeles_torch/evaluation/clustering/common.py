@@ -25,6 +25,7 @@ from vae_los_angeles_torch.ops.knn import _to_device
 from vae_los_angeles_torch.ops.pca import (PCA, _pca_gram, pca_scores_members, standardize,
                                            standardize_members)
 from vae_los_angeles_torch.ops.tsne import TSNE, tsne_fit_transform_members
+from vae_los_angeles_torch.parallel import comm
 
 # Short labels for the 24 TCGA primary sites (reference
 # cluster_imputation_methods.py:34-59)
@@ -127,6 +128,7 @@ def analyze_cohort_population(features_list, labels, n_components: int = 2,
     return [(pca2_host[i], tsne2[i], _score_dict(*(s[i] for s in scores))) for i in range(m)]
 
 
+@comm.writes_files
 def plot_clusters_2d(features_2d, labels, title, filename, label_encoder=None, figsize=(12, 10),
                      marker_size=50, alpha=0.7):
     """Scatter plot of a 2-D embedding coloured by primary site."""

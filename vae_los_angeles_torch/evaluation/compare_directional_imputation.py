@@ -33,6 +33,7 @@ from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
 from vae_los_angeles_torch.evaluation.plotting import plotly_go, pyplot
 from vae_los_angeles_torch.ops.knn import KNNRegressor
 from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training import checkpoint
 
 
@@ -62,6 +63,7 @@ def compute_metrics(y_true, y_pred, modality_name, model_name, device=None):
     return rec
 
 
+@comm.writes_files
 def plot_comparison(rna_true, dna_true, dna_vae, rna_vae, dna_mean, rna_mean, dna_knn, rna_knn,
                     output_dir, n_samples=3, seed=42):
     """True against predicted values of a few samples, VAE and kNN, both
@@ -92,6 +94,7 @@ def plot_comparison(rna_true, dna_true, dna_vae, rna_vae, dna_mean, rna_mean, dn
         plt.close(fig)
 
 
+@comm.writes_files
 def plot_correlation_distributions(dna_metrics, rna_metrics, output_dir):
     """The two VAEs' per-sample Pearson histograms →
     ``pearson_distributions.png``."""
@@ -111,6 +114,7 @@ def plot_correlation_distributions(dna_metrics, rna_metrics, output_dir):
     plt.close(fig)
 
 
+@comm.writes_files
 def create_interactive_plot(results, output_dir):
     """Bars of each metric by modality and model →
     ``interactive_comparison.html`` (plotly)."""
@@ -131,6 +135,7 @@ def create_interactive_plot(results, output_dir):
     print(f"Interactive plot saved to {filename}")
 
 
+@comm.writes_files
 def save_results(results, output_dir):
     """``comparison_results.csv`` and ``.json``; keys starting with ``_``
     stay out."""
@@ -156,6 +161,7 @@ def main(cfg: Optional[Config] = None, data=None, root: str = ".", device=None):
     ``cfg.platform == "cpu"`` asks for the CPU. Returns the records, or
     None when no model loads."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     output_dir = os.path.join(cfg.plots_dir, f"directional_comparison_{checkpoint.new_run_id()}")
     os.makedirs(output_dir, exist_ok=True)

@@ -21,6 +21,7 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.data import artifacts
 from vae_los_angeles_torch.evaluation import tables
 from vae_los_angeles_torch.evaluation.plotting import pyplot
+from vae_los_angeles_torch.parallel import comm
 
 PLOTS = (
     # (matrix, highest, title, y label, x label, file)
@@ -35,6 +36,7 @@ PLOTS = (
 )
 
 
+@comm.writes_files
 def _variance_boxplot(matrix, names, idx, title, ylabel, xlabel, filename):
     plt = pyplot()
     if plt is None:

@@ -44,7 +44,7 @@ from vae_los_angeles_torch.data.splits import cv_inner_split, kfold_indices
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops.knn import KNNRegressor
 from vae_los_angeles_torch.ops.metrics import METRIC_NAMES, compute_cv_metrics
-from vae_los_angeles_torch.parallel import vmap_meta
+from vae_los_angeles_torch.parallel import comm, vmap_meta
 from vae_los_angeles_torch.training import engine
 
 DIRECTIONS = ("RNA -> DNA", "DNA -> RNA")
@@ -230,7 +230,7 @@ def run_cross_validation(X, y, site, k_values, fold_indices, direction_name, mod
                 rna_all, dna_all, site, fold_indices, batch_size, device)
             fits = vmap_meta.fit_folds(task_name, cfg, inner_train, inner_val, seed,
                                        int(site.max() + 1), num_epochs=param, drop_last=False,
-                                       device=device)
+                                       mesh=vmap_meta.population_mesh(), device=device)
             fold_metrics = _score_folds(task_name, fits, outer_val, is_rna2dna, cfg, device)
         elapsed = time.time() - start_time
         results.append(_aggregate_sweep(direction_name, model_type, param_name, param, elapsed,
@@ -257,7 +257,8 @@ def run_unified_direction(X, y, site, fold_indices, direction_name, epochs=10, b
         fits = vmap_meta.fit_folds(
             task_name, cfg, inner_train, inner_val, seed, int(site.max() + 1),
             num_epochs=epochs, drop_last=False, seeds=vmap_meta.member_seeds(seed, n_folds),
-            state_overrides={"kl_on": np.full(n_folds, kl_on, np.float32)}, device=device)
+            state_overrides={"kl_on": np.full(n_folds, kl_on, np.float32)},
+            mesh=vmap_meta.population_mesh(), device=device)
         family_metrics[family] = _score_folds(task_name, fits, outer_val, is_rna2dna, cfg,
                                               device)
     elapsed = time.time() - start_time
@@ -355,6 +356,7 @@ def perform_statistical_comparison(results, metric="Mean R2"):
     return tests
 
 
+@comm.writes_files
 def create_plotly_plots(results, output_dir="plots/plotly"):
     """Per-metric boxplots of the tidy rows, one trace a direction (the
     reference's artifact names: cv_results_{metric}.html)."""
@@ -403,6 +405,7 @@ def main(argv=None, data=None, device=None):
     Runs on the card unless ``device="cpu"`` or ``DEVICE=cpu``. Returns the
     result records in the report's order."""
     args = parse_args(argv)
+    comm.ensure_group(device, Config.from_env())
     device = resolve_device(device, Config.from_env())
     if data is None:
         rna_data, dna_data, site_data = load_data(args.data_path, args.subset)

@@ -48,6 +48,7 @@ from vae_los_angeles_torch.evaluation.mlp_classifier import (fit_classifier, fit
                                                              predict_classes,
                                                              predict_classes_folds)
 from vae_los_angeles_torch.ops.metrics import classification_report
+from vae_los_angeles_torch.parallel import comm
 
 DEEP = dict(arch="deep", num_epochs=100, batch_size=32, lr=1e-3, weight_decay=1e-4,
             early_stop=True)
@@ -181,6 +182,7 @@ def run_scenarios_grouped(scenarios, labels, n_classes, le_new, n_folds=5, seed=
     return {name: metrics_dict[name] for name in names}
 
 
+@comm.writes_files
 def plot_comparison(metrics_dict, run_id=None, out_subdir="downstream_task", plots_dir="plots"):
     """Grouped bars of accuracy and the weighted precision, recall and F1 by
     scenario."""
@@ -211,6 +213,7 @@ def plot_comparison(metrics_dict, run_id=None, out_subdir="downstream_task", plo
     print(f"Comparison plot saved to {path}")
 
 
+@comm.writes_files
 def plot_per_tissue_comparison(metrics_dict, le_new, run_id=None, out_subdir="downstream_task",
                                plots_dir="plots"):
     """Two panels of per-class F1 by scenario."""
@@ -284,6 +287,7 @@ def main(cfg: Optional[Config] = None, n_folds: int = 5, data=None, device=None,
     ``cfg.data_dir``'s pickle. Runs on the card unless ``device="cpu"`` or
     ``DEVICE=cpu``. Returns {scenario: aggregated report}."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     vae_model = load_multimodal(cfg=cfg, root=root, device=device)
     if vae_model is None:

@@ -38,6 +38,7 @@ from vae_los_angeles_torch.evaluation.mlp_classifier import (fit_classifier, fit
                                                              predict_classes,
                                                              predict_classes_folds)
 from vae_los_angeles_torch.ops.metrics import classification_report, format_report
+from vae_los_angeles_torch.parallel import comm
 
 SHALLOW = dict(arch="shallow", num_epochs=20, batch_size=32, lr=1e-3, weight_decay=0.0,
                early_stop=False)
@@ -111,6 +112,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None, root: str = "."):
     ``DEVICE=cpu``. Returns {scenario: report}, or None when a model is
     missing."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     rna2dna_model = load_rna2dna(cfg=cfg, root=root, device=device)
     dna2rna_model = load_dna2rna(cfg=cfg, root=root, device=device)

@@ -36,6 +36,7 @@ from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.evaluation.loading import LoadedMultiModalVAE, load_multimodal
 from vae_los_angeles_torch.evaluation.plotting import pyplot
 from vae_los_angeles_torch.ops.metrics import compute_imputation_metrics, pearson_per_sample
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training import checkpoint
 
 
@@ -88,6 +89,7 @@ def evaluate_model(model: LoadedMultiModalVAE, tpm: np.ndarray, beta: np.ndarray
     return records, est_dna, est_rna
 
 
+@comm.writes_files
 def plot_reconstruction_examples(tpm, beta, est_rna, est_dna, plots_dir="plots", n_samples=3,
                                  seed=42):
     """True against reconstructed values of a few validation samples →
@@ -118,6 +120,7 @@ def plot_reconstruction_examples(tpm, beta, est_rna, est_dna, plots_dir="plots",
         print(f"Reconstruction example saved to {path}")
 
 
+@comm.writes_files
 def plot_correlation_distributions(tpm, beta, est_rna, est_dna, plots_dir="plots"):
     """Per-sample Pearson histograms of both directions →
     ``pearson_distributions.png``."""
@@ -144,6 +147,13 @@ def plot_correlation_distributions(tpm, beta, est_rna, est_dna, plots_dir="plots
     print(f"Correlation distributions saved to {path}")
 
 
+@comm.writes_files
+def _write_json(path, obj):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
 def main(cfg: Optional[Config] = None, output_path: Optional[str] = None, data=None,
          device=None, root: str = "."):
     """Evaluate the latest tri-modal run (its run-id file in ``root``) and
@@ -160,9 +170,7 @@ def main(cfg: Optional[Config] = None, output_path: Optional[str] = None, data=N
             f"Cosine={rec['CosineSimilarity']:.4f} Pearson r={rec['PearsonMean']:.4f}"
         )
     output_path = output_path or os.path.join(cfg.plots_dir, "evaluation_results.json")
-    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
-    with open(output_path, "w") as f:
-        json.dump({"run_id": run_id, "results": results}, f, indent=2)
+    _write_json(output_path, {"run_id": run_id, "results": results})
     print(f"Evaluation results saved to {output_path}")
     return results
 

@@ -65,7 +65,7 @@ from vae_los_angeles_torch.data.dataset import MultiModalDataset
 from vae_los_angeles_torch.data.splits import train_val_indices
 from vae_los_angeles_torch.data.synthetic import ensure_synthetic_artifacts
 from vae_los_angeles_torch.device import resolve_device
-from vae_los_angeles_torch.parallel import vmap_meta
+from vae_los_angeles_torch.parallel import comm, vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.cli import compute_class_weights, load_data
 from vae_los_angeles_torch.training.tasks import get_task
@@ -209,7 +209,8 @@ def run_vmapped(cfg, trials, train_arrays, val_arrays, n_sites, class_weights, n
                 task_name, bucket_cfg, train_arrays, val_arrays, seed, n_sites,
                 {k: v[live] for k, v in pop.items()}, num_epochs=rung_epochs,
                 class_weights=class_weights, carry0=carry, start_epoch=offset,
-                seeds=[seeds[j] for j in live], device=device)
+                seeds=[seeds[j] for j in live], mesh=vmap_meta.population_mesh(),
+                device=device)
             best = np.asarray([trial.best_val_loss for trial in res])
             for j, pos in enumerate(live):
                 values[idxs[pos]] = float(best[j])
@@ -360,6 +361,12 @@ def parse_args(argv=None):
     return args
 
 
+@comm.writes_files
+def _write_json(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
 def main(argv=None, data=None, device=None, cfg: Optional[Config] = None):
     """The search, the JSON and the retrained checkpoint; returns
     (best_params, best_value). ``data`` is (tpm, beta, site) arrays; None
@@ -368,6 +375,7 @@ def main(argv=None, data=None, device=None, cfg: Optional[Config] = None):
     Runs on the card unless ``device="cpu"`` or ``DEVICE=cpu``."""
     args = parse_args(argv)
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     if args.synthetic and data is None:
@@ -406,8 +414,8 @@ def main(argv=None, data=None, device=None, cfg: Optional[Config] = None):
         best_params, best_value = dict(study.best_params), float(study.best_value)
 
     print(f"\nBest hyperparameters (val_loss={best_value:.2f}): {best_params}")
-    with open("best_hyperparameters.json", "w") as f:
-        json.dump({"best_params": best_params, "best_value": best_value}, f, indent=2)
+    _write_json("best_hyperparameters.json", {"best_params": best_params,
+                                              "best_value": best_value})
     print("Saved best_hyperparameters.json")
 
     print("\nRetraining final model with best hyperparameters...")

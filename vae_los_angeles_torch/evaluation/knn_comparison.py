@@ -34,6 +34,7 @@ from vae_los_angeles_torch.evaluation.plotting import plotly_go as _plotly_go
 from vae_los_angeles_torch.evaluation.plotting import pyplot as _pyplot
 from vae_los_angeles_torch.ops.knn import ConditionedKNNRegressor, KNNRegressor, knn_grid_mse
 from vae_los_angeles_torch.ops.tsne import TSNE
+from vae_los_angeles_torch.parallel import comm
 
 KNN_GRID = {
     "n_neighbors": [5, 10, 20, 50],
@@ -72,6 +73,7 @@ def optimize_knn(X_train, y_train, X_val, y_val, name="KNN", model_class=KNNRegr
     return model_class(**best_params, device=device).fit(X_train, y_train)
 
 
+@comm.writes_files
 def create_boxplots(results, direction, plots_dir="plots"):
     """Per-sample-MSE boxplots, matplotlib and plotly."""
     plt = _pyplot()
@@ -112,9 +114,15 @@ def compute_and_plot_tsne(data, site_labels, title, filename_prefix, plots_dir="
     tsne = TSNE(n_components=2, random_state=42, perplexity=min(30, len(data) - 1),
                 device=device)
     emb = tsne.fit_transform(data)
+    _plot_tsne(emb, site_labels, title, filename_prefix, plots_dir)
+    return emb
+
+
+@comm.writes_files
+def _plot_tsne(emb, site_labels, title, filename_prefix, plots_dir):
     plt = _pyplot()
     if plt is None:
-        return emb
+        return
     site_labels = np.asarray(site_labels)
     out_dir = os.path.join(plots_dir, "comparison")
     os.makedirs(out_dir, exist_ok=True)
@@ -132,7 +140,7 @@ def compute_and_plot_tsne(data, site_labels, title, filename_prefix, plots_dir="
 
     go = _plotly_go()
     if go is None:
-        return emb
+        return
     fig = go.Figure()
     for site in np.unique(site_labels):
         sel = site_labels == site
@@ -140,7 +148,6 @@ def compute_and_plot_tsne(data, site_labels, title, filename_prefix, plots_dir="
                                  marker=dict(size=10, opacity=0.8)))
     fig.update_layout(title=f"t-SNE: {title}", template="plotly_white")
     fig.write_html(os.path.join(out_dir, f"tsne_{filename_prefix}.html"))
-    return emb
 
 
 def _run_direction(direction, X_train, y_train, X_val, y_val, site_train, site_val,

@@ -29,10 +29,18 @@ load (``ops.nn.cast_matmul_params``; fp32 products, fp32 biases and
 BatchNorm), as the JAX loader serves bf16 through its XLA path; the
 directional kernels are fp32 programs, and with ``USE_PALLAS`` set the
 loader says so.
+
+Under a process group of two or more ranks (``vmap_meta.population_mesh``)
+every loaded model serves its rows sharded, as the JAX loader does on
+several devices: every rank calls with the whole cohort, serves its
+contiguous rows (through the fused kernel under ``USE_PALLAS``, with the
+rank's first row as the kernel's ``row0``, so the drawn noise is the
+whole call's), and every rank returns the whole result.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -43,7 +51,10 @@ from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.models.directional_vae import dna2rna_vae_apply, rna2dna_vae_apply
 from vae_los_angeles_torch.models.vae import multimodal_vae_apply
 from vae_los_angeles_torch.ops.kernels.fused_vae import FusedDNA2RNA, FusedRNA2DNA
-from vae_los_angeles_torch.ops.nn import cast_matmul_params, resolve_compute_dtype
+from vae_los_angeles_torch.ops.nn import cast_matmul_params, resolve_compute_dtype, sharded
+from vae_los_angeles_torch.parallel import comm
+from vae_los_angeles_torch.parallel.sharding import ShardContext
+from vae_los_angeles_torch.parallel.vmap_meta import population_mesh
 from vae_los_angeles_torch.training import checkpoint
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
 
@@ -104,20 +115,30 @@ class LoadedDirectionalVAE:
         x = kwargs.get(self._kw)
         if x is None and site is None:
             raise ValueError(f"at least one of {self._kw}/site must be provided")
+        n = len(x if x is not None else site)
+        mesh = population_mesh()
+        lo, hi = (0, n) if mesh is None else mesh.row_range(n)
         if x is not None:
-            x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+            x = torch.as_tensor(np.asarray(x, np.float32)[lo:hi]).to(self.device)
         site_t = None
         if site is not None:
-            site_t = torch.as_tensor(_check_sites(site, self.n_sites)).to(self.device)
+            site_t = torch.as_tensor(_check_sites(site, self.n_sites)[lo:hi]).to(self.device)
+        seed = _seed_of(generator)
         if self._fused is not None and x is not None:
-            recon, mu, logvar = self._fused(x, site_t, seed=_seed_of(generator))
+            rows = {} if mesh is None else {"row0": lo, "rows_total": n}
+            out = self._fused(x, site_t, seed=seed, **rows)
         else:
-            gen = torch.Generator(device=self.device).manual_seed(_seed_of(generator))
-            with torch.no_grad():
-                out = _PLAIN_APPLY[self._kw](*self._plain, site=site_t, train=False,
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            ctx = ShardContext(mesh) if mesh is not None else None
+            if ctx is not None:
+                ctx.set_rows(n)
+            with torch.no_grad(), (sharded(ctx) if ctx else contextlib.nullcontext()):
+                res = _PLAIN_APPLY[self._kw](*self._plain, site=site_t, train=False,
                                              generator=gen, **{self._kw: x})
-            recon, mu, logvar = out.recon, out.mu, out.logvar
-        return recon.cpu().numpy(), mu.cpu().numpy(), logvar.cpu().numpy()
+            out = res.recon, res.mu, res.logvar
+        if mesh is not None:
+            out = [comm.all_gather_rows(t, mesh.row_counts(n)) for t in out]
+        return tuple(t.cpu().numpy() for t in out)
 
 
 class LoadedMultiModalVAE:
@@ -133,17 +154,26 @@ class LoadedMultiModalVAE:
     def __call__(self, a=None, b=None, site=None, generator: Optional[torch.Generator] = None):
         """Any subset of RNA ``a``, DNA ``b`` and ``site``; z is sampled
         from a device generator seeded from ``generator`` (`_seed_of`)."""
+        given = [t for t in (a, b, site) if t is not None]
+        n = len(given[0]) if given else 0
+        mesh = population_mesh()
+        lo, hi = (0, n) if mesh is None else mesh.row_range(n)
         to = lambda x: None if x is None else torch.as_tensor(  # noqa: E731
-            np.asarray(x, np.float32)).to(self.device)
+            np.asarray(x, np.float32)[lo:hi]).to(self.device)
         site_t = None
         if site is not None:
-            site_t = torch.as_tensor(_check_sites(site, self.n_sites)).to(self.device)
+            site_t = torch.as_tensor(_check_sites(site, self.n_sites)[lo:hi]).to(self.device)
         gen = torch.Generator(device=self.device).manual_seed(_seed_of(generator))
-        with torch.no_grad():
+        ctx = ShardContext(mesh) if mesh is not None else None
+        if ctx is not None:
+            ctx.set_rows(n)
+        with torch.no_grad(), (sharded(ctx) if ctx else contextlib.nullcontext()):
             out = multimodal_vae_apply(self.params, self.state, a=to(a), b=to(b), site=site_t,
                                        train=False, generator=gen)
-        return tuple(t.cpu().numpy() for t in (out.out_a, out.out_b, out.out_c, out.mu,
-                                                out.logvar))
+        out = (out.out_a, out.out_b, out.out_c, out.mu, out.logvar)
+        if mesh is not None:
+            out = [comm.all_gather_rows(t, mesh.row_counts(n)) for t in out]
+        return tuple(t.cpu().numpy() for t in out)
 
 
 def _read(model_name, label, run_id, cfg, root, device):

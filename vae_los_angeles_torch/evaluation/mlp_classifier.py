@@ -39,7 +39,8 @@ products).
 
 Not read, as they change no result: ``DOWNSTREAM_DIM_BUCKET`` and
 ``feature_bucket``'s column padding, ``EVAL_BUCKET``'s row buckets (both
-save XLA compilations), ``DOWNSTREAM_SHARD`` (one card). A population's
+save XLA compilations), ``DOWNSTREAM_SHARD`` (under a process group the
+members always shard, `fit_classifier_folds`). A population's
 members share one feature width; the callers group by exact width. The
 refusal of an input wider than the trained width is kept (`_pad_cols`).
 
@@ -59,7 +60,9 @@ import torch
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops import optim
 from vae_los_angeles_torch.ops.nn import dropout_apply, layernorm_apply, linear_apply, per_member
-from vae_los_angeles_torch.parallel.vmap_meta import _stack, _take
+from vae_los_angeles_torch.parallel import comm
+from vae_los_angeles_torch.parallel.vmap_meta import (_pad_population, _rank_slice, _stack, _take,
+                                                      population_mesh)
 from vae_los_angeles_torch.training.engine import epoch_noise
 from vae_los_angeles_torch.utils.tree import tree_map
 from vae_los_angeles_torch.utils.weights import tree_from_numpy, tree_to_numpy
@@ -330,11 +333,33 @@ def fit_classifier_folds(folds: Sequence, n_classes: int, *, arch: str = "deep",
     class_weights)`` tuples of one feature width (sizes may differ), as one
     population; member i from ``seeds[i]`` (default its index, the
     sequential path's ``seed=fold_idx``). Returns a `ClassifierFit` with a
-    leading member axis."""
+    leading member axis. Under a process group of two or more ranks the
+    members shard over them as the VAE populations do
+    (``vmap_meta.population_mesh``): padded by repeating the last, a
+    contiguous slice a rank, gathered in member order on every rank."""
     device = resolve_device(device)
     seeds = list(range(len(folds))) if seeds is None else [int(s) for s in seeds]
     if len(seeds) != len(folds) or not folds:
         raise ValueError(f"{len(folds)} folds and {len(seeds)} seeds")
+    kw = dict(arch=arch, num_epochs=num_epochs, batch_size=batch_size, lr=lr,
+              weight_decay=weight_decay, early_stop=early_stop)
+    mesh = population_mesh()
+    if mesh is None:
+        return _fit_folds(folds, n_classes, seeds, device, **kw)
+    padded, lo, hi = _rank_slice(len(folds), mesh)
+    local = _fit_folds(_pad_population(folds, padded)[lo:hi], n_classes,
+                       _pad_population(seeds, padded)[lo:hi], device, **kw)
+    parts = comm.gather_objects((tree_map(lambda t: t.cpu(), local.params), local.best_val_acc,
+                                 local.val_accs))
+    n = len(folds)
+    params = tree_map(lambda *ts: torch.cat(ts)[:n].to(device), *(p[0] for p in parts))
+    return ClassifierFit(params, np.concatenate([p[1] for p in parts])[:n],
+                         np.concatenate([p[2] for p in parts])[:n])
+
+
+def _fit_folds(folds, n_classes, seeds, device, *, arch, num_epochs, batch_size, lr,
+               weight_decay, early_stop) -> ClassifierFit:
+    """`fit_classifier_folds` on this device alone."""
     widths = {np.shape(f[0])[1] for f in folds} | {np.shape(f[2])[1] for f in folds}
     if len(widths) != 1:
         raise ValueError(f"a population's members share one feature width, got {sorted(widths)}: "

@@ -38,6 +38,7 @@ from vae_los_angeles_torch.data.splits import SiteCodes
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation import tables
 from vae_los_angeles_torch.evaluation.loading import load_dna2rna, load_rna2dna
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training import checkpoint
 
 
@@ -72,6 +73,7 @@ def reconstruct_rna_from_dna(dna2rna_model, dna_df, label_encoder):
     return tables.with_columns(dna_df, reconstructed_tpm_unstranded=recon_rna)
 
 
+@comm.writes_files
 def save_reconstruction_stats(rna_df, dna_df, run_timestamp, data_dir="data"):
     """Write and return the statistics dict: sample counts, and the RNA-only
     cohort's count a primary site (numpy in place of pandas'
@@ -116,6 +118,7 @@ def main(cfg: Optional[Config] = None, data=None, device=None, root: str = "."):
     ones); None reads the pickles. Returns (RNA-only table, DNA-only table),
     either None when its model or cohort is missing."""
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
     device = resolve_device(device, cfg)
     run_timestamp = checkpoint.new_run_id()
     print("=" * 80)

@@ -31,10 +31,13 @@ this port does not make.
 `cluster_scores` computes both metrics from one distance block a chunk;
 `cluster_scores_members` scores M feature spaces of one cohort (a leading
 member axis), one batched product a chunk for all of them. The functions
-run on ``device`` (`resolve_device`: the card unless the CPU is asked for);
-``shard=True`` (multi-device) raises. There is no row bucketing: the JAX
-package pads rows to share compiled programs, which the port does not
-compile.
+run on ``device`` (`resolve_device`: the card unless the CPU is asked for).
+Under a process group of two or more ranks (``ops.knn._eval_mesh``, the
+JAX policy: ``shard=None`` auto, ``False`` one device, ``True`` requires a
+mesh) the single-cohort functions row-shard their distance passes
+(``parallel.sharded_eval.sweep``); `cluster_scores_members` stays on one
+device, as the JAX package's. There is no row bucketing: the JAX package
+pads rows to share compiled programs, which the port does not compile.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.device import resolve_device
-from vae_los_angeles_torch.ops.knn import _check_shard, _to_device
+from vae_los_angeles_torch.ops.knn import _eval_mesh, _sharded_eval, _to_device
 
 CHUNK = 1024  # query rows a distance block
 # Widths at or above this sum the distances block by block (methylome-scale
@@ -144,6 +147,12 @@ def _features(features, device):
     return _to_device(features, resolve_device(device))
 
 
+def _run_sweep(x, lab_idx, n_labels, chunk_size, comp, mesh, k=None, sums=True):
+    if mesh is None:
+        return _sweep(x, lab_idx, n_labels, chunk_size, comp, k=k, sums=sums)
+    return _sharded_eval().sweep(x, lab_idx, n_labels, chunk_size, comp, mesh, k=k, sums=sums)
+
+
 def silhouette_score(features, labels, chunk_size: int = CHUNK, shard=None, compensated=None,
                      device=None) -> float:
     """Mean silhouette coefficient, euclidean, as sklearn's
@@ -152,10 +161,10 @@ def silhouette_score(features, labels, chunk_size: int = CHUNK, shard=None, comp
     excluded), b the smallest mean distance to another; singletons score 0;
     2..n-1 labels or a ValueError. ``compensated``: None picks the blocked
     path at ``dim >= COMPENSATED_MIN_DIM``, True/False force it."""
-    _check_shard(shard)
+    mesh = _eval_mesh(shard)
     x = _features(features, device)
     lab_idx, n_labels, counts, comp = _preamble(labels, x.shape[0], x.shape[1], compensated)
-    sums, _ = _sweep(x, lab_idx, n_labels, chunk_size, comp)
+    sums, _ = _run_sweep(x, lab_idx, n_labels, chunk_size, comp, mesh)
     return _silhouette_from_sums(sums, lab_idx, counts)
 
 
@@ -164,13 +173,13 @@ def neighborhood_hit(features, labels, k: int = 5, chunk_size: int = CHUNK, shar
     """Mean fraction of each row's k nearest neighbours (self excluded)
     sharing its label (the JAX package's ``neighborhood_hit_tpu``, the
     reference's ``metrics_utils`` semantics); 0.0 below k + 1 rows."""
-    _check_shard(shard)
+    mesh = _eval_mesh(shard)
     if len(features) < k + 1:
         return 0.0
     x = _features(features, device)
     lab_idx, n_labels, _, comp = _preamble(labels, x.shape[0], x.shape[1], compensated,
                                            check_count=False)
-    _, fracs = _sweep(x, lab_idx, n_labels, chunk_size, comp, k=k, sums=False)
+    _, fracs = _run_sweep(x, lab_idx, n_labels, chunk_size, comp, mesh, k=k, sums=False)
     return float(fracs.mean())
 
 
@@ -179,11 +188,11 @@ def cluster_scores(features, labels, k: int = 5, chunk_size: int = CHUNK, shard=
     """(silhouette, neighbourhood hit) from one distance block a chunk (the
     JAX package's ``cluster_scores_tpu``): the silhouette's label rule
     applies, the hit is 0.0 below k + 1 rows."""
-    _check_shard(shard)
+    mesh = _eval_mesh(shard)
     x = _features(features, device)
     lab_idx, n_labels, counts, comp = _preamble(labels, x.shape[0], x.shape[1], compensated)
     k_or_none = k if x.shape[0] >= k + 1 else None
-    sums, fracs = _sweep(x, lab_idx, n_labels, chunk_size, comp, k=k_or_none)
+    sums, fracs = _run_sweep(x, lab_idx, n_labels, chunk_size, comp, mesh, k=k_or_none)
     nh = 0.0 if fracs is None else float(fracs.mean())
     return _silhouette_from_sums(sums, lab_idx, counts), nh
 

@@ -124,6 +124,9 @@ def _empty_like_aligned(x):
 def _forward(logits, dna, mu, logvar, beta):
     if logits.device.type == "cpu":
         return loss_forward_reference(logits, dna, mu, logvar, beta.reshape(()))
+    if logits.numel() == 0 and mu.numel() == 0:  # no rows (a rank's share of a small batch)
+        zero = torch.zeros((), device=logits.device, dtype=torch.float32)
+        return zero, zero.clone()
     lib = _library()
     out = torch.empty(2, device=logits.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
@@ -140,6 +143,8 @@ def _forward(logits, dna, mu, logvar, beta):
 def _backward(logits, dna, mu, logvar, beta, g):
     if logits.device.type == "cpu":
         return loss_backward_reference(logits, dna, mu, logvar, beta.reshape(()), g)
+    if logits.numel() == 0 and mu.numel() == 0:
+        return torch.empty_like(logits), torch.empty_like(mu), torch.empty_like(logvar)
     lib = _library()
     g = g.detach().to(torch.float32).contiguous()
     dlogits = _empty_like_aligned(logits)

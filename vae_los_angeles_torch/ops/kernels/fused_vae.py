@@ -23,7 +23,11 @@ gives z = mu + eps·exp(logvar/2) exactly, on both routes; otherwise eps is
 drawn from ``seed`` — in the kernel by Philox4x32-10 and Box–Muller at
 (seed, global row, latent index), which `philox_normal_reference` computes
 in plain PyTorch, in the plain version from a ``torch.Generator`` seeded
-with it, so the two routes agree only in distribution there.
+with it, so the two routes agree only in distribution there. ``row0`` is
+the global row of the call's first row (a rank serving its rows of a
+sharded cohort): the kernel draws at row0 + row, and the plain version
+draws the whole ``rows_total``-row cohort's eps and takes its rows, so
+either route gives each row the noise of the whole cohort's call.
 
 ``launches`` (a class attribute) counts the calls of each class's C entry,
 one per served batch, so a run can show that its serving path went through
@@ -76,7 +80,7 @@ def _site_rows(table, site):
     return table[site.clamp(0, n - 1)] * valid[:, None].to(table.dtype)
 
 
-def _posterior(f, h, site, noise, eps, seed):
+def _posterior(f, h, site, noise, eps, seed, row0=0, rows_total=None):
     mu = h @ f["wmu"] + f["bmu"]
     logvar = h @ f["wlv"] + f["blv"]
     if site is not None:
@@ -87,26 +91,31 @@ def _posterior(f, h, site, noise, eps, seed):
         return mu, logvar, mu
     if noise == NOISE_PHILOX:
         g = torch.Generator(device=mu.device).manual_seed(seed)
-        eps = torch.randn(mu.shape, generator=g, device=mu.device, dtype=mu.dtype)
+        rows = mu.shape[0]
+        total = row0 + rows if rows_total is None else rows_total
+        eps = torch.randn((total, mu.shape[1]), generator=g, device=mu.device,
+                          dtype=mu.dtype)[row0:row0 + rows]
     return mu, logvar, mu + eps * torch.exp(0.5 * logvar)
 
 
-def rna2dna_fused_reference(f, x, site=None, noise=NOISE_NONE, eps=None, seed=0):
+def rna2dna_fused_reference(f, x, site=None, noise=NOISE_NONE, eps=None, seed=0, row0=0,
+                            rows_total=None):
     """Plain PyTorch version of the RNA→DNA kernel on folded weights ``f``:
     returns (recon in [0, 1], mu, logvar)."""
     h = torch.relu(x @ f["w1"] + f["b1"])
-    mu, logvar, z = _posterior(f, h, site, noise, eps, seed)
+    mu, logvar, z = _posterior(f, h, site, noise, eps, seed, row0, rows_total)
     h1 = torch.relu(z @ f["d1w"] + f["d1b"])
     h2 = torch.relu(h1 @ f["d2w"] + f["d2b"])
     return torch.sigmoid(h2 @ f["d3w"] + f["d3b"]), mu, logvar
 
 
-def dna2rna_fused_reference(f, x, site=None, noise=NOISE_NONE, eps=None, seed=0):
+def dna2rna_fused_reference(f, x, site=None, noise=NOISE_NONE, eps=None, seed=0, row0=0,
+                            rows_total=None):
     """Plain PyTorch version of the DNA→RNA kernel on folded weights ``f``:
     returns (recon, mu, logvar)."""
     h = torch.relu(x @ f["w1"] + f["b1"])
     h = torch.relu(h @ f["w2"] + f["b2"])
-    mu, logvar, z = _posterior(f, h, site, noise, eps, seed)
+    mu, logvar, z = _posterior(f, h, site, noise, eps, seed, row0, rows_total)
     h1 = torch.relu(z @ f["d1w"] + f["d1b"])
     return h1 @ f["d2w"] + f["d2b"], mu, logvar
 
@@ -326,7 +335,8 @@ def _library():
     for entry in ("rna2dna_fused_forward", "dna2rna_fused_forward"):
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     lib.fused_vae_setup.argtypes = []
@@ -550,7 +560,8 @@ class _FusedForward:
             raise ValueError(f"{name} must be contiguous")
 
     def __call__(self, x, site: Optional[torch.Tensor] = None, seed: int = 0,
-                 use_noise: bool = True, eps: Optional[torch.Tensor] = None):
+                 use_noise: bool = True, eps: Optional[torch.Tensor] = None, row0: int = 0,
+                 rows_total: Optional[int] = None):
         if not isinstance(x, torch.Tensor) or x.dim() != 2:
             raise ValueError("x must be a 2-D torch.Tensor (batch, features)")
         batch = x.shape[0]
@@ -568,13 +579,16 @@ class _FusedForward:
         if not 0 <= seed < 2**63:
             raise ValueError(f"seed must be in [0, 2**63), got {seed}")
 
+        row0 = int(row0)
+        if row0 < 0 or (rows_total is not None and row0 + batch > rows_total):
+            raise ValueError(f"rows [{row0}, {row0 + batch}) outside a cohort of {rows_total}")
         if self.device.type == "cpu":
-            return type(self)._reference(self.folded, x, site, noise, eps, seed)
+            return type(self)._reference(self.folded, x, site, noise, eps, seed, row0, rows_total)
         if self.device.type != "cuda":
             raise ValueError(f"no kernel for device {self.device}")
-        return self._launch(x, site, eps, noise, seed)
+        return self._launch(x, site, eps, noise, seed, row0)
 
-    def _launch(self, x, site, eps, noise, seed):
+    def _launch(self, x, site, eps, noise, seed, row0=0):
         batch, dev = x.shape[0], self.device
         if batch == 0:
             return (torch.empty((0, self._out), device=dev),
@@ -595,7 +609,8 @@ class _FusedForward:
             self._model_addr, c.plan_addr, c.table_ptrs[site is not None], x.data_ptr(),
             None if site is None else site.data_ptr(), None if eps is None else eps.data_ptr(),
             p0, p1, p2, p3 if c.scratch[0] else None, p4 if c.scratch[1] else None, batch,
-            int(site is not None), noise, seed, torch._C._cuda_getCurrentRawStream(dev.index),
+            int(site is not None), noise, seed, row0,
+            torch._C._cuda_getCurrentRawStream(dev.index),
         )
         if torch.cuda.current_device() == dev.index:
             err = self._fn(*args)

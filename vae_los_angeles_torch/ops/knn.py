@@ -33,7 +33,13 @@ machine has no sklearn, so every resolver returns this module's classes. The
 estimators run on ``device.resolve_device(device)``: the card, unless the
 caller asks for the CPU. ``fit`` and ``predict`` take numpy arrays or torch
 tensors (a tensor already on the device is not copied). ``n_jobs`` is
-accepted and ignored; ``shard=True`` (multi-device) raises.
+accepted and ignored.
+
+Several devices (`_eval_mesh`, the JAX policy): under a process group of two
+or more ranks the training rows shard over the ranks and every pass runs the
+row-sharded program of ``parallel.sharded_eval`` (every rank calls with the
+same arguments and gets the whole result); ``shard=False`` keeps one device,
+``shard=True`` on one rank raises.
 """
 
 from __future__ import annotations
@@ -48,10 +54,24 @@ GRID_CHUNK = 512  # query rows a grid pass
 TINY = 1e-30
 
 
-def _check_shard(shard):
-    if shard:
-        raise NotImplementedError(
-            "shard=True: multi-device kNN is not ported (ROADMAP A8); one device only")
+def _eval_mesh(shard=None):
+    """The 1-axis ("data",) mesh the evaluation programs shard over, or None:
+    ``shard=None`` shards when the process group has two or more ranks,
+    ``False`` keeps one device, ``True`` requires a mesh."""
+    if shard is False:
+        return None
+    from vae_los_angeles_torch.parallel.vmap_meta import population_mesh
+
+    mesh = population_mesh()
+    if shard is True and mesh is None:
+        raise ValueError("shard=True requires more than one visible device")
+    return mesh
+
+
+def _sharded_eval():
+    from vae_los_angeles_torch.parallel import sharded_eval
+
+    return sharded_eval
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -166,7 +186,7 @@ def _neighbours(x_train, queries, kmax: int, metric: str, x_site=None, q_site=No
     return _winner_dists(x_train, queries, idx, sel, kmax, metric), valid, idx
 
 
-def _prefix_predictions(d, valid, idx, y_train, ks, modes):
+def _prefix_predictions(d, valid, idx, y_train, ks, modes, owned=None):
     """Every (k, weights) combination's predictions from one sorted top-K
     neighbour set, yielded as ((k, mode), (m, t) prediction) in ascending k.
 
@@ -177,7 +197,10 @@ def _prefix_predictions(d, valid, idx, y_train, ks, modes):
         averaged, if there are any; else 1/d weights over the valid prefix.
     An all-invalid prefix (unseen site) predicts 0. The sums are kept as
     running (m, t) tensors over the slots j = 0…K−1, and each k is read at
-    j = k − 1: no (m, K, t) tensor is built."""
+    j = k − 1: no (m, K, t) tensor is built. ``owned`` (m, K) keeps only the
+    slots whose rows ``y_train`` holds in the numerators (a rank's share of
+    a row-sharded pass, ``parallel.sharded_eval``); the denominators stay
+    whole."""
     ks = sorted(set(ks))
     vf = valid.to(torch.float32)
     zero = valid & (d <= 0.0)
@@ -193,6 +216,8 @@ def _prefix_predictions(d, valid, idx, y_train, ks, modes):
         sums["w"] = (w_inv, torch.zeros(m, t, device=y_train.device))
     for j in range(ks[-1]):
         yj = y_train.index_select(0, idx[:, j])
+        if owned is not None:
+            yj = yj * owned[:, j:j + 1]
         for weight, acc in sums.values():
             acc.addcmul_(weight[:, j:j + 1], yj)
         if j + 1 not in ks:
@@ -240,15 +265,19 @@ class KNNRegressor:
         self._x = self._y = None
         self._n = 0
         self._squeeze = False
+        self._mesh = None
 
     def fit(self, X, y):
-        _check_shard(self.shard)
+        self._mesh = _eval_mesh(self.shard)
         dev = resolve_device(self.device)
         self._x = _to_device(X, dev)
         y = _to_device(y, dev)
         self._squeeze = y.ndim == 1
         self._y = y.reshape(len(y), -1)
         self._n = len(self._x)
+        if self._mesh is not None:  # keep this rank's block of the rows
+            se = _sharded_eval()
+            self._x, self._y = (se.row_block(t, self._mesh) for t in (self._x, self._y))
         return self
 
     def _chunks(self, X):
@@ -267,6 +296,10 @@ class KNNRegressor:
         gives 1-D predictions."""
         metric = _check_metric(self.metric)
         k = min(self.n_neighbors, self._n)
+        if self._mesh is not None:
+            se = _sharded_eval()
+            return self._finish([se.knn_chunk(self._x, self._y, self._n, q, k, self.weights,
+                                              metric, self._mesh) for q in self._chunks(X)])
         return self._finish([_knn_chunk(self._x, self._y, q, k, self.weights, metric)
                              for q in self._chunks(X)])
 
@@ -278,9 +311,14 @@ class KNNRegressor:
         ks = tuple(sorted({min(int(k), self._n) for k in ks}))
         outs = {k: [] for k in ks}
         for q in self._chunks(X):
-            d, valid, idx = _neighbours(self._x, q, ks[-1], metric)
-            for (k, _), pred in _prefix_predictions(d, valid, idx, self._y, ks,
-                                                    (self.weights,)):
+            if self._mesh is not None:
+                preds = _sharded_eval().prefix_chunk(self._x, self._y, self._n, q, ks,
+                                                     (self.weights,), ks[-1], metric,
+                                                     self._mesh).items()
+            else:
+                d, valid, idx = _neighbours(self._x, q, ks[-1], metric)
+                preds = _prefix_predictions(d, valid, idx, self._y, ks, (self.weights,))
+            for (k, _), pred in preds:
                 outs[k].append(pred)
         return {k: self._finish(v) for k, v in outs.items()}
 
@@ -316,11 +354,12 @@ class ConditionedKNNRegressor:
         self.device = device
         self._x = self._y = self._site = None
         self._n = 0
+        self._mesh = None
         self.n_features_in_ = None
         self.n_outputs_ = None
 
     def fit(self, X, y):
-        _check_shard(self.shard)
+        self._mesh = _eval_mesh(self.shard)
         dev = resolve_device(self.device)
         self._x, self._site = _split_sites(X, dev)
         y = _to_device(y, dev)
@@ -329,6 +368,10 @@ class ConditionedKNNRegressor:
         self.n_outputs_ = self._y.shape[1]
         self.unique_sites = np.unique(self._site.cpu().numpy())
         self._n = len(self._x)
+        if self._mesh is not None:  # this rank's block; a padded row has site -1
+            se = _sharded_eval()
+            self._x, self._y = (se.row_block(t, self._mesh) for t in (self._x, self._y))
+            self._site = se.row_block(self._site, self._mesh, pad_value=-1)
         return self
 
     def predict(self, X):
@@ -337,17 +380,21 @@ class ConditionedKNNRegressor:
         metric = _check_metric(self.metric)
         k = min(self.n_neighbors, self._n)
         feats, sites = _split_sites(X, self._x.device)
-        outs = [
-            _knn_chunk(self._x, self._y, feats[s:s + self.chunk_size], k, self.weights, metric,
-                       self._site, sites[s:s + self.chunk_size])
-            for s in range(0, len(feats), self.chunk_size)
-        ]
+        if self._mesh is not None:
+            se = _sharded_eval()
+            chunk = lambda q, qs: se.knn_chunk(self._x, self._y, self._n, q, k,  # noqa: E731
+                                               self.weights, metric, self._mesh, self._site, qs)
+        else:
+            chunk = lambda q, qs: _knn_chunk(self._x, self._y, q, k, self.weights,  # noqa: E731
+                                             metric, self._site, qs)
+        outs = [chunk(feats[s:s + self.chunk_size], sites[s:s + self.chunk_size])
+                for s in range(0, len(feats), self.chunk_size)]
         out = (torch.cat(outs) if outs else self._y.new_zeros(0, self.n_outputs_)).cpu().numpy()
         return out.ravel() if self.n_outputs_ == 1 else out
 
     def get_params(self, deep=True):
         return {"n_neighbors": self.n_neighbors, "weights": self.weights,
-                "metric": self.metric, "device": self.device}
+                "metric": self.metric, "shard": self.shard, "device": self.device}
 
     def set_params(self, **params):
         for key, value in params.items():
@@ -364,8 +411,9 @@ def knn_grid_mse(X_train, y_train, X_val, y_val, ks, modes, conditioned: bool = 
     one call serves one metric's whole sub-grid. With ``conditioned`` the
     last column of X is the site. The per-sample errors come back fp32 and
     are summed in float64 on the host, so the best combination is picked as
-    the reference's ``mean_squared_error`` picks it."""
-    _check_shard(shard)
+    the reference's ``mean_squared_error`` picks it. Under a process group
+    the training rows shard (`_eval_mesh`)."""
+    mesh = _eval_mesh(shard)
     metric = _check_metric(metric)
     dev = resolve_device(device)
     if conditioned:
@@ -382,11 +430,21 @@ def knn_grid_mse(X_train, y_train, X_val, y_val, ks, modes, conditioned: bool = 
     ks = tuple(min(int(k), n) for k in ks)
     modes = tuple(modes)
     combo_sums = np.zeros(len(ks) * len(modes), np.float64)
+    if mesh is not None:
+        se = _sharded_eval()
+        x, y = se.row_block(x, mesh), se.row_block(y, mesh)
+        if x_site is not None:
+            x_site = se.row_block(x_site, mesh, pad_value=-1)
     for s in range(0, m, chunk_size):
         e = s + chunk_size
-        d, valid, idx = _neighbours(x, q[s:e], max(ks), metric,
-                                    x_site, None if q_site is None else q_site[s:e])
-        errs = _grid_errs_from_topk(d, valid, idx, y, yv[s:e], ks, modes)
+        qs = None if q_site is None else q_site[s:e]
+        if mesh is not None:
+            preds = se.prefix_chunk(x, y, n, q[s:e], ks, modes, max(ks), metric, mesh, x_site, qs)
+            errs = torch.stack([torch.mean((preds[(k, mode)] - yv[s:e]) ** 2, dim=1)
+                                for mode in modes for k in ks])
+        else:
+            d, valid, idx = _neighbours(x, q[s:e], max(ks), metric, x_site, qs)
+            errs = _grid_errs_from_topk(d, valid, idx, y, yv[s:e], ks, modes)
         combo_sums += errs.cpu().numpy().astype(np.float64).sum(axis=1)
     mses = combo_sums / max(m, 1)
     combos = [(k, mode) for mode in modes for k in ks]

@@ -41,10 +41,19 @@ member's rows from its own table. The 2-D path is the single-run code, bit
 for bit. Noise for a population comes from one generator a member
 (`draw`): member i's draws are the ones a single run with that generator
 makes, in the same order and shapes.
+
+Data and tensor parallelism (``parallel.sharding``): while a
+`ShardContext`-like object is active (`sharded`), `linear_apply`,
+`batchnorm_apply` and `draw` hand 2-D batches to it: a rank's rows of the
+global batch, the Megatron column/row linears, BatchNorm over the global
+batch's statistics and on a column slice, and noise drawn for the global
+batch (and whole columns) and sliced to the rank's part. Without one they
+are the single-device code above.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -53,6 +62,19 @@ from torch import nn
 BN_EPS = 1e-5  # nn.BatchNorm1d's default, as in the JAX package
 BN_MOMENTUM = 0.1
 LN_EPS = 1e-5  # nn.LayerNorm's default, as the JAX classifiers'
+
+# the active data/tensor-parallel context (parallel.sharding.ShardContext), or None
+_SHARD = [None]
+
+
+@contextlib.contextmanager
+def sharded(ctx):
+    """Run the layers of this module through ``ctx`` (module docstring)."""
+    prev, _SHARD[0] = _SHARD[0], ctx
+    try:
+        yield ctx
+    finally:
+        _SHARD[0] = prev
 
 
 def fold_bn_eval(linear, bn_params, bn_state):
@@ -94,6 +116,13 @@ def draw(sampler, shape, generator, device, dtype=torch.float32):
     """``sampler(shape, generator=, device=, dtype=)`` (``torch.rand`` or
     ``torch.randn``); with a list of generators, one a member, the members'
     draws of ``shape[1:]`` stacked, each from its own generator."""
+    if _SHARD[0] is not None and len(shape) == 2 and not isinstance(generator, (list, tuple)):
+        return _SHARD[0].draw(sampler, shape, generator, device, dtype)
+    return draw_plain(sampler, shape, generator, device, dtype)
+
+
+def draw_plain(sampler, shape, generator, device, dtype=torch.float32):
+    """`draw` without a parallel context."""
     if isinstance(generator, (list, tuple)):
         if len(generator) != shape[0]:
             raise ValueError(f"{len(generator)} generators for {shape[0]} members")
@@ -121,6 +150,13 @@ def linear_apply(params, x):
     of both (one batched product, the bias broadcast over the rows). A
     reduced-precision weight casts ``x`` to its dtype and the product is
     taken in fp32 (module docstring); the result is fp32 either way."""
+    if _SHARD[0] is not None and x.dim() == 2:
+        return _SHARD[0].linear(params, x)
+    return linear_plain(params, x)
+
+
+def linear_plain(params, x):
+    """`linear_apply` without a parallel context."""
     w, b = params["w"], params["b"]
     if w.dim() == 3:
         b = b.unsqueeze(-2)
@@ -160,6 +196,13 @@ def batchnorm_apply(params, state, x, *, train: bool):
     with the biased batch statistics (over the row axis, -2) and moves the
     running mean and the UNBIASED running variance by momentum 0.1; eval
     mode uses the running statistics and returns ``state`` unchanged."""
+    if _SHARD[0] is not None and x.dim() == 2:
+        return _SHARD[0].batchnorm(params, state, x, train)
+    return batchnorm_plain(params, state, x, train)
+
+
+def batchnorm_plain(params, state, x, train: bool):
+    """`batchnorm_apply` without a parallel context."""
     if train:
         n = x.shape[-2]
         if n <= 1:

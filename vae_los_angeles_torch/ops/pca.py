@@ -13,8 +13,14 @@ is flipped so that its largest-magnitude entry is positive.
 Every function takes (n, d) or a leading member axis (M, n, d): the
 population functions (`standardize_members`, `pca_scores_members`) are the
 same code over M same-shaped feature spaces, one batched product for the
-Gram matrices and one batched ``torch.linalg.eigh``. The column-sharded
-functions are not ported (one device).
+Gram matrices and one batched ``torch.linalg.eigh``.
+
+Several devices (`PCA` under a process group of two or more ranks,
+``ops.knn._eval_mesh``'s policy): the feature columns split over the ranks,
+zero-padded to a multiple of their count (a zero column adds nothing to the
+Gram matrix or its trace), each rank centres its columns and forms its
+partial n × n Gram matrix, and one all-reduce sums them; every rank then
+takes the same eigendecomposition.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.device import resolve_device  # importing it turns TF32 off
-from vae_los_angeles_torch.ops.knn import _to_device
+from vae_los_angeles_torch.ops.knn import _eval_mesh, _to_device
 
 
 def standardize(x: torch.Tensor) -> torch.Tensor:
@@ -36,12 +42,28 @@ def standardize(x: torch.Tensor) -> torch.Tensor:
     return centered / torch.where(std == 0.0, 1.0, std)
 
 
+def _gram(x: torch.Tensor) -> torch.Tensor:
+    """The n × n Gram matrix of each (n, d) matrix's centred columns."""
+    x = x.to(torch.float32)
+    x_c = x - torch.mean(x, dim=-2, keepdim=True)
+    return torch.matmul(x_c, x_c.transpose(-1, -2))
+
+
 def _pca_gram(x: torch.Tensor, n_components: int):
     """(scores (..., n, k), explained variance ratio (..., k)) through each
     n × n Gram matrix's eigendecomposition, with the sign rule above."""
-    x = x.to(torch.float32)
-    x_c = x - torch.mean(x, dim=-2, keepdim=True)
-    gram = torch.matmul(x_c, x_c.transpose(-1, -2))
+    return _pca_from_gram(_gram(x), n_components)
+
+
+def _column_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of ``x``'s columns, zero-padded to ceil(d / ranks)."""
+    d = x.shape[-1]
+    per = -(-d // mesh.size)
+    block = x[..., mesh.data_index * per:(mesh.data_index + 1) * per]
+    return torch.nn.functional.pad(block, (0, per - block.shape[-1]))
+
+
+def _pca_from_gram(gram: torch.Tensor, n_components: int):
     eigval, eigvec = torch.linalg.eigh(gram)  # ascending
     lam = torch.clamp_min(eigval.flip(-1)[..., :n_components], 0.0)
     scores = eigvec.flip(-1)[..., :n_components] * torch.sqrt(lam).unsqueeze(-2)
@@ -69,17 +91,23 @@ class PCA:
     """sklearn-``PCA`` surface for ``fit_transform`` (the way the scripts use
     it); ``random_state`` is accepted (the Gram path is deterministic). Runs
     on ``device`` (`resolve_device`: the card unless the CPU is asked for);
-    a tensor already there is not copied."""
+    a tensor already there is not copied. ``shard`` as the kNN estimators'
+    (module docstring)."""
 
-    def __init__(self, n_components: int = 2, random_state=None, device=None):
+    def __init__(self, n_components: int = 2, random_state=None, device=None, shard=None):
         self.n_components = n_components
         self.random_state = random_state
         self.device = device
+        self.shard = shard
         self.explained_variance_ratio_ = None
 
     def fit_transform(self, X) -> np.ndarray:
+        mesh = _eval_mesh(self.shard)
         x = _to_device(X, resolve_device(self.device))
         k = min(self.n_components, x.shape[0], x.shape[1])
-        scores, evr = _pca_gram(x, k)
+        if mesh is None:
+            scores, evr = _pca_gram(x, k)
+        else:
+            scores, evr = _pca_from_gram(mesh.psum(_gram(_column_block(x, mesh)), "data"), k)
         self.explained_variance_ratio_ = evr.cpu().numpy()
         return scores.cpu().numpy()

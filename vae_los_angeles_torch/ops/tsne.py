@@ -1,5 +1,7 @@
-"""Exact t-SNE on one device for the evaluation scripts' embedding plots
-(counterpart of the single-device path of ``vae_los_angeles_tpu/ops/tsne.py``).
+"""Exact t-SNE on the device for the evaluation scripts' embedding plots
+(counterpart of ``vae_los_angeles_tpu/ops/tsne.py``; under a process group
+of two or more ranks `TSNE` row-shards its n² state over them,
+``parallel.sharded_eval.tsne``).
 
 sklearn's default is Barnes-Hut, a host quadtree. At evaluation-cohort sizes
 (hundreds to a few thousand samples) the exact O(n²) form is a few dense
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from vae_los_angeles_torch.device import resolve_device
-from vae_los_angeles_torch.ops.knn import _check_shard, _to_device
+from vae_los_angeles_torch.ops.knn import _eval_mesh, _sharded_eval, _to_device
 from vae_los_angeles_torch.ops.pca import _pca_gram
 
 # sklearn floors P and Q at double-precision machine epsilon even though the
@@ -181,7 +183,9 @@ class TSNE:
     """sklearn-``TSNE`` surface for ``fit_transform``, the way the scripts
     call it: exact t-SNE on one device (``device``, `resolve_device`: the card
     unless the CPU is asked for). ``method``, ``angle`` and ``n_jobs`` are
-    accepted and ignored; ``shard=True`` (multi-device) raises."""
+    accepted and ignored. Under a process group of two or more ranks the n²
+    state row-shards over them (``parallel.sharded_eval.tsne``; ``shard``
+    as the kNN estimators')."""
 
     def __init__(self, n_components: int = 2, *, perplexity: float = 30.0,
                  early_exaggeration: float = 12.0, learning_rate="auto", max_iter: int = 1000,
@@ -217,12 +221,17 @@ class TSNE:
         raise ValueError(f"init must be 'pca', 'random' or an array, got {self.init!r}")
 
     def fit_transform(self, X, y=None) -> np.ndarray:
-        _check_shard(self.shard)
+        mesh = _eval_mesh(self.shard)
         x = _to_device(X, resolve_device(self.device))
         lr = _learning_rate(x.shape[0], self.perplexity, self.early_exaggeration,
                             self.learning_rate)
-        emb, kl = _embed(x, self._initial_embedding(x), self.n_components, self.perplexity,
-                         self.early_exaggeration, lr, self.max_iter)
+        if mesh is None:
+            emb, kl = _embed(x, self._initial_embedding(x), self.n_components, self.perplexity,
+                             self.early_exaggeration, lr, self.max_iter)
+        else:
+            emb, kl = _sharded_eval().tsne(x, self._initial_embedding(x), self.perplexity, lr,
+                                           self.early_exaggeration, self.max_iter,
+                                           float(max(self.n_components - 1, 1)), mesh)
         self.kl_divergence_ = float(kl)
         self.embedding_ = emb.cpu().numpy()
         if self.verbose:

@@ -40,9 +40,16 @@ Folds are grouped by their exact (n_train, n_val), the JAX package's
 the CV's inner split gives at most a few groups. Its masked-size mode
 (``mask_sizes=True``: rows padded to buckets, true sizes as masked
 arguments) saves XLA compilations, which an eager port does not pay, and
-changes only the members' noise streams: it raises here, and so does
-``mesh`` (one card). The optimizer is AdamW (fp32 or bf16 moments; fp32 or
-bf16 compute); Adafactor raises.
+changes only the members' noise streams: it raises here. The optimizer
+is AdamW (fp32 or bf16 moments; fp32 or bf16 compute); Adafactor raises.
+
+Several devices (``mesh``: `population_mesh`, every rank of the process
+group calling with the same arguments): the member axis is sharded, as the
+JAX package shards it. The members are padded to a multiple of the rank
+count by repeating the last one (`_pad_population`), rank r trains its
+contiguous slice with the population code above, and the results are
+gathered in input order on every rank, the padding dropped. A member's
+numbers are those of its slice run alone.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from vae_los_angeles_torch.config import Config
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.ops import nn as ops_nn
 from vae_los_angeles_torch.ops import optim
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training import engine
 from vae_los_angeles_torch.training.tasks import Batch, get_task
 from vae_los_angeles_torch.utils.tree import tree_map
@@ -98,15 +106,48 @@ def _member(tree, j: int):
     return tree_map(lambda t: t[j] if t.dim() else t, tree)
 
 
-def _refuse(cfg, mask_sizes, mesh):
+def population_mesh():
+    """A 1-axis ("data",) mesh over every rank of the process group, or None
+    when there are fewer than two."""
+    if comm.world() < 2:
+        return None
+    from vae_los_angeles_torch.parallel.sharding import make_mesh
+
+    return make_mesh()
+
+
+def _pad_population(items: list, target: int) -> list:
+    """``items`` (one entry a member) padded to ``target`` by repeating the
+    last member; the padding trains in the same slot and is dropped."""
+    return list(items) + [items[-1]] * (target - len(items))
+
+
+def _rank_slice(n: int, mesh):
+    """(padded size, this rank's [lo, hi) of the padded member axis)."""
+    per = -(-n // mesh.size)
+    r = comm.rank()
+    return per * mesh.size, r * per, (r + 1) * per
+
+
+def _moved(res: engine.FitResult, device) -> engine.FitResult:
+    return res._replace(**{k: tree_map(lambda t: t.detach().to(device), getattr(res, k))
+                           for k in ("params", "state", "final_params", "final_state", "carry")})
+
+
+def _gathered(local: list, n: int, device):
+    """Every rank's results, in member order, the padding dropped, on
+    ``device``."""
+    parts = comm.gather_objects([_moved(res, "cpu") for res in local])
+    return [_moved(res, device) for part in parts for res in part][:n]
+
+
+def _refuse(cfg, mask_sizes):
     """The options a population of the port does not train."""
     if mask_sizes:
         raise ValueError(
             "mask_sizes=True is not ported: padded rows with masked true sizes save XLA "
             "compilations, which an eager port does not pay, and would only change the "
             "members' noise streams; the port trains exact-shape groups (POP_MASK_SIZES=0)")
-    if mesh is not None:
-        raise ValueError("mesh-sharded populations are not ported: the port trains on one card")
     if cfg.optimizer != "adamw":
         raise ValueError(f"optimizer={cfg.optimizer!r}: a population trains with AdamW")
 
@@ -128,8 +169,9 @@ def fit_folds(task_name: str, cfg: Config, fold_train: Sequence, fold_val: Seque
     member's state and best snapshot after init (the unified tasks'
     ``kl_on``); an unknown name raises. ``drop_last`` defaults to False, as
     the CV's loaders. Runs on the card unless ``device="cpu"`` or
-    ``cfg.platform == "cpu"``."""
-    _refuse(cfg, mask_sizes, mesh)
+    ``cfg.platform == "cpu"``. ``mesh`` shards the folds (module
+    docstring)."""
+    _refuse(cfg, mask_sizes)
     if len(fold_train) != len(fold_val):
         raise ValueError(f"{len(fold_train)} training folds for {len(fold_val)} validation folds")
     n_folds = len(fold_train)
@@ -146,6 +188,14 @@ def fit_folds(task_name: str, cfg: Config, fold_train: Sequence, fold_val: Seque
         if len(value) != n_folds:
             raise ValueError(f"state_overrides[{name!r}] has {len(value)} rows for {n_folds} "
                              "folds")
+    if mesh is not None and mesh.size > 1:
+        padded, lo, hi = _rank_slice(n_folds, mesh)
+        pick = lambda items: _pad_population(list(items), padded)[lo:hi]  # noqa: E731
+        local = fit_folds(task_name, cfg, pick(fold_train), pick(fold_val), seed, n_sites,
+                          num_epochs=num_epochs, drop_last=drop_last, seeds=pick(seeds),
+                          state_overrides={k: np.stack(pick(v)) for k, v in overrides.items()},
+                          device=device)
+        return _gathered(local, n_folds, device)
 
     groups: Dict[tuple, list] = {}
     for i, (tr, va) in enumerate(zip(fold_train, fold_val)):
@@ -191,8 +241,9 @@ def fit_trials(task_name: str, cfg: Config, train, val, seed: int, n_sites: int,
     Continuing needs explicit ``seeds`` (the default depends on the number of
     trials, so a sliced population would switch streams): without them it
     raises. ``mask_sizes=True`` and ``mesh`` raise. Runs on the card unless
-    ``device="cpu"`` or ``cfg.platform == "cpu"``."""
-    _refuse(cfg, mask_sizes, mesh)
+    ``device="cpu"`` or ``cfg.platform == "cpu"``. ``mesh`` shards the
+    trials (module docstring)."""
+    _refuse(cfg, mask_sizes)
     unknown = sorted(set(hp_population) - set(engine.POPULATION_KEYS))
     if unknown:
         raise ValueError(f"hp_population keys {unknown}: a trial population sets "
@@ -211,8 +262,20 @@ def fit_trials(task_name: str, cfg: Config, train, val, seed: int, n_sites: int,
     seeds = [int(s) for s in seeds]
     if len(seeds) != n_trials:
         raise ValueError(f"seeds has {len(seeds)} entries for {n_trials} trials")
-    task = get_task(task_name)
     device = resolve_device(device, cfg)
+    if mesh is not None and mesh.size > 1:
+        padded, lo, hi = _rank_slice(n_trials, mesh)
+        pick = lambda items: _pad_population(list(items), padded)[lo:hi]  # noqa: E731
+        if carry0 is not None and not isinstance(carry0, (list, tuple)):
+            stacked = tree_from_numpy(carry0, device)
+            carry0 = [_member(stacked, j) for j in range(n_trials)]
+        local = fit_trials(task_name, cfg, train, val, seed, n_sites,
+                           {k: np.asarray(pick(np.asarray(v))) for k, v in hp_population.items()},
+                           num_epochs=num_epochs, class_weights=class_weights,
+                           carry0=None if carry0 is None else pick(carry0),
+                           start_epoch=start_epoch, seeds=pick(seeds), device=device)
+        return _gathered(local, n_trials, device)
+    task = get_task(task_name)
     num_epochs = cfg.num_epochs if num_epochs is None else int(num_epochs)
     tr, va = engine._as_batch(train, device), engine._as_batch(val, device)
     _check_sizes([len(tr)], [len(va)], int(cfg.batch_size), True)
@@ -364,4 +427,4 @@ def _results(carries, history, num_epochs):
     return out
 
 
-__all__ = ["fit_folds", "fit_trials", "member_seeds"]
+__all__ = ["fit_folds", "fit_trials", "member_seeds", "population_mesh"]

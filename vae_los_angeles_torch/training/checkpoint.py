@@ -20,6 +20,11 @@ so such a leaf loads as a CPU ``torch.bfloat16`` tensor beside the numpy
 leaves (``utils.weights.tree_from_numpy`` takes either); to save, a leaf may
 be a bf16 tensor or a numpy array of ``ml_dtypes.bfloat16`` (what
 ``jax.device_get`` returns). A key that itself ends with the marker raises.
+
+Under a process group (``parallel.comm``) every rank calls the same saves
+and loads: rank 0 writes, every rank waits at a barrier after a write, so a
+rank reads a file only once it is complete, and `new_run_id` is rank 0's on
+every rank.
 """
 
 from __future__ import annotations
@@ -31,13 +36,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from vae_los_angeles_torch.parallel import comm
+
 _EMPTY = "__empty_dict__"
 _BF16 = ".__bf16__"
 
 
 def new_run_id() -> str:
-    """Timestamp run id, same format as the reference's."""
-    return datetime.now().strftime("%Y%m%d_%H%M%S")
+    """Timestamp run id, same format as the reference's (rank 0's on every
+    rank of a process group)."""
+    run_id = datetime.now().strftime("%Y%m%d_%H%M%S")
+    return comm.gather_objects(run_id)[0] if comm.world() > 1 else run_id
 
 
 def _leaf(x, where):
@@ -99,13 +108,24 @@ def _unflatten(flat):
     return tree
 
 
+def _written(write):
+    """Run ``write`` on the writing rank (rank 0, or the only process), then
+    hold every rank of a process group at a barrier, so a file is complete
+    before any rank reads it (`comm.writes_files`)."""
+    comm.writes_files(write)()
+
+
 def save(path: str, params, state=None):
     """Save a (params, bn_state) pair as a flat .npz archive."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"params": params}
     if state is not None:
         payload["state"] = state
-    np.savez(path, **_flatten(payload))
+
+    def write():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **_flatten(payload))
+
+    _written(write)
 
 
 def load(path: str) -> Tuple[dict, dict]:
@@ -132,8 +152,11 @@ def save_best(model_name: str, run_id: str, params, state=None,
 
 
 def write_run_id(model_name: str, run_id: str, root: str = "."):
-    with open(os.path.join(root, run_id_file(model_name)), "w") as f:
-        f.write(run_id)
+    def write():
+        with open(os.path.join(root, run_id_file(model_name)), "w") as f:
+            f.write(run_id)
+
+    _written(write)
 
 
 def resume_path(model_name: str, run_id: str, checkpoint_dir: str = "checkpoints"):
@@ -145,11 +168,15 @@ def save_resume(model_name: str, run_id: str, carry, n_epochs_done: int,
     """Persist the full training carry; ``seed`` is the run's seed, which a
     resumed run needs to continue the same noise schedule."""
     path = resume_path(model_name, run_id, checkpoint_dir)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = {"epochs_done": np.asarray(n_epochs_done)}
     if seed is not None:
         meta["seed"] = np.asarray(seed)
-    np.savez(path, **_flatten({"carry": carry, "meta": meta}))
+
+    def write():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **_flatten({"carry": carry, "meta": meta}))
+
+    _written(write)
     return path
 
 

@@ -72,13 +72,25 @@ probe launches the kernels again, and its result is discarded.
 ``--profile LOG_DIR`` records the training call with ``torch.profiler``
 (CPU and CUDA activities; a Chrome trace in LOG_DIR, `utils.profiling.trace`).
 The loss plot (`plot_losses`) imports matplotlib where it draws; without it
-a line says so. ``--dp`` is not ported (one card).
+a line says so.
+
+``--dp`` trains data-parallel over every rank of the process group
+(``engine.fit(mesh=vmap_meta.population_mesh())``, the JAX CLI's rules):
+the plain path (with USE_PALLAS it says so), and with one device "only one
+device is visible; running single-chip". Launch it one process a card:
+``python -m torch.distributed.run --standalone --nproc_per_node N -m
+vae_los_angeles_torch.train_rna2dna --dp ...``; `run_training` starts the
+group from the launcher's variables (``comm.ensure_group``). Under a group
+``--replicates`` shards the replicates over the ranks. Every rank trains;
+rank 0 alone writes the checkpoints, run-id file, metrics and plot and
+prints the report (the others' stdout is quiet).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import sys
@@ -95,7 +107,7 @@ from vae_los_angeles_torch.data.synthetic import ensure_synthetic_artifacts
 from vae_los_angeles_torch.device import resolve_device
 from vae_los_angeles_torch.evaluation.plotting import pyplot
 from vae_los_angeles_torch.ops.nn import resolve_compute_dtype
-from vae_los_angeles_torch.parallel import vmap_meta
+from vae_los_angeles_torch.parallel import comm, vmap_meta
 from vae_los_angeles_torch.training import checkpoint, engine
 from vae_los_angeles_torch.training.tasks import get_task
 from vae_los_angeles_torch.utils import profiling
@@ -132,6 +144,7 @@ def compute_class_weights(site_labels, n_classes):
     return weights
 
 
+@comm.writes_files
 def plot_losses(train_losses, val_losses, run_id, model_name, plots_dir="plots",
                 start_epoch=0):
     """Loss plot (reference train_rna2dna.py:134-147) →
@@ -189,6 +202,11 @@ def _parse(model_name, argv):
         help="train N replicates (the same hyperparameters, seeds member_seeds(seed, N)) as "
         "one population on the plain path; keeps the best one under the run-id protocol and "
         "reports mean±std. Does not compose with --resume")
+    parser.add_argument(
+        "--dp", action="store_true",
+        help="data-parallel training: shard the sample axis over every rank of the process "
+        "group (one process a card, python -m torch.distributed.run). Plain path only — "
+        "overrides USE_PALLAS")
     return parser.parse_args(argv)
 
 
@@ -209,9 +227,20 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     """Train, save and report; returns (FitResult or None, run_id, wall seconds).
     ``root`` is where the run-id file goes (the working directory by default);
     ``use_class_weights`` weighs the site loss by the training rows' balanced
-    class weights (the tri-modal task)."""
+    class weights (the tri-modal task). Under a process group every rank
+    calls it (module docstring)."""
     args = _parse(model_name, argv)
     cfg = cfg or Config.from_env()
+    comm.ensure_group(device, cfg)
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if not comm.is_writer()
+             else contextlib.nullcontext())
+    with quiet:
+        return _run_training(args, task_name, model_name, cfg, data, n_sites, device, root,
+                             use_class_weights)
+
+
+def _run_training(args, task_name, model_name, cfg, data, n_sites, device, root,
+                  use_class_weights):
     # explicit flags win over env/config spellings of the same knobs
     overrides = {k: v for k, v in (("compute_dtype", args.compute_dtype),
                                    ("moments_dtype", args.moments_dtype),
@@ -295,9 +324,23 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
         req = ", ".join(f"{k}={v}" for k, v in reduced.items())
         print(f"{req}: using the plain path (the CUDA kernels are fp32 AdamW programs)")
         fused_epoch = False
+    mesh = None
+    if args.dp:
+        # the CV/HPO populations' policy: every rank of the group, or None on one
+        mesh = vmap_meta.population_mesh()
+        if mesh is None:
+            print("--dp requested but only one device is visible; running single-chip")
+        else:
+            if fused_epoch:
+                print("--dp: using the plain path (the CUDA kernels are single-device programs)")
+                fused_epoch = False
+            print(f"Data-parallel over {mesh.size} devices")
     if args.replicates > 1 and fused_epoch:
         print("--replicates: using the plain population path (vmap_meta.fit_trials)")
         fused_epoch = False
+    if args.replicates > 1 and mesh is not None:
+        print("--dp with --replicates: replicates themselves shard over the mesh (no "
+              "sample-axis sharding needed)")
     path = "plain"
     if fused_epoch:
         path = "wide head kernel" if engine.uses_wide_head(task_name, cfg) else "epoch kernel"
@@ -314,7 +357,8 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
         return engine.fit(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
                           num_epochs=num_epochs, resume_carry=resume_carry,
                           start_epoch=start_epoch, fused_epoch=fused_epoch, device=device,
-                          class_weights=class_weights)
+                          class_weights=class_weights,
+                          mesh=None if args.replicates > 1 else mesh)
 
     trace = (profiling.trace(args.profile, cuda=device.type == "cuda") if args.profile
              else contextlib.nullcontext())
@@ -351,20 +395,21 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     n_ran = result.epochs_ran
     total = start_epoch + num_epochs
     metrics_path = os.path.join(cfg.plots_dir, f"metrics_{model_name}_{run_id}.jsonl")
-    with open(metrics_path, "a") as f:
-        for epoch in range(n_ran):
-            global_epoch = start_epoch + epoch + 1
-            print(f"Epoch [{global_epoch}/{total}] | "
-                  f"Train Loss: {result.train_losses[epoch]:.2f} | "
-                  f"Val Loss: {result.val_losses[epoch]:.2f} | "
-                  f"β={float(result.betas[epoch]):.5f}")
-            f.write(json.dumps({
-                "epoch": global_epoch,
-                "train_loss": float(result.train_losses[epoch]),
-                "val_loss": float(result.val_losses[epoch]),
-                "beta": float(result.betas[epoch]),
-                "lr": float(result.lrs[epoch]),
-            }) + "\n")
+    rows = []
+    for epoch in range(n_ran):
+        global_epoch = start_epoch + epoch + 1
+        print(f"Epoch [{global_epoch}/{total}] | "
+              f"Train Loss: {result.train_losses[epoch]:.2f} | "
+              f"Val Loss: {result.val_losses[epoch]:.2f} | "
+              f"β={float(result.betas[epoch]):.5f}")
+        rows.append(json.dumps({
+            "epoch": global_epoch,
+            "train_loss": float(result.train_losses[epoch]),
+            "val_loss": float(result.val_losses[epoch]),
+            "beta": float(result.betas[epoch]),
+            "lr": float(result.lrs[epoch]),
+        }) + "\n")
+    _append_lines(metrics_path, rows)
     print(f"Per-epoch metrics appended to {metrics_path}")
     if result.stopped:
         print(f"\nEarly stopping triggered at epoch {start_epoch + n_ran}!")
@@ -396,6 +441,12 @@ def run_training(task_name: str = "rna2dna", model_name: str = "rna2dna", cfg: C
     return result, run_id, wall
 
 
+@comm.writes_files
+def _append_lines(path, lines):
+    with open(path, "a") as f:
+        f.writelines(lines)
+
+
 def _stage(dataset, tr_idx, va_idx, device):
     """The JAX CLI's first two wall figures: (seconds to bring the device up,
     a tiny synced op in a new CUDA context; seconds to place the train and
@@ -424,7 +475,7 @@ def _train_replicates(task_name, cfg, train_arrays, val_arrays, seed, n_sites, n
     res = vmap_meta.fit_trials(task_name, cfg, train_arrays, val_arrays, seed, n_sites,
                                {"lr": np.full(n, cfg.learning_rate, np.float32)},
                                num_epochs=num_epochs, class_weights=class_weights, seeds=seeds,
-                               device=device)
+                               mesh=vmap_meta.population_mesh(), device=device)
     best_vals = np.asarray([r.best_val_loss for r in res])
     finite = np.isfinite(best_vals)
     if not finite.any():

@@ -68,11 +68,27 @@ losses name the step). Each check reads one flag back from the card.
 Without it nothing is checked and no sync is added.
 
 Not ported, raising as the JAX engine does where it has no kernel:
-``masked_sizes`` and ``mesh``.
+``masked_sizes``.
+
+``mesh`` (``parallel.sharding.make_mesh`` or ``vmap_meta.population_mesh``)
+trains data-parallel, the JAX engine's rules: every rank of the process
+group calls `fit` with the whole tables; each draws the epoch's shuffle and
+the global batch's noise from the same generator and takes its rows of the
+batch (``parallel.sharding.ShardContext``: dropout masks and eps drawn for
+the global batch, BatchNorm on the global batch's statistics), the loss
+sums and gradients are summed over the "data" axis (one all-reduce a step)
+and divided by the global counts, so the run is the single-device plain
+path up to the order of its sums, and a batch that does not divide by the
+axis still trains. The parameters stay replicated (no tensor parallelism in
+a fit, as in JAX: the "model" axis repeats the work). The validation loss
+is summed the same way. A mesh of one device takes the plain program;
+``mesh`` with ``fused_step`` or ``fused_epoch`` raises.
 
 `predict` is the JAX engine's ``predict``: the task's eval-mode prediction
 over a full table (z sampled from a generator seeded by ``seed``), in
-``compute_dtype``, in one call or in ``chunk_size`` row chunks.
+``compute_dtype``, in one call or in ``chunk_size`` row chunks; with a
+``mesh`` every rank predicts its rows, with the noise the single call
+draws for them, and every rank returns the whole table.
 """
 
 from __future__ import annotations
@@ -91,6 +107,7 @@ from vae_los_angeles_torch.ops import nn as ops_nn
 from vae_los_angeles_torch.ops.kernels import fused_epoch as fe
 from vae_los_angeles_torch.ops.kernels import fused_train as ft
 from vae_los_angeles_torch.ops.kernels import fused_wide as fw
+from vae_los_angeles_torch.parallel import comm
 from vae_los_angeles_torch.training.tasks import Batch, get_task
 from vae_los_angeles_torch.utils.tree import tree_leaves, tree_map
 from vae_los_angeles_torch.utils.weights import tree_from_numpy
@@ -240,8 +257,11 @@ def _as_batch(arrays, device) -> Batch:
 def _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh):
     if masked_sizes:
         raise ValueError("masked_sizes is not ported: the port trains exact-shape runs")
-    if mesh is not None:
-        raise ValueError("mesh-sharded fit is not ported: the port trains on one card")
+    if mesh is not None and (fused_step or fused_epoch):
+        raise ValueError(
+            "mesh-sharded fit requires the plain path: the CUDA kernels are single-device "
+            "programs (use parallel/vmap_meta population sharding for multi-device kernel "
+            "workloads)")
     compute = ops_nn.resolve_compute_dtype(cfg.compute_dtype)
     moments = ops_nn.resolve_compute_dtype(cfg.moments_dtype)
     _optimizer(cfg.optimizer)
@@ -352,6 +372,16 @@ def epoch_noise(seed: int, epoch: int, n_train: int, device):
     return gen, torch.randperm(n_train, generator=gen, device=device)
 
 
+def _dp_grads(task, params, state, batch, beta, gen, mesh, compute_dtype, loss_kw):
+    """The data-parallel path's (global loss sum, summed gradients, new
+    state) of a training batch: this rank's rows of it (module docstring)."""
+    from vae_los_angeles_torch.parallel.sharding import sharded_loss_and_grads
+
+    lo, hi = mesh.row_range(len(batch))
+    return sharded_loss_and_grads(task, params, state, Batch(*(t[lo:hi] for t in batch)), beta,
+                                  gen, mesh, len(batch), compute_dtype, split=False, **loss_kw)
+
+
 def plain_grads(task, params, state, batch, beta, gen, loss_kw, compute_dtype, debug, epoch, b,
                 members: bool = False):
     """The plain path's loss, gradients and new state of one training batch.
@@ -370,15 +400,32 @@ def plain_grads(task, params, state, batch, beta, gen, loss_kw, compute_dtype, d
     return loss.detach(), grads, tree_map(torch.Tensor.detach, state)
 
 
+def _dp_context(mesh, n: int):
+    """A data-parallel ``ShardContext`` for an ``n``-row batch and this
+    rank's (lo, hi) of it."""
+    from vae_los_angeles_torch.parallel.sharding import ShardContext
+
+    ctx = ShardContext(mesh)
+    return ctx, ctx.set_rows(n)
+
+
 def end_epoch(task, carry, params, state, opt, val, beta, gen, hp, loss_kw, compute_dtype,
-              n_val_batches, epoch, members: bool = False):
+              n_val_batches, epoch, members: bool = False, mesh=None):
     """An epoch's close: the validation loss over the whole set (its sum
     over ceil(n_val / batch) batches), the plateau, the strict-improvement
     early stop and the best snapshot; returns (val_loss, carry). With
-    ``members`` every record has one entry a member."""
+    ``members`` every record has one entry a member; with a data-parallel
+    ``mesh`` each rank sums its rows and the sums are added up."""
+    fwd = ops_nn.cast_matmul_params(params, compute_dtype, members)
     with torch.no_grad():
-        val_sum, _ = task.loss(ops_nn.cast_matmul_params(params, compute_dtype, members), state,
-                               val, beta, False, gen, **loss_kw)
+        if mesh is None:
+            val_sum, _ = task.loss(fwd, state, val, beta, False, gen, **loss_kw)
+        else:
+            ctx, (lo, hi) = _dp_context(mesh, len(val))
+            with ops_nn.sharded(ctx):
+                val_sum, _ = task.loss(fwd, state, Batch(*(t[lo:hi] for t in val)), beta, False,
+                                       gen, **loss_kw)
+            val_sum = mesh.psum(val_sum.reshape(1), "data")[0]
     val_loss = val_sum / n_val_batches
     plateau = optim.plateau_step(carry["plateau"], val_loss, hp["sched_factor"],
                                  hp["sched_patience"])
@@ -400,8 +447,11 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     ``seed`` seeds the initialisation (when neither ``init_params`` nor
     ``resume_carry`` is given), the shuffles and the noise;
     ``class_weights`` (n_sites,) weighs the tri-modal cross-entropy term.
-    Runs on the card unless ``device="cpu"`` or ``cfg.platform == "cpu"``."""
+    Runs on the card unless ``device="cpu"`` or ``cfg.platform == "cpu"``;
+    ``mesh`` trains data-parallel (module docstring)."""
     _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh)
+    if mesh is not None and mesh.size == 1:
+        mesh = None  # one device: the plain program
     kernels = fused_step or fused_epoch
     wide_head = kernels and uses_wide_head(task_name, cfg)
     fused_step, fused_epoch = fused_step and not wide_head, fused_epoch and not wide_head
@@ -504,6 +554,11 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
                         loss, grads, state = FUSED[task_name].step(
                             params, state, batch.tpm, batch.beta, batch.site, n_sites,
                             seed=eseed, step=b, beta=beta, **fused_kw)
+                    elif mesh is not None:
+                        loss, grads, state = _dp_grads(task, params, state, batch, beta, gen,
+                                                       mesh, compute_dtype, loss_kw)
+                        if debug:
+                            _nan_check(epoch, b, loss)
                     else:
                         loss, grads, state = plain_grads(task, params, state, batch, beta, gen,
                                                          loss_kw, compute_dtype, debug, epoch, b)
@@ -515,7 +570,7 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             train_loss = train_sum / n_batches
 
             val_loss, carry = end_epoch(task, carry, params, state, opt, val, beta, gen, hp,
-                                        loss_kw, compute_dtype, n_val_batches, epoch)
+                                        loss_kw, compute_dtype, n_val_batches, epoch, mesh=mesh)
             rows["train"].append(train_loss)
             rows["val"].append(val_loss)
             rows["beta"].append(beta)
@@ -552,9 +607,12 @@ def predict(task_name: str, params, state, arrays, seed: int = 0, mesh=None, chu
     the device ``chunk_size`` rows at a time (keep it on the host for that)
     and the result comes back as one numpy array of the same rows, the
     chunks drawing their noise from the one generator in turn. Runs on the
-    card unless ``device="cpu"``. ``mesh`` raises (one card)."""
-    if mesh is not None:
-        raise ValueError("mesh-sharded predict is not ported: the port serves on one card")
+    card unless ``device="cpu"``. With a ``mesh`` (every rank calls it with
+    the whole table) each rank predicts its rows of each call or chunk,
+    drawing for them the noise the single call draws, and every rank returns
+    the whole result; a mesh of one device is the single call."""
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     if chunk_size is not None and chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     task = get_task(task_name)
@@ -566,14 +624,28 @@ def predict(task_name: str, params, state, arrays, seed: int = 0, mesh=None, chu
     n = len(arrays[0])
     if n == 0:
         raise ValueError("cannot predict an empty table")
+
+    def serve(table):
+        if mesh is None:
+            return task.predict(params, state, _as_batch(table, device), gen)
+        rows = len(table[0])
+        ctx, (lo, hi) = _dp_context(mesh, rows)
+        with ops_nn.sharded(ctx):
+            part = task.predict(params, state, _as_batch([a[lo:hi] for a in table], device), gen)
+        return comm.all_gather_rows(part, mesh.row_counts(rows), mesh.group("data"))
+
     with torch.no_grad():
         if chunk_size is None:
-            return task.predict(params, state, _as_batch(arrays, device), gen)
-        return np.concatenate([
-            task.predict(params, state,
-                         _as_batch([a[start:start + chunk_size] for a in arrays], device),
-                         gen).cpu().numpy()
-            for start in range(0, n, chunk_size)])
+            return serve(arrays)
+        return np.concatenate([serve([a[start:start + chunk_size] for a in arrays]).cpu().numpy()
+                               for start in range(0, n, chunk_size)])
+
+
+def replicate_for_serving(tree, mesh=None, device=None):
+    """A params/state tree placed on this rank's device once (every rank
+    holds the whole tree), so that repeated `predict` calls reuse it."""
+    del mesh  # every rank of any mesh holds the replicated tree
+    return tree_from_numpy(tree, resolve_device(device))
 
 
 def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool = True) -> int:
@@ -583,4 +655,5 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
 
 
 __all__ = ["FUSED", "FitResult", "POPULATION_KEYS", "WIDE_HEAD_MIN_DIM_B", "beta_schedule",
-           "epoch_seed", "fit", "hyperparams", "init_carry", "predict", "samples_trained", "uses_wide_head"]
+           "epoch_seed", "fit", "hyperparams", "init_carry", "predict", "replicate_for_serving",
+           "samples_trained", "uses_wide_head"]
