@@ -34,7 +34,9 @@ Phases (any failure raises, and the script exits non-zero):
          about 3x the fp32 differences measured there. Nearer, two fp32
          implementations can take different sides and their gradients differ
          by a whole term (seen at B = 32: one flipped unit moved d2w by 0.17);
-       * the loss pair at B in {32, 205} and, as the wide paths run it, at
+       * the loss pair at B in {32, 205}, at the short valid prefixes 2, 7,
+         17 and 31 rows (what a masked population's short batches hand it;
+         timed there too, kernel against plain) and, as the wide paths run it, at
          32 x 450,000 (a training batch) and 103 x 450,000 (the validation
          split of 512 samples), and at 41 x 120,011 with logits and target
          4 bytes past a 16-byte boundary (an odd n, a scalar head and tail,
@@ -151,8 +153,13 @@ Phases (any failure raises, and the script exits non-zero):
      serving kernels, one call for the 103 validation rows: the posterior
      and the reconstruction at z = mu within atol = rtol = 1e-4 of the plain
      eval forward; the loader's call split into the rows' copy to the card,
-     the kernel call and the results' copy to the host); then
-     ``engine.fit`` for 2 epochs each with fp32 AdamW, bf16 compute, bf16
+     the kernel call and the results' copy to the host); ``run_training``
+     with ``--replicates 3 --optimizer adafactor`` for 2 epochs (the plain
+     population path: the loss pair once a member a step at 32 x 450,000,
+     and a validation), its ms an epoch and peak device memory, and the
+     first step of an Adafactor population of one against ``engine.fit``'s
+     at the same seed, every updated tensor within 1e-5 of its largest
+     |value|; then ``engine.fit`` for 2 epochs each with fp32 AdamW, bf16 compute, bf16
      moments and Adafactor on the plain path, and with fp32 AdamW on the
      kernel path (the wide head), each after an untimed warm-up epoch,
      from the same initial weights with the rows on the card; each with its
@@ -161,7 +168,8 @@ Phases (any failure raises, and the script exits non-zero):
      path: a forward and a backward a step and the validation forward; the
      wide head's path: the validation forward); after the autoencoders, the
      cross-modality CV (`phase_cross_modality_cv`): ``vmap_meta.fit_folds``
-     of 5 folds x 3 epochs of rna2dna, dna2rna, rna2dna_ae and
+     (``mask_sizes=False``: exact size groups) of 5 folds x 3 epochs of
+     rna2dna, dna2rna, rna2dna_ae and
      rna2dna_unified at kl_on = 0 on ``--subset 0.99`` of the 1024-sample
      cohort (5 folds of all 1024 leave a one-row last batch, which
      BatchNorm refuses, in the reference too), each member
@@ -177,7 +185,18 @@ Phases (any failure raises, and the script exits non-zero):
      epoch of a single member and, for the VAE, one epoch of it through the
      epoch kernel (RNA→DNA VAE and AE; host clock and CUDA events); the
      device busy share and kernels a step of a 10-member population epoch
-     and of a single member's (torch.profiler); after the CV, the HPO
+     and of a single member's (torch.profiler); then the masked-size
+     populations (`phase_masked_populations`, the default mode): the same
+     folds with ``mask_sizes=True`` for each CV task as one population (two
+     exact groups otherwise), each member within rtol 2e-4 of its population
+     of one at the same padded maxima, the largest member within it of
+     ``engine.fit(masked_sizes=True)``, the RNA→DNA populations' loss pair
+     exactly a forward a member a true step and a validation and a backward
+     a member a true step (the short batches' calls on their valid rows);
+     and one population epoch of 10 folds on an 8004-sample cohort (inner
+     training sets of 6482 and 6483 rows) masked against
+     ``POP_MASK_SIZES=0`` (two groups), in turns, host clock and CUDA
+     events; after the CV, the HPO
      (`phase_hpo`): ``vmap_meta.fit_trials`` of four tri-modal trials (lr,
      weight decay, β and γ each their own, balanced class weights, 3
      epochs) on the 1024-sample cohort's split: each trial alone (a
@@ -399,6 +418,7 @@ WIDE_SERVING = (("dna2rna_fused_forward", 6_623), ("dna2rna_fused_forward", 65_5
 SERVE_TIMED = (205, 1600, 4096)
 STEP_BATCHES = (32, 7, 256)
 LOSS_BATCHES = (32, 205)
+LOSS_SHORT = (2, 7, 17, 31)  # the valid prefixes of a masked population's short batches
 EPOCH_STEPS = 25
 LR, WD, BETA = 5e-4, 1e-5, 1e-3
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
@@ -951,7 +971,7 @@ def compare_loss(dev):
     versions at every shape (module docstring), and LOSS_REPEATS more
     forwards giving the autograd call's bits."""
     worst = {"rna2dna_loss_forward": 0.0, "rna2dna_loss_backward": 0.0}
-    shapes = ([(batch, CFG.input_dim_b, 0) for batch in LOSS_BATCHES]
+    shapes = ([(batch, CFG.input_dim_b, 0) for batch in LOSS_BATCHES + LOSS_SHORT]
               + [(batch, width, 0) for batch, width in wide_loss_shapes()] + [LOSS_ODD])
     for batch, width, offset in shapes:
         logits, t, mu, lv = loss_inputs(dev, batch, width, offset)
@@ -2293,6 +2313,8 @@ def phase_train_wide(dev, workdir, card):
     del result
     counts["serve_wide"] = serve_wide(dev, cfg, workdir, run_id, tpm[va], site[va], card)
     shutil.rmtree(cfg.checkpoint_dir)
+    counts["wide_replicates"] = wide_replicates(dev, workdir, cfg, (tpm, beta, site), tr, va,
+                                                card)
 
     # the rows and the initial weights go to the card once, outside the timing
     train_rows, val_rows = ([torch.as_tensor(a[idx]).to(dev) for a in (tpm, beta, site)]
@@ -2344,6 +2366,75 @@ def phase_train_wide(dev, workdir, card):
     say(f"[train-wide] launches: run_training bf16 moments {counts['train_wide']}; "
         f"run_training fp32 {counts['wide']}; serving it {counts['serve_wide']}")
     return counts
+
+
+WIDE_REPLICATES = 3
+ADAFACTOR_SHARE = 1e-5  # a population of one's first step, of each tensor's largest |value|
+
+
+def wide_replicates(dev, workdir, cfg, data, tr, va, card):
+    """``run_training`` RNA→DNA with ``--replicates`` `WIDE_REPLICATES`
+    ``--optimizer adafactor`` at the whole-methylome width (the plain
+    population path: the loss pair once a member a step at 32 x 450,000,
+    and a validation), every launch count at 0 just before it: its ms an
+    epoch and peak device memory. Then the first step of a population of
+    one (``fit_trials``, one trial, 32 training rows: one step) against
+    ``engine.fit``'s plain Adafactor step at the same seed: every updated
+    tensor within `ADAFACTOR_SHARE` of its largest |value|. Returns the
+    launch counts."""
+    tpm, beta, site = data
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result, _, wall = run_training(
+            "rna2dna", "rna2dna", cfg=cfg,
+            argv=["--epochs", "2", "--seed", "0", "--replicates", str(WIDE_REPLICATES),
+                  "--optimizer", "adafactor"],
+            data=data, n_sites=N_SITES, device=dev, root=workdir)
+    launches = read_counts()
+    steps = len(tr) // cfg.batch_size
+    want = {"rna2dna_loss_forward": WIDE_REPLICATES * 2 * (steps + 1),
+            "rna2dna_loss_backward": WIDE_REPLICATES * 2 * steps}
+    text = tee.copy.getvalue()
+    if ({k: launches[k] for k in want} != want or "vr" not in result.carry["opt"]
+            or any(f"r{r}=" not in text for r in range(WIDE_REPLICATES))
+            or "samples/sec" not in text):
+        raise AssertionError(f"--replicates {WIDE_REPLICATES} --optimizer adafactor: launches "
+                             f"{launches} (want {want})")
+    _wide_fit_line(f"run_training --replicates {WIDE_REPLICATES} --optimizer adafactor (the "
+                   "population path; the host-side initialisation of the members included; "
+                   "wall over the epochs)", wall, 2, len(tr), result, card)
+    say(f"[train-wide] --replicates {WIDE_REPLICATES} --optimizer adafactor: loss pair forward "
+        f"{launches['rna2dna_loss_forward']}, backward {launches['rna2dna_loss_backward']} "
+        f"(32 x {WIDE_D} a member a step, and a validation)")
+    del result
+    shutil.rmtree(cfg.checkpoint_dir)
+
+    plain = cfg.replace(use_pallas=False, optimizer="adafactor")
+    one_step = (tuple(a[tr[:plain.batch_size]] for a in data),
+                tuple(a[va[:plain.batch_size]] for a in data))
+    seed = vmap_meta.member_seeds(0, 1)[0]
+    pop = vmap_meta.fit_trials("rna2dna", plain, *one_step, 0, N_SITES,
+                               {"lr": np.full(1, plain.learning_rate, np.float32)},
+                               num_epochs=1, mask_sizes=False, device=dev)[0]
+    single = engine.fit("rna2dna", plain, *one_step, seed, N_SITES, num_epochs=1, device=dev)
+    if int(single.carry["opt"]["step"]) != 1 or int(pop.carry["opt"]["step"]) != 1:
+        raise AssertionError("the Adafactor comparison is not one step")
+    worst = 0.0
+    for (name, a), (_, b) in zip(engine._named_leaves(pop.final_params),
+                                 engine._named_leaves(single.final_params)):
+        share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not share <= ADAFACTOR_SHARE:
+            raise AssertionError(f"Adafactor population of one, first step: {name} differs by "
+                                 f"{share:.3g} of its largest |value|")
+        worst = max(worst, share)
+    say(f"[train-wide] Adafactor population of one against engine.fit, the first step at 32 x "
+        f"{WIDE_D}: every updated tensor within {worst:.3g} of its largest |value| (held at "
+        f"{ADAFACTOR_SHARE:g}); {card}")
+    del pop, single
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_wide(dev, cfg, workdir, run_id, x, s, card):
@@ -3342,17 +3433,17 @@ CV_SUBSET = 0.99
 MEMBER_RTOL = 2e-4  # the JAX package's population-against-sequential tolerance
 
 
-def hold_member(what, res, single, epochs):
+def hold_member(what, res, single, epochs, rtol=MEMBER_RTOL):
     """The largest relative distance of a population member's train and
     validation losses from its single run's; raises unless it is within
-    `MEMBER_RTOL` and the epochs (``epochs`` each), best epoch, stop, βs and
-    rates are equal."""
+    ``rtol`` (None: printed, not held) and the epochs (``epochs`` each), best
+    epoch, stop, βs and rates are equal."""
     same = (res.epochs_ran == single.epochs_ran == epochs and res.best_epoch == single.best_epoch
             and np.array_equal(res.lrs, single.lrs) and np.array_equal(res.betas, single.betas)
             and res.stopped == single.stopped)
     rel = max(float(np.max(np.abs(res.train_losses / single.train_losses - 1))),
               float(np.max(np.abs(res.val_losses / single.val_losses - 1))))
-    if not same or not rel <= MEMBER_RTOL:
+    if not same or not np.isfinite(rel) or (rtol is not None and not rel <= rtol):
         raise AssertionError(
             f"{what}: epochs {res.epochs_ran}/{single.epochs_ran}, best "
             f"{res.best_epoch}/{single.best_epoch}, lrs {res.lrs}/{single.lrs}, betas "
@@ -3390,7 +3481,7 @@ def compare_populations(dev, tpm, beta, site, card):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pop = vmap_meta.fit_folds(name, CFG, tr, va, 0, N_SITES, num_epochs=CV_EPOCHS,
-                                  state_overrides=overrides, device=dev)
+                                  state_overrides=overrides, mask_sizes=False, device=dev)
         torch.cuda.synchronize()
         pop_s = time.perf_counter() - t0
         counts = {k: fl.launches[k] for k in ("rna2dna_loss_forward", "rna2dna_loss_backward")}
@@ -3434,7 +3525,7 @@ def time_population_epoch(dev, card, task="rna2dna", n_samples=8000, n_folds=10)
     seed = vmap_meta.member_seeds(0, n_folds)[0]
     runs = {
         "population": lambda n: vmap_meta.fit_folds(task, CFG, tr, va, 0, N_SITES,
-                                                    num_epochs=n, device=dev),
+                                                    num_epochs=n, mask_sizes=False, device=dev),
         "single": lambda n: engine.fit(task, CFG, tr[0], va[0], seed, N_SITES, num_epochs=n,
                                        drop_last=False, device=dev),
     }
@@ -3511,7 +3602,7 @@ def profile_population_step(dev, card, task="rna2dna", n_samples=1040, n_folds=1
     seed = vmap_meta.member_seeds(0, n_folds)[0]
     calls = {
         f"{n_folds}-member population": lambda: vmap_meta.fit_folds(
-            task, CFG, tr, va, 0, N_SITES, num_epochs=1, device=dev),
+            task, CFG, tr, va, 0, N_SITES, num_epochs=1, mask_sizes=False, device=dev),
         "one member, engine.fit": lambda: engine.fit(
             task, CFG, tr[0], va[0], seed, N_SITES, num_epochs=1, drop_last=False, device=dev),
     }
@@ -3564,6 +3655,168 @@ def phase_cross_modality_cv(dev, tpm, beta, site, card):
     for task in ("rna2dna", "rna2dna_ae"):
         time_population_epoch(dev, card, task)
     profile_population_step(dev, card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the masked-size populations (POP_MASK_SIZES, the default): uneven folds as
+# one population, the loss pair on each member's valid rows
+
+MASKED_TIMING = (8004, 10)  # samples, folds: inner training sets of 6482 and 6483 rows
+
+
+def spy_groups():
+    """Wrap ``vmap_meta._fit_group`` to record each population's member
+    count; returns (the records, a function that restores it)."""
+    calls, real = [], vmap_meta._fit_group
+
+    def spy(task, cfg, tr, *a, **k):
+        calls.append(tr.tpm.shape[0])
+        return real(task, cfg, tr, *a, **k)
+
+    vmap_meta._fit_group = spy
+    return calls, lambda: setattr(vmap_meta, "_fit_group", real)
+
+
+def masked_population_of_one(name, tr, va, seed, maxima, overrides, dev, copies=1):
+    """One fold's masked population at the padded ``maxima`` (n_train,
+    n_val), or its tables and seed repeated ``copies`` times (the batched
+    shapes of a population of that size); returns the first member."""
+    stack = lambda t, n: Batch(*(torch.stack([x] * copies) for x in  # noqa: E731
+                                 vmap_meta._pad_rows(engine._as_batch(t, dev), n)))
+    if overrides is not None:
+        overrides = {k: np.repeat(v, copies, 0) for k, v in overrides.items()}
+    return vmap_meta._fit_group(get_task(name), CFG, stack(tr, maxima[0]), stack(va, maxima[1]),
+                                [seed] * copies, N_SITES, CV_EPOCHS, False, dev,
+                                overrides=overrides,
+                                sizes=([len(tr[0])] * copies, [len(va[0])] * copies))[0]
+
+
+def compare_masked_populations(dev, tpm, beta, site, card):
+    """`vmap_meta.fit_folds` with ``mask_sizes=True`` of the ``--subset
+    0.99`` folds (5 folds x 3 epochs) for each of `CV_TASKS`, every launch
+    count at 0 just before each: one population a task (the exact mode
+    trains two size groups); the largest and the smallest member bit for
+    bit the first member of a population of their own tables and seed
+    repeated 5 times (the same batched shapes: a member's numbers are its
+    rows' alone); each member against its population of one at the same
+    padded maxima, and the largest against ``engine.fit(masked_sizes=True)``
+    (a single run), the epochs, best epoch, βs and rates equal and the
+    losses' relative distance printed: the batched products of another
+    member count round otherwise, and Adam turns that noise in the pre-BN
+    biases' zero gradients into ±lr steps (measured on the card: DNA→RNA
+    members within 4.6e-5 to 1.92e-3 of their populations of one after 3
+    epochs, RNA→DNA within 4.5e-5); and the RNA→DNA populations' loss pair
+    exactly a forward a member a true step and a validation, a backward a
+    member a true step (the short batches' calls on their valid rows).
+    Returns the RNA→DNA VAE's launch counts."""
+    rows = cross_modality_cv.subset_rows(len(tpm), CV_SUBSET)
+    tr, va = cv_fold_tables(tpm[rows], beta[rows], site[rows], CV_FOLDS)
+    n_trs, n_vas = [len(t[0]) for t in tr], [len(v[0]) for v in va]
+    maxima = (vmap_meta.bucket_rows(max(n_trs)), vmap_meta.bucket_rows(max(n_vas)))
+    seeds = vmap_meta.member_seeds(0, CV_FOLDS)
+    big = int(np.argmax(n_trs))
+    steps = sum(CV_EPOCHS * -(-n // CFG.batch_size) for n in n_trs)
+    want = {"rna2dna_loss_forward": steps + CV_EPOCHS * CV_FOLDS, "rna2dna_loss_backward": steps}
+    launches = None
+    for name in CV_TASKS:
+        unified = name.endswith("_unified")
+        overrides = {"kl_on": np.zeros(CV_FOLDS, np.float32)} if unified else None
+        groups, restore = spy_groups()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pop = vmap_meta.fit_folds(name, CFG, tr, va, 0, N_SITES, num_epochs=CV_EPOCHS,
+                                      state_overrides=overrides, mask_sizes=True, device=dev)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        pop_s = time.perf_counter() - t0
+        counts = read_counts()
+        if groups != [CV_FOLDS]:
+            raise AssertionError(f"{name}: the masked folds trained as populations of {groups}")
+        pair = {k: counts[k] for k in want}
+        if name.startswith("rna2dna") and not name.endswith("_ae"):
+            if pair != want:
+                raise AssertionError(f"{name} masked population: loss-pair launches {pair}, "
+                                     f"want {want}")
+            launches = launches or counts
+        elif any(pair.values()):
+            raise AssertionError(f"{name} masked population launched the loss pair: {pair}")
+        kl_off = {"kl_on": np.zeros(1, np.float32)} if unified else None
+        for i in sorted({big, int(np.argmin(n_trs))}):
+            rep = masked_population_of_one(name, tr[i], va[i], seeds[i], maxima, kl_off, dev,
+                                           copies=CV_FOLDS)
+            if not same_run(pop[i], rep):
+                raise AssertionError(f"{name} masked member {i}: val {pop[i].val_losses}, its "
+                                     f"tables repeated {CV_FOLDS} times {rep.val_losses}")
+        worst = 0.0
+        for i, res in enumerate(pop):
+            one = masked_population_of_one(name, tr[i], va[i], seeds[i], maxima, kl_off, dev)
+            worst = max(worst, hold_member(f"{name} masked member {i}", res, one, CV_EPOCHS,
+                                           rtol=None))
+        params, state = get_task(name).init(torch.Generator().manual_seed(seeds[big]), CFG,
+                                            N_SITES, dev)
+        if unified:
+            state["kl_on"] = torch.zeros((), device=dev)
+        single = engine.fit(
+            name, CFG, tuple(vmap_meta._pad_rows(engine._as_batch(tr[big], dev), maxima[0])),
+            tuple(vmap_meta._pad_rows(engine._as_batch(va[big], dev), maxima[1])), seeds[big],
+            N_SITES, num_epochs=CV_EPOCHS, drop_last=False, init_params=params,
+            init_state=state, masked_sizes=True, true_sizes=(n_trs[big], n_vas[big]),
+            device=dev)
+        rel = hold_member(f"{name} largest masked member", pop[big], single, CV_EPOCHS,
+                          rtol=None)
+        say(f"[masked] fit_folds {name}{' (kl_on 0)' if unified else ''} mask_sizes=True, "
+            f"{CV_FOLDS} folds of {sorted(set(n_trs))} training and {sorted(set(n_vas))} "
+            f"validation rows padded to {maxima}: one population; the largest and smallest "
+            f"members bit for bit their tables repeated {CV_FOLDS} times; each member within "
+            f"{worst:.3g} (rel) of its population of one, the largest within {rel:.3g} of "
+            f"engine.fit(masked_sizes=True), epochs, best epoch, betas and rates equal; loss "
+            f"pair {pair}; population {pop_s:.3f} s; {card}")
+    return launches
+
+
+def time_masked_population_epoch(dev, card, task="rna2dna"):
+    """One population epoch of `MASKED_TIMING`'s folds, masked (one
+    population) against ``POP_MASK_SIZES=0`` (two exact size groups), in
+    turns masked, exact, exact, masked (`timed_epochs`: host clock and CUDA
+    events, the init taken off)."""
+    n_samples, n_folds = MASKED_TIMING
+    tpm, beta, site = generate_synthetic_arrays(n_samples=n_samples, seed=2)
+    tr, va = cv_fold_tables(tpm, beta, site, n_folds)
+    sizes = sorted({len(t[0]) for t in tr})
+    groups, restore = spy_groups()
+    times = {"masked": [], "exact": []}
+    try:
+        for mode in ("masked", "exact", "exact", "masked"):
+            with env_set(POP_MASK_SIZES="1" if mode == "masked" else "0"):
+                del groups[:]
+                times[mode].append(timed_epochs(lambda n: vmap_meta.fit_folds(
+                    task, CFG, tr, va, 0, N_SITES, num_epochs=n, device=dev), 0, 1))
+            if len(groups) != (2 if mode == "masked" else 4):  # two calls, 0 and 1 epoch
+                raise AssertionError(f"{mode}: populations of {groups} in two calls")
+    finally:
+        restore()
+    mean = {m: tuple(float(np.mean(x)) for x in zip(*t)) for m, t in times.items()}
+    say(f"[masked] {task}, {n_samples}-sample cohort, {n_folds} folds ({sizes} training rows, "
+        f"padded to {vmap_meta.bucket_rows(max(sizes))}): one population epoch masked "
+        f"(one population) {mean['masked'][0]:.3f} ms host clock ({mean['masked'][1]:.3f} ms "
+        f"CUDA events) against POP_MASK_SIZES=0 (two size groups) {mean['exact'][0]:.3f} ms "
+        f"({mean['exact'][1]:.3f}), {mean['exact'][0] / mean['masked'][0]:.2f}x host; each "
+        f"call (masked, exact, exact, masked): "
+        + ", ".join(f"{h:.3f}/{e:.3f}" for h, e in times["masked"][:1] + times["exact"]
+                    + times["masked"][1:]) + f" ms; {card}")
+    return mean
+
+
+def phase_masked_populations(dev, tpm, beta, site, card):
+    """The masked-size slice: `compare_masked_populations`, then
+    `time_masked_population_epoch`. Returns the launch counts of the
+    RNA→DNA VAE's masked population."""
+    launches = compare_masked_populations(dev, tpm, beta, site, card)
+    time_masked_population_epoch(dev, card)
     return launches
 
 
@@ -3685,7 +3938,7 @@ def compare_trials(dev, tpm, beta, site, card):
     n = len(HPO_TRIALS["lr"])
     seeds = vmap_meta.member_seeds(0, n)
     fit = functools.partial(vmap_meta.fit_trials, "multimodal", CFG, train, val, 0, N_SITES,
-                            class_weights=cw, device=dev)
+                            class_weights=cw, mask_sizes=False, device=dev)
     trial = lambda *idx: {k: v[list(idx)] for k, v in HPO_TRIALS.items()}  # noqa: E731
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3776,7 +4029,7 @@ def check_padded_bucket(dev, train, val, cw, card):
     carry = hpo._padded_carry(cfg, N_SITES, seeds, lrs, HPO_PADDED, dev)
     res = vmap_meta.fit_trials("multimodal_padded", cfg, train, val, 0, N_SITES, {"lr": lrs},
                                num_epochs=2, class_weights=cw, carry0=carry, seeds=seeds,
-                               device=dev)
+                               mask_sizes=False, device=dev)
     params = vmap_meta._stack([r.final_params for r in res])
     state = vmap_meta._stack([r.final_state for r in res])
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -3809,7 +4062,8 @@ def check_padded_bucket(dev, train, val, cw, card):
         own = hpo._padded_carry(cfg, N_SITES, seeds[j:j + 1], lrs[j:j + 1], (w,), dev)
         alone = vmap_meta.fit_trials("multimodal_padded", cfg, train, val, 0, N_SITES,
                                      {"lr": lrs[j:j + 1]}, num_epochs=2, class_weights=cw,
-                                     carry0=own, seeds=seeds[j:j + 1], device=dev)[0]
+                                     carry0=own, seeds=seeds[j:j + 1], mask_sizes=False,
+                                     device=dev)[0]
         single = engine.fit("multimodal_padded", cfg, train, val, seeds[j], N_SITES,
                             num_epochs=2, class_weights=cw,
                             hp=engine.hyperparams(cfg, lr=float(lrs[j])),
@@ -3909,7 +4163,7 @@ def time_trial_population(dev, card, n_samples=8000, n_trials=8):
         runs = {
             f"{n_trials}-trial population": lambda n: vmap_meta.fit_trials(
                 "multimodal", CFG, train, val, 0, N_SITES, pop, num_epochs=n,
-                class_weights=cw, device=dev),
+                class_weights=cw, mask_sizes=False, device=dev),
             "one trial, engine.fit": lambda n: engine.fit(
                 "multimodal", CFG, train, val, seed, N_SITES, num_epochs=n, class_weights=cw,
                 hp=trial_hp(pop, 0), device=dev),
@@ -4322,6 +4576,7 @@ def phase_timing(dev, card):
             f"{100 * bound_ms / ms:.1f}% of it); {card}")
         del logits, tt
     torch.cuda.empty_cache()
+    time_short_loss(dev, card)
     time_fit(dev, card, 1024, 10)
     time_fit(dev, card, 8000, 3)
     out.update(time_d2r(dev, card, t, x, s, n_steps))
@@ -4331,6 +4586,24 @@ def phase_timing(dev, card):
     time_fit(dev, card, 1024, 10, "multimodal")
     time_fit(dev, card, 8000, 3, "multimodal")
     return out
+
+
+def time_short_loss(dev, card):
+    """The loss pair at `LOSS_SHORT` rows x 1211, the valid prefixes a
+    masked population's short batches hand it: kernel against plain (CUDA
+    events), forward and backward."""
+    parts = []
+    for batch in LOSS_SHORT:
+        logits, tt, mu, lv = loss_inputs(dev, batch, CFG.input_dim_b, scale=1.0)
+        b, one = torch.tensor(BETA, device=dev), torch.tensor(1.0, device=dev)
+        fwd = alternate(lambda: fl._forward(logits, tt, mu, lv, b),
+                        lambda: fl.loss_forward_reference(logits, tt, mu, lv, b))
+        bwd = alternate(lambda: fl._backward(logits, tt, mu, lv, b, one),
+                        lambda: fl.loss_backward_reference(logits, tt, mu, lv, b, one))
+        parts.append(f"{batch} rows forward {fwd[0]:.4f} ms (plain {fwd[1]:.4f}), backward "
+                     f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f})")
+    say(f"[time] loss pair at short valid prefixes x {CFG.input_dim_b}: " + "; ".join(parts)
+        + f"; {card}")
 
 
 def time_d2r(dev, card, x, t, s, n_steps):
@@ -4858,6 +5131,7 @@ def main():
             counts.update(phase_downstream(dev, workdir, tpm, beta, site, card))
             counts.update(phase_autoencoders(dev, workdir, tpm, beta, site, card))
             counts["cv"] = phase_cross_modality_cv(dev, tpm, beta, site, card)
+            counts["masked_cv"] = phase_masked_populations(dev, tpm, beta, site, card)
             counts.update(phase_hpo(dev, workdir, tpm, beta, site, card))
             counts.update(phase_train_wide(dev, workdir, card))
             counts.update(phase_cli(dev, workdir, card))

@@ -102,6 +102,18 @@ def _single(task, cfg, tr, va, seed, i, cw, epochs, pop=POP, **kw):
                            class_weights=cw, hp=hp, device="cpu", **kw)
 
 
+def _masked_single(task, cfg, tr, va, seed, **kw):
+    """``engine.fit`` as a trial of a masked population (the default) trains:
+    the tables padded to their row buckets, the true sizes masked."""
+    def pad(table):
+        n = port_vm.bucket_rows(len(table[0]))
+        return tuple(np.concatenate([x, np.zeros((n - len(x),) + x.shape[1:], x.dtype)])
+                     for x in table)
+
+    return port_engine.fit(task, cfg, pad(tr), pad(va), seed, N_SITES, masked_sizes=True,
+                           true_sizes=(len(tr[0]), len(va[0])), device="cpu", **kw)
+
+
 def _check_member(res, single):
     assert res.epochs_ran == single.epochs_ran
     assert res.best_epoch == single.best_epoch and res.stopped == single.stopped
@@ -252,14 +264,6 @@ def test_masked_member_axis_apply_against_jax(train_bn):
                                    err_msg=name, **LAYER)
     for j, width in enumerate((6, 2, 4)):
         assert not got.mu[j, :, width:].any() and not got.logvar[j, :, width:].any()
-
-
-def test_row_mask_is_not_ported():
-    params, state = port_tasks.get_task("multimodal").init(torch.Generator().manual_seed(0),
-                                                          PortConfig(**DIMS), N_SITES)
-    with pytest.raises(ValueError, match="row_mask is not ported"):
-        port_vae.multimodal_vae_apply(params, state, a=torch.zeros(2, DIM_A),
-                                      row_mask=torch.ones(2))
 
 
 # --- the latent mask's contract (tests/test_hpo_padded.py:71-180) -------------
@@ -470,7 +474,7 @@ def test_each_trial_is_its_single_run(split, task):
     cfg = PortConfig(**DIMS, patience=2, lr_scheduler_patience=0, beta_warmup_epochs=3)
     pop = {**POP, "lr": np.array([1e-3, 5e-4, 2e-2], np.float32)}
     results = port_vm.fit_trials(task, cfg, tr, va, 3, N_SITES, pop, num_epochs=6,
-                                 class_weights=cw, device="cpu")
+                                 class_weights=cw, mask_sizes=False, device="cpu")
     seeds = port_vm.member_seeds(3, 3)
     for i, res in enumerate(results):
         _check_member(res, _single(task, cfg, tr, va, seeds[i], i, cw, 6, pop=pop))
@@ -513,9 +517,11 @@ def test_fit_trials_refusals(split):
     with pytest.raises(ValueError, match="requires explicit per-trial `seeds`"):
         port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, start_epoch=1,
                            device="cpu")
-    with pytest.raises(ValueError, match="mask_sizes=True is not ported"):
-        port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, mask_sizes=True,
-                           device="cpu")
+    # masked sizes train (the default): the same trials as the explicit flag
+    masked = port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, num_epochs=1,
+                                mask_sizes=True, device="cpu")
+    for a, b in zip(first, masked):
+        np.testing.assert_array_equal(a.val_losses, b.val_losses)
     # the mesh refusal is gone: a mesh of one device trains the plain population
     meshed = port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES, POP, num_epochs=1,
                                 mesh=make_mesh(), device="cpu")
@@ -527,9 +533,10 @@ def test_fit_trials_refusals(split):
     with pytest.raises(ValueError, match="lengths"):
         port_vm.fit_trials("multimodal", cfg, tr, va, 0, N_SITES,
                            {"lr": POP["lr"], "gamma": POP["gamma"][:2]}, device="cpu")
-    with pytest.raises(ValueError, match="AdamW"):
-        port_vm.fit_trials("multimodal", cfg.replace(optimizer="adafactor"), tr, va, 0,
-                           N_SITES, POP, device="cpu")
+    # Adafactor trains a trial population
+    ada = port_vm.fit_trials("multimodal", cfg.replace(optimizer="adafactor"), tr, va, 0,
+                             N_SITES, POP, num_epochs=1, device="cpu")
+    assert all(np.isfinite(r.val_losses[0]) and "vr" in r.carry["opt"] for r in ada)
     with pytest.raises(ValueError, match="no training batches"):
         port_vm.fit_trials("multimodal", cfg, tuple(x[:10] for x in tr), va, 0, N_SITES, POP,
                            device="cpu")
@@ -549,7 +556,8 @@ def jax_trials(split):
 def test_trial_losses_agree_with_the_jax_population(split, jax_trials):
     tr, va, cw = split
     got = port_vm.fit_trials("multimodal", PortConfig(**DIMS), tr, va, 0, N_SITES, POP,
-                             num_epochs=JAX_EPOCHS, class_weights=cw, device="cpu")
+                             num_epochs=JAX_EPOCHS, class_weights=cw, mask_sizes=False,
+                             device="cpu")
     for i, g in enumerate(got):
         assert g.epochs_ran == JAX_EPOCHS
         np.testing.assert_array_equal(g.betas, jax_trials.betas[i])
@@ -609,9 +617,8 @@ def test_run_vmapped_prunes_by_the_median_rule(split, monkeypatch, pad_shapes):
     if not pad_shapes:
         cfg = PortConfig(**DIMS).replace(latent_dim=5, embed_dim=4, patience=10**6)
         for i in survivors:
-            single = port_engine.fit("multimodal", cfg, tr, va, seeds[i], N_SITES,
-                                     num_epochs=4, class_weights=cw,
-                                     hp=port_hpo._trial_hp(cfg, trials[i]), device="cpu")
+            single = _masked_single("multimodal", cfg, tr, va, seeds[i], num_epochs=4,
+                                    class_weights=cw, hp=port_hpo._trial_hp(cfg, trials[i]))
             np.testing.assert_allclose(values[i], single.best_val_loss, **MEMBER)
 
 
@@ -788,9 +795,8 @@ def test_replicates_keep_the_best_and_each_is_its_single_run(cohort, split, tmp_
     assert result is got[best]
     assert len({r.best_val_loss for r in got}) == 3  # the replicates differ
     cfg_run = cfg.replace(input_dim_a=DIM_A, input_dim_b=DIM_B)
-    for seed, res in zip(seeds, got):
-        _check_member(res, port_engine.fit("rna2dna", cfg_run, tr, va, seed, N_SITES,
-                                           num_epochs=3, device="cpu"))
+    for seed, res in zip(seeds, got):  # each a masked trial, the populations' default
+        _check_member(res, _masked_single("rna2dna", cfg_run, tr, va, seed, num_epochs=3))
     params, _, _ = port_ckpt.load_best("rna2dna", run_id, checkpoint_dir=cfg.checkpoint_dir)
     np.testing.assert_array_equal(params["decoder_dna"]["fc3"]["w"],
                                   result.params["decoder_dna"]["fc3"]["w"].numpy())

@@ -477,9 +477,17 @@ def test_module_forward_and_masks_not_ported():
                                            latent_mask=torch.ones(LATENT))
     for name in ("out_a", "out_b", "out_c", "mu", "logvar"):
         assert torch.equal(getattr(masked, name), getattr(ref, name)), name
-    with pytest.raises(ValueError, match="not ported"):
-        port_vae.multimodal_vae_apply(tree_from_numpy(params), tree_from_numpy(state), t["a"],
-                                      row_mask=torch.ones(B, dtype=torch.bool))
+    # the row mask is ported (the masked-size populations): all true is the unmasked
+    # forward bit for bit, in train mode (its BatchNorm statistics) too
+    for train in (False, True):
+        plain, rowed = (port_vae.multimodal_vae_apply(
+            tree_from_numpy(params), tree_from_numpy(state), t["a"], t["b"], t["site"],
+            train=train, eps=eps, generator=torch.Generator().manual_seed(3), **kw)
+            for kw in ({}, {"row_mask": torch.ones(B, dtype=torch.bool)}))
+        for name in ("out_a", "out_b", "out_c", "mu", "logvar"):
+            assert torch.equal(getattr(rowed, name), getattr(plain, name)), name
+        for path, w in _leaves(tree_to_numpy(plain.state)):
+            np.testing.assert_array_equal(_at(rowed.state, path).numpy(), w)
     p2, s2 = jax_from_state_dict(model.state_dict(), "multivae")
     back = dict(_leaves(p2)) | dict(_leaves(s2))
     want = dict(_leaves(params)) | dict(_leaves(state))

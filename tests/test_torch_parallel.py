@@ -314,6 +314,17 @@ def test_sharded_population_member_is_its_slice_alone(world2, single, kind):
     assert len(world2[0]["pops"][kind]) == 3  # the padding is dropped
 
 
+def test_sharded_masked_population_is_the_unsharded_one(world2, single):
+    """Uneven folds as one masked population sharded over 2 ranks: every
+    rank pads to the maxima of all folds, so each member is the one-device
+    population's bit for bit."""
+    for r in world2:
+        assert len(r["pops"]["masked_folds"]) == 3
+        for got, want in zip(r["pops"]["masked_folds"], single["pops"]["masked_folds"]):
+            np.testing.assert_array_equal(got["val"], want["val"])
+            _close_trees(got["params"], want["params"], 0.0)
+
+
 @pytest.fixture(scope="module")
 def jax_sharded_folds(tmp_path_factory):
     def compute():

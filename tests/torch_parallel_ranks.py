@@ -143,18 +143,24 @@ def dp_fits(mesh):
 
 
 def populations(mesh):
-    """A fold population (3 folds, 4 epochs) and a trial population (3
-    trials, 2 epochs) on this mesh (None: one device)."""
+    """A fold population (3 folds, 4 epochs) in exact-shape groups and the
+    same folds as one masked population (the default), and a trial
+    population (3 trials, 2 epochs, masked) on this mesh (None: one
+    device)."""
     from vae_los_angeles_torch.parallel import vmap_meta
 
     data = cohort()
     tr, va = cv_folds(data)
     folds = vmap_meta.fit_folds("rna2dna", cfg(), tr, va, 0, N_SITES, num_epochs=4,
-                                drop_last=False, mesh=mesh, device="cpu")
+                                drop_last=False, mask_sizes=False, mesh=mesh, device="cpu")
+    masked = vmap_meta.fit_folds("dna2rna", cfg(), tr, va, 0, N_SITES, num_epochs=2,
+                                 drop_last=False, mask_sizes=True, mesh=mesh, device="cpu")
     t, v = split(data)
     trials = vmap_meta.fit_trials("multimodal", cfg(), t, v, 0, N_SITES, POP, num_epochs=2,
                                   seeds=[11, 12, 13], mesh=mesh, device="cpu")
-    return {"folds": [fit_record(r) for r in folds], "trials": [fit_record(r) for r in trials]}
+    return {"folds": [fit_record(r) for r in folds],
+            "masked_folds": [fit_record(r) for r in masked],
+            "trials": [fit_record(r) for r in trials]}
 
 
 def cli_dp(workdir):
@@ -210,7 +216,7 @@ def world2():
     tr, va = cv_folds(data)
     seeds = vmap_meta.member_seeds(0, 3) + vmap_meta.member_seeds(0, 3)[-1:]
     alone = vmap_meta.fit_folds("rna2dna", cfg(), [tr[i] for i in sub], [va[i] for i in sub],
-                                0, N_SITES, num_epochs=4, drop_last=False,
+                                0, N_SITES, num_epochs=4, drop_last=False, mask_sizes=False,
                                 seeds=[seeds[i] for i in sub], device="cpu")
     t, v = split(data)
     alone_trials = vmap_meta.fit_trials(

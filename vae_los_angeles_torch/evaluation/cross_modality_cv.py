@@ -13,7 +13,10 @@ Every fold of a (direction, family) trains at once as one population
 (``parallel.vmap_meta.fit_folds``), each fold with the reference's inner
 90/10 early-stopping split (``data.splits.cv_inner_split``) and its plateau
 and early-stop schedule; the RNA→DNA VAEs' loss is the hand-written loss
-pair. With unified families (the default) a direction's VAE and AE are the
+pair. The folds' uneven sizes train as one masked population a family
+(``POP_MASK_SIZES``, on by default; ``0`` groups them by exact size). With
+unified families (the default wherever the masked populations are on, and on
+the CPU) a direction's VAE and AE are the
 ``*_unified`` task driven twice, ``kl_on = 1`` and ``kl_on = 0``; the VAE
 half reuses the standalone VAE sweep's seeds and so equals it, the AE half
 is the VAE's trunk with z = mu and no KL term (JAX ``training/tasks.py``).
@@ -63,7 +66,7 @@ class MeanRegressor:
         return np.tile(self.mean_vector, (X.shape[0], 1))
 
 
-def parse_args(argv=None):
+def parse_args(argv=None, device=None):
     p = argparse.ArgumentParser(description="Cross-modality CV benchmark")
     p.add_argument("--folds", type=int, default=10)
     p.add_argument("--subset", type=float, default=1.0, help="fraction of the dataset to use")
@@ -75,26 +78,32 @@ def parse_args(argv=None):
     p.add_argument("--unified-families", action="store_true", default=None,
                    help="train each direction's VAE and AE folds as the *_unified task "
                    "(kl_on 1 and 0); the VAE half equals the separate VAE sweep. Default: "
-                   "CV_UNIFIED_FAMILIES (1/0/auto; auto is on)")
+                   "CV_UNIFIED_FAMILIES (1/0/auto; auto is on with POP_MASK_SIZES or on the "
+                   "CPU)")
     p.add_argument("--no-unified-families", dest="unified_families", action="store_false",
                    help="train the VAE and AE families as separate tasks")
     args = p.parse_args(argv)
-    args.unified_families = resolve_unified_families(args.unified_families)
+    args.unified_families = resolve_unified_families(args.unified_families, device)
     return args
 
 
-def resolve_unified_families(explicit=None) -> bool:
-    """``CV_UNIFIED_FAMILIES``: '1'/'0' force, 'auto' (the default) is on,
-    what the JAX package's default resolves to (its masked populations); an
-    explicit flag wins."""
+def resolve_unified_families(explicit=None, device=None) -> bool:
+    """``CV_UNIFIED_FAMILIES``: '1'/'0' force; 'auto' (the default) is the
+    JAX package's rule, on wherever the masked populations are
+    (``vmap_meta.mask_sizes_enabled``) and on the CPU (``device``, else
+    ``DEVICE``); an explicit flag wins."""
     if explicit is not None:
         return bool(explicit)
     env = os.getenv("CV_UNIFIED_FAMILIES", "auto").strip().lower()
-    if env in ("1", "true", "on", "auto"):
+    if env in ("1", "true", "on"):
         return True
     if env in ("0", "false", "off"):
         return False
-    raise ValueError(f"CV_UNIFIED_FAMILIES={env!r}; valid: 1, 0, auto (default)")
+    if env != "auto":
+        raise ValueError(f"CV_UNIFIED_FAMILIES={env!r}; valid: 1, 0, auto (default)")
+    on_cpu = (torch.device(device).type == "cpu" if device is not None
+              else (Config.from_env().platform or "").lower() == "cpu")
+    return vmap_meta.mask_sizes_enabled() or on_cpu
 
 
 def subset_rows(n: int, frac: float) -> np.ndarray:
@@ -404,7 +413,7 @@ def main(argv=None, data=None, device=None):
     applies to them as to the pickle); None reads ``--data_path``.
     Runs on the card unless ``device="cpu"`` or ``DEVICE=cpu``. Returns the
     result records in the report's order."""
-    args = parse_args(argv)
+    args = parse_args(argv, device)
     comm.ensure_group(device, Config.from_env())
     device = resolve_device(device, Config.from_env())
     if data is None:

@@ -38,7 +38,10 @@ train with early stopping off (``patience=10**6``), as the reference's
 objective loop does.
 
 Every trial is ``engine.fit``'s plain path at its seed (the JAX package
-trains its trial populations in XLA, never through its Pallas kernels); a
+trains its trial populations in XLA, never through its Pallas kernels),
+with the shared tables padded to ``vmap_meta.bucket_rows`` of their sizes
+and the true sizes masked (``engine.fit(masked_sizes=True)``), unless
+``POP_MASK_SIZES=0``, as the JAX package's trials; a
 trial's seed comes from its global index (`_trial_seeds`), so neither its
 group nor a pruned neighbour changes its noise. No pandas here: ``main``
 takes ``data=(tpm, beta, site)`` arrays; without them it reads

@@ -26,7 +26,8 @@ the train- or eval-mode forwards, with the new BatchNorm state in their
 ``drop_mask1`` (B, 512) and ``drop_mask2`` (B, 256)) are injected for tests
 or drawn from an explicit generator. The JAX package has no kernel for
 these models: they train on the plain path. Every apply takes a member axis
-(``ops.nn``).
+(``ops.nn``) and a ``row_mask`` for its BatchNorms (the masked-size
+populations).
 """
 
 from __future__ import annotations
@@ -133,10 +134,11 @@ def dna2rna_ae_init(generator: torch.Generator, rna_dim: int, dna_dim: int, n_si
                             "dna2rna_ae", generator, device)
 
 
-def _bn_block(params, state, new_state, fc, bn, h, train, mask, generator):
+def _bn_block(params, state, new_state, fc, bn, h, train, mask, generator, row_mask):
     """Linear → BatchNorm (its new state into ``new_state``) → ReLU → dropout."""
     h = linear_apply(params[fc], h)
-    h, new_state[bn] = batchnorm_apply(params[bn], state[bn], h, train=train)
+    h, new_state[bn] = batchnorm_apply(params[bn], state[bn], h, train=train,
+                                       row_mask=row_mask)
     return dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=mask,
                          generator=generator)
 
@@ -153,13 +155,14 @@ def _latent(params, encoded, site, input_name):
 
 def rna2dna_ae_apply(params, state, rna=None, site=None, *, train: bool = False,
                      drop_mask: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> DirectionalAEOutput:
+                     generator: Optional[torch.Generator] = None,
+                     row_mask=None) -> DirectionalAEOutput:
     """RNA2DNAAE forward on a params tree; ``drop_mask`` injects the dropout
     mask, else it is drawn from ``generator`` (on the tensors' device)."""
     new_state, encoded = dict(state), None
     if rna is not None:
         h = _bn_block(params, state, new_state, "enc_fc1", "enc_bn", rna, train, drop_mask,
-                      generator)
+                      generator, row_mask)
         encoded = linear_apply(params["enc_fc2"], h)
     latent = _latent(params, encoded, site, "rna")
     logits = decoder_b_apply_logits(params["decoder_dna"], latent)
@@ -169,16 +172,18 @@ def rna2dna_ae_apply(params, state, rna=None, site=None, *, train: bool = False,
 def dna2rna_ae_apply(params, state, dna=None, site=None, *, train: bool = False,
                      drop_mask1: Optional[torch.Tensor] = None,
                      drop_mask2: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> DirectionalAEOutput:
+                     generator: Optional[torch.Generator] = None,
+                     row_mask=None) -> DirectionalAEOutput:
     """DNA2RNAAE forward on a params tree; the encoder's two dropout masks
     inject the noise, else they are drawn from ``generator``, block 1's
     first. ``recon_logits`` is ``recon`` (a linear head)."""
     new_state, encoded = dict(state), None
     if dna is not None:
         h = _bn_block(params, state, new_state, "enc_fc1", "enc_bn1",
-                      flatten_rows(dna, params["enc_fc1"]["w"]), train, drop_mask1, generator)
+                      flatten_rows(dna, params["enc_fc1"]["w"]), train, drop_mask1, generator,
+                      row_mask)
         h = _bn_block(params, state, new_state, "enc_fc2", "enc_bn2", h, train, drop_mask2,
-                      generator)
+                      generator, row_mask)
         encoded = linear_apply(params["enc_fc3"], h)
     latent = _latent(params, encoded, site, "dna")
     recon = decoder_a_apply(params["decoder_rna"], latent)

@@ -25,7 +25,8 @@ DecoderB's output layer, with the same draws in the same order: the trainer's
 wide-head path (``training.engine``: rna2dna's kernel path at
 ``engine.WIDE_HEAD_MIN_DIM_B`` probes or more) trains that layer with a
 kernel. ``noise_scale`` scales eps (``models.vae.reparameterize``): the
-unified tasks' ``kl_on``. Every apply takes a member axis (``ops.nn``).
+unified tasks' ``kl_on``. Every apply takes a member axis (``ops.nn``) and a
+``row_mask`` for its BatchNorms (the masked-size populations).
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ def _sample(mu, logvar, eps, generator, noise_scale):
 def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = False,
                        eps: Optional[torch.Tensor] = None,
                        drop_mask: Optional[torch.Tensor] = None,
-                       generator=None, noise_scale=None):
+                       generator=None, noise_scale=None, row_mask=None):
     """RNA2DNAVAE forward up to DecoderB's output layer: (h, mu, logvar,
     new_state), h the (n, 512) input of ``decoder_dna/fc3``."""
     if rna is None and site is None:
@@ -161,7 +162,7 @@ def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = Fals
     if rna is not None:
         mu_r, lv_r, new_state["encoder_rna"] = encoder_a_apply(
             params["encoder_rna"], state["encoder_rna"], rna, train=train, drop_mask=drop_mask,
-            generator=generator)
+            generator=generator, row_mask=row_mask)
         mus.append(mu_r)
         logvars.append(lv_r)
     if site is not None:
@@ -176,12 +177,12 @@ def rna2dna_vae_hidden(params, state, rna=None, site=None, *, train: bool = Fals
 def rna2dna_vae_apply(params, state, rna=None, site=None, *, train: bool = False,
                       eps: Optional[torch.Tensor] = None,
                       drop_mask: Optional[torch.Tensor] = None,
-                      generator=None, noise_scale=None) -> DirectionalVAEOutput:
+                      generator=None, noise_scale=None, row_mask=None) -> DirectionalVAEOutput:
     """RNA2DNAVAE forward on a params tree; ``eps`` and ``drop_mask`` inject
     the noise, else it is drawn from ``generator`` (on the tensors' device)."""
     h, mu, logvar, new_state = rna2dna_vae_hidden(params, state, rna, site, train=train, eps=eps,
                                                   drop_mask=drop_mask, generator=generator,
-                                                  noise_scale=noise_scale)
+                                                  noise_scale=noise_scale, row_mask=row_mask)
     logits = linear_apply(params["decoder_dna"]["fc3"], h)
     return DirectionalVAEOutput(torch.sigmoid(logits), logits, mu, logvar, new_state)
 
@@ -190,7 +191,7 @@ def dna2rna_vae_apply(params, state, dna=None, site=None, *, train: bool = False
                       eps: Optional[torch.Tensor] = None,
                       drop_mask1: Optional[torch.Tensor] = None,
                       drop_mask2: Optional[torch.Tensor] = None,
-                      generator=None, noise_scale=None) -> DirectionalVAEOutput:
+                      generator=None, noise_scale=None, row_mask=None) -> DirectionalVAEOutput:
     """DNA2RNAVAE forward on a params tree; ``eps`` and the encoder's two
     dropout masks inject the noise, else it is drawn from ``generator``.
     ``recon_logits`` is ``recon`` (a linear head)."""
@@ -200,7 +201,8 @@ def dna2rna_vae_apply(params, state, dna=None, site=None, *, train: bool = False
     if dna is not None:
         mu_d, lv_d, new_state["encoder_dna"] = encoder_b_apply(
             params["encoder_dna"], state["encoder_dna"], dna, train=train,
-            drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator)
+            drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator,
+            row_mask=row_mask)
         mus.append(mu_d)
         logvars.append(lv_d)
     if site is not None:

@@ -20,7 +20,9 @@ parameter trees (``vae_los_angeles_tpu/models/encoders.py``): `encoder_a_apply`
 BatchNorm state), `encoder_b_apply` (two such blocks, returning both BatchNorm
 states) and `encoder_c_apply` (the site embedding's heads). Each takes a 2-D
 batch with the model's leaves or a 3-D (members, rows, features) batch with
-stacked leaves and a list of generators, one a member (``ops.nn``).
+stacked leaves and a list of generators, one a member (``ops.nn``), and a
+``row_mask`` for the BatchNorms' train-mode statistics (the masked-size
+populations, ``ops.nn.batchnorm_apply``).
 """
 
 from __future__ import annotations
@@ -77,28 +79,29 @@ class EncoderC(nn.Module):
         return self.fc_mu(h), self.fc_logvar(h)
 
 
-def encoder_a_apply(params, state, x, *, train: bool, drop_mask=None, generator=None):
+def encoder_a_apply(params, state, x, *, train: bool, drop_mask=None, generator=None,
+                    row_mask=None):
     """EncoderA on a params tree: returns (mu, logvar, new_state). In train
     mode the dropout mask is ``drop_mask`` or drawn from ``generator``."""
     h = linear_apply(params["fc"], x)
-    h, bn_s = batchnorm_apply(params["bn"], state["bn"], h, train=train)
+    h, bn_s = batchnorm_apply(params["bn"], state["bn"], h, train=train, row_mask=row_mask)
     h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask,
                       generator=generator)
     return linear_apply(params["mu"], h), linear_apply(params["logvar"], h), {"bn": bn_s}
 
 
 def encoder_b_apply(params, state, x, *, train: bool, drop_mask1=None, drop_mask2=None,
-                    generator=None):
+                    generator=None, row_mask=None):
     """EncoderB on a params tree: returns (mu, logvar, new_state) with the
     new state of both BatchNorms. In train mode the dropout masks (B, 512)
     and (B, 256) are ``drop_mask1``/``drop_mask2`` or drawn from
     ``generator``, block 1's first."""
     h = linear_apply(params["fc1"], flatten_rows(x, params["fc1"]["w"]))
-    h, bn1 = batchnorm_apply(params["bn1"], state["bn1"], h, train=train)
+    h, bn1 = batchnorm_apply(params["bn1"], state["bn1"], h, train=train, row_mask=row_mask)
     h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask1,
                       generator=generator)
     h = linear_apply(params["fc2"], h)
-    h, bn2 = batchnorm_apply(params["bn2"], state["bn2"], h, train=train)
+    h, bn2 = batchnorm_apply(params["bn2"], state["bn2"], h, train=train, row_mask=row_mask)
     h = dropout_apply(h.clamp(min=0.0), DROPOUT_RATE, train=train, mask=drop_mask2,
                       generator=generator)
     return (linear_apply(params["mu"], h), linear_apply(params["logvar"], h),

@@ -18,9 +18,10 @@ padded HPO populations, ``training.tasks``' ``multimodal_padded``) keeps a
 latent sub-space: masked dims get mu = logvar = z = 0, so they add exactly 0
 to the KL term and to every decoder pre-activation, and their weight slices
 get exactly 0 gradient; an all-ones mask multiplies by 1.0, bit for bit the
-unmasked forward. The JAX package's ``row_mask`` serves only its
-masked-size populations, which the port does not train: it raises. The
-applies and the posterior helpers take a member axis (``ops.nn``).
+unmasked forward. ``row_mask`` (the masked-size populations) restricts the
+BatchNorms' train-mode statistics to the valid rows; it composes with
+``latent_mask``. The applies and the posterior helpers take a member axis
+(``ops.nn``).
 """
 
 from __future__ import annotations
@@ -141,23 +142,21 @@ def multimodal_vae_apply(params, state, a=None, b=None, site=None, *, train: boo
     (B, 512) and ``drop_b2`` (B, 256) inject the noise; what is not injected
     is drawn from ``generator`` (on the tensors' device). ``latent_mask``
     (latent,) or, on a member axis, (P, latent) 0/1 values restricts the
-    latent space (module docstring); it is cast to the activations' dtype."""
-    if row_mask is not None:
-        raise ValueError("row_mask is not ported: it serves the masked-size populations, "
-                         "which the port does not train")
+    latent space (module docstring); it is cast to the activations' dtype.
+    ``row_mask`` reaches the encoders' BatchNorms (``ops.nn.batchnorm_apply``)."""
     if a is None and b is None and site is None:
         raise ValueError("at least one modality must be provided")
     mus, logvars, new_state = [], [], dict(state)
     if a is not None:
         mu_a, lv_a, new_state["encoder_a"] = encoder_a_apply(
             params["encoder_a"], state["encoder_a"], a, train=train, drop_mask=drop_a,
-            generator=generator)
+            generator=generator, row_mask=row_mask)
         mus.append(mu_a)
         logvars.append(lv_a)
     if b is not None:
         mu_b, lv_b, new_state["encoder_b"] = encoder_b_apply(
             params["encoder_b"], state["encoder_b"], b, train=train, drop_mask1=drop_b1,
-            drop_mask2=drop_b2, generator=generator)
+            drop_mask2=drop_b2, generator=generator, row_mask=row_mask)
         mus.append(mu_b)
         logvars.append(lv_b)
     if site is not None:

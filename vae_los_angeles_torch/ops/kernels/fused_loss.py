@@ -24,7 +24,11 @@ that its path went through them.
 
 `rna2dna_loss_fused_members` is the fold populations' loss: one call of the
 pair a member, on that member's contiguous (rows, dna) slice, the shapes the
-kernels are held at. ``RNA2DNALoss`` is an old-style autograd Function and
+kernels are held at. With ``rows`` (the masked-size populations: each
+member's valid rows, a prefix of its batch) a member's call takes its first
+``rows[j]`` rows, a contiguous slice again, and the padding rows get zero
+gradient; a member without valid rows (a trailing batch it does not have)
+adds 0 and launches nothing. ``RNA2DNALoss`` is an old-style autograd Function and
 its CUDA entries have no batching rule, so it is never put under
 ``torch.func.vmap``.
 """
@@ -188,13 +192,19 @@ def rna2dna_loss_fused(logits, dna, mu, logvar, beta=1e-3):
     return RNA2DNALoss.apply(logits, dna, mu, logvar, beta)
 
 
-def rna2dna_loss_fused_members(logits, dna, mu, logvar, beta=1e-3):
+def rna2dna_loss_fused_members(logits, dna, mu, logvar, beta=1e-3, rows=None):
     """(P,) losses of a member axis: `rna2dna_loss_fused` of each member's
-    (rows, dna) slice; ``beta`` a float, a 0-d tensor or one value a
-    member."""
+    (rows, dna) slice, or of its first ``rows[j]`` rows (module docstring);
+    ``beta`` a float, a 0-d tensor or one value a member."""
+    n_members = logits.shape[0]
     if isinstance(beta, torch.Tensor) and beta.dim() == 1:
         betas = beta.unbind(0)
     else:
-        betas = [beta] * logits.shape[0]
-    return torch.stack([rna2dna_loss_fused(*member, b) for *member, b in zip(
-        logits.unbind(0), dna.unbind(0), mu.unbind(0), logvar.unbind(0), betas)])
+        betas = [beta] * n_members
+    rows = [logits.shape[1]] * n_members if rows is None else list(rows)
+    if len(rows) != n_members:
+        raise ValueError(f"{len(rows)} row counts for {n_members} members")
+    return torch.stack([
+        rna2dna_loss_fused(*(t[:n] for t in member), b) if n else logits.new_zeros(())
+        for *member, b, n in zip(logits.unbind(0), dna.unbind(0), mu.unbind(0),
+                                 logvar.unbind(0), betas, rows)])

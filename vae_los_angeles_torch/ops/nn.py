@@ -42,6 +42,16 @@ for bit. Noise for a population comes from one generator a member
 (`draw`): member i's draws are the ones a single run with that generator
 makes, in the same order and shapes.
 
+Masked rows (the masked-size populations, ``parallel.vmap_meta``): a batch
+padded past its true rows carries a ``row_mask``, a bool (rows,) tensor or
+(P, rows) on a member axis, or a `RowMask` that also holds the host's count
+of each member's valid rows (the trainer's valid rows are a prefix, and the
+RNA→DNA loss pair takes that prefix, ``ops.kernels.fused_loss``).
+`batchnorm_apply` takes its train-mode statistics over the valid rows only
+(row 0 always counts, so an all-masked batch makes no NaN) and scales the
+running variance by the valid count's n/(n - 1); ``where`` keeps NaN padding
+out of every sum, and an all-true mask gives the unmasked bits.
+
 Data and tensor parallelism (``parallel.sharding``): while a
 `ShardContext`-like object is active (`sharded`), `linear_apply`,
 `batchnorm_apply` and `draw` hand 2-D batches to it: a rank's rows of the
@@ -55,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
@@ -191,27 +202,62 @@ def cast_matmul_params(params, dtype, members: bool = False):
     return params.to(dtype) if params.dim() == 2 + members else params
 
 
-def batchnorm_apply(params, state, x, *, train: bool):
+class RowMask(NamedTuple):
+    """The valid rows of a padded batch, a prefix of each member's rows:
+    ``valid`` bool (rows,) or (P, rows) on the device, and ``counts`` their
+    number a member on the host (an int without a member axis)."""
+
+    valid: torch.Tensor
+    counts: Union[int, Tuple[int, ...]]
+
+
+def mask_tensor(row_mask):
+    """The bool tensor of a ``row_mask`` (a tensor or a `RowMask`)."""
+    return row_mask.valid if isinstance(row_mask, RowMask) else row_mask
+
+
+def mask_counts(row_mask):
+    """The valid rows a member of a ``row_mask`` whose valid rows are a
+    prefix: a `RowMask`'s host counts, or a bool tensor's, read back from
+    its device once (a mask that is not a prefix raises)."""
+    if isinstance(row_mask, RowMask):
+        return row_mask.counts
+    counts = row_mask.sum(-1)
+    prefix = torch.arange(row_mask.shape[-1], device=row_mask.device) < counts.unsqueeze(-1)
+    if not torch.equal(prefix, row_mask.bool()):
+        raise ValueError("row_mask's valid rows must be a prefix of each member's rows")
+    return tuple(counts.tolist()) if counts.dim() else int(counts)
+
+
+def batchnorm_apply(params, state, x, *, train: bool, row_mask=None):
     """BatchNorm1d forward: returns (y, new_state). Train mode normalises
     with the biased batch statistics (over the row axis, -2) and moves the
     running mean and the UNBIASED running variance by momentum 0.1; eval
-    mode uses the running statistics and returns ``state`` unchanged."""
+    mode uses the running statistics and returns ``state`` unchanged.
+    ``row_mask`` restricts the train-mode statistics to the valid rows
+    (module docstring); eval mode ignores it."""
     if _SHARD[0] is not None and x.dim() == 2:
+        if row_mask is not None:
+            raise ValueError("row_mask does not compose with intra-run data sharding")
         return _SHARD[0].batchnorm(params, state, x, train)
-    return batchnorm_plain(params, state, x, train)
+    return batchnorm_plain(params, state, x, train, row_mask)
 
 
-def batchnorm_plain(params, state, x, train: bool):
+def batchnorm_plain(params, state, x, train: bool, row_mask=None):
     """`batchnorm_apply` without a parallel context."""
     if train:
         n = x.shape[-2]
-        if n <= 1:
-            raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {n}")
-        mean = x.mean(-2)
-        var = torch.square(x - _rows(mean)).mean(-2)  # biased, used to normalise
+        if row_mask is None:
+            if n <= 1:
+                raise ValueError(f"train-mode BatchNorm requires batch size > 1, got {n}")
+            mean = x.mean(-2)
+            var = torch.square(x - _rows(mean)).mean(-2)  # biased, used to normalise
+            unbiased = var * (n / (n - 1))
+        else:
+            mean, var, unbiased = _masked_moments(x, mask_tensor(row_mask))
         new_state = {
             "mean": (1.0 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
-            "var": (1.0 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * var * (n / (n - 1)),
+            "var": (1.0 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * unbiased,
         }
     else:
         mean, var = state["mean"], state["var"]
@@ -219,6 +265,32 @@ def batchnorm_plain(params, state, x, train: bool):
     y = ((x - _rows(mean)) * _rows(torch.rsqrt(var + BN_EPS)) * _rows(params["gamma"])
          + _rows(params["beta"]))
     return y, new_state
+
+
+def _masked_moments(x, valid):
+    """(mean, biased var, unbiased var) of ``x``'s valid rows, each member's
+    own. Row 0 always counts (an all-masked batch, a member's inactive
+    trailing batch, gives finite numbers that the trainer discards). A
+    member whose rows are all valid takes the unmasked ``mean(-2)``, its
+    bits; the others the sum of the ``where``-zeroed rows over their count,
+    the JAX package's arithmetic. The unbiased factor n/(n - 1) of the valid
+    count n is formed in float64 and rounded once, as a Python float is (0
+    when no row is valid, as in the JAX package)."""
+    n = x.shape[-2]
+    first = torch.arange(n, device=valid.device) == 0
+    safe = (valid | first).unsqueeze(-1)
+    count = safe.sum(-2, dtype=x.dtype)
+    full = count == n
+
+    def mean_of(t):
+        t = torch.where(safe, t, 0.0)
+        return torch.where(full, t.mean(-2), t.sum(-2) / count)
+
+    mean = mean_of(x)
+    var = mean_of(torch.square(x - _rows(mean)))
+    n_valid = valid.sum(-1, dtype=torch.float64)
+    unbiased = var * (n_valid / torch.clamp(n_valid - 1.0, min=1.0)).to(x.dtype).unsqueeze(-1)
+    return mean, var, unbiased
 
 
 def layernorm_apply(params, x):

@@ -31,9 +31,15 @@ leaves, an ``lr`` of shape (P,) and a ``weight_decay`` that is a float or
 also (P,), each broadcast over its member's leaves; its decay factor
 1 - lr·wd is formed in float64 and rounded once, as a single run forms it
 on the host from its Python floats, so each member's update has a single
-run's bits for the same gradient. Adam takes the same (P,) rate, and a
-state whose step is (P,) too where members take their steps apart (the
-classifiers' uneven folds: a member with one batch fewer skips it).
+run's bits for the same gradient. AdamW and Adam take a state whose step
+is (P,) too where members take their steps apart (the masked-size fold
+populations and the classifiers' uneven folds: a member with one batch fewer
+skips it), each member's bias correction at its own step. Adafactor takes
+the same member axis (``adafactor_init(..., members=True)``): factoring and
+the row and column means are decided and taken on each member's own shape
+(a (P, n) bias keeps an unfactored (P, n) statistic and a (P, 0)
+placeholder), the RMS clip is one value a member, and ``lr`` and
+``weight_decay`` are AdamW's, one value a member.
 ``plateau_init(lr, n_members=P)`` and ``early_stop_init(n_members=P)`` hold
 one record a member, which the steps update elementwise.
 """
@@ -57,10 +63,11 @@ def _step_of(params):
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def adamw_init(params, moments_dtype=None):
+def adamw_init(params, moments_dtype=None, members: bool = False):
     """Fresh AdamW state: step 0 and zero moments shaped like ``params``,
     stored in ``moments_dtype`` ("bfloat16", a torch dtype, or None/"float32"
-    for the parameters' own dtype)."""
+    for the parameters' own dtype). ``members`` (stacked leaves) changes
+    nothing here: the moments take the parameters' shapes either way."""
     dt = None if moments_dtype is None else resolve_compute_dtype(moments_dtype)
     zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
     return {"step": _step_of(params), "m": tree_map(zeros, params),
@@ -85,19 +92,15 @@ def adamw_update(params, grads, state, lr, weight_decay):
     Moments stored reduced are upcast, updated in fp32 and rounded back to
     their storage dtype. Returns (new_params, new_state)."""
     step, bc1, bc2 = bias_corrections(state["step"])
-    members = isinstance(lr, torch.Tensor) and lr.dim() == 1
-    if isinstance(weight_decay, torch.Tensor) and weight_decay.dim() == 1:
-        if not members:
-            raise ValueError("a weight_decay a member needs an lr a member")
-        weight_decay = weight_decay.double()
-    decay = (1.0 - lr.double() * weight_decay).float() if members else 1.0 - lr * weight_decay
+    decay = _decay(lr, weight_decay)
 
     def leaf(p, g, m, v):
         mdt, vdt = m.dtype, v.dtype
         m = ADAM_B1 * m.to(torch.float32) + (1.0 - ADAM_B1) * g
         v = ADAM_B2 * v.to(torch.float32) + (1.0 - ADAM_B2) * torch.square(g)
         p = p * per_member(decay, p)  # torch order: decay first
-        p = p - per_member(lr, p) * (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        p = p - per_member(lr, p) * (m / per_member(bc1, p)) / (
+            torch.sqrt(v / per_member(bc2, p)) + ADAM_EPS)
         return p, m.to(mdt), v.to(vdt)
 
     out = tree_map(leaf, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
@@ -106,6 +109,17 @@ def adamw_update(params, grads, state, lr, weight_decay):
         return tree_map(lambda o: o[i], out)
 
     return pick(0), {"step": step, "m": pick(1), "v": pick(2)}
+
+
+def _decay(lr, weight_decay):
+    """The decoupled decay factor 1 - lr·wd: a float, or with an ``lr`` a
+    member one fp32 value a member formed in float64 (module docstring)."""
+    members = isinstance(lr, torch.Tensor) and lr.dim() == 1
+    if isinstance(weight_decay, torch.Tensor) and weight_decay.dim() == 1:
+        if not members:
+            raise ValueError("a weight_decay a member needs an lr a member")
+        weight_decay = weight_decay.double()
+    return (1.0 - lr.double() * weight_decay).float() if members else 1.0 - lr * weight_decay
 
 
 def adam_update(params, grads, state, lr, weight_decay=0.0):
@@ -137,18 +151,21 @@ ADAFACTOR_CLIP = 1.0
 ADAFACTOR_DECAY = -0.8
 
 
-def adafactor_init(params, moments_dtype=None):
+def adafactor_init(params, moments_dtype=None, members: bool = False):
     """Fresh Adafactor state: step 0, row statistics ``vr`` (the full
     statistic of a 1-D leaf) and column statistics ``vc`` (a (0,)
-    placeholder for a 1-D leaf), zeros in ``moments_dtype`` (default fp32)."""
+    placeholder for a 1-D leaf), zeros in ``moments_dtype`` (default fp32).
+    With ``members`` every leaf has a leading member axis, which factoring
+    does not count (module docstring)."""
     dt = resolve_compute_dtype(moments_dtype)
+    lead = int(members)
 
     def row(p):
-        shape = p.shape[:-1] if p.dim() >= 2 else p.shape
+        shape = p.shape[:-1] if p.dim() - lead >= 2 else p.shape
         return torch.zeros(shape, dtype=dt, device=p.device)
 
     def col(p):
-        shape = p.shape[:-2] + p.shape[-1:] if p.dim() >= 2 else (0,)
+        shape = p.shape[:-2] + p.shape[-1:] if p.dim() - lead >= 2 else p.shape[:lead] + (0,)
         return torch.zeros(shape, dtype=dt, device=p.device)
 
     return {"step": _step_of(params), "vr": tree_map(row, params), "vc": tree_map(col, params)}
@@ -159,27 +176,35 @@ def adafactor_update(params, grads, state, lr, weight_decay):
     are the row and column means of g² + eps1 and approximate rsqrt(v) as
     rsqrt(row / mean(row)) ⊗ rsqrt(col); the update is RMS-clipped to 1,
     scaled by ``lr`` and applied after the decoupled decay. Math in fp32,
-    statistics rounded back to their storage dtype."""
+    statistics rounded back to their storage dtype. An ``lr`` of shape (P,)
+    marks stacked leaves: each member's factoring, clip, rate and decay are
+    its own, and so is its step where the state's step is (P,) (module
+    docstring)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     beta2t = 1.0 - torch.pow(t, ADAFACTOR_DECAY)
+    lead = int(isinstance(lr, torch.Tensor) and lr.dim() == 1)
+    decay = _decay(lr, weight_decay)
 
     def leaf(p, g, vr, vc):
         vrdt, vcdt = vr.dtype, vc.dtype
         u = torch.square(g) + ADAFACTOR_EPS1
-        if p.dim() >= 2:
-            vr = beta2t * vr.to(torch.float32) + (1.0 - beta2t) * u.mean(-1)
-            vc = beta2t * vc.to(torch.float32) + (1.0 - beta2t) * u.mean(-2)
+        if p.dim() - lead >= 2:
+            b_r, b_c = per_member(beta2t, vr), per_member(beta2t, vc)
+            vr = b_r * vr.to(torch.float32) + (1.0 - b_r) * u.mean(-1)
+            vc = b_c * vc.to(torch.float32) + (1.0 - b_c) * u.mean(-2)
             r = torch.rsqrt(vr / vr.mean(-1, keepdim=True))
             c = torch.rsqrt(vc)
             upd = r[..., :, None] * c[..., None, :] * g
         else:
-            vr = beta2t * vr.to(torch.float32) + (1.0 - beta2t) * u
+            b_r = per_member(beta2t, vr)
+            vr = b_r * vr.to(torch.float32) + (1.0 - b_r) * u
             upd = torch.rsqrt(vr) * g
-        rms = torch.sqrt(torch.mean(torch.square(upd)))
-        upd = upd / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
-        p = p * (1.0 - lr * weight_decay)  # decoupled decay first, as HF orders it
-        p = p - lr * upd
+        sq = torch.square(upd)
+        rms = torch.sqrt(sq.mean(tuple(range(1, sq.dim()))) if lead else torch.mean(sq))
+        upd = upd / per_member(torch.clamp(rms / ADAFACTOR_CLIP, min=1.0), upd)
+        p = p * per_member(decay, p)  # decoupled decay first, as HF orders it
+        p = p - per_member(lr, p) * upd
         return p, vr.to(vrdt), vc.to(vcdt)
 
     out = tree_map(leaf, params, grads, state["vr"], state["vc"])

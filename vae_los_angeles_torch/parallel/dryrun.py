@@ -5,9 +5,9 @@ once, at tiny shapes, on N ranks.
     python -m vae_los_angeles_torch.parallel.dryrun N [--backend gloo|nccl] [--device cpu]
 
 In the JAX dry run's order: the DP × TP train step (a 2-way "model" axis
-when N is even) with its bf16 and Adafactor variants; a fold population
-sharded over the ranks (folds of one exact size: the port refuses masked
-sizes); the data-parallel fit; a sharded predict of 43 rows (an uneven
+when N is even) with its bf16 and Adafactor variants; a fold population of
+uneven folds sharded over the ranks (one masked population, the default);
+the data-parallel fit; a sharded predict of 43 rows (an uneven
 split); the data-parallel resume (rank 0 writes the carry, every rank reads
 it after a barrier and trains on); the sharded kNN, silhouette, fused
 scores, t-SNE, grid and multi-k; and the classifier population. Rank 0
@@ -95,9 +95,9 @@ def run() -> dict:
         arrays = (np.ones((48, cfg.input_dim_a), np.float32),
                   np.full((48, cfg.input_dim_b), 0.5, np.float32), np.zeros(48, np.int64))
         take = lambda idx: tuple(a[idx] for a in arrays)  # noqa: E731
-        # three folds of one exact size (the port trains exact-shape groups)
-        folds = [take(np.delete(np.arange(42), np.arange(i, 42, 21))) for i in range(3)]
-        vals = [take(np.arange(40 + i, 46 + i)) for i in range(3)]
+        # three uneven folds, one masked population (no 1-row final batch)
+        folds = [take(np.arange(i, 40)) for i in range(3)]
+        vals = [take(np.arange(40, 48 - i)) for i in range(3)]
         fits = vmap_meta.fit_folds("rna2dna", cfg, folds, vals, 0, n_sites, num_epochs=1,
                                    mesh=pop_mesh, device=device)
         if not all(np.isfinite(f.val_losses[0]) for f in fits):

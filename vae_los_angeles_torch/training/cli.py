@@ -44,7 +44,10 @@ the CUDA kernels are fp32 AdamW programs.
 ``--replicates N`` trains N replicates of the run (the same
 hyperparameters, seeds ``vmap_meta.member_seeds(seed, N)``) as one
 population (``vmap_meta.fit_trials``, the plain path: under USE_PALLAS it
-says so; RNA→DNA runs the loss pair once a member a step), prints each
+says so; RNA→DNA runs the loss pair once a member a step; with the
+config's optimizer, ``--optimizer adafactor`` too, each member's clip and
+factoring its own; the tables padded to masked buckets unless
+``POP_MASK_SIZES=0``), prints each
 one's best validation loss (``r{i}=``) and their mean±std, and keeps the
 best finite one under the run-id protocol (its resume checkpoint records
 its own seed); it refuses N < 1 and ``--resume``, and exits when every

@@ -67,8 +67,26 @@ updated parameters after each kernel call (the epoch kernel's per-step
 losses name the step). Each check reads one flag back from the card.
 Without it nothing is checked and no sync is added.
 
-Not ported, raising as the JAX engine does where it has no kernel:
-``masked_sizes``.
+``masked_sizes=True`` (JAX ``build_fit_fn(masked_sizes=True)``, the core of
+the masked-size populations, ``parallel.vmap_meta``): the tables are padded
+to row maxima and ``true_sizes`` gives their true (n_train, n_val). Each
+epoch draws its permutation over the padded maximum and stable-partitions
+the valid ids first, so at a true size equal to the maximum the run is the
+exact-shape run bit for bit. The batch grid is the padded maximum's (full
+batches, then its remainder unless ``drop_last``); rows past the true size
+are never gathered: a short batch's pad slots re-gather the batch's first
+row and leave its loss and BatchNorm statistics through a row mask
+(``ops.nn.RowMask``), so a run steps exactly floor or ceil(n_train / B) times
+an epoch (`masked_grid`). The JAX package re-gathers the epoch's first row
+instead; a row from outside the batch, normalised by the statistics of a
+batch of a few rows, can reach activations whose exp overflows, and the
+masked loss's zero gradient times that inf is NaN. The validation sum
+masks the pad rows and divides by ceil(n_val / B) of the true size. In a
+population a member without rows
+in a trailing batch keeps its parameters, BatchNorm and optimizer state
+(its own step) there, and draws that batch's noise from a spare generator,
+so its stream is its own. It refuses, as the JAX engine does, the kernel
+paths and intra-run data sharding (``mesh``).
 
 ``mesh`` (``parallel.sharding.make_mesh`` or ``vmap_meta.population_mesh``)
 trains data-parallel, the JAX engine's rules: every rank of the process
@@ -189,7 +207,8 @@ def init_carry(params0, state0, lr, moments_dtype: str = "float32", optimizer: s
     return {
         "params": params0,
         "state": state0,
-        "opt": opt_init(params0, ops_nn.resolve_compute_dtype(moments_dtype)),
+        "opt": opt_init(params0, ops_nn.resolve_compute_dtype(moments_dtype),
+                        members=n_members is not None),
         "plateau": optim.plateau_init(lr, device, n_members),
         "estop": optim.early_stop_init(device, n_members),
         "best": {"params": params0, "state": state0},
@@ -254,9 +273,132 @@ def _as_batch(arrays, device) -> Batch:
     return Batch(to(tpm, torch.float32), to(beta, torch.float32), to(site, torch.int64))
 
 
+def check_sizes(n_trs, n_vas, batch_size: int, drop_last: bool):
+    """The host checks of every member's true sizes (JAX
+    ``_check_masked_sizes``): a masked run's sizes do not reach a check
+    that the exact shapes meet (an empty grid, torch's BatchNorm on one
+    row), so they are made here."""
+    for i, (n_tr, n_va) in enumerate(zip(n_trs, n_vas)):
+        if (n_tr // batch_size if drop_last else -(-n_tr // batch_size)) == 0:
+            raise ValueError(f"member {i}: no training batches (n_train={n_tr}, "
+                             f"batch_size={batch_size}, drop_last={drop_last})")
+        if not drop_last and n_tr % batch_size == 1:
+            raise ValueError(
+                f"member {i}: final training batch has a single row (n_train={n_tr} % "
+                f"batch_size={batch_size} == 1) — train-mode BatchNorm requires batch size > 1 "
+                "(the reference crashes here too)")
+        if n_va == 0:
+            raise ValueError(f"member {i}: empty validation set")
+
+
+class GridBatch(NamedTuple):
+    """One batch of a masked-size grid: its slots [lo, hi) of the epoch's
+    partitioned permutation, the row mask (None where every member's slots
+    are valid rows) and the (P,) active flags (None where every member has
+    rows in it)."""
+
+    lo: int
+    hi: int
+    mask: Optional[ops_nn.RowMask]
+    active: Optional[torch.Tensor]
+
+
+class MaskedGrid(NamedTuple):
+    """The batch grid of a masked-size run or population (`masked_grid`)."""
+
+    batches: list  # the GridBatch of every grid batch some member has rows in
+    n_batches: object  # each member's batches an epoch, the train loss's divisor
+    n_true: object  # the true sizes: an int, or a (P, 1) tensor
+    partition: bool  # whether some true size is below the maximum
+
+    def permute(self, perm):
+        """The epoch's permutation with each member's valid ids first, in
+        their order (a stable partition)."""
+        if not self.partition:
+            return perm
+        order = torch.argsort((perm >= self.n_true).to(torch.uint8), dim=-1, stable=True)
+        return perm.gather(-1, order)
+
+    def rows(self, perm, gb: GridBatch):
+        """The row ids of grid batch ``gb``: a member's pad slots re-gather
+        its first row in the batch (a row of the batch's own statistics, so
+        the pad rows normalise as that row does), or the epoch's first row
+        where it has no row in the batch."""
+        idx = perm[..., gb.lo:gb.hi]
+        if gb.mask is None:
+            return idx
+        fill = idx[..., :1]
+        if gb.active is not None:
+            fill = torch.where(gb.active[:, None], fill, perm[..., :1])
+        return torch.where(gb.mask.valid, idx, fill)
+
+
+def masked_grid(n_true, n_max: int, batch_size: int, drop_last: bool, device) -> MaskedGrid:
+    """The grid of ``n_max`` padded rows for the true sizes ``n_true`` (an
+    int, or one int a member): full batches, then the remainder of
+    ``n_max`` unless ``drop_last``. A member trains on its first
+    floor(n / B)·B (``drop_last``) or n valid slots, so it steps exactly its
+    own batch count; a batch no member has rows in is left out."""
+    single = np.ndim(n_true) == 0
+    sizes = [int(n_true)] if single else [int(n) for n in n_true]
+    if max(sizes) > n_max:
+        raise ValueError(f"true sizes {sizes} exceed the padded maximum {n_max}")
+    used = [(n // batch_size) * batch_size if drop_last else n for n in sizes]
+    n_grid = n_max // batch_size if drop_last else -(-n_max // batch_size)
+    used_t = torch.tensor(used, device=device)
+    valid = torch.arange(n_max, device=device) < used_t[:, None]
+    batches = []
+    for b in range(n_grid):
+        lo, hi = b * batch_size, min((b + 1) * batch_size, n_max)
+        counts = [min(max(u - lo, 0), hi - lo) for u in used]
+        if not any(counts):
+            continue
+        mask = None
+        if min(counts) < hi - lo:
+            mask = (ops_nn.RowMask(valid[0, lo:hi], counts[0]) if single
+                    else ops_nn.RowMask(valid[:, lo:hi], tuple(counts)))
+        active = None
+        if not all(counts):
+            active = torch.tensor([c > 0 for c in counts], device=device)
+        batches.append(GridBatch(lo, hi, mask, active))
+    per_member = [u // batch_size if drop_last else -(-u // batch_size) for u in used]
+    n_batches = (float(per_member[0]) if single
+                 else torch.tensor(per_member, dtype=torch.float32, device=device))
+    n_true_t = sizes[0] if single else torch.tensor(sizes, device=device)[:, None]
+    return MaskedGrid(batches, n_batches, n_true_t, min(sizes) < n_max)
+
+
+def masked_validation(n_true, n_max: int, batch_size: int, device):
+    """(row mask or None, divisor) of a validation table padded to
+    ``n_max`` rows: the valid prefix of each member and ceil(n / B) of its
+    true size (an int, or one int a member)."""
+    single = np.ndim(n_true) == 0
+    sizes = [int(n_true)] if single else [int(n) for n in n_true]
+    divisors = [-(-n // batch_size) for n in sizes]
+    if single:
+        divisor = float(divisors[0])
+    else:
+        divisor = torch.tensor(divisors, dtype=torch.float32, device=device)
+    if min(sizes) == n_max:
+        return None, divisor
+    valid = torch.arange(n_max, device=device) < torch.tensor(sizes, device=device)[:, None]
+    mask = (ops_nn.RowMask(valid[0], sizes[0]) if single
+            else ops_nn.RowMask(valid, tuple(sizes)))
+    return mask, divisor
+
+
+def gate(active, new, old):
+    """``new`` where a member is ``active``, else ``old``, leaf by leaf."""
+    return tree_map(lambda n, o: torch.where(ops_nn.per_member(active, n), n, o), new, old)
+
+
 def _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh):
-    if masked_sizes:
-        raise ValueError("masked_sizes is not ported: the port trains exact-shape runs")
+    if masked_sizes and (fused_step or fused_epoch):
+        raise ValueError("masked_sizes is a plain-path feature: the CUDA kernels are "
+                         "exact-shape programs")
+    if masked_sizes and mesh is not None and mesh.size > 1:
+        raise ValueError("masked_sizes composes with POPULATION sharding (parallel/vmap_meta), "
+                         "not with intra-run data sharding")
     if mesh is not None and (fused_step or fused_epoch):
         raise ValueError(
             "mesh-sharded fit requires the plain path: the CUDA kernels are single-device "
@@ -383,15 +525,16 @@ def _dp_grads(task, params, state, batch, beta, gen, mesh, compute_dtype, loss_k
 
 
 def plain_grads(task, params, state, batch, beta, gen, loss_kw, compute_dtype, debug, epoch, b,
-                members: bool = False):
+                members: bool = False, row_mask=None):
     """The plain path's loss, gradients and new state of one training batch.
     With ``members`` every leaf is stacked on a member axis, ``gen`` holds
     one generator a member and the loss one entry a member; the members are
-    independent, so the gradient of their sum is each member's own."""
+    independent, so the gradient of their sum is each member's own.
+    ``row_mask`` masks a padded batch's pad slots (module docstring)."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
     # cast inside the differentiated loss: the grads reach the fp32 masters
     loss, state = task.loss(ops_nn.cast_matmul_params(leaves, compute_dtype, members),
-                            state, batch, beta, True, gen, **loss_kw)
+                            state, batch, beta, True, gen, row_mask=row_mask, **loss_kw)
     if debug:
         _nan_check(epoch, b, loss.detach())
     flat = tree_leaves(leaves)
@@ -410,16 +553,18 @@ def _dp_context(mesh, n: int):
 
 
 def end_epoch(task, carry, params, state, opt, val, beta, gen, hp, loss_kw, compute_dtype,
-              n_val_batches, epoch, members: bool = False, mesh=None):
+              n_val_batches, epoch, members: bool = False, mesh=None, row_mask=None):
     """An epoch's close: the validation loss over the whole set (its sum
     over ceil(n_val / batch) batches), the plateau, the strict-improvement
     early stop and the best snapshot; returns (val_loss, carry). With
     ``members`` every record has one entry a member; with a data-parallel
-    ``mesh`` each rank sums its rows and the sums are added up."""
+    ``mesh`` each rank sums its rows and the sums are added up; ``row_mask``
+    leaves a padded table's pad rows out of the sum (`masked_validation`)."""
     fwd = ops_nn.cast_matmul_params(params, compute_dtype, members)
     with torch.no_grad():
         if mesh is None:
-            val_sum, _ = task.loss(fwd, state, val, beta, False, gen, **loss_kw)
+            val_sum, _ = task.loss(fwd, state, val, beta, False, gen, row_mask=row_mask,
+                                   **loss_kw)
         else:
             ctx, (lo, hi) = _dp_context(mesh, len(val))
             with ops_nn.sharded(ctx):
@@ -440,7 +585,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         num_epochs: Optional[int] = None, drop_last: bool = True, hp=None, init_params=None,
         init_state=None, resume_carry=None, start_epoch: int = 0, fused_step: bool = False,
         fused_epoch: bool = False, device=None,
-        masked_sizes: bool = False, mesh=None, class_weights=None) -> FitResult:
+        masked_sizes: bool = False, true_sizes=None, mesh=None,
+        class_weights=None) -> FitResult:
     """Train a task end to end; returns the best-validation snapshot.
 
     ``train_arrays``/``val_arrays`` are (tpm, beta, site) arrays or tensors;
@@ -448,7 +594,9 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     ``resume_carry`` is given), the shuffles and the noise;
     ``class_weights`` (n_sites,) weighs the tri-modal cross-entropy term.
     Runs on the card unless ``device="cpu"`` or ``cfg.platform == "cpu"``;
-    ``mesh`` trains data-parallel (module docstring)."""
+    ``mesh`` trains data-parallel; ``masked_sizes`` trains tables padded to
+    row maxima at their ``true_sizes`` (n_train, n_val), by default the
+    tables' own lengths (module docstring)."""
     _check_supported(task_name, cfg, fused_step, fused_epoch, masked_sizes, mesh)
     if mesh is not None and mesh.size == 1:
         mesh = None  # one device: the plain program
@@ -470,9 +618,19 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
     fused_kw = FUSED[task_name].loss_args(**loss_kw) if kernels else {}
     batch_size = int(cfg.batch_size)
     n_train, n_val = len(train), len(val)
+    grid = val_mask = None
+    if masked_sizes:
+        n_tr_true, n_va_true = (n_train, n_val) if true_sizes is None else map(int, true_sizes)
+        if n_va_true > n_val:
+            raise ValueError(f"true n_val={n_va_true} exceeds the padded table's {n_val} rows")
+        check_sizes([n_tr_true], [n_va_true], batch_size, drop_last)
+        grid = masked_grid(n_tr_true, n_train, batch_size, drop_last, device)
+        val_mask, n_val_batches = masked_validation(n_va_true, n_val, batch_size, device)
+    elif true_sizes is not None:
+        raise ValueError("true_sizes applies to masked_sizes=True")
     n_full = n_train // batch_size
     remainder = 0 if drop_last else n_train % batch_size
-    n_batches = n_full + (1 if remainder else 0)
+    n_batches = n_full + (1 if remainder else 0) if grid is None else len(grid.batches)
     if n_batches == 0:
         raise ValueError(
             f"no training batches: n_train={n_train} < batch_size={batch_size} with "
@@ -483,7 +641,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
         raise ValueError(
             f"the fused kernels need full batches: n_train={n_train} is not divisible by "
             f"batch_size={batch_size} — use drop_last=True or the plain path")
-    n_val_batches = -(-n_val // batch_size)
+    if grid is None:
+        n_val_batches = -(-n_val // batch_size)
     if (train.tpm.shape[1], train.beta.shape[1]) != (cfg.input_dim_a, cfg.input_dim_b):
         raise ValueError(
             f"data widths {train.tpm.shape[1]}/{train.beta.shape[1]} differ from the config's "
@@ -527,6 +686,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             beta = beta_schedule(epoch, hp) if task.uses_kl_warmup else 0.0
             eseed = epoch_seed(seed, epoch)
             gen, perm = epoch_noise(seed, epoch, n_train, device)
+            if grid is not None:
+                perm = grid.permute(perm)
             params, state, opt = carry["params"], carry["state"], carry["opt"]
             if fused_epoch:
                 ep = train.take(perm[: n_full * batch_size])
@@ -542,7 +703,12 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             else:
                 train_sum = torch.zeros((), device=device)
                 for b in range(n_batches):
-                    batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
+                    row_mask = None
+                    if grid is None:
+                        batch = train.take(perm[b * batch_size:(b + 1) * batch_size])
+                    else:
+                        batch = train.take(grid.rows(perm, grid.batches[b]))
+                        row_mask = grid.batches[b].mask
                     if wide_head:
                         loss, params, state, opt = _wide_head_step(
                             params, state, opt, batch, beta, gen, lr, hp["weight_decay"])
@@ -561,7 +727,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
                             _nan_check(epoch, b, loss)
                     else:
                         loss, grads, state = plain_grads(task, params, state, batch, beta, gen,
-                                                         loss_kw, compute_dtype, debug, epoch, b)
+                                                         loss_kw, compute_dtype, debug, epoch, b,
+                                                         row_mask=row_mask)
                     params, opt = opt_update(params, grads, opt, lr, hp["weight_decay"])
                     if debug and fused_step:
                         _nan_check(epoch, b, loss, params)
@@ -570,7 +737,8 @@ def fit(task_name: str, cfg: Config, train_arrays, val_arrays, seed: int, n_site
             train_loss = train_sum / n_batches
 
             val_loss, carry = end_epoch(task, carry, params, state, opt, val, beta, gen, hp,
-                                        loss_kw, compute_dtype, n_val_batches, epoch, mesh=mesh)
+                                        loss_kw, compute_dtype, n_val_batches, epoch, mesh=mesh,
+                                        row_mask=val_mask)
             rows["train"].append(train_loss)
             rows["val"].append(val_loss)
             rows["beta"].append(beta)
@@ -655,5 +823,6 @@ def samples_trained(n_train: int, batch_size: int, epochs: int, drop_last: bool 
 
 
 __all__ = ["FUSED", "FitResult", "POPULATION_KEYS", "WIDE_HEAD_MIN_DIM_B", "beta_schedule",
-           "epoch_seed", "fit", "hyperparams", "init_carry", "predict", "replicate_for_serving",
-           "samples_trained", "uses_wide_head"]
+           "check_sizes", "epoch_seed", "fit", "hyperparams", "init_carry", "masked_grid",
+           "masked_validation", "predict", "replicate_for_serving", "samples_trained",
+           "uses_wide_head"]

@@ -37,7 +37,11 @@ fields are inputs and which the target. Ported so far:
     latent. The fold populations set it a member (``state_overrides``).
 
 Every loss takes ``gamma`` and ``class_weights``; the directional tasks
-ignore them, as the JAX tasks do. Every loss and predict takes a member
+ignore them, as the JAX tasks do. Every loss takes a ``row_mask`` (the
+masked-size populations, JAX ``training/tasks.py``): the padding rows of a
+batch leave the sum-losses and the BatchNorms' statistics (``ops.nn``). The
+RNA→DNA loss takes each member's valid rows, a prefix of its batch, in its
+call of the loss pair (``ops.nn.mask_counts``). Every loss and predict takes a member
 axis (a (P, rows, features) batch and stacked leaves, ``ops.nn``): a loss
 then returns one sum a member, the RNA→DNA loss through one call of the
 loss pair a member (``rna2dna_loss_fused_members``). The VAE tasks' predict
@@ -55,6 +59,7 @@ from vae_los_angeles_torch.ops.kernels.fused_loss import (rna2dna_loss_fused,
                                                           rna2dna_loss_fused_members)
 from vae_los_angeles_torch.ops.losses import (dna2rna_ae_loss, dna2rna_loss, rna2dna_ae_loss,
                                               vae_loss)
+from vae_los_angeles_torch.ops.nn import mask_counts
 
 
 class Batch(NamedTuple):
@@ -81,8 +86,8 @@ class Task(NamedTuple):
     # init(generator, cfg, n_sites, device) -> (params, bn_state)
     init: Callable
     # loss(params, state, batch, beta_kl, train, generator, *, gamma=1.0,
-    #      class_weights=None, eps=None, **dropout masks) -> (loss_sum,
-    #      new_state); the masks are drop_mask (rna2dna, rna2dna_ae),
+    #      class_weights=None, eps=None, row_mask=None, **dropout masks) ->
+    #      (loss_sum, new_state); the masks are drop_mask (rna2dna, rna2dna_ae),
     #      drop_mask1 and drop_mask2 (dna2rna, dna2rna_ae), or drop_a, drop_b1
     #      and drop_b2 (multimodal); the autoencoders take no eps
     loss: Callable
@@ -101,12 +106,19 @@ def _rna2dna_init(generator, cfg, n_sites, device=None):
 
 
 def _rna2dna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                  class_weights=None, eps=None, drop_mask=None, noise_scale=None):
+                  class_weights=None, eps=None, drop_mask=None, noise_scale=None,
+                  row_mask=None):
     out = directional_vae.rna2dna_vae_apply(
         params, state, rna=batch.tpm, site=batch.site, train=train, eps=eps,
-        drop_mask=drop_mask, generator=generator, noise_scale=noise_scale)
-    loss = rna2dna_loss_fused_members if _members(batch) else rna2dna_loss_fused
-    return loss(out.recon_logits, batch.beta, out.mu, out.logvar, beta_kl), out.state
+        drop_mask=drop_mask, generator=generator, noise_scale=noise_scale, row_mask=row_mask)
+    args = (out.recon_logits, batch.beta, out.mu, out.logvar)
+    if _members(batch):
+        rows = None if row_mask is None else mask_counts(row_mask)
+        return rna2dna_loss_fused_members(*args, beta_kl, rows=rows), out.state
+    if row_mask is not None:
+        n = mask_counts(row_mask)
+        args = tuple(t[:n] for t in args)
+    return rna2dna_loss_fused(*args, beta_kl), out.state
 
 
 def _rna2dna_predict(params, state, batch, generator=None, *, eps=None, noise_scale=None):
@@ -123,13 +135,13 @@ def _dna2rna_init(generator, cfg, n_sites, device=None):
 
 def _dna2rna_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
                   class_weights=None, eps=None, drop_mask1=None, drop_mask2=None,
-                  noise_scale=None):
+                  noise_scale=None, row_mask=None):
     out = directional_vae.dna2rna_vae_apply(
         params, state, dna=batch.beta, site=batch.site, train=train, eps=eps,
         drop_mask1=drop_mask1, drop_mask2=drop_mask2, generator=generator,
-        noise_scale=noise_scale)
+        noise_scale=noise_scale, row_mask=row_mask)
     return dna2rna_loss(out.recon, batch.tpm, out.mu, out.logvar, beta_kl,
-                        members=_members(batch))[0], out.state
+                        members=_members(batch), row_mask=row_mask)[0], out.state
 
 
 def _dna2rna_predict(params, state, batch, generator=None, *, eps=None, noise_scale=None):
@@ -145,10 +157,12 @@ def _rna2dna_ae_init(generator, cfg, n_sites, device=None):
 
 
 def _rna2dna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                     class_weights=None, drop_mask=None):
+                     class_weights=None, drop_mask=None, row_mask=None):
     out = directional_ae.rna2dna_ae_apply(params, state, rna=batch.tpm, site=batch.site,
-                                          train=train, drop_mask=drop_mask, generator=generator)
-    return rna2dna_ae_loss(out.recon_logits, batch.beta, members=_members(batch))[0], out.state
+                                          train=train, drop_mask=drop_mask, generator=generator,
+                                          row_mask=row_mask)
+    return rna2dna_ae_loss(out.recon_logits, batch.beta, members=_members(batch),
+                           row_mask=row_mask)[0], out.state
 
 
 def _rna2dna_ae_predict(params, state, batch, generator=None):
@@ -163,11 +177,13 @@ def _dna2rna_ae_init(generator, cfg, n_sites, device=None):
 
 
 def _dna2rna_ae_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                     class_weights=None, drop_mask1=None, drop_mask2=None):
+                     class_weights=None, drop_mask1=None, drop_mask2=None, row_mask=None):
     out = directional_ae.dna2rna_ae_apply(params, state, dna=batch.beta, site=batch.site,
                                           train=train, drop_mask1=drop_mask1,
-                                          drop_mask2=drop_mask2, generator=generator)
-    return dna2rna_ae_loss(out.recon, batch.tpm, members=_members(batch))[0], out.state
+                                          drop_mask2=drop_mask2, generator=generator,
+                                          row_mask=row_mask)
+    return dna2rna_ae_loss(out.recon, batch.tpm, members=_members(batch),
+                           row_mask=row_mask)[0], out.state
 
 
 def _dna2rna_ae_predict(params, state, batch, generator=None):
@@ -212,14 +228,16 @@ def _multimodal_init(generator, cfg, n_sites, device=None):
 
 
 def _multimodal_loss(params, state, batch, beta_kl, train, generator=None, *, gamma=1.0,
-                     class_weights=None, eps=None, drop_a=None, drop_b1=None, drop_b2=None):
+                     class_weights=None, eps=None, drop_a=None, drop_b1=None, drop_b2=None,
+                     row_mask=None):
     out = vae.multimodal_vae_apply(
         params, state, a=batch.tpm, b=batch.beta, site=batch.site, train=train, eps=eps,
         drop_a=drop_a, drop_b1=drop_b1, drop_b2=drop_b2, generator=generator,
-        latent_mask=state.get("latent_mask"))
+        latent_mask=state.get("latent_mask"), row_mask=row_mask)
     total, _ = vae_loss(out.out_a, batch.tpm, out.out_b_logits, batch.beta, out.out_c, batch.site,
                         out.mu, out.logvar, beta=beta_kl, gamma=gamma,
-                        class_weights=class_weights, members=_members(batch))
+                        class_weights=class_weights, members=_members(batch),
+                        row_mask=row_mask)
     return total, out.state  # the apply copies every state key: a mask stays
 
 
